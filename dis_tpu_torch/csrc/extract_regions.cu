@@ -1,0 +1,59 @@
+// K2: per-patch sampling regions for one scale.
+//
+// Replaces the TPU kernel dis_tpu/ops/pallas/extract_kernel.py::
+// extract_regions_pallas (kernel body `kern`).  For each patch it copies the
+// rc x rc window (rc = 2 ps + 3) of the padded level plane at
+//   base = clip(ceil(pos0 + 1e-5f) + pad - ps - 2, 0, dim - rc)
+// (the Q10 tap base in float32, clipped to +-1e6 before the int cast) and
+// writes the bases.  A pure copy: equal to the plain PyTorch version bitwise.
+//
+// Bound on the H100: memory.  At the 1080p finest scale it writes 82,944 x
+// 361 floats (about 120 MB) and reads the same windows, which overlap and
+// mostly hit L2.  One warp per patch computes the base itself (no separate
+// pass over pos0) and walks the window with consecutive lanes on consecutive
+// region elements, so the stores of a warp are one contiguous run.  The
+// TPU kernel's aligned slabs and rolls have no counterpart: any base is
+// addressed directly.  N = 0 launches nothing.
+
+#include <cuda_runtime.h>
+
+#include "dis_common.cuh"
+
+namespace {
+
+constexpr int WARPS = 8;
+
+__global__ void __launch_bounds__(WARPS * 32)
+extract_kernel(const float* __restrict__ img, int th, int tw, const float* __restrict__ pos0,
+               int n, int ps, int pad, float* __restrict__ regions, int* __restrict__ base_y,
+               int* __restrict__ base_x) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (i >= n) return;
+  const int rc = 2 * ps + 3;
+  const int by = min(max(dis_ceil_coord(pos0[2 * i + 1]) + pad - ps - 2, 0), th - rc);
+  const int bx = min(max(dis_ceil_coord(pos0[2 * i]) + pad - ps - 2, 0), tw - rc);
+  if (lane == 0) {
+    base_y[i] = by;
+    base_x[i] = bx;
+  }
+  const float* src = img + (size_t)by * tw + bx;
+  float* dst = regions + (size_t)i * rc * rc;
+  for (int e = lane; e < rc * rc; e += 32) {
+    const int r = e / rc;
+    dst[e] = src[(size_t)r * tw + (e - r * rc)];
+  }
+}
+
+}  // namespace
+
+// img [th, tw] padded level plane; pos0 [n, 2] (x, y) start positions;
+// regions [n, rc, rc]; base_y, base_x [n] int32.
+extern "C" int dis_extract_regions(const float* img, int th, int tw, const float* pos0,
+                                   int n, int ps, int pad, float* regions, int* base_y,
+                                   int* base_x, cudaStream_t stream) {
+  if (n > 0)
+    extract_kernel<<<(n + WARPS - 1) / WARPS, WARPS * 32, 0, stream>>>(
+        img, th, tw, pos0, n, ps, pad, regions, base_y, base_x);
+  return (int)cudaGetLastError();
+}
