@@ -5,7 +5,9 @@ The port of ``dis_tpu`` (JAX/Pallas on TPU), which stays the reference.
 ``dis_flow(img1, img2, cfg)`` runs on the device of its input tensors:
 on CUDA tensors the pyramid levels, region extraction and IC-LK search
 run as CUDA kernels (``csrc/``, built with ``nvcc`` at first use); on
-CPU tensors the same stages run as their plain PyTorch versions.  The
+CPU tensors the same stages run as their plain PyTorch versions.  It
+also takes a batch of same-shape pairs ``[B, H, W]`` (``parallel``), and
+``serving.aot_compile`` captures one shape bucket into a CUDA graph.  The
 package never imports JAX.
 """
 

@@ -34,10 +34,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, the trailing stream included.
 SIGNATURES = {
-    "dis_pyramid_level": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    "dis_extract_regions": [_P, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "dis_pyramid_level": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dis_extract_regions": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "dis_iclk_search": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _P, _P, _P, _P],
 }
 

@@ -31,6 +31,14 @@
 // Patches are independent, so 82,944 warps at the finest 1080p scale keep
 // every SM's schedulers busy.  The TPU kernel's lane packing, rolls and
 // samplers have no counterpart here.
+//
+// K1b, the batched form (replaces _run_vmap of the same TPU file, which
+// folds the pairs into the block grid): nb pairs are one launch over
+// nb * n warps, pair-major.  Every per-pair array is [nb, n, ...] and is
+// read at the warp's flat index g = pair * n + patch; the centers are shared
+// by the pairs and read at g % n, so no [nb * n, 2] broadcast copy is made
+// per scale.  nb = 1 is K1; the math is the same lines, so each pair's
+// patches get exactly the bits they get alone.
 
 #include <cuda_runtime.h>
 
@@ -99,14 +107,16 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
                             const float* __restrict__ Tdx, const float* __restrict__ Tdy,
                             const float* __restrict__ Tn, const float* __restrict__ Hinv,
                             const float* __restrict__ centers, const float* __restrict__ init_u,
-                            const unsigned char* __restrict__ conv0, int n, int ps, int n_iters,
-                            int pad, int width, int height, int normalize, int fixed,
-                            float thresh, float conv_eps, float inv_ps2, float* __restrict__ u_out,
-                            float* __restrict__ q_out, unsigned char* __restrict__ conv_out) {
+                            const unsigned char* __restrict__ conv0, long long total, int n,
+                            int ps, int n_iters, int pad, int width, int height, int normalize,
+                            int fixed, float thresh, float conv_eps, float inv_ps2,
+                            float* __restrict__ u_out, float* __restrict__ q_out,
+                            unsigned char* __restrict__ conv_out) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * (blockDim.x >> 5) + warp;
-  if (i >= n) return;
+  const long long i = (long long)blockIdx.x * (blockDim.x >> 5) + warp;  // pair * n + patch
+  if (i >= total) return;
+  const long long c = i % n;  // the patch's center, shared by the pairs
   const int rc = 2 * ps + 3, np = ps * ps;
 
   float* reg = smem + warp * rc * rc;
@@ -127,7 +137,7 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
   }
   const float h00 = Hinv[4 * i], h01 = Hinv[4 * i + 1];
   const float h10 = Hinv[4 * i + 2], h11 = Hinv[4 * i + 3];
-  const float cx = centers[2 * i], cy = centers[2 * i + 1];
+  const float cx = centers[2 * c], cy = centers[2 * c + 1];
   const float iux = init_u[2 * i], iuy = init_u[2 * i + 1];
   const float sx = cx + iux, sy = cy + iuy;
   const float lb = -(float)ps / 2.0f;
@@ -183,41 +193,44 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
 template <int K>
 int launch(const float* regions, const int* base_y, const int* base_x, const float* T,
            const float* Tdx, const float* Tdy, const float* Tn, const float* Hinv,
-           const float* centers, const float* init_u, const unsigned char* conv0, int n, int ps,
-           int n_iters, int pad, int width, int height, int normalize, int fixed, float thresh,
-           float conv_eps, float inv_ps2, float* u_out, float* q_out, unsigned char* conv_out,
-           cudaStream_t stream) {
+           const float* centers, const float* init_u, const unsigned char* conv0, long long total,
+           int n, int ps, int n_iters, int pad, int width, int height, int normalize, int fixed,
+           float thresh, float conv_eps, float inv_ps2, float* u_out, float* q_out,
+           unsigned char* conv_out, cudaStream_t stream) {
   const int rc = 2 * ps + 3;
   const int region_bytes = rc * rc * (int)sizeof(float);
   const int warps = std::max(1, std::min(8, (48 * 1024) / region_bytes));
-  const int blocks = (n + warps - 1) / warps;
+  const unsigned blocks = (unsigned)((total + warps - 1) / warps);
   iclk_kernel<K><<<blocks, warps * 32, warps * region_bytes, stream>>>(
-      regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, n, ps, n_iters,
-      pad, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, u_out, q_out, conv_out);
+      regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, total, n, ps,
+      n_iters, pad, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, u_out, q_out,
+      conv_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// regions [n, rc, rc]; base_y/base_x [n] int32; T/Tdx/Tdy/Tn [n, ps^2] (Tn
-// read only when fixed != 0); Hinv [n, 2, 2]; centers/init_u [n, 2];
-// conv0 [n] bool.  Outputs u [n, 2], q [n, ps^2], conv [n] bool.
-// ps^2 <= 512.  Returns cudaGetLastError() after the launch (n = 0 launches
-// nothing).
+// nb pairs of n patches.  regions [nb, n, rc, rc]; base_y/base_x [nb, n]
+// int32; T/Tdx/Tdy/Tn [nb, n, ps^2] (Tn read only when fixed != 0); Hinv
+// [nb, n, 2, 2]; init_u [nb, n, 2]; conv0 [nb, n] bool; centers [n, 2],
+// shared by the pairs.  Outputs u [nb, n, 2], q [nb, n, ps^2], conv [nb, n]
+// bool.  ps^2 <= 512.  Returns cudaGetLastError() after the launch (nb * n = 0
+// launches nothing).
 extern "C" int dis_iclk_search(const float* regions, const int* base_y, const int* base_x,
                                const float* T, const float* Tdx, const float* Tdy,
                                const float* Tn, const float* Hinv, const float* centers,
-                               const float* init_u, const unsigned char* conv0, int n, int ps,
-                               int n_iters, int pad, int width, int height, int normalize,
-                               int fixed, float thresh, float conv_eps, float inv_ps2,
-                               float* u_out, float* q_out, unsigned char* conv_out,
-                               cudaStream_t stream) {
-  if (n <= 0) return (int)cudaGetLastError();
+                               const float* init_u, const unsigned char* conv0, int nb, int n,
+                               int ps, int n_iters, int pad, int width, int height,
+                               int normalize, int fixed, float thresh, float conv_eps,
+                               float inv_ps2, float* u_out, float* q_out,
+                               unsigned char* conv_out, cudaStream_t stream) {
+  const long long total = (long long)nb * n;
+  if (total <= 0) return (int)cudaGetLastError();
   const int np = ps * ps;
 #define DIS_ICLK_LAUNCH(KK)                                                                   \
   return launch<KK>(regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, \
-                    n, ps, n_iters, pad, width, height, normalize, fixed, thresh, conv_eps,  \
-                    inv_ps2, u_out, q_out, conv_out, stream)
+                    total, n, ps, n_iters, pad, width, height, normalize, fixed, thresh,     \
+                    conv_eps, inv_ps2, u_out, q_out, conv_out, stream)
   if (np <= 32) DIS_ICLK_LAUNCH(1);
   if (np <= 64) DIS_ICLK_LAUNCH(2);
   if (np <= 128) DIS_ICLK_LAUNCH(4);

@@ -20,6 +20,11 @@
 // level value (a 3x3 Sobel magnitude at the base level) is computed about
 // 1.3 times instead of 9; output rows are written coalesced.  It runs at any
 // size: nothing depends on the frame fitting on chip.
+//
+// A batch of planes (the pair axis of batched flow) is one launch: blockIdx.z
+// picks the plane, and every plane is computed exactly as it is alone.  The
+// TPU side has no batched Pallas kernel here: its vmap rule routes batches
+// through XLA.
 
 #include <cuda_runtime.h>
 
@@ -60,9 +65,14 @@ __device__ __forceinline__ float level_value(const float* __restrict__ src, int 
 
 template <bool BASE>
 __global__ void __launch_bounds__(TX * TY)
-level_kernel(const float* __restrict__ src, int src_w, float* __restrict__ img,
+level_kernel(const float* __restrict__ src, int src_h, int src_w, float* __restrict__ img,
              float* __restrict__ dx, float* __restrict__ dy, int h, int w, int p) {
   __shared__ float tile[TY + 2][TX + 2];
+  const size_t out_plane = (size_t)(h + 2 * p) * (w + 2 * p);
+  src += (size_t)blockIdx.z * src_h * src_w;
+  img += blockIdx.z * out_plane;
+  dx += blockIdx.z * out_plane;
+  dy += blockIdx.z * out_plane;
   const int ox0 = blockIdx.x * TX, oy0 = blockIdx.y * TY;
   const int tid = threadIdx.y * TX + threadIdx.x;
   for (int e = tid; e < (TY + 2) * (TX + 2); e += TX * TY) {
@@ -96,18 +106,19 @@ level_kernel(const float* __restrict__ src, int src_w, float* __restrict__ img,
 
 }  // namespace
 
-// base != 0: src is the raw [h, w] image.  base == 0: src is the finer
-// level's padded image plane [2h + 2p, 2w + 2p].  Outputs are
-// [h + 2p, w + 2p] each.  Returns cudaGetLastError() after the launch.
-extern "C" int dis_pyramid_level(const float* src, int src_w, float* img, float* dx,
-                                 float* dy, int h, int w, int p, int base,
-                                 cudaStream_t stream) {
+// nplanes planes, each contiguous.  base != 0: src is the raw [nplanes, h, w]
+// image.  base == 0: src is the finer level's padded image plane
+// [nplanes, 2h + 2p, 2w + 2p].  Outputs are [nplanes, h + 2p, w + 2p] each.
+// nplanes <= 65535.  Returns cudaGetLastError() after the launch.
+extern "C" int dis_pyramid_level(const float* src, int src_h, int src_w, float* img,
+                                 float* dx, float* dy, int nplanes, int h, int w, int p,
+                                 int base, cudaStream_t stream) {
   const dim3 block(TX, TY);
-  const dim3 grid((w + 2 * p + TX - 1) / TX, (h + 2 * p + TY - 1) / TY);
+  const dim3 grid((w + 2 * p + TX - 1) / TX, (h + 2 * p + TY - 1) / TY, nplanes);
   if (base)
-    level_kernel<true><<<grid, block, 0, stream>>>(src, src_w, img, dx, dy, h, w, p);
+    level_kernel<true><<<grid, block, 0, stream>>>(src, src_h, src_w, img, dx, dy, h, w, p);
   else
-    level_kernel<false><<<grid, block, 0, stream>>>(src, src_w, img, dx, dy, h, w, p);
+    level_kernel<false><<<grid, block, 0, stream>>>(src, src_h, src_w, img, dx, dy, h, w, p);
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,19 @@ on CUDA tensors every pyramid level, region extraction and search goes
 through the hand-written kernels K3, K2 and K1; on CPU tensors through
 their plain PyTorch versions.  Scale shapes are static and the scale loop
 is a Python loop.
+
+A batch of same-shape pairs ``[B, H, W]`` runs the same loop once, with
+the pair axis leading every tensor: one K3 launch per level and image,
+one K2 (K2b) and one K1 (K1b) launch per scale, whatever B is.  Each pair
+of a batch gets the bits it gets alone.  Each scale's constants come from
+its plan (``ops/grid.py::scale_plan``), made once per shape and device,
+so a frame makes no host-to-device copy and no host sync, and can be
+captured in a CUDA graph (``serving.py``).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -16,7 +26,7 @@ from ..config import DISConfig
 from ..ops import iclk
 from ..ops import image as im
 from ..ops.densify import densify
-from ..ops.grid import init_from_coarser_flow, make_grid
+from ..ops.grid import ScalePlan, init_from_coarser_flow, scale_plan
 from ..ops.pyramid import construct_pyramid
 
 
@@ -29,7 +39,7 @@ def _fixed_weights(res: iclk.SearchResult, tpl: iclk.PatchTemplates,
     ps2 = cfg.num_points_patch
     Tn = tpl.T
     if cfg.patch_normalization:
-        Tn = Tn - iclk.pairwise_sum(Tn)[:, None] / ps2
+        Tn = Tn - iclk.pairwise_sum(Tn)[..., None] / ps2
     r2 = iclk.pairwise_sum((res.Q - Tn) ** 2)
     return torch.where(res.start_oob, torch.ones_like(r2),
                        1.0 / torch.clamp(r2, min=1.0))
@@ -49,32 +59,53 @@ def dis_scale_window(l1, l2, flow_coarse, cfg: DISConfig,
                      plain: bool = False):
     """One scale over the full frame: templates, the NN init from the
     coarser dense flow (None at the coarsest scale), the IC-LK search and
-    densification.  Returns (flow [h_s, w_s, 2], geom, SearchResult)."""
+    densification.  Levels and flows may lead with a pair axis.  Returns
+    (flow [(B,) h_s, w_s, 2], geom, SearchResult)."""
     sw, sh = l1.width, l1.height
-    geom = make_grid(sw, sh, cfg.steps)
-    centers = torch.from_numpy(geom.centers).to(l1.img.device)
-    tpl = iclk.extract_templates_grid(l1.img, l1.dx, l1.dy, geom,
+    plan = scale_plan(sw, sh, cfg.steps, cfg.patch_size, l1.img.device)
+    tpl = iclk.extract_templates_grid(l1.img, l1.dx, l1.dy, plan.geom,
                                       cfg.patch_size, cfg.img_padding)
     if flow_coarse is None:
-        init_u = torch.zeros_like(centers)
+        init_u = plan.centers.new_zeros(tpl.T.shape[:-1] + (2,))
     else:
-        init_u = init_from_coarser_flow(geom, flow_coarse)
-    res = iclk.inverse_search(l2.img, tpl, centers, init_u, cfg, sw, sh,
+        init_u = init_from_coarser_flow(plan, flow_coarse)
+    res = iclk.inverse_search(l2.img, tpl, plan.centers, init_u, cfg, sw, sh,
                               plain=plain)
     wts = _fixed_weights(res, tpl, cfg) if cfg.mode == "fixed" else None
-    flow = densify(res.u, geom, sw, sh, cfg.patch_size, wts)
-    return flow, geom, res
+    flow = densify(res.u, plan, wts)
+    return flow, plan.geom, res
+
+
+def flow_plans(cfg: DISConfig, height: int, width: int,
+               device: torch.device) -> Tuple[ScalePlan, ...]:
+    """The plans ``dis_flow`` fetches for a [(B,) height, width] input on
+    ``device``, coarsest scale first: the level of scale s is the
+    divisibility-padded frame halved s times."""
+    f = 2 ** cfg.coarsest_scale
+    ph, pw = -(-height // f) * f, -(-width // f) * f
+    return tuple(scale_plan(pw >> s, ph >> s, cfg.steps, cfg.patch_size, device)
+                 for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1))
 
 
 def _check_pair(img1: torch.Tensor, img2: torch.Tensor) -> None:
+    """Both inputs one grayscale plane [H, W], or both a batch of B >= 1
+    same-shape planes [B, H, W], on one device."""
     for name, t in (("img1", img1), ("img2", img2)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-        if t.ndim != 2:
-            raise ValueError(f"{name} must be a 2-D grayscale plane, got shape {tuple(t.shape)}")
+        if t.ndim not in (2, 3):
+            raise ValueError(f"{name} must be a grayscale plane [H, W] or a batch of "
+                             f"them [B, H, W], got shape {tuple(t.shape)}")
+        if t.ndim == 3 and t.shape[0] == 0:
+            raise ValueError(f"{name} is an empty batch {tuple(t.shape)}: B must be >= 1")
     if img1.device != img2.device:
         raise ValueError(f"img1 is on {img1.device} and img2 on {img2.device}: "
                          "dis_flow runs on the device of its inputs")
+    if img1.ndim != img2.ndim:
+        raise ValueError(f"one input is batched and the other is not: "
+                         f"{tuple(img1.shape)} vs {tuple(img2.shape)}")
+    if img1.ndim == 3 and img1.shape[0] != img2.shape[0]:
+        raise ValueError(f"batch sizes differ: {img1.shape[0]} vs {img2.shape[0]} pairs")
     if img1.shape != img2.shape:
         raise ValueError(f"pair shapes differ: {tuple(img1.shape)} vs {tuple(img2.shape)}")
 
@@ -88,15 +119,17 @@ def _check_supported(cfg: DISConfig) -> None:
 
 def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
                     cfg: DISConfig, plain: bool = False) -> torch.Tensor:
-    """DIS flow on an already divisibility-padded float32 pair.
+    """DIS flow on an already divisibility-padded float32 pair [H, W], or
+    a batch of pairs [B, H, W].
 
-    Returns flow at scale ``finest_scale``: [H / 2**finest, W / 2**finest, 2].
+    Returns flow at scale ``finest_scale``: [(B,) H / 2**finest,
+    W / 2**finest, 2].
     ``plain=True`` runs the kernels' plain PyTorch versions on any device;
     it exists to check the kernels on the card.
     """
     _check_pair(img1, img2)
     _check_supported(cfg)
-    h, w = img1.shape
+    h, w = img1.shape[-2:]
     f = 2 ** cfg.coarsest_scale
     if w % f or h % f:
         raise ValueError(f"padded input dims must be divisible by {f}")
@@ -111,17 +144,18 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
 
 def dis_flow(img1: torch.Tensor, img2: torch.Tensor,
              cfg: DISConfig = DISConfig(), plain: bool = False) -> torch.Tensor:
-    """End-to-end flow for an arbitrary-size grayscale pair on the device
-    of its inputs: divisibility padding (main.cpp:140-155), the pipeline,
-    the finest-scale upsample (main.cpp:191-196) and the crop
-    (main.cpp:198).  Returns [H, W, 2] float32."""
+    """End-to-end flow for an arbitrary-size grayscale pair [H, W], or a
+    batch of same-shape pairs [B, H, W], on the device of its inputs:
+    divisibility padding (main.cpp:140-155), the pipeline, the
+    finest-scale upsample (main.cpp:191-196) and the crop (main.cpp:198).
+    Returns [(B,) H, W, 2] float32."""
     _check_pair(img1, img2)
     _check_supported(cfg)
-    h, w = img1.shape
+    h, w = img1.shape[-2:]
     p1, (padw, padh) = im.pad_divisible(img1.to(torch.float32), cfg.coarsest_scale)
     p2, _ = im.pad_divisible(img2.to(torch.float32), cfg.coarsest_scale)
     flow = dis_flow_padded(p1, p2, cfg, plain=plain)
     if cfg.finest_scale != 0:
         flow = flow * float(2 ** cfg.finest_scale)
-        flow = im.resize_bilinear(flow, p1.shape[1], p1.shape[0])
+        flow = im.resize_bilinear(flow, p1.shape[-1], p1.shape[-2])
     return im.crop_padding(flow, padw, padh, w, h)

@@ -4,7 +4,8 @@ Replaces ``dis_tpu/ops/pallas/pyramid_kernel.py::pyramid_level_pallas``
 (kernel body ``_level_kernel``).  Memory-bound on the H100 (one plane
 read, three written); the kernel stages level values with a halo in
 shared memory and fuses the x0.5 decimation of coarser levels.  Plain
-version: ``ops/pyramid.py::pyramid_level_plain``, equal bitwise.
+version: ``ops/pyramid.py::pyramid_level_plain``, equal bitwise.  A
+batch of planes [B, ...] is one launch (``blockIdx.z`` is the plane).
 """
 
 from __future__ import annotations
@@ -16,18 +17,26 @@ from ..pyramid import pyramid_level_plain
 from . import all_on_cpu, check_input
 
 
-def pyramid_level(src: torch.Tensor, p: int, base: bool):
-    """(img_pad, dx_pad, dy_pad) [h + 2p, w + 2p] of one level.
+MAX_PLANES = 65535   # gridDim.z
 
-    ``base=True``: ``src`` is the raw [h, w] image (the level image is its
-    Sobel magnitude).  ``base=False``: ``src`` is the finer level's padded
-    image plane [2h + 2p, 2w + 2p] (the level image is its decimation).
+
+def pyramid_level(src: torch.Tensor, p: int, base: bool):
+    """(img_pad, dx_pad, dy_pad) [(B,) h + 2p, w + 2p] of one level.
+
+    ``base=True``: ``src`` is the raw [(B,) h, w] image (the level image
+    is its Sobel magnitude).  ``base=False``: ``src`` is the finer level's
+    padded image plane [(B,) 2h + 2p, 2w + 2p] (the level image is its
+    decimation).
     """
     if all_on_cpu(src):
         return pyramid_level_plain(src, p, base)
-    if src.ndim != 2:
-        raise ValueError(f"src must be 2-D, got shape {tuple(src.shape)}")
-    sh, sw = src.shape
+    if src.ndim not in (2, 3):
+        raise ValueError(f"src must be [H, W] or [B, H, W], got shape {tuple(src.shape)}")
+    lead = tuple(src.shape[:-2])
+    nplanes = lead[0] if lead else 1
+    if not 1 <= nplanes <= MAX_PLANES:
+        raise ValueError(f"{nplanes} planes: the kernel takes 1 to {MAX_PLANES}")
+    sh, sw = src.shape[-2:]
     if base:
         h, w = sh, sw
     else:
@@ -37,12 +46,12 @@ def pyramid_level(src: torch.Tensor, p: int, base: bool):
         h, w = (sh - 2 * p) // 2, (sw - 2 * p) // 2
     if h < 2 or w < 2:
         raise ValueError(f"level of {h}x{w} is too small for the 3x3 stencil")
-    check_input(src, "src", src.device, torch.float32, (sh, sw))
-    img, dx, dy = (torch.empty((h + 2 * p, w + 2 * p), dtype=torch.float32,
+    check_input(src, "src", src.device, torch.float32, lead + (sh, sw))
+    img, dx, dy = (torch.empty(lead + (h + 2 * p, w + 2 * p), dtype=torch.float32,
                                device=src.device) for _ in range(3))
-    _build.launch("dis_pyramid_level", src.device, src.data_ptr(), sw,
-                  img.data_ptr(), dx.data_ptr(), dy.data_ptr(), h, w, p,
-                  int(base))
+    _build.launch("dis_pyramid_level", src.device, src.data_ptr(), sh, sw,
+                  img.data_ptr(), dx.data_ptr(), dy.data_ptr(), nplanes, h, w,
+                  p, int(base))
     pyramid_level.launches += 1
     return img, dx, dy
 

@@ -24,6 +24,11 @@ loop is kernel K1 (``ops/cuda/iclk_kernel.py``).  This module holds both
 kernels' plain PyTorch versions (:func:`extract_regions_plain`,
 :func:`iclk_search_plain`), which the wrappers take for CPU tensors.
 
+A batch of pairs adds a leading axis to every per-patch tensor
+(``[B, N, ...]``; the centers ``[N, 2]`` stay shared).  Every step is an
+elementwise op, an index pick or :func:`pairwise_sum`'s fixed tree, so
+each pair of a batch gets the bits it gets alone.
+
 Every sum over a patch's taps (Hessian, ``rhs``, the patch mean) uses
 :func:`pairwise_sum`'s forced pair tree, which K1 reproduces with an
 in-lane tree plus a warp butterfly, so kernel and plain version agree
@@ -44,18 +49,18 @@ from .image import sqrt_f32
 
 
 class PatchTemplates(NamedTuple):
-    T: torch.Tensor      # [N, ps*ps] raw template values
-    Tdx: torch.Tensor    # [N, ps*ps] template d/dx
-    Tdy: torch.Tensor    # [N, ps*ps] template d/dy
-    Hinv: torch.Tensor   # [N, 2, 2] inverse 2x2 Hessian
+    T: torch.Tensor      # [(B,) N, ps*ps] raw template values
+    Tdx: torch.Tensor    # [(B,) N, ps*ps] template d/dx
+    Tdy: torch.Tensor    # [(B,) N, ps*ps] template d/dy
+    Hinv: torch.Tensor   # [(B,) N, 2, 2] inverse 2x2 Hessian
 
 
 class SearchResult(NamedTuple):
-    u: torch.Tensor          # [N, 2] final displacement per patch
-    Q: torch.Tensor          # [N, ps*ps] final warped query patch
-    converged: torch.Tensor  # [N] bool
-    start_oob: torch.Tensor  # [N] bool: start out of bounds, so the patch
-    #                          froze at once and Q is the raw template
+    u: torch.Tensor          # [(B,) N, 2] final displacement per patch
+    Q: torch.Tensor          # [(B,) N, ps*ps] final warped query patch
+    converged: torch.Tensor  # [(B,) N] bool
+    start_oob: torch.Tensor  # [(B,) N] bool: start out of bounds, so the
+    #                          patch froze at once and Q is the raw template
 
 
 def pairwise_sum(x: torch.Tensor) -> torch.Tensor:
@@ -80,8 +85,9 @@ def extract_templates_grid(img: torch.Tensor, dx: torch.Tensor,
                            dy: torch.Tensor, geom, ps: int,
                            pad: int) -> PatchTemplates:
     """Templates and inverse Hessians for a regular patch grid
-    (patch.cpp:47-91).  Each tap is a strided view of the padded level
-    plane; patches come out in the reference's x-outer order."""
+    (patch.cpp:47-91) over padded level planes [(B,) th, tw].  Each tap
+    is a strided view of the plane; patches come out in the reference's
+    x-outer order."""
     s = geom.steps
     half = ps // 2
     nw, nh = geom.num_w, geom.num_h
@@ -90,9 +96,9 @@ def extract_templates_grid(img: torch.Tensor, dx: torch.Tensor,
     x0 = geom.offset_w - half + pad
 
     def taps(plane):
-        win = plane[y0:y0 + (nh - 1) * s + ps, x0:x0 + (nw - 1) * s + ps]
-        t = win.unfold(0, ps, s).unfold(1, ps, s)   # [nh, nw, ps(j), ps(i)]
-        return t.transpose(0, 1).reshape(n, ps * ps)
+        win = plane[..., y0:y0 + (nh - 1) * s + ps, x0:x0 + (nw - 1) * s + ps]
+        t = win.unfold(-2, ps, s).unfold(-2, ps, s)  # [..., nh, nw, ps(j), ps(i)]
+        return t.transpose(-4, -3).reshape(*plane.shape[:-2], n, ps * ps)
 
     T, Tdx, Tdy = taps(img), taps(dx), taps(dy)
     a = pairwise_sum(Tdx * Tdx)
@@ -134,42 +140,47 @@ def _ceil_coord(v: torch.Tensor, pad: int) -> torch.Tensor:
 def extract_regions_plain(img2: torch.Tensor, pos0: torch.Tensor, ps: int,
                           pad: int
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of kernel K2: each patch's [rc, rc] window of the
-    padded level plane at ``base = clip(ceil(pos0 + 1e-5) + pad - ps - 2,
-    0, dim - rc)``.  Returns (regions [N, rc, rc], base_y, base_x int32)."""
-    th, tw = img2.shape
+    """Plain version of kernels K2 and K2b: each patch's [rc, rc] window
+    of the padded level plane [(B,) th, tw] at ``base = clip(ceil(pos0 +
+    1e-5) + pad - ps - 2, 0, dim - rc)``, for start positions [(B,) N, 2].
+    Returns (regions [(B,) N, rc, rc], base_y, base_x [(B,) N] int32)."""
+    th, tw = img2.shape[-2:]
+    lead = img2.shape[:-2]
     rc = region_size(ps)
-    base_y = (_ceil_coord(pos0[:, 1], pad) - ps - 2).clamp(0, th - rc)
-    base_x = (_ceil_coord(pos0[:, 0], pad) - ps - 2).clamp(0, tw - rc)
+    base_y = (_ceil_coord(pos0[..., 1], pad) - ps - 2).clamp(0, th - rc)
+    base_x = (_ceil_coord(pos0[..., 0], pad) - ps - 2).clamp(0, tw - rc)
     ar = torch.arange(rc, device=img2.device)
-    idx = ((base_y.long()[:, None, None] + ar[None, :, None]) * tw
-           + base_x.long()[:, None, None] + ar[None, None, :])
-    return img2.reshape(-1)[idx], base_y, base_x
+    idx = ((base_y.long()[..., None, None] + ar[:, None]) * tw
+           + base_x.long()[..., None, None] + ar)          # [..., N, rc, rc]
+    flat = img2.reshape(*lead, th * tw)
+    regions = flat.gather(-1, idx.reshape(*lead, -1)).reshape(idx.shape)
+    return regions, base_y, base_x
 
 
 def sample_from_regions(regions: torch.Tensor, base_y: torch.Tensor,
                         base_x: torch.Tensor, pos: torch.Tensor, ps: int,
                         pad: int, normalize: bool) -> torch.Tensor:
-    """Bilinear warped query patches [N, ps*ps] from the regions
+    """Bilinear warped query patches [(B,) N, ps*ps] from the regions
     (patch.cpp:207-267): a direct 4-tap bilinear, column blend
     ``(1-a) w[c] + a w[c+1]`` first, then row blend ``(1-b) r[j] + b
     r[j+1]``, with the Q10 tap base."""
-    n, rc = regions.shape[0], regions.shape[1]
+    rc = regions.shape[-1]
+    lead = regions.shape[:-2]                              # (B,) N
     half = ps // 2
-    posx, posy = pos[:, 0], pos[:, 1]
-    a = (posx - torch.floor(posx))[:, None, None]
-    b = (posy - torch.floor(posy))[:, None, None]
+    posx, posy = pos[..., 0], pos[..., 1]
+    a = (posx - torch.floor(posx))[..., None, None]
+    b = (posy - torch.floor(posy))[..., None, None]
     ws = (_ceil_coord(posy, pad) - half - 1 - base_y).clamp(0, rc - (ps + 1))
     cs = (_ceil_coord(posx, pad) - half - 1 - base_x).clamp(0, rc - (ps + 1))
     ar = torch.arange(ps + 1, device=regions.device)
-    idx = ((ws.long()[:, None, None] + ar[None, :, None]) * rc
-           + cs.long()[:, None, None] + ar[None, None, :])
-    W = regions.reshape(n, rc * rc).gather(1, idx.reshape(n, (ps + 1) ** 2))
-    W = W.reshape(n, ps + 1, ps + 1)
-    cb = (1 - a) * W[:, :, :-1] + a * W[:, :, 1:]         # [N, ps+1, ps]
-    q = ((1 - b) * cb[:, :-1, :] + b * cb[:, 1:, :]).reshape(n, ps * ps)
+    idx = ((ws.long()[..., None, None] + ar[:, None]) * rc
+           + cs.long()[..., None, None] + ar)
+    W = regions.reshape(*lead, rc * rc).gather(-1, idx.reshape(*lead, (ps + 1) ** 2))
+    W = W.reshape(*lead, ps + 1, ps + 1)
+    cb = (1 - a) * W[..., :, :-1] + a * W[..., :, 1:]     # [..., ps+1, ps]
+    q = ((1 - b) * cb[..., :-1, :] + b * cb[..., 1:, :]).reshape(*lead, ps * ps)
     if normalize:
-        q = q - pairwise_sum(q)[:, None] * inv_taps(ps)
+        q = q - pairwise_sum(q)[..., None] * inv_taps(ps)
     return q
 
 
@@ -178,9 +189,9 @@ def out_of_bounds(pos: torch.Tensor, ps: int, width: int,
     """Valid-region test of optical_flow.cpp:55-57: ``lb = -ps/2``,
     ``ub = dim + ps/2 - 2``."""
     lb = -float(ps) / 2.0
-    return ((pos[:, 0] < lb) | (pos[:, 1] < lb)
-            | (pos[:, 0] > float(width + ps // 2 - 2))
-            | (pos[:, 1] > float(height + ps // 2 - 2)))
+    return ((pos[..., 0] < lb) | (pos[..., 1] < lb)
+            | (pos[..., 0] > float(width + ps // 2 - 2))
+            | (pos[..., 1] > float(height + ps // 2 - 2)))
 
 
 def iclk_search_plain(regions: torch.Tensor, base_y: torch.Tensor,
@@ -189,9 +200,10 @@ def iclk_search_plain(regions: torch.Tensor, base_y: torch.Tensor,
                       init_u: torch.Tensor, conv0: torch.Tensor,
                       cfg: DISConfig, width: int, height: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of kernel K1: the IC-LK loop for every patch at one
-    scale.  ``Tn`` is the fixed-mode residual template (None in compat
-    mode).  Returns (u [N, 2], Q [N, ps*ps], converged [N] bool)."""
+    """Plain version of kernels K1 and K1b: the IC-LK loop for every
+    patch at one scale.  ``Tn`` is the fixed-mode residual template (None
+    in compat mode); ``centers`` [N, 2] is shared by the pairs of a batch.
+    Returns (u [(B,) N, 2], Q [(B,) N, ps*ps], converged [(B,) N] bool)."""
     ps, pad = cfg.patch_size, cfg.img_padding
     fixed = cfg.mode == "fixed"
     thresh = cfg.outlier_thresh
@@ -203,24 +215,24 @@ def iclk_search_plain(regions: torch.Tensor, base_y: torch.Tensor,
 
     start = centers + init_u
     u = init_u.clone()
-    Q = torch.where(conv0[:, None], tpl.T, sample(start))
+    Q = torch.where(conv0[..., None], tpl.T, sample(start))
     conv = conv0.clone()
     for _ in range(cfg.iterations + 1):
         active = ~conv
         R = Q - Tn if fixed else Q
         rx = pairwise_sum(tpl.Tdx * R)
         ry = pairwise_sum(tpl.Tdy * R)
-        dx = Hinv[:, 0, 0] * rx + Hinv[:, 0, 1] * ry
-        dy = Hinv[:, 1, 0] * rx + Hinv[:, 1, 1] * ry
-        u_new = torch.stack([u[:, 0] - dx, u[:, 1] - dy], -1)
+        dx = Hinv[..., 0, 0] * rx + Hinv[..., 0, 1] * ry
+        dy = Hinv[..., 1, 0] * rx + Hinv[..., 1, 1] * ry
+        u_new = torch.stack([u[..., 0] - dx, u[..., 1] - dy], -1)
         p_new = centers + u_new
-        mx = start[:, 0] - p_new[:, 0]
-        my = start[:, 1] - p_new[:, 1]
+        mx = start[..., 0] - p_new[..., 0]
+        my = start[..., 1] - p_new[..., 1]
         dist = sqrt_f32(mx * mx + my * my)
         policed = (dist > thresh) | out_of_bounds(p_new, ps, width, height)
-        u_next = torch.where(policed[:, None], init_u, u_new)
-        u = torch.where(active[:, None], u_next, u)
-        Q = torch.where(active[:, None], sample(centers + u), Q)
+        u_next = torch.where(policed[..., None], init_u, u_new)
+        u = torch.where(active[..., None], u_next, u)
+        Q = torch.where(active[..., None], sample(centers + u), Q)
         newly = active & policed
         if fixed:
             small = sqrt_f32(dx * dx + dy * dy) < cfg.conv_eps
@@ -234,7 +246,7 @@ def residual_template(tpl: PatchTemplates, cfg: DISConfig) -> torch.Tensor:
     patch_normalization is on."""
     if not cfg.patch_normalization:
         return tpl.T
-    return tpl.T - pairwise_sum(tpl.T)[:, None] * inv_taps(cfg.patch_size)
+    return tpl.T - pairwise_sum(tpl.T)[..., None] * inv_taps(cfg.patch_size)
 
 
 def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
@@ -242,8 +254,11 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
                    cfg: DISConfig, width: int, height: int,
                    plain: bool = False) -> SearchResult:
     """Run the full IC-LK iteration for every patch at one scale:
-    region extraction (K2), then the search loop (K1).  ``plain=True``
-    runs both plain versions on any device."""
+    region extraction (K2), then the search loop (K1).  ``img2``
+    [(B,) th, tw], ``tpl`` and ``init_u`` [(B,) N, 2] carry the pair axis
+    of a batch (then K2b and K1b: still one launch each); ``centers``
+    [N, 2] is shared.  ``plain=True`` runs both plain versions on any
+    device."""
     from .cuda.extract_kernel import extract_regions
     from .cuda.iclk_kernel import iclk_search
 

@@ -9,6 +9,8 @@ gradients (main.cpp:41-49).
 
 One level is one call of ``ops/cuda/pyramid_kernel.py::pyramid_level``
 (kernel K3 on CUDA tensors, :func:`pyramid_level_plain` on CPU tensors).
+A batch of images ``[B, H, W]`` gives levels ``[B, h + 2p, w + 2p]``,
+still one call (one K3 launch) per level.
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from . import image as im
 
 
 class PyramidLevel(NamedTuple):
-    img: torch.Tensor   # [h + 2p, w + 2p] replicate-padded magnitude image
-    dx: torch.Tensor    # [h + 2p, w + 2p] zero-padded Sobel d/dx
-    dy: torch.Tensor    # [h + 2p, w + 2p] zero-padded Sobel d/dy
+    img: torch.Tensor   # [(B,) h + 2p, w + 2p] replicate-padded magnitude image
+    dx: torch.Tensor    # [(B,) h + 2p, w + 2p] zero-padded Sobel d/dx
+    dy: torch.Tensor    # [(B,) h + 2p, w + 2p] zero-padded Sobel d/dy
     width: int          # unpadded w at this level
     height: int         # unpadded h at this level
 
@@ -31,15 +33,15 @@ class PyramidLevel(NamedTuple):
 def pyramid_level_plain(src: torch.Tensor, p: int, base: bool):
     """(img_pad, dx_pad, dy_pad) of one level, in plain PyTorch.
 
-    ``base=True``: ``src`` is the raw [h, w] image and the level image is
-    its Sobel magnitude.  ``base=False``: ``src`` is the finer level's
-    padded image plane [2h + 2p, 2w + 2p] and the level image is the
-    x0.5 decimation of its interior.
+    ``base=True``: ``src`` is the raw [(B,) h, w] image and the level
+    image is its Sobel magnitude.  ``base=False``: ``src`` is the finer
+    level's padded image plane [(B,) 2h + 2p, 2w + 2p] and the level image
+    is the x0.5 decimation of its interior.
     """
     if base:
         cur = im.gradient_magnitude(src)
     else:
-        cur = im.resize_half(src[p:src.shape[0] - p, p:src.shape[1] - p])
+        cur = im.resize_half(src[..., p:src.shape[-2] - p, p:src.shape[-1] - p])
     dx = im.sobel3(cur, "x")
     dy = im.sobel3(cur, "y")
     return (im.replicate_pad(cur, p, p, p, p),
@@ -50,7 +52,8 @@ def pyramid_level_plain(src: torch.Tensor, p: int, base: bool):
 def construct_pyramid(img: torch.Tensor, coarsest_scale: int,
                       img_padding: int, plain: bool = False
                       ) -> List[PyramidLevel]:
-    """Returns levels[0..coarsest], finest first (level index == scale).
+    """Returns levels[0..coarsest], finest first (level index == scale),
+    of ``img`` [H, W] or a batch [B, H, W].
 
     ``plain=True`` runs :func:`pyramid_level_plain` on any device (the
     reference the kernel is checked against on the card).
@@ -64,7 +67,7 @@ def construct_pyramid(img: torch.Tensor, coarsest_scale: int,
     for s in range(coarsest_scale + 1):
         ip, dx, dy = level(src, p, base=(s == 0))
         levels.append(PyramidLevel(img=ip, dx=dx, dy=dy,
-                                   width=ip.shape[1] - 2 * p,
-                                   height=ip.shape[0] - 2 * p))
+                                   width=ip.shape[-1] - 2 * p,
+                                   height=ip.shape[-2] - 2 * p))
         src = ip
     return levels

@@ -30,7 +30,8 @@ def test_densify_matches(w, h, ps, steps, weighted):
     wts = rng.uniform(0.01, 1.0, n).astype(np.float32) if weighted else None
     ref = jden.densify(jnp.asarray(u), jg, w, h, ps,
                        None if wts is None else jnp.asarray(wts))
-    got = tden.densify(torch.from_numpy(u), tgrid.make_grid(w, h, steps), w, h, ps,
+    plan = tgrid.scale_plan(w, h, steps, ps, torch.device("cpu"))
+    got = tden.densify(torch.from_numpy(u), plan,
                        None if wts is None else torch.from_numpy(wts))
     assert got.shape == (h, w, 2)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
@@ -38,5 +39,5 @@ def test_densify_matches(w, h, ps, steps, weighted):
 
 def test_uniform_weight_plane_is_the_jax_copy():
     key = (20, 13, 2, 2, 5, 0)
-    np.testing.assert_array_equal(tden._uniform_wsum(key, 96, 64, 8, 0),
+    np.testing.assert_array_equal(tgrid._uniform_wsum(key, 96, 64, 8, 0),
                                   jden._uniform_wsum(key, 96, 64, 8, 0))

@@ -58,7 +58,7 @@ def test_nn_init_bitwise(w, h, steps):
     geom = jgrid.make_grid(w, h, steps)
     flow = np.random.default_rng(3).normal(size=(h // 2, w // 2, 2)).astype(np.float32)
     ref = np.asarray(jgrid.init_from_coarser_flow(geom, jnp.asarray(flow)))
-    got = tgrid.init_from_coarser_flow(tgrid.make_grid(w, h, steps),
+    got = tgrid.init_from_coarser_flow(tgrid.scale_plan(w, h, steps, 8, torch.device("cpu")),
                                        torch.from_numpy(flow)).numpy()
     np.testing.assert_array_equal(got, ref)
 

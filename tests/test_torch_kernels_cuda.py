@@ -1,4 +1,7 @@
-"""Kernels K1-K3 against their plain PyTorch versions on a CUDA GPU.
+"""Kernels K1-K3 (and K2b, K1b: the pair axis) against their plain
+PyTorch versions on a CUDA GPU; batched flows against serial ones, and
+CUDA-graph replay (``serving.aot_compile``) against the eager path, both
+bitwise.
 
 Marked ``cuda``: each test skips (from a fixture, at run time) where
 ``torch.cuda.is_available()`` is false, as on the CPU test machines.  On
@@ -111,3 +114,106 @@ def test_dis_flow_kernels_vs_plain(mode):
     d = torch.linalg.vector_norm(flow - plain, dim=-1)
     assert flow.device.type == "cuda" and bool(torch.isfinite(flow).all())
     assert float(d.mean()) <= 1e-3 and float((d > 1e-2).float().mean()) <= 0.01
+
+
+def _batch(b, h, w, seed):
+    pairs = [_smooth(h, w, seed + i) for i in range(b)]
+    return tuple(torch.from_numpy(np.stack([p[k] for p in pairs])).cuda() for k in (0, 1))
+
+
+@pytest.mark.parametrize("b", [1, 3])
+def test_pyramid_level_batched_bitwise(b):
+    x, _ = _batch(b, 64, 96, 11)
+    for base, src in ((True, x), (False, pyramid_level(x, 8, base=True)[0])):
+        kern = pyramid_level(src, 8, base=base)
+        for i in range(b):
+            one = pyramid_level(src[i], 8, base=base)
+            ref = pyramid_level_plain(src[i], 8, base=base)
+            for k, o, r in zip(kern, one, ref):
+                assert torch.equal(k[i], o) and torch.equal(k[i], r)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", ["compat", "fixed"])
+def test_extract_and_search_batched(mode):
+    """K2b and K1b on 3 pairs: bitwise equal to the batched plain versions
+    and to one K2/K1 call per pair, in one launch each."""
+    b, ps = 3, 8
+    x, y = _batch(b, 72, 104, 21)
+    l1 = pyramid_level(x, ps, True)
+    l2 = pyramid_level(y, ps, True)
+    cfg = dis_tpu_torch.DISConfig(iterations=12, patch_size=ps, coarsest_scale=0,
+                                  patch_overlap=0.5, mode=mode)
+    geom = make_grid(104, 72, cfg.steps)
+    centers = torch.from_numpy(geom.centers).cuda()
+    init_u = torch.from_numpy(np.random.default_rng(5).uniform(
+        -2, 2, (b,) + geom.centers.shape).astype(np.float32)).cuda()
+    pos0 = centers + init_u
+    tpl = iclk.extract_templates_grid(*l1, geom, ps, ps)
+    conv0 = iclk.out_of_bounds(pos0, ps, 104, 72)
+    Tn = iclk.residual_template(tpl, cfg) if mode == "fixed" else None
+    extract_regions.launches = iclk_search.launches = 0
+    kr = extract_regions(l2[0], pos0, ps, ps)
+    args = (tpl, Tn, centers, init_u, conv0, cfg, 104, 72)
+    kout = iclk_search(*kr, *args)
+    assert extract_regions.launches == 1 and iclk_search.launches == 1
+    pr = iclk.extract_regions_plain(l2[0], pos0, ps, ps)
+    pout = iclk.iclk_search_plain(*pr, *args)
+    for k, p in zip(kr + kout, pr + pout):
+        assert torch.equal(k, p)
+    for i in range(b):
+        one = extract_regions(l2[0][i], pos0[i], ps, ps)
+        tpl_i = iclk.PatchTemplates(*(t[i] for t in tpl))
+        out_i = iclk_search(*one, tpl_i, None if Tn is None else Tn[i], centers,
+                            init_u[i], conv0[i], cfg, 104, 72)
+        for k, o in zip(kr + kout, one + out_i):
+            assert torch.equal(k[i], o)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("mode", ["compat", "fixed"])
+def test_batched_flow_equals_serial(mode):
+    x, y = _batch(3, 75, 118, 31)
+    cfg = dis_tpu_torch.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
+                                  finest_scale=1 if mode == "fixed" else 0,
+                                  patch_overlap=0.3, mode=mode)
+    flows = dis_tpu_torch.dis_flow(x, y, cfg)
+    for i in range(3):
+        assert torch.equal(flows[i], dis_tpu_torch.dis_flow(x[i], y[i], cfg))
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+def test_graph_replay_equals_eager(batch):
+    from dis_tpu_torch.serving import aot_compile
+
+    x, y = _batch(batch or 1, 75, 118, 41)
+    if batch is None:
+        x, y = x[0], y[0]
+    cfg = dis_tpu_torch.DIS_FAST
+    compiled = aot_compile(cfg, 75, 118, batch=batch)
+    eager = dis_tpu_torch.dis_flow(x, y, cfg)
+    for _ in range(2):
+        assert torch.equal(compiled(x, y), eager)
+    with pytest.raises(ValueError, match="compiled for"):
+        compiled(x[..., :-1], y[..., :-1])
+
+
+def test_graph_replay_after_plan_churn():
+    """The graph reads its bucket's plans at every replay: making many
+    other plans and refilling the allocator must not change its flow."""
+    from dis_tpu_torch.ops.grid import scale_plan
+    from dis_tpu_torch.serving import aot_compile
+
+    x, y = _batch(1, 75, 118, 43)
+    x, y = x[0], y[0]
+    cfg = dis_tpu_torch.DIS_FAST
+    compiled = aot_compile(cfg, 75, 118)
+    eager = dis_tpu_torch.dis_flow(x, y, cfg)
+    dev = x.device
+    for k in range(80):
+        scale_plan(40 + k, 24, cfg.steps, cfg.patch_size, dev)
+    torch.cuda.empty_cache()
+    junk = [torch.full((n,), float("nan"), device=dev) for n in (1 << 10, 1 << 16, 1 << 20)
+            for _ in range(8)]
+    assert torch.equal(compiled(x, y), eager)
+    del junk

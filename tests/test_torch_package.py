@@ -55,7 +55,8 @@ def test_config_fields_and_validation_match():
 def test_import_is_jax_free():
     code = ("import sys, dis_tpu_torch, dis_tpu_torch.interop; "
             "import dis_tpu_torch.ops.cuda.iclk_kernel, dis_tpu_torch.ops.cuda.extract_kernel, "
-            "dis_tpu_torch.ops.cuda.pyramid_kernel; "
+            "dis_tpu_torch.ops.cuda.pyramid_kernel, dis_tpu_torch.serving, "
+            "dis_tpu_torch.parallel, dis_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dis_tpu')); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
