@@ -44,6 +44,34 @@ iterations 16, patch 8, overlap 0.3, scales 3..0) and ``DIS_ULTRAFAST``
     4, 8, eager and replayed; 1080p ms/frame eager and replayed; K2b and
     K1b against their plain versions at B = 8.
 
+The 4K path, on ``synth_pair_4k()`` (3840x2160, ``bench.synth_pair``'s
+recipe, a (3, 2) px shift) under the compat bench config and
+``DIS_FAST``, and exact row-stripe tiling:
+
+1c. K2c (the column-banded K2) at the 4K finest-scale shapes (N =
+    331,776), bitwise equal to its plain version and to K2 at B = 1, at
+    B = 2 and on stripe 1 of 3 (row0 = 544), where K1 with row0 > 0 is
+    held to its plain version; K2c at ps 12 on a small plane; an empty
+    grid launches nothing; the count of windows copied from outside the
+    staged box is printed (expected 0);
+2d. ``dis_flow`` at 4K: per call K2c launches once and K2 three times
+    (none under ``DIS_ULTRAFAST``, whose finest scale is 1), the median
+    within 0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX
+    package's CPU reading, the kernel path against the plain path under
+    the 1080p gates, a batch of 2 bitwise equal to 2 serial calls, and
+    an ``aot_compile`` 4K graph replay bitwise equal to the eager path;
+2e. ``parallel.tiled_flow_exact`` with 3 stripes and ``min_stripe_halo``
+    (176 rows; row0 0, 544, 1264) and ``parallel.grid_tiled_flow`` with 3
+    parts, each bitwise equal to the untiled flow, K2c once per stripe;
+3c. times: K2c and K2 on the same 4K finest inputs, 4K ms/frame eager and
+    replayed (compat and ``DIS_FAST``), 3-stripe tiled 4K ms/frame.
+
+Each kernel's line gives its bound: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s and its
+operations (K1's for the trips these inputs run) over 67 TFLOP/s, the
+H100 SXM's HBM3 and float32 peaks.  No single PyTorch call computes any
+of these functions, so ``library_ms`` is null.
+
 It prints one JSON line of kernel results, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Any failed check raises, so the
 script exits nonzero before the last line.  Without a CUDA device, or
@@ -83,6 +111,16 @@ EPE_JAX_KITTI = {
 }
 
 
+W4K, H4K = 3840, 2160
+# Mean EPE against the (3, 2) shift of the JAX package's dis_flow on CPU
+# for synth_pair_4k(), compat bench config and DIS_FAST.
+EPE_JAX_4K = {"compat": 0.1492468, "fast": 0.0040877}
+N_STRIPES = 3
+PLAIN_REPS_4K = 3
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak
+F32_OPS_PER_S = 67e12       # H100 SXM float32 peak outside the tensor cores
+
+
 def kitti_pair(i: int):
     """Pair i of the KITTI-size batch, NumPy only: a uniform random plane
     (seed 100 + i) under a 7x7 box mean (separable float32 sums over a
@@ -98,6 +136,20 @@ def kitti_pair(i: int):
     i1 = box[m:m + KH, m:m + KW]
     i2 = box[m - dy:m - dy + KH, m - dx:m - dx + KW]
     return np.ascontiguousarray(i1), np.ascontiguousarray(i2)
+
+
+def synth_pair_4k():
+    """``bench.synth_pair``'s recipe at 3840x2160: a uniform random plane
+    (seed 42) under a 7x7 box mean (SciPy ``convolve2d``, symmetric
+    border), and its copy shifted by (3, 2) px."""
+    from scipy.signal import convolve2d
+
+    r = np.random.default_rng(42)
+    big = (r.random((H4K + 16, W4K + 16)) * 255).astype(np.float32)
+    k = np.ones((7, 7), np.float32) / 49.0
+    big = convolve2d(big, k, mode="same", boundary="symm").astype(np.float32)
+    return (np.ascontiguousarray(big[8:8 + H4K, 8:8 + W4K]),
+            np.ascontiguousarray(big[6:6 + H4K, 5:5 + W4K]))
 
 
 def check(ok: bool, msg: str) -> None:
@@ -148,7 +200,8 @@ def finest_inputs(img1, img2, cfg, p):
     pyr2 = construct_pyramid(img2, cfg.coarsest_scale, p)
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale, -1):
-        flow, _, _ = dis_scale_window(pyr1[scale], pyr2[scale], flow, cfg)
+        flow, _, _ = dis_scale_window(pyr1[scale], pyr2[scale], flow, cfg, scale,
+                                      0, pyr1[scale].height)
     l1, l2 = pyr1[cfg.finest_scale], pyr2[cfg.finest_scale]
     plan = scale_plan(l1.width, l1.height, cfg.steps, cfg.patch_size, img1.device)
     tpl = iclk.extract_templates_grid(l1.img, l1.dx, l1.dy, plan.geom,
@@ -158,6 +211,51 @@ def finest_inputs(img1, img2, cfg, p):
     conv0 = iclk.out_of_bounds(pos0, cfg.patch_size, l1.width, l1.height)
     Tn = iclk.residual_template(tpl, cfg) if cfg.mode == "fixed" else None
     return cfg, l2, tpl, Tn, plan.centers, init_u, pos0, conv0
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the least time the card could take."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / F32_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def io_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def pyramid_cost(img, levels):
+    """(bytes, operations) of one pyramid's K3 launches: each level reads
+    its source plane and writes three padded planes; about 24 operations
+    per base-level pixel (two Sobels, the magnitude, two more Sobels) and
+    14 per decimated pixel."""
+    nbytes, ops, src = 0, 0, img
+    for s, lv in enumerate(levels):
+        nbytes += io_bytes(src, lv.img, lv.dx, lv.dy)
+        ops += lv.width * lv.height * (24 if s == 0 else 14)
+        src = lv.img
+    return nbytes, ops
+
+
+def extract_cost(img, pos0, ps):
+    """(bytes, operations) of one K2/K2b/K2c call: planes and positions
+    read once, regions and bases written once; about 12 operations per
+    patch for its two bases."""
+    n = pos0.numel() // 2
+    rc = 2 * ps + 3
+    return io_bytes(img, pos0) + n * (rc * rc + 2) * 4, 12 * n
+
+
+def search_cost(inputs, outputs, cfg, trips, started):
+    """(bytes, operations) of one K1/K1b call: inputs read once, outputs
+    written once; operations for the trips these inputs run (``trips``:
+    active patches per trip, from the plain version) plus the start
+    resample of every patch not frozen at start."""
+    taps = cfg.patch_size ** 2
+    fixed = cfg.mode == "fixed"
+    sample = 9 * taps + 6 + (2 * taps if cfg.patch_normalization else 0)
+    trip = 4 * taps + (taps if fixed else 0) + 21 + (5 if fixed else 0) + sample
+    return io_bytes(*inputs, *outputs), sum(trips) * trip + started * sample
 
 
 def scale_counts(cfg):
@@ -174,14 +272,18 @@ def main() -> int:
     import dis_tpu_torch as dt
     from bench import synth_pair
     from dis_tpu_torch import _build
+    from dis_tpu_torch.models.dis import (_stripe_plan, dis_flow_padded, init_bound,
+                                          scale_extraction_route)
     from dis_tpu_torch.ops import iclk
     from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level
     from dis_tpu_torch.ops.grid import make_grid
     from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
-    from dis_tpu_torch.parallel import batched_flow_fn
+    from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
+                                        stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile
 
     # -- phase 0: device, versions, build ---------------------------------
@@ -332,9 +434,94 @@ def main() -> int:
               f"scale {cfg.finest_scale}): K2b and K1b bitwise equal to their batched "
               f"plain versions and to {nk} serial K2/K1 calls", flush=True)
 
+    # -- phase 1c: K2c at the 4K finest-scale shapes -------------------------
+    t0 = time.perf_counter()
+    a4, b4 = (torch.from_numpy(q).to(dev) for q in synth_pair_4k())
+    print(f"phase1c 4K pair made in {time.perf_counter() - t0:.2f} s", flush=True)
+    route4 = [scale_extraction_route(bench_cfg, W4K, H4K, s)
+              for s in range(bench_cfg.coarsest_scale + 1)]
+    check(route4 == ["K2c", "K2", "K2", "K2"], f"4K routes by scale {route4}")
+    bound0 = init_bound(bench_cfg, 0)
+
+    def k2c_check(label, img, pos0, ps, pad, geom, bnd, row0=0):
+        """K2c bitwise equal to its plain version and to K2, in one launch;
+        returns (regions, bases) and the max abs error."""
+        outside = torch.zeros(1, dtype=torch.int32, device=dev)
+        before = extract_regions_banded.launches
+        kc = extract_regions_banded(img, pos0, ps, pad, geom, bnd, row0, outside)
+        check(extract_regions_banded.launches == before + 1, f"K2c {label}: not one launch")
+        k2 = extract_regions(img, pos0, ps, pad, row0)
+        pr = iclk.extract_regions_plain(img, pos0, ps, pad, row0)
+        torch.cuda.synchronize()
+        err = float((kc[0] - pr[0]).abs().max()) if kc[0].numel() else 0.0
+        for kt, k2t, pt in zip(kc, k2, pr):
+            check(torch.equal(kt, pt) and torch.equal(kt, k2t),
+                  f"K2c {label}: differs from its plain version or from K2")
+        print(f"phase1c K2c {label}: {tuple(pos0.shape[:-1])} patches bitwise equal to "
+              f"plain and K2; windows copied from outside the staged box: {int(outside)}",
+              flush=True)
+        return kc, err
+
+    f4 = finest_inputs(a4, b4, bench_cfg, p)
+    _, l2_4, tpl4, Tn4, centers4, init4, pos04, conv04 = f4
+    geom4 = make_grid(l2_4.width, l2_4.height, bench_cfg.steps)
+    check(pos04.shape[0] == 331_776, f"4K finest N = {pos04.shape[0]}")
+    kc4, k2c_err = k2c_check("4K B=1", l2_4.img, pos04, 8, p, geom4, bound0)
+
+    fb4 = finest_inputs(torch.stack([a4, b4]), torch.stack([b4, a4]), bench_cfg, p)
+    _, err = k2c_check("4K B=2", fb4[1].img, fb4[6], 8, p, geom4, bound0)
+    k2c_err = max(k2c_err, err)
+    del fb4
+
+    # Stripe 1 of 3: the full frame's finest plane cut to the stripe's rows
+    # (its row0 moves the y bases), its patch rows, and K1 with row0 > 0.
+    halo = min_stripe_halo(bench_cfg, W4K, H4K, N_STRIPES)
+    row0, ext_h, own_r0, own_h = stripe_bounds(bench_cfg, H4K, N_STRIPES, 1, halo)
+    check(halo == 176 and row0 == 544, f"stripe 1 of 3: halo {halo}, row0 {row0}")
+    iy0, iy1 = _stripe_plan(bench_cfg, H4K, own_r0, own_h)[0][0]
+    geom_s = make_grid(W4K, H4K, bench_cfg.steps, iy_range=(iy0, iy1))
+
+    def rows_of(t):
+        return t.reshape(geom4.num_w, geom4.num_h, *t.shape[1:])[:, iy0:iy1].reshape(
+            -1, *t.shape[1:])
+
+    plane_s = l2_4.img[row0:row0 + ext_h + 2 * p].contiguous()
+    kc_s, err = k2c_check(f"stripe 1 of {N_STRIPES} (row0 {row0})", plane_s, rows_of(pos04),
+                          8, p, geom_s, bound0, row0)
+    k2c_err = max(k2c_err, err)
+    args_s = (iclk.PatchTemplates(*(rows_of(t) for t in tpl4)), None, rows_of(centers4),
+              rows_of(init4), rows_of(conv04), bench_cfg, W4K, H4K, row0)
+    ks = iclk_search(*kc_s, *args_s)
+    ps_ = iclk.iclk_search_plain(*kc_s, *args_s)
+    kfull = iclk_search(*kc4, tpl4, Tn4, centers4, init4, conv04, bench_cfg, W4K, H4K)
+    torch.cuda.synchronize()
+    err, flips = search_gate("K1 stripe row0", ks[0], ks[2], ps_[0], ps_[2])
+    k1_err = max(k1_err, err)
+    for kt, ft in zip(ks, kfull):
+        check(torch.equal(kt, rows_of(ft)), "K1 on the stripe differs from the full frame's rows")
+    print(f"phase1c K1 stripe row0 {row0} N={ks[0].shape[0]}: max|du| {err} flips {flips} "
+          f"vs plain; bitwise equal to the full frame's rows", flush=True)
+
+    lvl12 = pyramid_level(small, 12, base=True)
+    hh, ww = lvl12[0].shape[0] - 24, lvl12[0].shape[1] - 24
+    geom12 = make_grid(ww, hh, 6)
+    init12 = torch.from_numpy(rng.uniform(-12, 12, geom12.centers.shape)
+                              .astype(np.float32)).to(dev)
+    _, err = k2c_check("ps 12 small plane", lvl12[0],
+                       torch.from_numpy(geom12.centers).to(dev) + init12, 12, 12, geom12, 12.0)
+    k2c_err = max(k2c_err, err)
+    before = extract_regions_banded.launches
+    kr = extract_regions_banded(lvl12[0], empty, 12, 12, make_grid(ww, hh, 6, iy_range=(3, 3)),
+                                12.0)
+    torch.cuda.synchronize()
+    check(extract_regions_banded.launches == before and tuple(kr[0].shape) == (0, 27, 27),
+          "K2c on an empty grid")
+    print("phase1c K2c num_h=0 launches nothing", flush=True)
+
     # -- phase 2: the main path ---------------------------------------------
-    wrappers = {"K3": pyramid_level, "K2": extract_regions, "K1": iclk_search}
-    launches = {k: 0 for k in wrappers}
+    wrappers = {"K3": pyramid_level, "K2": extract_regions, "K2c": extract_regions_banded,
+                "K1": iclk_search}
+    launches = {"K3": 0, "K2": 0, "K1": 0}
     flows = {}
     for name, cfg in configs.items():
         for w in wrappers.values():
@@ -343,9 +530,10 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
         print(f"phase2 {name} launches {counts}", flush=True)
-        for k, c in counts.items():
-            check(c > 0, f"{name}: kernel {k} was not launched on the main path")
-            launches[k] += c
+        check(counts["K2c"] == 0, f"{name}: K2c launched at 1080p")
+        for k in launches:
+            check(counts[k] > 0, f"{name}: kernel {k} was not launched on the main path")
+            launches[k] += counts[k]
         f = flow.cpu().numpy()
         check(f.shape == (H, W, 2), f"{name}: flow shape {f.shape}")
         check(bool(np.isfinite(f).all()), f"{name}: non-finite flow")
@@ -382,7 +570,7 @@ def main() -> int:
             counts = {k: w.launches for k, w in wrappers.items()}
             print(f"phase2b {name} {label} B={nk} launches {counts}", flush=True)
             check(counts["K2"] == want["K2"] and counts["K1"] == want["K1"]
-                  and 0 < counts["K3"] <= want["K3"],
+                  and 0 < counts["K3"] <= want["K3"] and counts["K2c"] == 0,
                   f"{name} {label}: launches {counts}, want K2 = K1 = "
                   f"{want['K2']} and K3 <= {want['K3']} per batch")
             kl["K2b"] += counts["K2"]
@@ -420,7 +608,8 @@ def main() -> int:
         built = time.perf_counter() - t0
         want = scale_counts(cfg)
         gl = cf.graph_launches
-        check(gl["K2"] == want["K2"] and gl["K1"] == want["K1"] and 0 < gl["K3"] <= want["K3"],
+        check(gl["K2"] == want["K2"] and gl["K1"] == want["K1"] and 0 < gl["K3"] <= want["K3"]
+              and gl["K2c"] == 0,
               f"{label}: the graph holds launches {gl}")
         for _ in range(2):
             out = cf(*inputs)
@@ -437,15 +626,96 @@ def main() -> int:
               f"path; a wrong shape raises", flush=True)
         served[label] = cf
 
+    # -- phase 2d: dis_flow at 4K ---------------------------------------------
+    want4 = {"K3": 8, "K2": 3, "K2c": 1, "K1": 4}
+    flows4 = {}
+    for name, cfg in {**configs, "ultrafast": dt.DIS_ULTRAFAST}.items():
+        for w in wrappers.values():
+            w.launches = 0
+        flow = dt.dis_flow(a4, b4, cfg)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        print(f"phase2d 4K {name} launches {counts}", flush=True)
+        if name == "ultrafast":
+            check(counts["K2c"] == 0 and counts["K2"] == 3, f"4K ultrafast: launches {counts}")
+            continue
+        check(counts == want4, f"4K {name}: launches {counts}, want {want4}")
+        launches["K2c"] = launches.get("K2c", 0) + counts["K2c"]
+        f = flow.cpu().numpy()
+        check(f.shape == (H4K, W4K, 2), f"4K {name}: flow shape {f.shape}")
+        check(bool(np.isfinite(f).all()), f"4K {name}: non-finite flow")
+        med = np.median(f.reshape(-1, 2), axis=0)
+        epe = float(np.sqrt((f[..., 0] - SHIFT[0]) ** 2 + (f[..., 1] - SHIFT[1]) ** 2).mean())
+        plain = dt.dis_flow(a4, b4, cfg, plain=True)
+        d = torch.linalg.vector_norm(flow - plain, dim=-1)
+        dmean, dfrac = float(d.mean()), float((d > 1e-2).float().mean())
+        print(f"phase2d 4K {name}: median {med.tolist()} epe {epe} (jax cpu "
+              f"{EPE_JAX_4K[name]}) kernel-vs-plain mean {dmean} frac>1e-2 {dfrac}", flush=True)
+        check(bool(np.all(np.abs(med - np.array(SHIFT)) <= 0.01)),
+              f"4K {name}: median {med} not within 0.01 of {SHIFT}")
+        check(abs(epe - EPE_JAX_4K[name]) <= EPE_TOL, f"4K {name}: EPE {epe} vs JAX {EPE_JAX_4K[name]}")
+        check(dmean <= 1e-3 and dfrac <= 0.01, f"4K {name}: kernel vs plain mean {dmean} frac {dfrac}")
+        flows4[name] = flow
+        del plain, d
+
+    for w in wrappers.values():
+        w.launches = 0
+    fb = dt.dis_flow(torch.stack([a4, b4]), torch.stack([b4, a4]), bench_cfg)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(counts == want4, f"4K B=2: launches {counts}, want {want4}")
+    check(torch.equal(fb[0], flows4["compat"]) and torch.equal(fb[1], dt.dis_flow(b4, a4, bench_cfg)),
+          "4K B=2: the batched flows differ from 2 serial dis_flow calls")
+    del fb
+    print(f"phase2d 4K compat B=2 launches {counts}: bitwise equal to 2 serial calls", flush=True)
+
+    t0 = time.perf_counter()
+    cf4 = aot_compile(bench_cfg, H4K, W4K)
+    built = time.perf_counter() - t0
+    check(cf4.graph_launches == want4, f"4K graph holds launches {cf4.graph_launches}")
+    for _ in range(2):
+        out = cf4(a4, b4)
+        torch.cuda.synchronize()
+        check(torch.equal(out, flows4["compat"]), "4K graph replay differs from the eager kernel path")
+    print(f"phase2d 4K aot_compile {built:.2f} s; the graph holds launches "
+          f"{cf4.graph_launches}; 2 replays bitwise equal to the eager kernel path", flush=True)
+
+    # -- phase 2e: exact tiling at 4K -------------------------------------------
+    rows0 = [stripe_bounds(bench_cfg, H4K, N_STRIPES, i, halo)[0] for i in range(N_STRIPES)]
+    check(rows0 == [0, 544, 1264], f"stripe row0s {rows0}")
+    untiled = dis_flow_padded(a4, b4, bench_cfg)
+    check(torch.equal(untiled, flows4["compat"]), "dis_flow_padded differs from dis_flow at 4K")
+    for label, run in ((f"tiled_flow_exact {N_STRIPES} stripes halo {halo}",
+                        lambda: tiled_flow_exact(a4, b4, bench_cfg, N_STRIPES, halo)),
+                       (f"grid_tiled_flow {N_STRIPES} parts",
+                        lambda: grid_tiled_flow(a4, b4, bench_cfg, N_STRIPES))):
+        for w in wrappers.values():
+            w.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        check(counts["K2c"] == N_STRIPES and counts["K2"] == 3 * N_STRIPES,
+              f"4K {label}: launches {counts}")
+        check(torch.equal(out, untiled), f"4K {label}: differs from the untiled flow")
+        print(f"phase2e 4K {label} (row0 {rows0}): launches {counts}; bitwise equal to "
+              f"untiled", flush=True)
+    del untiled, out
+
     # -- phase 3: times -------------------------------------------------------
     times = {}
+    costs = {"K3": pyramid_cost(a, construct_pyramid(a, 3, p))}
     times["K3"] = (time_ms(lambda: construct_pyramid(a, 3, p)),
                    time_ms(lambda: construct_pyramid(a, 3, p, plain=True)))
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest["compat"]
+    costs["K2"] = extract_cost(l2.img, pos0, 8)
     times["K2"] = (time_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
                    time_ms(lambda: iclk.extract_regions_plain(l2.img, pos0, 8, p)))
     kr = extract_regions(l2.img, pos0, 8, p)
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
+    trips = []
+    iclk.iclk_search_plain(*kr, *args, trips=trips)
+    costs["K1"] = search_cost((*kr, *tpl, Tn, centers, init_u, conv0), iclk_search(*kr, *args),
+                              cfg, trips, int((~conv0).sum()))
     times["K1"] = (time_ms(lambda: iclk_search(*kr, *args)),
                    time_ms(lambda: iclk.iclk_search_plain(*kr, *args)))
     for k, (km, pm) in times.items():
@@ -475,16 +745,46 @@ def main() -> int:
     print(f"phase3b 1080p compat: eager {e:.4f} ms/frame, replayed {r:.4f} ms/frame "
           f"[{card}]", flush=True)
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = kfinest["config3"]
+    costs["K2b"] = extract_cost(l2.img, pos0, 8)
     times["K2b"] = (time_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
                     time_ms(lambda: iclk.extract_regions_plain(l2.img, pos0, 8, p), reps=10))
     kr = extract_regions(l2.img, pos0, 8, p)
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
+    trips = []
+    iclk.iclk_search_plain(*kr, *args, trips=trips)
+    costs["K1b"] = search_cost((*kr, *tpl, Tn, centers, init_u, conv0), iclk_search(*kr, *args),
+                               cfg, trips, int((~conv0).sum()))
     times["K1b"] = (time_ms(lambda: iclk_search(*kr, *args)),
                     time_ms(lambda: iclk.iclk_search_plain(*kr, *args), reps=5, warmup=1))
     for k in ("K2b", "K1b"):
         print(f"phase3b {k} B={nk} N={pos0.shape[1]}: kernel {times[k][0]:.4f} ms "
               f"plain {times[k][1]:.4f} ms [{card}]", flush=True)
     launches.update(kl)
+
+    # -- phase 3c: 4K times ----------------------------------------------------
+    costs["K2c"] = extract_cost(l2_4.img, pos04, 8)
+    times["K2c"] = (time_ms(lambda: extract_regions_banded(l2_4.img, pos04, 8, p, geom4, bound0)),
+                    time_ms(lambda: iclk.extract_regions_plain(l2_4.img, pos04, 8, p),
+                            reps=PLAIN_REPS_4K, warmup=1))
+    k2_4k = time_ms(lambda: extract_regions(l2_4.img, pos04, 8, p))
+    print(f"phase3c 4K finest N={pos04.shape[0]}: K2c {times['K2c'][0]:.4f} ms, K2 "
+          f"{k2_4k:.4f} ms, plain {times['K2c'][1]:.4f} ms, bound "
+          f"{bound(*costs['K2c'])[0]:.4f} ms [{card}]", flush=True)
+    k1_4k = time_ms(lambda: iclk_search(*kc4, tpl4, Tn4, centers4, init4, conv04, bench_cfg,
+                                        W4K, H4K))
+    k3_4k = time_ms(lambda: construct_pyramid(a4, 3, p))
+    print(f"phase3c 4K compat parts of a frame: K1 finest {k1_4k:.4f} ms, K3 one 4-level "
+          f"pyramid {k3_4k:.4f} ms [{card}]", flush=True)
+    for name, cfg in configs.items():
+        cf = cf4 if name == "compat" else aot_compile(cfg, H4K, W4K)
+        e = time_ms(lambda: dt.dis_flow(a4, b4, cfg), reps=10)
+        r = time_ms(lambda: cf(a4, b4), reps=10)
+        print(f"phase3c 4K {name}: eager {e:.4f} ms/frame, replayed {r:.4f} ms/frame "
+              f"[{card}]", flush=True)
+        del cf
+    e = time_ms(lambda: tiled_flow_exact(a4, b4, bench_cfg, N_STRIPES, halo), reps=5, warmup=1)
+    print(f"phase3c 4K compat tiled_flow_exact {N_STRIPES} stripes: eager {e:.4f} ms/frame "
+          f"[{card}]", flush=True)
 
     src = "dis_tpu_torch/csrc/"
     meta = {
@@ -498,12 +798,17 @@ def main() -> int:
                 "dis_tpu/ops/pallas/extract_kernel.py:284", k2b_err),
         "K1b": ("iclk_search_batched", src + "iclk.cu",
                 "dis_tpu/ops/pallas/iclk_kernel.py:573", k1b_err),
+        "K2c": ("extract_regions_banded", src + "extract_banded.cu",
+                "dis_tpu/ops/pallas/extract_kernel.py:163", k2c_err),
     }
-    print(json.dumps({"kernels": [
-        {"name": meta[k][0], "route": "cuda", "source": meta[k][1],
-         "replaces": meta[k][2], "launches": launches[k],
-         "max_abs_err": meta[k][3], "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in ("K3", "K2", "K1", "K2b", "K1b")]}))
+    rows = []
+    for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c"):
+        bound_ms, bound_by = bound(*costs[k])
+        rows.append({"name": meta[k][0], "route": "cuda", "source": meta[k][1],
+                     "replaces": meta[k][2], "launches": launches[k],
+                     "max_abs_err": meta[k][3], "ms": times[k][0], "plain_ms": times[k][1],
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

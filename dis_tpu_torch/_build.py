@@ -1,8 +1,9 @@
 """Builds the port's CUDA kernels and loads them with ``ctypes``.
 
-``dis_tpu_torch/csrc/*.cu`` compile with plain ``nvcc`` into one shared
-library with a C interface (no PyTorch headers, so a build takes
-seconds).  The library lands in ``dis_tpu_torch/_build/`` under a name
+``dis_tpu_torch/csrc/*.cu`` compile with plain ``nvcc``, one process per
+source, all started together, and link into one shared library with a C
+interface (no PyTorch headers, so a build takes seconds).  The library
+lands in ``dis_tpu_torch/_build/`` under a name
 keyed by a hash of the sources and flags, so the first use after a
 change rebuilds and later uses load the cached file.  Nothing here runs
 at import time: the wrappers call :func:`launch` only for CUDA tensors.
@@ -29,15 +30,17 @@ BUILD_DIR = PKG_DIR / "_build"
 # (K3's Sobel magnitude is held to them bitwise, and K1's policing test
 # makes discrete freeze decisions on such sums).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, the trailing stream included.
 SIGNATURES = {
     "dis_pyramid_level": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "dis_extract_regions": [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
+    "dis_extract_regions": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "dis_extract_banded": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P],
     "dis_iclk_search": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _P, _P, _P, _P],
 }
 
@@ -77,15 +80,35 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(s) for s in _sources() if s.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
+    tag = f"{out.name}.{os.getpid()}"
+    tmp = out.with_name(f"{tag}.tmp")
+    compiler = nvcc()
+    jobs = []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [compiler, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    try:
+        for cmd, _, proc in jobs:
+            text = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+            if verbose:
+                print(text, flush=True)
+        cmd = [compiler, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)   # atomic: concurrent builders never load a partial file
     return out
 

@@ -11,7 +11,8 @@
 //       resets u to init_u and freezes the patch;
 //     q = ps x ps bilinear resample from the patch's region, tap base
 //       ceil(pos + 1e-5f) (Q10), column blend then row blend, optionally
-//       minus its mean;
+//       minus its mean (a stripe's row0, the global row of the plane's
+//       first row, moves the y tap base only);
 //     fixed mode: |delta| < conv_eps freezes the patch.
 // A frozen patch never changes, so leaving its loop at once is
 // output-identical to running the full trip count.
@@ -68,7 +69,7 @@ __device__ __forceinline__ float warp_tree_sum(const float (&v)[K]) {
 
 struct Patch {
   const float* reg;  // [rc, rc] in shared memory
-  int rc, ps, pad, by, bx;
+  int rc, ps, pad, row0, by, bx;
 };
 
 // Bilinear resample of the patch at (px, py) into this lane's taps.
@@ -78,7 +79,7 @@ __device__ __forceinline__ void sample(const Patch& P, float px, float py, int l
   const int ps = P.ps, half = ps / 2, span = P.rc - (ps + 1);
   const float a = px - floorf(px), b = py - floorf(py);
   const float a1 = 1.0f - a, b1 = 1.0f - b;
-  const int ws = min(max(dis_ceil_coord(py) + P.pad - half - 1 - P.by, 0), span);
+  const int ws = min(max(dis_ceil_coord(py) + P.pad - P.row0 - half - 1 - P.by, 0), span);
   const int cs = min(max(dis_ceil_coord(px) + P.pad - half - 1 - P.bx, 0), span);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -108,7 +109,8 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
                             const float* __restrict__ Tn, const float* __restrict__ Hinv,
                             const float* __restrict__ centers, const float* __restrict__ init_u,
                             const unsigned char* __restrict__ conv0, long long total, int n,
-                            int ps, int n_iters, int pad, int width, int height, int normalize,
+                            int ps, int n_iters, int pad, int row0, int width, int height,
+                            int normalize,
                             int fixed, float thresh, float conv_eps, float inv_ps2,
                             float* __restrict__ u_out, float* __restrict__ q_out,
                             unsigned char* __restrict__ conv_out) {
@@ -123,7 +125,7 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
   const float* greg = regions + (size_t)i * rc * rc;
   for (int e = lane; e < rc * rc; e += 32) reg[e] = greg[e];
   __syncwarp();
-  const Patch P{reg, rc, ps, pad, base_y[i], base_x[i]};
+  const Patch P{reg, rc, ps, pad, row0, base_y[i], base_x[i]};
 
   float tdx[K], tdy[K], tn[K], q[K];
   const size_t row = (size_t)i * np;
@@ -194,8 +196,8 @@ template <int K>
 int launch(const float* regions, const int* base_y, const int* base_x, const float* T,
            const float* Tdx, const float* Tdy, const float* Tn, const float* Hinv,
            const float* centers, const float* init_u, const unsigned char* conv0, long long total,
-           int n, int ps, int n_iters, int pad, int width, int height, int normalize, int fixed,
-           float thresh, float conv_eps, float inv_ps2, float* u_out, float* q_out,
+           int n, int ps, int n_iters, int pad, int row0, int width, int height, int normalize,
+           int fixed, float thresh, float conv_eps, float inv_ps2, float* u_out, float* q_out,
            unsigned char* conv_out, cudaStream_t stream) {
   const int rc = 2 * ps + 3;
   const int region_bytes = rc * rc * (int)sizeof(float);
@@ -203,8 +205,8 @@ int launch(const float* regions, const int* base_y, const int* base_x, const flo
   const unsigned blocks = (unsigned)((total + warps - 1) / warps);
   iclk_kernel<K><<<blocks, warps * 32, warps * region_bytes, stream>>>(
       regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, total, n, ps,
-      n_iters, pad, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, u_out, q_out,
-      conv_out);
+      n_iters, pad, row0, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, u_out,
+      q_out, conv_out);
   return (int)cudaGetLastError();
 }
 
@@ -214,14 +216,15 @@ int launch(const float* regions, const int* base_y, const int* base_x, const flo
 // int32; T/Tdx/Tdy/Tn [nb, n, ps^2] (Tn read only when fixed != 0); Hinv
 // [nb, n, 2, 2]; init_u [nb, n, 2]; conv0 [nb, n] bool; centers [n, 2],
 // shared by the pairs.  Outputs u [nb, n, 2], q [nb, n, ps^2], conv [nb, n]
-// bool.  ps^2 <= 512.  Returns cudaGetLastError() after the launch (nb * n = 0
-// launches nothing).
+// bool.  row0 is the global row of the first row of the plane the regions
+// came from.  ps^2 <= 512.  Returns cudaGetLastError() after the launch
+// (nb * n = 0 launches nothing).
 extern "C" int dis_iclk_search(const float* regions, const int* base_y, const int* base_x,
                                const float* T, const float* Tdx, const float* Tdy,
                                const float* Tn, const float* Hinv, const float* centers,
                                const float* init_u, const unsigned char* conv0, int nb, int n,
-                               int ps, int n_iters, int pad, int width, int height,
-                               int normalize, int fixed, float thresh, float conv_eps,
+                               int ps, int n_iters, int pad, int row0, int width,
+                               int height, int normalize, int fixed, float thresh, float conv_eps,
                                float inv_ps2, float* u_out, float* q_out,
                                unsigned char* conv_out, cudaStream_t stream) {
   const long long total = (long long)nb * n;
@@ -229,7 +232,7 @@ extern "C" int dis_iclk_search(const float* regions, const int* base_y, const in
   const int np = ps * ps;
 #define DIS_ICLK_LAUNCH(KK)                                                                   \
   return launch<KK>(regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, \
-                    total, n, ps, n_iters, pad, width, height, normalize, fixed, thresh,     \
+                    total, n, ps, n_iters, pad, row0, width, height, normalize, fixed, thresh, \
                     conv_eps, inv_ps2, u_out, q_out, conv_out, stream)
   if (np <= 32) DIS_ICLK_LAUNCH(1);
   if (np <= 64) DIS_ICLK_LAUNCH(2);

@@ -3,22 +3,30 @@ of ``dis_tpu/models/dis.py``.
 
 ``flow = dis_flow(img1, img2, cfg)`` runs on the device of its inputs:
 on CUDA tensors every pyramid level, region extraction and search goes
-through the hand-written kernels K3, K2 and K1; on CPU tensors through
-their plain PyTorch versions.  Scale shapes are static and the scale loop
-is a Python loop.
+through the hand-written kernels K3, K2 (K2c where the extraction route
+says so: the 4K finest scale) and K1; on CPU tensors through their plain
+PyTorch versions.  Scale shapes are static and the scale loop is a Python
+loop.
 
 A batch of same-shape pairs ``[B, H, W]`` runs the same loop once, with
 the pair axis leading every tensor: one K3 launch per level and image,
-one K2 (K2b) and one K1 (K1b) launch per scale, whatever B is.  Each pair
-of a batch gets the bits it gets alone.  Each scale's constants come from
-its plan (``ops/grid.py::scale_plan``), made once per shape and device,
-so a frame makes no host-to-device copy and no host sync, and can be
-captured in a CUDA graph (``serving.py``).
+one K2 (K2b or K2c) and one K1 (K1b) launch per scale, whatever B is.
+Each pair of a batch gets the bits it gets alone.  Each scale's constants
+come from its plan (``ops/grid.py::scale_plan``), made once per shape and
+device, so a frame makes no host-to-device copy and no host sync, and can
+be captured in a CUDA graph (``serving.py``).
+
+Exact tiling (``parallel/tiles.py``) runs one scale on a window of
+output rows (:func:`dis_scale_window`) or the whole pipeline on a row
+stripe of the frame (:func:`dis_flow_stripe`).  All geometry stays
+global, so each is bitwise those rows of the untiled flow.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,7 +34,7 @@ from ..config import DISConfig
 from ..ops import iclk
 from ..ops import image as im
 from ..ops.densify import densify
-from ..ops.grid import ScalePlan, init_from_coarser_flow, scale_plan
+from ..ops.grid import ScalePlan, init_from_coarser_flow, make_grid, scale_plan
 from ..ops.pyramid import construct_pyramid
 
 
@@ -55,25 +63,83 @@ def motion_bound(cfg: DISConfig, scale: int) -> float:
     return b
 
 
-def dis_scale_window(l1, l2, flow_coarse, cfg: DISConfig,
-                     plain: bool = False):
-    """One scale over the full frame: templates, the NN init from the
-    coarser dense flow (None at the coarsest scale), the IC-LK search and
-    densification.  Levels and flows may lead with a pair axis.  Returns
-    (flow [(B,) h_s, w_s, 2], geom, SearchResult)."""
-    sw, sh = l1.width, l1.height
-    plan = scale_plan(sw, sh, cfg.steps, cfg.patch_size, l1.img.device)
-    tpl = iclk.extract_templates_grid(l1.img, l1.dx, l1.dy, plan.geom,
-                                      cfg.patch_size, cfg.img_padding)
+def init_bound(cfg: DISConfig, scale: int) -> Optional[float]:
+    """The static bound on ``|init_u|`` at ``scale``: zero at the coarsest
+    scale, else twice the policing-chain bound of the coarser scale; None
+    where per-level refinement without the clamp rewrites the init (not
+    ported yet: the extraction route raises there)."""
+    if scale == cfg.coarsest_scale:
+        return 0.0
+    refined = cfg.refinement_iters > 0 and cfg.refine_per_level
+    if refined and not cfg.refined_init_clamp:
+        return None
+    return 2.0 * motion_bound(cfg, scale + 1)
+
+
+def window_patch_rows(cfg: DISConfig, gh_s: int, win_lo: int,
+                      win_hi: int) -> Tuple[int, int]:
+    """Global patch-row range [iy0, iy1) whose ps x ps footprints
+    intersect output rows [win_lo, win_hi) at a scale of global height
+    ``gh_s``.  A patch at center ``cy`` covers rows
+    ``[cy - ps/2, cy + ps/2 - 1]`` (patch_grid.cpp:132-165)."""
+    half = cfg.patch_size // 2
+    steps = cfg.steps
+    num_h = math.ceil(gh_s / steps)
+    offh = math.floor((gh_s - (num_h - 1) * steps) / 2)
+    iy0 = max(0, math.ceil((win_lo - half + 1 - offh) / steps))
+    iy1 = min(num_h, math.floor((win_hi - 1 + half - offh) / steps) + 1)
+    return iy0, iy1
+
+
+def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
+           iy_range, window, row0: int = 0, coarse_row_offset: int = 0,
+           plain: bool = False):
+    """One scale for the global patch rows ``iy_range`` and output rows
+    ``window`` of a level of global height ``gh_s``, whose planes start at
+    global row ``row0``: templates, the NN init from the coarser flow
+    (None at the coarsest scale; its first row is global row
+    ``coarse_row_offset``), the IC-LK search and densification."""
+    sw = l1.width
+    ps, pad = cfg.patch_size, cfg.img_padding
+    plan = scale_plan(sw, gh_s, cfg.steps, ps, l1.img.device, iy_range, window)
+    tpl = iclk.extract_templates_grid(l1.img, l1.dx, l1.dy, plan.geom, ps, pad, row0)
     if flow_coarse is None:
         init_u = plan.centers.new_zeros(tpl.T.shape[:-1] + (2,))
     else:
-        init_u = init_from_coarser_flow(plan, flow_coarse)
-    res = iclk.inverse_search(l2.img, tpl, plan.centers, init_u, cfg, sw, sh,
-                              plain=plain)
+        init_u = init_from_coarser_flow(plan, flow_coarse, coarse_row_offset)
+    res = iclk.inverse_search(l2.img, tpl, plan.centers, init_u, cfg, sw, gh_s,
+                              row0=row0, geom=plan.geom,
+                              init_bound=init_bound(cfg, scale), plain=plain)
     wts = _fixed_weights(res, tpl, cfg) if cfg.mode == "fixed" else None
-    flow = densify(res.u, plan, wts)
-    return flow, plan.geom, res
+    return densify(res.u, plan, wts), plan.geom, res
+
+
+def dis_scale_window(l1, l2, flow_coarse, cfg: DISConfig, scale: int,
+                     win_lo: int, win_hi: int, plain: bool = False):
+    """One scale of the pipeline restricted to output rows [win_lo,
+    win_hi): templates and the IC-LK search for exactly the patches whose
+    footprint touches the window, then densification of the window rows,
+    all against FULL-frame level planes and the FULL coarser dense flow
+    (None at the coarsest scale).  Levels and flows may lead with a pair
+    axis.  Bitwise equal to rows [win_lo, win_hi) of the untiled scale
+    (``dis_flow_padded`` runs it with the full window).  Returns
+    (flow [(B,) win_hi - win_lo, w_s, 2], geom, SearchResult)."""
+    gh_s = l1.height
+    return _scale(l1, l2, flow_coarse, cfg, scale, gh_s,
+                  window_patch_rows(cfg, gh_s, win_lo, win_hi), (win_lo, win_hi),
+                  plain=plain)
+
+
+def scale_extraction_route(cfg: DISConfig, width: int, height: int,
+                           scale: int) -> str:
+    """The extraction kernel (``ops/iclk.py::extraction_route``: "K2" or
+    "K2c") the pipeline launches at ``scale`` for a padded [height, width]
+    frame, derived from static shapes alone."""
+    sw, sh = width >> scale, height >> scale
+    geom = make_grid(sw, sh, cfg.steps)
+    pad = cfg.img_padding
+    return iclk.extraction_route(cfg, (sh + 2 * pad, sw + 2 * pad),
+                                 geom.num_w * geom.num_h, init_bound(cfg, scale))
 
 
 def flow_plans(cfg: DISConfig, height: int, width: int,
@@ -137,8 +203,99 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
     pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        flow, _, _ = dis_scale_window(pyr1[scale], pyr2[scale], flow, cfg,
-                                      plain=plain)
+        flow, _, _ = dis_scale_window(pyr1[scale], pyr2[scale], flow, cfg, scale,
+                                      0, pyr1[scale].height, plain=plain)
+    return flow
+
+
+def _stripe_plan(cfg: DISConfig, global_h: int, own_r0: int, own_h: int):
+    """Per-scale (patch-row range, flow-output window) for a stripe that
+    must emit global rows [own_r0, own_r0 + own_h) at the finest scale.
+    Windows propagate coarser through the nearest-neighbor init lookup
+    (floor(cy/2), quirk Q8); patch ranges cover every footprint that
+    touches the scale's output window."""
+    steps = cfg.steps
+    win = {cfg.finest_scale: (own_r0 >> cfg.finest_scale,
+                              (own_r0 + own_h) >> cfg.finest_scale)}
+    iy = {}
+    for s in range(cfg.finest_scale, cfg.coarsest_scale + 1):
+        gh_s = global_h >> s
+        num_h = math.ceil(gh_s / steps)
+        offh = math.floor((gh_s - (num_h - 1) * steps) / 2)
+        iy0, iy1 = iy[s] = window_patch_rows(cfg, gh_s, *win[s])
+        if s < cfg.coarsest_scale:
+            cmin = iy0 * steps + offh
+            cmax = (iy1 - 1) * steps + offh
+            win[s + 1] = (cmin // 2, cmax // 2 + 1)
+    return iy, win
+
+
+def validate_stripe_geometry(cfg: DISConfig, width: int, global_h: int,
+                             row0: int, ext_h: int, own_r0: int,
+                             own_h: int) -> None:
+    """Static check that a stripe's halo covers every included patch's
+    sampling reach and stencil margins; raises ValueError otherwise."""
+    iy_plan, _ = _stripe_plan(cfg, global_h, own_r0, own_h)
+    ps = cfg.patch_size
+    stencil_margin = 4  # pyramid edge contamination per level (bounded)
+    for s in range(cfg.finest_scale, cfg.coarsest_scale + 1):
+        r0_s = row0 >> s
+        eh_s = ext_h >> s
+        gh_s = global_h >> s
+        iy0, iy1 = iy_plan[s]
+        if iy0 >= iy1:
+            continue
+        num_h = math.ceil(gh_s / cfg.steps)
+        offh = math.floor((gh_s - (num_h - 1) * cfg.steps) / 2)
+        cmin = iy0 * cfg.steps + offh
+        cmax = (iy1 - 1) * cfg.steps + offh
+        reach = motion_bound(cfg, s) + ps + 3
+        lo_ok = (r0_s == 0) or (cmin - reach >= r0_s + stencil_margin)
+        hi_ok = (r0_s + eh_s == gh_s) or (
+            cmax + reach < r0_s + eh_s - stencil_margin)
+        if not (lo_ok and hi_ok):
+            raise ValueError(
+                f"stripe halo too small at scale {s}: patches "
+                f"[{cmin},{cmax}] need +/-{reach:.0f} rows inside "
+                f"[{r0_s},{r0_s + eh_s}) of {gh_s}")
+
+
+def dis_flow_stripe(img1_ext: torch.Tensor, img2_ext: torch.Tensor,
+                    cfg: DISConfig, row0: int, own_r0: int, own_h: int,
+                    global_h: int, plain: bool = False) -> torch.Tensor:
+    """Exact tiled execution: flow for global rows [own_r0, own_r0 +
+    own_h) from an extended stripe [(B,) ext_h, W] holding global rows
+    [row0, row0 + ext_h) of a divisibility-padded frame.
+
+    All geometry (patch grid, policing bounds, densification windows) is
+    GLOBAL; the stripe only localizes the image planes (``row0`` moves
+    the y tap base of the templates, K2/K2c and K1), so the result is
+    bitwise those rows of ``dis_flow_padded``.  ``row0``, ``ext_h``,
+    ``own_r0``, ``own_h`` and ``global_h`` must be multiples of
+    ``2**coarsest_scale``; the halo must cover the per-scale motion bound
+    plus stencil margins (checked, ValueError otherwise).  Refinement is
+    a global stencil that a stripe never runs: its config fields are
+    ignored here, as in the JAX package, and the tiling layer refuses
+    them.  Returns [(B,) own_h >> finest, W >> finest, 2]."""
+    _check_pair(img1_ext, img2_ext)
+    ext_h, w = img1_ext.shape[-2:]
+    f = 2 ** cfg.coarsest_scale
+    for name, v in [("row0", row0), ("ext_h", ext_h), ("own_r0", own_r0),
+                    ("own_h", own_h), ("global_h", global_h)]:
+        if v % f:
+            raise ValueError(f"{name}={v} must be divisible by {f}")
+    if cfg.refinement_iters > 0:
+        cfg = dataclasses.replace(cfg, refinement_iters=0)
+    iy_plan, win_plan = _stripe_plan(cfg, global_h, own_r0, own_h)
+    validate_stripe_geometry(cfg, w, global_h, row0, ext_h, own_r0, own_h)
+    pyr1 = construct_pyramid(img1_ext, cfg.coarsest_scale, cfg.img_padding, plain)
+    pyr2 = construct_pyramid(img2_ext, cfg.coarsest_scale, cfg.img_padding, plain)
+    flow = None
+    for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+        coarse_r0 = 0 if flow is None else win_plan[scale + 1][0]
+        flow, _, _ = _scale(pyr1[scale], pyr2[scale], flow, cfg, scale,
+                            global_h >> scale, iy_plan[scale], win_plan[scale],
+                            row0 >> scale, coarse_r0, plain)
     return flow
 
 

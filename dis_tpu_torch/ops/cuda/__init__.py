@@ -1,5 +1,6 @@
 """Wrappers of the hand-written CUDA kernels K1-K3 (K2 and K1 with their
-batched forms K2b and K1b: a leading pair axis on their inputs).
+batched forms K2b and K1b: a leading pair axis on their inputs) and K2c,
+the column-banded form of K2.
 
 Each wrapper takes its kernel's plain PyTorch version when every input
 tensor lies on the CPU; otherwise it checks the inputs (CUDA, one

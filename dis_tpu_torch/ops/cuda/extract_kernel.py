@@ -18,12 +18,13 @@ from ..iclk import extract_regions_plain, region_size
 from . import all_on_cpu, check_input
 
 
-def extract_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int):
+def extract_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int,
+                    row0: int = 0):
     """(regions [(B,) N, rc, rc], base_y [(B,) N] int32, base_x [(B,) N]
-    int32) for the padded level plane ``img2`` [(B,) th, tw] and start
-    positions ``pos0`` [(B,) N, 2]."""
+    int32) for the padded level plane ``img2`` [(B,) th, tw], whose first
+    row is global row ``row0``, and start positions ``pos0`` [(B,) N, 2]."""
     if all_on_cpu(img2, pos0):
-        return extract_regions_plain(img2, pos0, ps, pad)
+        return extract_regions_plain(img2, pos0, ps, pad, row0)
     dev = img2.device
     if img2.ndim not in (2, 3) or pos0.ndim != img2.ndim:
         raise ValueError(f"img2 {tuple(img2.shape)} and pos0 {tuple(pos0.shape)}: "
@@ -43,7 +44,7 @@ def extract_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int):
     if nb * n == 0:
         return regions, base_y, base_x
     _build.launch("dis_extract_regions", dev, img2.data_ptr(), nb, th, tw,
-                  pos0.data_ptr(), n, ps, pad, regions.data_ptr(),
+                  pos0.data_ptr(), n, ps, pad, row0, regions.data_ptr(),
                   base_y.data_ptr(), base_x.data_ptr())
     extract_regions.launches += 1
     return regions, base_y, base_x

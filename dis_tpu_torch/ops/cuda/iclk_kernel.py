@@ -29,11 +29,12 @@ def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
                 base_x: torch.Tensor, tpl: PatchTemplates,
                 Tn: Optional[torch.Tensor], centers: torch.Tensor,
                 init_u: torch.Tensor, conv0: torch.Tensor, cfg: DISConfig,
-                width: int, height: int):
+                width: int, height: int, row0: int = 0):
     """(u [(B,) N, 2], Q [(B,) N, ps*ps], converged [(B,) N] bool).
     ``Tn`` is the fixed-mode residual template (None in compat mode).
     Every per-patch input carries the pair axis of ``init_u`` [(B,) N, 2];
-    ``centers`` [N, 2] is shared by the pairs."""
+    ``centers`` [N, 2] is shared by the pairs.  ``row0`` is the global row
+    of the first row of the plane the regions came from."""
     fixed = cfg.mode == "fixed"
     tensors = [regions, base_y, base_x, *tpl, centers, init_u, conv0]
     if fixed:
@@ -42,7 +43,7 @@ def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
         tensors.append(Tn)
     if all_on_cpu(*tensors):
         return iclk_search_plain(regions, base_y, base_x, tpl, Tn, centers,
-                                 init_u, conv0, cfg, width, height)
+                                 init_u, conv0, cfg, width, height, row0)
     ps = cfg.patch_size
     np_ = ps * ps
     if np_ > MAX_TAPS:
@@ -78,7 +79,7 @@ def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
         base_x.data_ptr(), tpl.T.data_ptr(), tpl.Tdx.data_ptr(),
         tpl.Tdy.data_ptr(), Tn.data_ptr() if fixed else None,
         tpl.Hinv.data_ptr(), centers.data_ptr(), init_u.data_ptr(),
-        conv0.data_ptr(), nb, n, ps, cfg.iterations + 1, cfg.img_padding, width,
+        conv0.data_ptr(), nb, n, ps, cfg.iterations + 1, cfg.img_padding, row0, width,
         height, int(cfg.patch_normalization), int(fixed),
         cfg.outlier_thresh, cfg.conv_eps, inv_taps(ps), u.data_ptr(),
         Q.data_ptr(), conv.data_ptr())

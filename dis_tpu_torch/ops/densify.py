@@ -9,7 +9,11 @@ rows covering it, then each output column sums the grid columns
 covering it, each in increasing grid order -- the order of the JAX
 package's phase stencil.  Deterministic, with no atomics and no cuDNN.
 The cover indices and the uniform weight plane come from the scale's
-plan (``ops/grid.py::scale_plan``), already on the device.  A leading
+plan (``ops/grid.py::scale_plan``), already on the device.  A plan made
+for a window of output rows (exact tiling) densifies only those rows
+from its row-ranged grid, each row summing the same grid rows in the
+same order as the untiled run, so the window is bitwise those rows of
+the untiled flow (``dis_tpu/ops/densify.py`` ``out_row0``).  A leading
 pair axis passes through every step, so a batch of pairs sums in the
 same order as one pair.
 """
@@ -40,7 +44,8 @@ def _stencil(x: torch.Tensor, plan: ScalePlan) -> torch.Tensor:
 
 def densify(u: torch.Tensor, plan: ScalePlan,
             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dense flow [..., height, width, 2] from per-patch ``u`` [..., N, 2].
+    """Dense flow [..., out_h, width, 2] over the plan's output window
+    from per-patch ``u`` [..., N, 2].
 
     ``weights`` is an optional per-patch weight [..., N] (fixed mode:
     ``1/max(1, ||r||^2)``); None is the reference's uniform weight (Q6),

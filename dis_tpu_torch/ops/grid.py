@@ -4,21 +4,27 @@ counterpart of ``dis_tpu/ops/grid.py``.
 Patch centers at ``i * steps + offset`` with centered offsets; grid size
 ``ceil(dim / steps)`` per axis.  The geometry is NumPy, computed on the
 host per (shape, config).  ``make_grid`` is a copy of the JAX package's
-framework-free function restricted to the full grid (the port has no
-row-ranged stripes yet); ``tests/test_torch_iclk.py`` holds the copy equal.
+framework-free function; ``tests/test_torch_iclk.py`` holds the copy
+equal.
+
+For exact tiling a grid can be restricted to a contiguous range of
+GLOBAL patch rows (``iy_range``): centers stay in global coordinates,
+and densification writes a window of output rows starting at global row
+``out_row0``, so a stripe or a window computes exactly the patches and
+rows the untiled run would.
 
 Every constant a scale needs (centers, the NN-init picks, densify's cover
 indices and uniform weight plane) is made once per (shape, stride, patch
-size, device) by :func:`scale_plan` and kept on the device, so a frame
-makes no host-to-device copy after the first one of its shape (a CUDA
-graph cannot capture such a copy).
+size, row range, output window, device) by :func:`scale_plan` and kept on
+the device, so a frame makes no host-to-device copy after the first one
+of its shape (a CUDA graph cannot capture such a copy).
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,24 +32,32 @@ import torch
 
 class GridGeometry(NamedTuple):
     num_w: int          # patches along x
-    num_h: int          # patches along y
-    offset_w: int       # x offset of patch centers
-    offset_h: int       # y offset of patch centers
+    num_h: int          # patches along y (local count when row-ranged)
+    offset_w: int       # global x offset of patch centers
+    offset_h: int       # global y offset of patch centers
     steps: int
-    centers: np.ndarray  # [N, 2] float32 (x, y), x-outer order
+    centers: np.ndarray  # [N, 2] float32 (x, y) GLOBAL coords, x-outer order
+    iy0: int = 0        # first global patch-row index in this grid
+    global_num_h: int = -1  # full grid rows (== num_h when untiled)
 
 
-def make_grid(width: int, height: int, steps: int) -> GridGeometry:
-    """Grid over a [height, width] image."""
+def make_grid(width: int, height: int, steps: int,
+              iy_range: Optional[Tuple[int, int]] = None) -> GridGeometry:
+    """Grid over a [height, width] image; optionally only global patch
+    rows [iy0, iy1)."""
     num_w = int(math.ceil(width / steps))
-    num_h = int(math.ceil(height / steps))
+    gnum_h = int(math.ceil(height / steps))
     off_w = int(math.floor((width - (num_w - 1) * steps) / 2))
-    off_h = int(math.floor((height - (num_h - 1) * steps) / 2))
+    off_h = int(math.floor((height - (gnum_h - 1) * steps) / 2))
+    iy0, iy1 = (0, gnum_h) if iy_range is None else iy_range
+    iy0 = max(0, iy0)
+    iy1 = min(gnum_h, iy1)
     xs = np.arange(num_w) * steps + off_w
-    ys = np.arange(num_h) * steps + off_h
+    ys = np.arange(iy0, iy1) * steps + off_h
     cx, cy = np.meshgrid(xs, ys, indexing="ij")
     centers = np.stack([cx.ravel(), cy.ravel()], -1).astype(np.float32)
-    return GridGeometry(num_w, num_h, off_w, off_h, steps, centers)
+    return GridGeometry(num_w, iy1 - iy0, off_w, off_h, steps, centers,
+                        iy0=iy0, global_num_h=gnum_h)
 
 
 def _cover(n_out: int, n_grid: int, off: int, s: int, ps: int):
@@ -84,47 +98,70 @@ def _uniform_wsum(geom_key, width: int, height: int, ps: int,
 
 
 class ScalePlan(NamedTuple):
-    """The constants of one scale, on one device."""
+    """The constants of one scale (or one row window of it), on one device."""
     geom: GridGeometry
     centers: torch.Tensor       # [N, 2] float32, x-outer order
-    nn_rows: torch.Tensor       # [num_h] int64: coarser-flow row per patch row
+    nn_rows: torch.Tensor       # [num_h] int64: global coarser-flow row per patch row
     nn_cols: torch.Tensor       # [num_w] int64: coarser-flow column per patch column
-    cover_rows: torch.Tensor    # [height, K] int64 grid rows covering each row
+    cover_rows: torch.Tensor    # [out_h, K] int64 local grid rows covering each row
     cover_cols: torch.Tensor    # [width, K] int64 grid columns covering each column
-    uniform_wsum: torch.Tensor  # [height, width, 1] float32 coverage counts
+    uniform_wsum: torch.Tensor  # [out_h, width, 1] float32 coverage counts
+
+
+def scale_plan(width: int, height: int, steps: int, ps: int,
+               device: torch.device,
+               iy_range: Optional[Tuple[int, int]] = None,
+               out_window: Optional[Tuple[int, int]] = None) -> ScalePlan:
+    """The plan of a level of global size [height, width] with patch
+    stride ``steps`` and patch size ``ps`` on ``device``: the grid's
+    global patch rows ``iy_range`` (default all) and densify's output
+    rows ``out_window = (lo, hi)`` (default all).  Made at its first use
+    and kept for the life of the process (a few MB at the 1080p finest
+    scale, one plan per level shape and window the process meets).  Plans
+    are never evicted: a CUDA graph captured over them reads their memory
+    at every replay.  The arguments are normalized first, so the full
+    grid and window give the same object however they are spelled."""
+    gnum_h = int(math.ceil(height / steps))
+    iy0, iy1 = (0, gnum_h) if iy_range is None else iy_range
+    iy0, iy1 = max(0, iy0), min(gnum_h, iy1)
+    lo, hi = (0, height) if out_window is None else out_window
+    return _plan(width, height, steps, ps, torch.device(device), iy0,
+                 max(iy0, iy1), lo, hi)
 
 
 @functools.cache
-def scale_plan(width: int, height: int, steps: int, ps: int,
-               device: torch.device) -> ScalePlan:
-    """The plan of a [height, width] level with patch stride ``steps`` and
-    patch size ``ps`` on ``device``, made at its first use and kept for
-    the life of the process (a few MB at the 1080p finest scale, one plan
-    per level shape the process meets).  Plans are never evicted: a CUDA
-    graph captured over them reads their memory at every replay."""
-    geom = make_grid(width, height, steps)
+def _plan(width: int, height: int, steps: int, ps: int, device: torch.device,
+          iy0: int, iy1: int, out_lo: int, out_hi: int) -> ScalePlan:
+    geom = make_grid(width, height, steps, iy_range=(iy0, iy1))
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     cxs = (np.arange(geom.num_w) * steps + geom.offset_w) // 2
-    cys = (np.arange(geom.num_h) * steps + geom.offset_h) // 2
-    key = (geom.num_w, geom.num_h, geom.offset_w, geom.offset_h, steps, 0)
+    cys = (np.arange(iy0, iy1) * steps + geom.offset_h) // 2
+    out_h = out_hi - out_lo
+    key = (geom.num_w, geom.num_h, geom.offset_w, geom.offset_h, steps, iy0)
+    # Densify's output row y (local to the window) is covered by local
+    # grid row g at global center (iy0 + g) * s + off_h, so the row
+    # offset the cover sees is iy0 * s + off_h - out_lo.
     return ScalePlan(
         geom=geom, centers=put(geom.centers), nn_rows=put(cys), nn_cols=put(cxs),
-        cover_rows=put(_cover(height, geom.num_h, geom.offset_h, steps, ps)),
+        cover_rows=put(_cover(out_h, geom.num_h, iy0 * steps + geom.offset_h - out_lo,
+                              steps, ps)),
         cover_cols=put(_cover(width, geom.num_w, geom.offset_w, steps, ps)),
-        uniform_wsum=put(_uniform_wsum(key, width, height, ps, 0)))
+        uniform_wsum=put(_uniform_wsum(key, width, out_h, ps, out_lo)))
 
 
-def init_from_coarser_flow(plan: ScalePlan,
-                           flow_coarse: torch.Tensor) -> torch.Tensor:
+def init_from_coarser_flow(plan: ScalePlan, flow_coarse: torch.Tensor,
+                           coarse_row_offset: int = 0) -> torch.Tensor:
     """Nearest-neighbor init from the coarser scale's dense flow
     [..., hc, wc, 2], x2 (patch_grid.cpp:108-119, quirk Q8): one row pick
     and one column pick (the centers form a regular lattice), then the
-    x-outer flatten to [..., N, 2].  Pure copies and an exact x2; a
-    leading pair axis passes through."""
-    rows = flow_coarse.index_select(-3, plan.nn_rows)
+    x-outer flatten to [..., N, 2].  When ``flow_coarse`` is a window of
+    rows, ``coarse_row_offset`` is its first global row.  Pure copies and
+    an exact x2; a leading pair axis passes through."""
+    rows_idx = plan.nn_rows if coarse_row_offset == 0 else plan.nn_rows - coarse_row_offset
+    rows = flow_coarse.index_select(-3, rows_idx)
     sub = rows.index_select(-2, plan.nn_cols)              # [..., nh, nw, 2]
     n = plan.geom.num_w * plan.geom.num_h
     return sub.transpose(-3, -2).reshape(*sub.shape[:-3], n, 2) * 2.0

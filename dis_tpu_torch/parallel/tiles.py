@@ -1,0 +1,110 @@
+"""Exact spatial tiling of one frame on one device; counterpart of the
+single-controller engines of ``dis_tpu/parallel/tiles.py``.
+
+:func:`tiled_flow_exact` computes a divisibility-padded frame as row
+stripes (:func:`dis_tpu_torch.models.dis.dis_flow_stripe`, each stripe
+with a halo) and :func:`grid_tiled_flow` splits each scale's patch grid
+and output rows (:func:`dis_tpu_torch.models.dis.dis_scale_window`).
+Both keep all geometry global, so the stitched flow is bitwise the
+untiled ``dis_flow_padded``.  At 4K each stripe's finest scale takes the
+column-banded extraction kernel K2c with its own ``row0``.
+
+Variational refinement is a global stencil and is not ported yet: both
+engines raise for it, as ``dis_flow`` does.  The multi-GPU forms
+(``exchange_halo``, ``tiled_flow_fn``, ``grid_tiled_flow_fn``) wait for
+ROADMAP.md queue 1, item 13.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+from ..config import DISConfig
+from ..models.dis import (_check_pair, _check_supported, dis_flow_stripe,
+                          dis_scale_window, validate_stripe_geometry)
+from ..ops.pyramid import construct_pyramid
+
+
+def stripe_bounds(cfg: DISConfig, height: int, n: int, idx: int,
+                  halo: int) -> Tuple[int, int, int, int]:
+    """(row0, ext_h, own_r0, own_h) for stripe ``idx`` of ``n`` with the
+    given halo, clamped at the frame edges."""
+    own_h = height // n
+    own_r0 = idx * own_h
+    row0 = max(0, own_r0 - halo)
+    ext_hi = min(height, own_r0 + own_h + halo)
+    return row0, ext_hi - row0, own_r0, own_h
+
+
+def min_stripe_halo(cfg: DISConfig, width: int, height: int, n: int) -> int:
+    """Smallest halo (a multiple of 2**coarsest) for which every stripe of
+    an n-way split passes :func:`validate_stripe_geometry`.  A split whose
+    stripe height is not a multiple of 2**coarsest finds none short of
+    whole-frame stripes."""
+    f = 2 ** cfg.coarsest_scale
+    for halo in range(f, height + f, f):
+        try:
+            for i in range(n):
+                validate_stripe_geometry(cfg, width, height,
+                                         *stripe_bounds(cfg, height, n, i, halo))
+            return halo
+        except ValueError:
+            continue
+    raise ValueError(f"no viable halo for {n} stripes of height {height}")
+
+
+def window_partition(gh: int, n: int) -> List[Tuple[int, int]]:
+    """``gh`` rows in ``n`` contiguous windows, as even as possible (the
+    first ``gh % n`` windows get one extra row)."""
+    base, rem = divmod(gh, n)
+    out, lo = [], 0
+    for i in range(n):
+        hi = lo + base + (1 if i < rem else 0)
+        out.append((lo, hi))
+        lo = hi
+    return out
+
+
+def grid_tiled_flow(img1: torch.Tensor, img2: torch.Tensor, cfg: DISConfig,
+                    n_parts: int, plain: bool = False) -> torch.Tensor:
+    """Exact grid-tiled flow of a divisibility-padded pair [(B,) H, W]: the
+    images stay whole, each scale's patch grid and output rows are split
+    ``n_parts`` ways (one extraction and one search launch per part and
+    scale) and the parts are concatenated.  Bitwise equal to
+    ``dis_flow_padded``."""
+    _check_pair(img1, img2)
+    _check_supported(cfg)
+    h = img1.shape[-2]
+    if (h >> cfg.finest_scale) < n_parts:
+        raise ValueError(f"cannot split {h >> cfg.finest_scale} output "
+                         f"rows into {n_parts} parts")
+    pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
+    pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
+    flow = None
+    for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+        l1, l2 = pyr1[scale], pyr2[scale]
+        parts = [dis_scale_window(l1, l2, flow, cfg, scale, lo, hi, plain=plain)[0]
+                 for lo, hi in window_partition(h >> scale, n_parts)]
+        flow = torch.cat(parts, dim=-3)
+    return flow
+
+
+def tiled_flow_exact(img1: torch.Tensor, img2: torch.Tensor, cfg: DISConfig,
+                     n_stripes: int, halo: int, plain: bool = False) -> torch.Tensor:
+    """Exact row-stripe flow of a divisibility-padded pair [(B,) H, W]:
+    ``n_stripes`` stripes, each extended by ``halo`` rows (see
+    :func:`min_stripe_halo`), through :func:`dis_flow_stripe`, then
+    concatenated.  Bitwise equal to ``dis_flow_padded``."""
+    _check_pair(img1, img2)
+    _check_supported(cfg)
+    h = img1.shape[-2]
+    outs = []
+    for i in range(n_stripes):
+        row0, ext_h, own_r0, own_h = stripe_bounds(cfg, h, n_stripes, i, halo)
+        outs.append(dis_flow_stripe(
+            img1[..., row0:row0 + ext_h, :].contiguous(),
+            img2[..., row0:row0 + ext_h, :].contiguous(), cfg,
+            row0=row0, own_r0=own_r0, own_h=own_h, global_h=h, plain=plain))
+    return torch.cat(outs, dim=-3)

@@ -27,6 +27,7 @@ import torch
 from . import _build
 from .config import DISConfig
 from .models.dis import _check_supported, dis_flow, flow_plans
+from .ops.cuda.extract_banded_kernel import extract_regions_banded
 from .ops.cuda.extract_kernel import extract_regions
 from .ops.cuda.iclk_kernel import iclk_search
 from .ops.cuda.pyramid_kernel import pyramid_level
@@ -134,4 +135,4 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
 
 def _launch_counts() -> Dict[str, int]:
     return {"K3": pyramid_level.launches, "K2": extract_regions.launches,
-            "K1": iclk_search.launches}
+            "K2c": extract_regions_banded.launches, "K1": iclk_search.launches}

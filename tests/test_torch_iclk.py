@@ -45,11 +45,13 @@ def _levels(h, w, ps, seed):
 
 
 @pytest.mark.parametrize("w,h,steps", [(96, 64, 5), (53, 37, 3), (240, 136, 2)])
-def test_make_grid_matches(w, h, steps):
-    jg = jgrid.make_grid(w, h, steps)
-    tg = tgrid.make_grid(w, h, steps)
-    assert (tg.num_w, tg.num_h, tg.offset_w, tg.offset_h, tg.steps) == \
-        (jg.num_w, jg.num_h, jg.offset_w, jg.offset_h, jg.steps)
+@pytest.mark.parametrize("iy_range", [None, (2, 7), (0, 0), (-3, 100), (5, 3)])
+def test_make_grid_matches(w, h, steps, iy_range):
+    jg = jgrid.make_grid(w, h, steps, iy_range=iy_range)
+    tg = tgrid.make_grid(w, h, steps, iy_range=iy_range)
+    assert (tg.num_w, tg.num_h, tg.offset_w, tg.offset_h, tg.steps, tg.iy0,
+            tg.global_num_h) == (jg.num_w, jg.num_h, jg.offset_w, jg.offset_h,
+                                 jg.steps, jg.iy0, jg.global_num_h)
     np.testing.assert_array_equal(tg.centers, jg.centers)
 
 
@@ -61,6 +63,51 @@ def test_nn_init_bitwise(w, h, steps):
     got = tgrid.init_from_coarser_flow(tgrid.scale_plan(w, h, steps, 8, torch.device("cpu")),
                                        torch.from_numpy(flow)).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("iy_range,offset", [((3, 9), 0), ((2, 11), 5), ((6, 13), 3)])
+def test_nn_init_row_ranged_bitwise(iy_range, offset):
+    """A row-ranged plan's init from a window of the coarser flow whose
+    first row is global row ``offset``."""
+    w, h, steps = 96, 64, 5
+    geom = jgrid.make_grid(w, h, steps, iy_range=iy_range)
+    flow = np.random.default_rng(4).normal(size=(h // 2, w // 2, 2)).astype(np.float32)
+    ref = np.asarray(jgrid.init_from_coarser_flow(geom, jnp.asarray(flow[offset:]),
+                                                  coarse_row_offset=offset))
+    plan = tgrid.scale_plan(w, h, steps, 8, torch.device("cpu"), iy_range=iy_range)
+    got = tgrid.init_from_coarser_flow(plan, torch.from_numpy(flow[offset:]), offset)
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_full_grid_plan_is_one_object():
+    """The full grid and window give the cached plan however they are
+    spelled, so a CUDA graph's bucket and dis_flow read the same memory."""
+    cpu = torch.device("cpu")
+    p = tgrid.scale_plan(96, 64, 5, 8, cpu)
+    assert tgrid.scale_plan(96, 64, 5, 8, cpu, (0, 13), (0, 64)) is p
+    assert tgrid.scale_plan(96, 64, 5, 8, cpu, iy_range=(-2, 99)) is p
+    assert tgrid.scale_plan(96, 64, 5, 8, cpu, (2, 7), (10, 30)) is not p
+
+
+@pytest.mark.parametrize("ps,row0,iy_range", [(8, 16, (4, 11)), (12, 8, (2, 9))])
+def test_templates_row0_bitwise(ps, row0, iy_range):
+    """Templates of a row-ranged grid from planes that start at global row
+    ``row0`` (a stripe): the same taps and Hinv as the JAX function."""
+    jl1, _, tl1, _ = _levels(48, 72, ps, seed=8)
+    cfg = JConfig(patch_size=ps, patch_overlap=0.5)
+    jg = jgrid.make_grid(jl1.width, jl1.height, cfg.steps, iy_range=iy_range)
+    taps = jax.jit(lambda *planes: jiclk.extract_templates_grid(*planes, jg, ps, ps, row0))(
+        jl1.img[row0:], jl1.dx[row0:], jl1.dy[row0:])
+    ref = jiclk._templates_from_taps(taps.T, taps.Tdx, taps.Tdy)
+    tg = tgrid.make_grid(tl1.width, tl1.height, cfg.steps, iy_range=iy_range)
+    got = ticlk.extract_templates_grid(tl1.img[row0:], tl1.dx[row0:], tl1.dy[row0:],
+                                       tg, ps, ps, row0)
+    for name in ("T", "Tdx", "Tdy", "Hinv"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    full = ticlk.extract_templates_grid(tl1.img, tl1.dx, tl1.dy, tg, ps, ps)
+    for g, f in zip(got, full):
+        assert torch.equal(g, f)
 
 
 @pytest.mark.parametrize("ps,overlap", [(8, 0.3), (12, 0.75), (10, 0.5)])
@@ -118,6 +165,32 @@ def test_regions_and_bases_bitwise(ps):
     got = ticlk.extract_regions_plain(tl2.img, torch.from_numpy(pos0), ps, ps)
     for g, r in zip(got, ref):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
+@pytest.mark.parametrize("ps,row0", [(8, 16), (12, 8)])
+def test_regions_and_search_with_row0(ps, row0):
+    """A stripe's planes start at global row ``row0``: regions and bases
+    bitwise equal to the JAX extraction and to the full plane's, and the
+    search on them equal to the full-plane search bitwise (row0 moves the
+    y tap base only)."""
+    _, jl2, tl1, tl2 = _levels(48, 72, ps, seed=10)
+    cfg = interop.config_from_dict(dataclasses.asdict(JConfig(
+        iterations=8, patch_size=ps, coarsest_scale=0, patch_overlap=0.5,
+        early_exit=False, mode="fixed")))
+    geom = tgrid.make_grid(tl2.width, tl2.height, cfg.steps, iy_range=(3, 8))
+    init = np.random.default_rng(ps).uniform(-2, 2, geom.centers.shape).astype(np.float32)
+    pos0 = geom.centers + init
+    ref = jiclk.extract_regions(jl2.img[row0:], jnp.asarray(pos0), ps, ps, row0=row0)
+    got = ticlk.extract_regions_plain(tl2.img[row0:], torch.from_numpy(pos0), ps, ps, row0)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    tpl = ticlk.extract_templates_grid(tl1.img, tl1.dx, tl1.dy, geom, ps, ps)
+    centers, init_u = torch.from_numpy(geom.centers), torch.from_numpy(init)
+    stripe = ticlk.inverse_search(tl2.img[row0:], tpl, centers, init_u, cfg, tl2.width,
+                                  tl2.height, row0=row0)
+    full = ticlk.inverse_search(tl2.img, tpl, centers, init_u, cfg, tl2.width, tl2.height)
+    for s_, f_ in zip(stripe, full):
+        assert torch.equal(s_, f_)
 
 
 def test_regions_accept_zero_patches():

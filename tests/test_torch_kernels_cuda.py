@@ -1,7 +1,7 @@
-"""Kernels K1-K3 (and K2b, K1b: the pair axis) against their plain
-PyTorch versions on a CUDA GPU; batched flows against serial ones, and
-CUDA-graph replay (``serving.aot_compile``) against the eager path, both
-bitwise.
+"""Kernels K1-K3 (and K2b, K1b: the pair axis; K2c, the column-banded
+K2) against their plain PyTorch versions on a CUDA GPU; batched and tiled
+flows against serial and untiled ones, and CUDA-graph replay
+(``serving.aot_compile``) against the eager path, all bitwise.
 
 Marked ``cuda``: each test skips (from a fixture, at run time) where
 ``torch.cuda.is_available()`` is false, as on the CPU test machines.  On
@@ -23,6 +23,7 @@ import torch
 
 import dis_tpu_torch
 from dis_tpu_torch.ops import iclk
+from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
 from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
 from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level
@@ -217,3 +218,101 @@ def test_graph_replay_after_plan_churn():
             for _ in range(8)]
     assert torch.equal(compiled(x, y), eager)
     del junk
+
+
+@pytest.mark.parametrize("ps,row0,batch", [(8, 0, None), (8, 16, None), (12, 8, 2), (8, 0, 3)])
+def test_banded_extract_bitwise(ps, row0, batch):
+    """K2c equal to its plain version and to K2 bitwise, one launch, no
+    window outside the staged box, with a stripe's row0 and a pair axis."""
+    dev = torch.device("cuda")
+    b = batch or 1
+    x, _ = _batch(b, 96, 160, 51 + ps)
+    planes = pyramid_level(x, ps, True)[0]
+    if batch is None:
+        planes = planes[0]
+    planes = planes[..., row0:, :].contiguous()
+    cfg = dis_tpu_torch.DISConfig(patch_size=ps, patch_overlap=0.5)
+    geom = make_grid(160, 96, cfg.steps, iy_range=(2, 12))
+    bound = 6.0
+    init = np.random.default_rng(ps).uniform(-bound, bound,
+                                             (b,) + geom.centers.shape).astype(np.float32)
+    pos0 = torch.from_numpy(geom.centers + (init if batch else init[0])).to(dev)
+    outside = torch.zeros(1, dtype=torch.int32, device=dev)
+    extract_regions_banded.launches = 0
+    kc = extract_regions_banded(planes, pos0, ps, ps, geom, bound, row0, outside)
+    assert extract_regions_banded.launches == 1
+    k2 = extract_regions(planes, pos0, ps, ps, row0)
+    pr = iclk.extract_regions_plain(planes, pos0, ps, ps, row0)
+    torch.cuda.synchronize()
+    for a, k, p in zip(kc, k2, pr):
+        assert torch.equal(a, p) and torch.equal(a, k)
+    assert int(outside) == 0
+
+
+def test_banded_outside_box_is_copied():
+    """Inits far past the stated bound: the windows outside the staged box
+    come from device memory and the result is still exact."""
+    dev = torch.device("cuda")
+    x, _ = _batch(1, 96, 160, 61)
+    plane = pyramid_level(x[0], 8, True)[0]
+    geom = make_grid(160, 96, 4)
+    init = np.random.default_rng(2).uniform(-30, 30, geom.centers.shape).astype(np.float32)
+    pos0 = torch.from_numpy(geom.centers + init).to(dev)
+    outside = torch.zeros(1, dtype=torch.int32, device=dev)
+    kc = extract_regions_banded(plane, pos0, 8, 8, geom, 2.0, 0, outside)
+    pr = iclk.extract_regions_plain(plane, pos0, 8, 8)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, p) for a, p in zip(kc, pr))
+    assert int(outside) > 0
+
+
+def test_banded_empty_grid_launches_nothing():
+    dev = torch.device("cuda")
+    geom = make_grid(56, 40, 4, iy_range=(3, 3))
+    extract_regions_banded.launches = 0
+    regions, by, bx = extract_regions_banded(torch.zeros((56, 72), device=dev),
+                                             torch.zeros((0, 2), device=dev), 8, 8, geom, 8.0)
+    torch.cuda.synchronize()
+    assert regions.shape == (0, 19, 19) and by.shape == bx.shape == (0,)
+    assert extract_regions_banded.launches == 0
+
+
+@pytest.mark.parametrize("mode", ["compat", "fixed"])
+def test_search_row0_vs_plain(mode):
+    """K1 on a stripe's regions (row0 > 0) equals its plain version."""
+    dev = torch.device("cuda")
+    ps, row0 = 8, 24
+    a, b = (torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in _smooth(96, 128, 71))
+    l1 = pyramid_level(a, ps, True)
+    l2 = pyramid_level(b, ps, True)
+    cfg = dis_tpu_torch.DISConfig(iterations=12, patch_size=ps, coarsest_scale=0,
+                                  patch_overlap=0.5, mode=mode)
+    geom = make_grid(128, 96, cfg.steps, iy_range=(8, 18))
+    centers = torch.from_numpy(geom.centers).to(dev)
+    init_u = torch.from_numpy(np.random.default_rng(4).uniform(
+        -2, 2, geom.centers.shape).astype(np.float32)).to(dev)
+    tpl = iclk.extract_templates_grid(*l1, geom, ps, ps)
+    conv0 = iclk.out_of_bounds(centers + init_u, ps, 128, 96)
+    Tn = iclk.residual_template(tpl, cfg) if mode == "fixed" else None
+    stripe = l2[0][row0:].contiguous()
+    kr = extract_regions(stripe, centers + init_u, ps, ps, row0)
+    args = (tpl, Tn, centers, init_u, conv0, cfg, 128, 96, row0)
+    ko = iclk_search(*kr, *args)
+    po = iclk.iclk_search_plain(*kr, *args)
+    full = iclk_search(*extract_regions(l2[0], centers + init_u, ps, ps), *args[:-1])
+    torch.cuda.synchronize()
+    for k, p, f in zip(ko, po, full):
+        assert torch.equal(k, p) and torch.equal(k, f)
+
+
+@pytest.mark.parametrize("mode", ["compat", "fixed"])
+def test_tiled_flow_equals_untiled(mode):
+    from dis_tpu_torch.parallel import grid_tiled_flow, min_stripe_halo, tiled_flow_exact
+
+    a, b = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in _smooth(512, 96, 81))
+    cfg = dis_tpu_torch.DISConfig(iterations=8, patch_size=8, coarsest_scale=2,
+                                  patch_overlap=0.5, mode=mode)
+    untiled = dis_tpu_torch.dis_flow_padded(a, b, cfg)
+    halo = min_stripe_halo(cfg, 96, 512, 2)
+    assert torch.equal(tiled_flow_exact(a, b, cfg, 2, halo), untiled)
+    assert torch.equal(grid_tiled_flow(a, b, cfg, 3), untiled)

@@ -55,6 +55,7 @@ def test_config_fields_and_validation_match():
 def test_import_is_jax_free():
     code = ("import sys, dis_tpu_torch, dis_tpu_torch.interop; "
             "import dis_tpu_torch.ops.cuda.iclk_kernel, dis_tpu_torch.ops.cuda.extract_kernel, "
+            "dis_tpu_torch.ops.cuda.extract_banded_kernel, dis_tpu_torch.parallel.tiles, "
             "dis_tpu_torch.ops.cuda.pyramid_kernel, dis_tpu_torch.serving, "
             "dis_tpu_torch.parallel, dis_tpu_torch.utils; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -97,7 +98,7 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch):
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p == _build.library_path()
     assert {s.name for s in _build.CSRC_DIR.glob("*.cu")} == {
-        "pyramid_level.cu", "extract_regions.cu", "iclk.cu"}
+        "pyramid_level.cu", "extract_regions.cu", "extract_banded.cu", "iclk.cu"}
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(_build.PKG_DIR / "no-such-toolkit"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
