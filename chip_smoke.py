@@ -10,17 +10,24 @@ It builds the port's CUDA kernels from ``dis_tpu_torch/csrc`` and then:
 0. prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, both TF32 flags (set off) and the build time;
 1. holds each kernel against its plain PyTorch version on the card, at
-   the 1080p main-path shapes (K3 and K2 bitwise, K2 also at N = 0; K1 to
-   1e-3 px on patches whose freeze state agrees, with < 2% flips), and
-   K1/K2 at ps 8, 10, 12, 16 on a small plane with random init;
+   the 1080p main-path shapes, bitwise: K3 (all four levels of a pyramid
+   in one launch) against the plain level chain for both images, K2 (also
+   at N = 0) and K1 (compat and ``DIS_FAST``; its equivalence-class
+   numbers, max |du| and freeze flips, are printed beside), and K1/K2 at
+   ps 8, 10, 12, 16 on a small plane with random init and random start
+   freezes, so that the patches of one warp freeze at different trips;
 2. drives ``dis_tpu_torch.dis_flow`` on the 1920x1080 pair of
    ``bench.synth_pair()`` (a (3, 2) px shift) under the compat bench
-   config and ``DIS_FAST``: every kernel's launch count must be > 0, the
+   config and ``DIS_FAST``: K3 launches once per image, K2 and K1 once
+   per scale, the
    flow finite, its median within 0.01 px of (3, 2), its mean EPE within
    0.002 px of the JAX package's CPU reading, and the kernel path within
    1e-3 px mean (<= 1% of pixels over 1e-2 px) of the plain path;
 3. times each kernel and its plain version at the main-path shapes, and
-   ``dis_flow`` per frame, with CUDA events (median of 20 after warm-up).
+   ``dis_flow`` per frame, with CUDA events (median of 20 after warm-up);
+   a kernel's time is its device time per call, from a CUDA graph of 20
+   calls replayed between the events (``replay_ms``), and K3, K2 and K1
+   are also timed a call at a time with their host work.
 
 Batched pairs and the serving path, on 8 KITTI-size pairs (375 x 1242,
 padded to 376 x 1248 inside; ``kitti_pair``, NumPy only, a known integer
@@ -32,8 +39,8 @@ iterations 16, patch 8, overlap 0.3, scales 3..0) and ``DIS_ULTRAFAST``
     finest-scale shapes (152,000 patches for config 3), bitwise equal to
     their batched plain versions and to 8 serial K2/K1 calls;
 2b. ``parallel.batched_flow_fn`` and batched ``dis_flow`` on the 8 pairs:
-    per batch K2 and K1 launch once per scale and K3 at most twice per
-    level, whatever B is; the flows equal 8 serial ``dis_flow`` calls
+    per batch K2 and K1 launch once per scale and K3 once per image
+    stack, whatever B is; the flows equal 8 serial ``dis_flow`` calls
     bitwise; each pair's median is within 0.01 px of its shift and its
     mean EPE within 0.002 px of the JAX package's CPU reading;
 2c. ``serving.aot_compile`` (a CUDA graph) for the 1080p compat config at
@@ -48,13 +55,14 @@ The 4K path, on ``synth_pair_4k()`` (3840x2160, ``bench.synth_pair``'s
 recipe, a (3, 2) px shift) under the compat bench config and
 ``DIS_FAST``, and exact row-stripe tiling:
 
-1c. K2c (the column-banded K2) at the 4K finest-scale shapes (N =
+1c. K3 on a 4K image against the plain level chain, bitwise; K2c (the
+    column-banded K2) at the 4K finest-scale shapes (N =
     331,776), bitwise equal to its plain version and to K2 at B = 1, at
     B = 2 and on stripe 1 of 3 (row0 = 544), where K1 with row0 > 0 is
-    held to its plain version; K2c at ps 12 on a small plane; an empty
+    held to its plain version bitwise; K2c at ps 12 on a small plane; an empty
     grid launches nothing; the count of windows copied from outside the
     staged box is printed (expected 0);
-2d. ``dis_flow`` at 4K: per call K2c launches once and K2 three times
+2d. ``dis_flow`` at 4K: per call K3 launches twice, K2c once and K2 three times
     (none under ``DIS_ULTRAFAST``, whose finest scale is 1), the median
     within 0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX
     package's CPU reading, the kernel path against the plain path under
@@ -62,15 +70,23 @@ recipe, a (3, 2) px shift) under the compat bench config and
     an ``aot_compile`` 4K graph replay bitwise equal to the eager path;
 2e. ``parallel.tiled_flow_exact`` with 3 stripes and ``min_stripe_halo``
     (176 rows; row0 0, 544, 1264) and ``parallel.grid_tiled_flow`` with 3
-    parts, each bitwise equal to the untiled flow, K2c once per stripe;
+    parts, each bitwise equal to the untiled flow, K2c once and K3 twice
+    per stripe;
 3c. times: K2c and K2 on the same 4K finest inputs, 4K ms/frame eager and
     replayed (compat and ``DIS_FAST``), 3-stripe tiled 4K ms/frame.
 
 Each kernel's line gives its bound: the larger of the bytes it must move
-(each input read once, each output written once) over 3.35 TB/s and its
-operations (K1's for the trips these inputs run) over 67 TFLOP/s, the
-H100 SXM's HBM3 and float32 peaks.  No single PyTorch call computes any
-of these functions, so ``library_ms`` is null.
+(each input read once, each output written once: K3 the raw image and
+every level's planes, K1 its inputs with the raw template only for the
+patches frozen at the start) over 3.35 TB/s and its operations (K1's for
+the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
+float32 peaks.  No single PyTorch call computes any of these functions,
+so ``library_ms`` is null.
+
+``python3 chip_smoke.py --kernel-times ROOT`` builds and times only K3
+and K1/K1b, on the same inputs, for the ``dis_tpu_torch`` package under
+the directory ROOT (an unpacked earlier commit, say, to compare two trees
+in one run on one card), and prints one JSON line.
 
 It prints one JSON line of kernel results, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Any failed check raises, so the
@@ -174,16 +190,40 @@ def time_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return float(np.median(ts))
 
 
-def search_gate(name, ku, kc, pu, pc):
-    """K1 equivalence class: u within 1e-3 px where the freeze state
-    agrees, and freeze flips < 2%.  Returns (max |du| over all patches,
-    flip share)."""
+def replay_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """Median device milliseconds per call of ``fn``: ``calls`` calls
+    captured in one CUDA graph and replayed between CUDA events, so no
+    host work lies inside the timed window (a call's own launch overhead
+    would otherwise count for the shortest kernels)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = time_ms(graph.replay, reps=reps, warmup=2) / calls
+    del graph
+    return ms
+
+
+def search_gate(name, kout, pout):
+    """K1 bitwise equal to its plain version; also the equivalence class
+    of the JAX package's tests (u within 1e-3 px where the freeze state
+    agrees, freeze flips < 2%), whose numbers are printed.  Returns (max
+    |du| over all patches, flip share)."""
+    (ku, _, kc), (pu, _, pc) = kout, pout
     agree = kc == pc
     du = (ku - pu).abs().max(dim=1).values
     flips = float((~agree).float().mean()) if agree.numel() else 0.0
     worst = float(du[agree].max()) if bool(agree.any()) else 0.0
     check(worst <= 1e-3, f"{name}: |du| {worst} > 1e-3 on agreeing patches")
     check(flips < 0.02, f"{name}: freeze flips {flips} >= 2%")
+    for k, p in zip(kout, pout):
+        check(torch.equal(k, p), f"{name}: differs from its plain version")
     return (float(du.max()) if du.numel() else 0.0), flips
 
 
@@ -225,15 +265,12 @@ def io_bytes(*tensors) -> int:
 
 
 def pyramid_cost(img, levels):
-    """(bytes, operations) of one pyramid's K3 launches: each level reads
-    its source plane and writes three padded planes; about 24 operations
-    per base-level pixel (two Sobels, the magnitude, two more Sobels) and
-    14 per decimated pixel."""
-    nbytes, ops, src = 0, 0, img
-    for s, lv in enumerate(levels):
-        nbytes += io_bytes(src, lv.img, lv.dx, lv.dy)
-        ops += lv.width * lv.height * (24 if s == 0 else 14)
-        src = lv.img
+    """(bytes, operations) of one pyramid's K3 launch: the raw image read
+    once and every level's three padded planes written once; about 24
+    operations per base-level pixel (two Sobels, the magnitude, two more
+    Sobels) and 14 per decimated pixel."""
+    nbytes = io_bytes(img) + sum(io_bytes(lv.img, lv.dx, lv.dy) for lv in levels)
+    ops = sum(lv.width * lv.height * (24 if s == 0 else 14) for s, lv in enumerate(levels))
     return nbytes, ops
 
 
@@ -246,23 +283,29 @@ def extract_cost(img, pos0, ps):
     return io_bytes(img, pos0) + n * (rc * rc + 2) * 4, 12 * n
 
 
-def search_cost(inputs, outputs, cfg, trips, started):
-    """(bytes, operations) of one K1/K1b call: inputs read once, outputs
-    written once; operations for the trips these inputs run (``trips``:
-    active patches per trip, from the plain version) plus the start
-    resample of every patch not frozen at start."""
+def search_cost(regions, tpl, Tn, centers, init_u, conv0, outputs, cfg, trips):
+    """(bytes, operations) of one K1/K1b call: inputs read once (the raw
+    template T only for the patches frozen at the start, which take it as
+    their q), outputs written once; operations for the trips these inputs
+    run (``trips``: active patches per trip, from the plain version) plus
+    the start resample of every patch not frozen at start."""
     taps = cfg.patch_size ** 2
     fixed = cfg.mode == "fixed"
     sample = 9 * taps + 6 + (2 * taps if cfg.patch_normalization else 0)
     trip = 4 * taps + (taps if fixed else 0) + 21 + (5 if fixed else 0) + sample
-    return io_bytes(*inputs, *outputs), sum(trips) * trip + started * sample
+    frozen0 = int(conv0.sum())
+    nbytes = (io_bytes(*regions, tpl.Tdx, tpl.Tdy, tpl.Hinv, Tn, centers, init_u, conv0,
+                       *outputs) + frozen0 * taps * 4)
+    return nbytes, sum(trips) * trip + (conv0.numel() - frozen0) * sample
 
 
 def scale_counts(cfg):
     """Launches one call must make, whatever B is: K2 and K1 once per
-    scale; K3 once per pyramid level and image."""
+    scale; K3 once per image (or stack of images) for up to four levels."""
+    from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS
+
     n = cfg.coarsest_scale - cfg.finest_scale + 1
-    return {"K3": 2 * (cfg.coarsest_scale + 1), "K2": n, "K1": n}
+    return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n}
 
 
 def main() -> int:
@@ -279,9 +322,9 @@ def main() -> int:
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
-    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level
+    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
     from dis_tpu_torch.ops.grid import make_grid
-    from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
+    from dis_tpu_torch.ops.pyramid import construct_pyramid
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile
@@ -317,19 +360,24 @@ def main() -> int:
     rng = np.random.default_rng(0)
 
     # -- phase 1: kernels vs plain versions --------------------------------
-    # K3 at the 1080p levels, both images, bitwise.
-    k3_err = 0.0
-    for img in (a, b):
-        src = img
-        for s in range(bench_cfg.coarsest_scale + 1):
-            kern = pyramid_level(src, p, base=(s == 0))
-            ref = pyramid_level_plain(src, p, base=(s == 0))
-            torch.cuda.synchronize()
-            for kp, rp in zip(kern, ref):
-                k3_err = max(k3_err, float((kp - rp).abs().max()))
-                check(torch.equal(kp, rp), f"K3 level {s} differs from plain")
-            src = kern[0]
-    print(f"phase1 K3 1080p levels bitwise: max_abs_err {k3_err}", flush=True)
+    def k3_check(label, img):
+        """One K3 launch builds the 4-level pyramid of img, bitwise equal to
+        the plain level chain; returns the max abs error."""
+        before = pyramid_levels.launches
+        kern = construct_pyramid(img, bench_cfg.coarsest_scale, p)
+        check(pyramid_levels.launches == before + 1, f"K3 {label}: not one launch")
+        ref = construct_pyramid(img, bench_cfg.coarsest_scale, p, plain=True)
+        torch.cuda.synchronize()
+        err = 0.0
+        for s, (kl, rl) in enumerate(zip(kern, ref)):
+            for kp, rp in zip(kl[:3], rl[:3]):
+                err = max(err, float((kp - rp).abs().max()))
+                check(torch.equal(kp, rp), f"K3 {label} level {s} differs from the plain chain")
+        print(f"phase1 K3 {label}: {len(kern)} levels in one launch, bitwise equal to the "
+              f"plain chain; max_abs_err {err}", flush=True)
+        return err
+
+    k3_err = max(k3_check("1080p image 1", a), k3_check("1080p image 2", b))
 
     # The finest scale's real inputs: coarser scales through the port.
     finest = {}
@@ -345,14 +393,13 @@ def main() -> int:
         for kt, pt in zip(kr, pr):
             check(torch.equal(kt, pt), f"K2 {name} N={pos0.shape[0]} differs")
         args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
-        ku, kq, kc = iclk_search(*kr, *args)
-        pu, pq, pc = iclk.iclk_search_plain(*pr, *args)
+        kout = iclk_search(*kr, *args)
+        pout = iclk.iclk_search_plain(*pr, *args)
         torch.cuda.synchronize()
-        err, flips = search_gate(f"K1 {name}", ku, kc, pu, pc)
+        err, flips = search_gate(f"K1 {name}", kout, pout)
         k1_err = max(k1_err, err)
-        print(f"phase1 {name} finest N={pos0.shape[0]}: K2 bitwise; K1 max|du| "
-              f"{err} flips {flips} bitwise {torch.equal(ku, pu) and torch.equal(kq, pq) and torch.equal(kc, pc)}",
-              flush=True)
+        print(f"phase1 {name} finest N={pos0.shape[0]}: K2 and K1 bitwise (K1 max|du| "
+              f"{err} flips {flips})", flush=True)
 
     empty = torch.zeros((0, 2), dtype=torch.float32, device=dev)
     l2_img = finest["compat"][1].img
@@ -377,19 +424,23 @@ def main() -> int:
             init_u = torch.from_numpy(rng.uniform(-2, 2, geom.centers.shape)
                                       .astype(np.float32)).to(dev)
             pos0 = centers + init_u
-            conv0 = iclk.out_of_bounds(pos0, ps, ww, hh)
+            # Random start freezes on top of the out-of-bounds ones: the
+            # patches of one warp freeze at different trips.
+            conv0 = iclk.out_of_bounds(pos0, ps, ww, hh) | torch.from_numpy(
+                rng.random(geom.centers.shape[0]) < 0.2).to(dev)
             Tn = iclk.residual_template(tpl, cfg) if mode == "fixed" else None
             kr = extract_regions(lvl[0], pos0, ps, ps)
             pr = iclk.extract_regions_plain(lvl[0], pos0, ps, ps)
             torch.cuda.synchronize()
             check(all(torch.equal(x, y) for x, y in zip(kr, pr)), f"K2 ps={ps}")
             args = (tpl, Tn, centers, init_u, conv0, cfg, ww, hh)
-            ku, kq, kc = iclk_search(*kr, *args)
-            pu, pq, pc = iclk.iclk_search_plain(*pr, *args)
+            trips = []
+            pout = iclk.iclk_search_plain(*pr, *args, trips=trips)
+            kout = iclk_search(*kr, *args)
             torch.cuda.synchronize()
-            err, flips = search_gate(f"K1 ps={ps} {mode}", ku, kc, pu, pc)
-            print(f"phase1 ps={ps} {mode} N={pos0.shape[0]}: K2 bitwise; K1 "
-                  f"max|du| {err} flips {flips}", flush=True)
+            err, flips = search_gate(f"K1 ps={ps} {mode}", kout, pout)
+            print(f"phase1 ps={ps} {mode} N={pos0.shape[0]}: K2 and K1 bitwise (K1 "
+                  f"max|du| {err} flips {flips}; active patches by trip {trips})", flush=True)
 
     # -- phase 1b: K2b and K1b at the KITTI B = 8 finest-scale shapes --------
     kpairs = [kitti_pair(i) for i in range(len(KITTI_SHIFTS))]
@@ -438,6 +489,7 @@ def main() -> int:
     t0 = time.perf_counter()
     a4, b4 = (torch.from_numpy(q).to(dev) for q in synth_pair_4k())
     print(f"phase1c 4K pair made in {time.perf_counter() - t0:.2f} s", flush=True)
+    k3_err = max(k3_err, k3_check("4K image 1", a4))
     route4 = [scale_extraction_route(bench_cfg, W4K, H4K, s)
               for s in range(bench_cfg.coarsest_scale + 1)]
     check(route4 == ["K2c", "K2", "K2", "K2"], f"4K routes by scale {route4}")
@@ -495,12 +547,12 @@ def main() -> int:
     ps_ = iclk.iclk_search_plain(*kc_s, *args_s)
     kfull = iclk_search(*kc4, tpl4, Tn4, centers4, init4, conv04, bench_cfg, W4K, H4K)
     torch.cuda.synchronize()
-    err, flips = search_gate("K1 stripe row0", ks[0], ks[2], ps_[0], ps_[2])
+    err, flips = search_gate("K1 stripe row0", ks, ps_)
     k1_err = max(k1_err, err)
     for kt, ft in zip(ks, kfull):
         check(torch.equal(kt, rows_of(ft)), "K1 on the stripe differs from the full frame's rows")
-    print(f"phase1c K1 stripe row0 {row0} N={ks[0].shape[0]}: max|du| {err} flips {flips} "
-          f"vs plain; bitwise equal to the full frame's rows", flush=True)
+    print(f"phase1c K1 stripe row0 {row0} N={ks[0].shape[0]}: bitwise equal to its plain "
+          f"version (max|du| {err} flips {flips}) and to the full frame's rows", flush=True)
 
     lvl12 = pyramid_level(small, 12, base=True)
     hh, ww = lvl12[0].shape[0] - 24, lvl12[0].shape[1] - 24
@@ -519,7 +571,7 @@ def main() -> int:
     print("phase1c K2c num_h=0 launches nothing", flush=True)
 
     # -- phase 2: the main path ---------------------------------------------
-    wrappers = {"K3": pyramid_level, "K2": extract_regions, "K2c": extract_regions_banded,
+    wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
                 "K1": iclk_search}
     launches = {"K3": 0, "K2": 0, "K1": 0}
     flows = {}
@@ -530,7 +582,8 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
         print(f"phase2 {name} launches {counts}", flush=True)
-        check(counts["K2c"] == 0, f"{name}: K2c launched at 1080p")
+        check(counts == {**scale_counts(cfg), "K2c": 0}, f"{name}: launches {counts}, want "
+              f"{scale_counts(cfg)} and no K2c at 1080p")
         for k in launches:
             check(counts[k] > 0, f"{name}: kernel {k} was not launched on the main path")
             launches[k] += counts[k]
@@ -569,10 +622,8 @@ def main() -> int:
             torch.cuda.synchronize()
             counts = {k: w.launches for k, w in wrappers.items()}
             print(f"phase2b {name} {label} B={nk} launches {counts}", flush=True)
-            check(counts["K2"] == want["K2"] and counts["K1"] == want["K1"]
-                  and 0 < counts["K3"] <= want["K3"] and counts["K2c"] == 0,
-                  f"{name} {label}: launches {counts}, want K2 = K1 = "
-                  f"{want['K2']} and K3 <= {want['K3']} per batch")
+            check(counts == {**want, "K2c": 0},
+                  f"{name} {label}: launches {counts}, want {want} per batch")
             kl["K2b"] += counts["K2"]
             kl["K1b"] += counts["K1"]
         flows_b = runs["dis_flow"]
@@ -608,9 +659,7 @@ def main() -> int:
         built = time.perf_counter() - t0
         want = scale_counts(cfg)
         gl = cf.graph_launches
-        check(gl["K2"] == want["K2"] and gl["K1"] == want["K1"] and 0 < gl["K3"] <= want["K3"]
-              and gl["K2c"] == 0,
-              f"{label}: the graph holds launches {gl}")
+        check(gl == {**want, "K2c": 0}, f"{label}: the graph holds launches {gl}, want {want}")
         for _ in range(2):
             out = cf(*inputs)
             torch.cuda.synchronize()
@@ -627,7 +676,7 @@ def main() -> int:
         served[label] = cf
 
     # -- phase 2d: dis_flow at 4K ---------------------------------------------
-    want4 = {"K3": 8, "K2": 3, "K2c": 1, "K1": 4}
+    want4 = {"K3": 2, "K2": 3, "K2c": 1, "K1": 4}
     flows4 = {}
     for name, cfg in {**configs, "ultrafast": dt.DIS_ULTRAFAST}.items():
         for w in wrappers.values():
@@ -694,8 +743,9 @@ def main() -> int:
         out = run()
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        check(counts["K2c"] == N_STRIPES and counts["K2"] == 3 * N_STRIPES,
-              f"4K {label}: launches {counts}")
+        parts = N_STRIPES if label.startswith("tiled") else 1
+        check(counts["K2c"] == N_STRIPES and counts["K2"] == 3 * N_STRIPES
+              and counts["K3"] == 2 * parts, f"4K {label}: launches {counts}")
         check(torch.equal(out, untiled), f"4K {label}: differs from the untiled flow")
         print(f"phase2e 4K {label} (row0 {rows0}): launches {counts}; bitwise equal to "
               f"untiled", flush=True)
@@ -704,23 +754,26 @@ def main() -> int:
     # -- phase 3: times -------------------------------------------------------
     times = {}
     costs = {"K3": pyramid_cost(a, construct_pyramid(a, 3, p))}
-    times["K3"] = (time_ms(lambda: construct_pyramid(a, 3, p)),
+    times["K3"] = (replay_ms(lambda: construct_pyramid(a, 3, p)),
                    time_ms(lambda: construct_pyramid(a, 3, p, plain=True)))
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest["compat"]
     costs["K2"] = extract_cost(l2.img, pos0, 8)
-    times["K2"] = (time_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
+    times["K2"] = (replay_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
                    time_ms(lambda: iclk.extract_regions_plain(l2.img, pos0, 8, p)))
     kr = extract_regions(l2.img, pos0, 8, p)
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
     trips = []
     iclk.iclk_search_plain(*kr, *args, trips=trips)
-    costs["K1"] = search_cost((*kr, *tpl, Tn, centers, init_u, conv0), iclk_search(*kr, *args),
-                              cfg, trips, int((~conv0).sum()))
-    times["K1"] = (time_ms(lambda: iclk_search(*kr, *args)),
+    costs["K1"] = search_cost(kr, tpl, Tn, centers, init_u, conv0, iclk_search(*kr, *args),
+                              cfg, trips)
+    times["K1"] = (replay_ms(lambda: iclk_search(*kr, *args)),
                    time_ms(lambda: iclk.iclk_search_plain(*kr, *args)))
+    eager = {"K3": time_ms(lambda: construct_pyramid(a, 3, p)),
+             "K2": time_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
+             "K1": time_ms(lambda: iclk_search(*kr, *args))}
     for k, (km, pm) in times.items():
-        print(f"phase3 {k}: kernel {km:.4f} ms plain {pm:.4f} ms [{card}]",
-              flush=True)
+        print(f"phase3 {k}: kernel {km:.4f} ms replayed ({eager[k]:.4f} ms a call with its "
+              f"host work), plain {pm:.4f} ms [{card}]", flush=True)
     for name, cfg in configs.items():
         fk = time_ms(lambda: dt.dis_flow(a, b, cfg), reps=10)
         fp = time_ms(lambda: dt.dis_flow(a, b, cfg, plain=True), reps=10)
@@ -746,15 +799,15 @@ def main() -> int:
           f"[{card}]", flush=True)
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = kfinest["config3"]
     costs["K2b"] = extract_cost(l2.img, pos0, 8)
-    times["K2b"] = (time_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
+    times["K2b"] = (replay_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
                     time_ms(lambda: iclk.extract_regions_plain(l2.img, pos0, 8, p), reps=10))
     kr = extract_regions(l2.img, pos0, 8, p)
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
     trips = []
     iclk.iclk_search_plain(*kr, *args, trips=trips)
-    costs["K1b"] = search_cost((*kr, *tpl, Tn, centers, init_u, conv0), iclk_search(*kr, *args),
-                               cfg, trips, int((~conv0).sum()))
-    times["K1b"] = (time_ms(lambda: iclk_search(*kr, *args)),
+    costs["K1b"] = search_cost(kr, tpl, Tn, centers, init_u, conv0, iclk_search(*kr, *args),
+                               cfg, trips)
+    times["K1b"] = (replay_ms(lambda: iclk_search(*kr, *args)),
                     time_ms(lambda: iclk.iclk_search_plain(*kr, *args), reps=5, warmup=1))
     for k in ("K2b", "K1b"):
         print(f"phase3b {k} B={nk} N={pos0.shape[1]}: kernel {times[k][0]:.4f} ms "
@@ -763,18 +816,20 @@ def main() -> int:
 
     # -- phase 3c: 4K times ----------------------------------------------------
     costs["K2c"] = extract_cost(l2_4.img, pos04, 8)
-    times["K2c"] = (time_ms(lambda: extract_regions_banded(l2_4.img, pos04, 8, p, geom4, bound0)),
+    times["K2c"] = (replay_ms(lambda: extract_regions_banded(l2_4.img, pos04, 8, p, geom4,
+                                                             bound0), calls=5),
                     time_ms(lambda: iclk.extract_regions_plain(l2_4.img, pos04, 8, p),
                             reps=PLAIN_REPS_4K, warmup=1))
-    k2_4k = time_ms(lambda: extract_regions(l2_4.img, pos04, 8, p))
+    k2_4k = replay_ms(lambda: extract_regions(l2_4.img, pos04, 8, p), calls=5)
     print(f"phase3c 4K finest N={pos04.shape[0]}: K2c {times['K2c'][0]:.4f} ms, K2 "
           f"{k2_4k:.4f} ms, plain {times['K2c'][1]:.4f} ms, bound "
           f"{bound(*costs['K2c'])[0]:.4f} ms [{card}]", flush=True)
-    k1_4k = time_ms(lambda: iclk_search(*kc4, tpl4, Tn4, centers4, init4, conv04, bench_cfg,
-                                        W4K, H4K))
-    k3_4k = time_ms(lambda: construct_pyramid(a4, 3, p))
-    print(f"phase3c 4K compat parts of a frame: K1 finest {k1_4k:.4f} ms, K3 one 4-level "
-          f"pyramid {k3_4k:.4f} ms [{card}]", flush=True)
+    k1_4k = replay_ms(lambda: iclk_search(*kc4, tpl4, Tn4, centers4, init4, conv04, bench_cfg,
+                                          W4K, H4K), calls=5)
+    k3_4k = replay_ms(lambda: (construct_pyramid(a4, 3, p), construct_pyramid(b4, 3, p)),
+                      calls=5)
+    print(f"phase3c 4K compat parts of a frame (replayed): K1 finest {k1_4k:.4f} ms, K3 both "
+          f"4-level pyramids {k3_4k:.4f} ms [{card}]", flush=True)
     for name, cfg in configs.items():
         cf = cf4 if name == "compat" else aot_compile(cfg, H4K, W4K)
         e = time_ms(lambda: dt.dis_flow(a4, b4, cfg), reps=10)
@@ -815,5 +870,69 @@ def main() -> int:
     return 0
 
 
+def kernel_times(root: str) -> int:
+    """Times K3 and K1/K1b of the ``dis_tpu_torch`` package under ``root``
+    on the main-path inputs (``replay_ms`` and ``time_ms``) and prints one
+    JSON line: the 1080p pyramid of one image and of both,
+    K1 at the 1080p finest scale (compat bench config and ``DIS_FAST``),
+    K1b on the KITTI B = 8 batch (config 3), the two 4K pyramids and K1 at
+    the 4K finest scale (regions from K2, the same bits as K2c's).  Only
+    functions every tree of the port has are called."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this check runs on a CUDA GPU only")
+    sys.path.insert(0, root)
+    import dis_tpu_torch as dt
+    from bench import synth_pair
+    from dis_tpu_torch import _build
+    from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
+    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.pyramid import construct_pyramid
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    dev = torch.device("cuda", 0)
+    _build.library()
+    bench_cfg = dt.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
+                             finest_scale=0, patch_overlap=0.3,
+                             patch_normalization=True, mode="compat", early_exit=False)
+    p = bench_cfg.img_padding
+    out = {"root": root, "package": dt.__file__, "card": card}
+
+    def both(key, fn, calls=20):
+        """Replayed device ms per call, and ms of one call with its host work."""
+        out[key + "_replayed_ms"] = replay_ms(fn, calls=calls)
+        out[key + "_call_ms"] = time_ms(fn)
+
+    def k1(key, img1, img2, cfg, calls=20):
+        _, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest_inputs(img1, img2, cfg, p)
+        kr = extract_regions(l2.img, pos0, cfg.patch_size, p)
+        args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
+        both(key, lambda: iclk_search(*kr, *args), calls)
+
+    a, b = (torch.from_numpy(q).to(dev) for q in synth_pair())
+    both("K3_1080p_one_pyramid", lambda: construct_pyramid(a, 3, p))
+    both("K3_1080p_both_pyramids", lambda: (construct_pyramid(a, 3, p),
+                                            construct_pyramid(b, 3, p)))
+    k1("K1_1080p_compat", a, b, bench_cfg)
+    k1("K1_1080p_fast", a, b, dt.DIS_FAST)
+    kpairs = [kitti_pair(i) for i in range(len(KITTI_SHIFTS))]
+    ka, kb = (im.pad_divisible(torch.from_numpy(np.stack([q[j] for q in kpairs])).to(dev), 3)[0]
+              for j in (0, 1))
+    k1("K1b_kitti_b8", ka, kb, bench_cfg)
+    a4, b4 = (torch.from_numpy(q).to(dev) for q in synth_pair_4k())
+    both("K3_4k_both_pyramids", lambda: (construct_pyramid(a4, 3, p),
+                                         construct_pyramid(b4, 3, p)), calls=5)
+    k1("K1_4k_compat", a4, b4, bench_cfg, calls=5)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernel-times":
+        sys.exit(kernel_times(sys.argv[2]))
+    if len(sys.argv) > 1:
+        raise SystemExit("usage: python3 chip_smoke.py [--kernel-times ROOT]")
     sys.exit(main())

@@ -35,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, the trailing stream included.
 SIGNATURES = {
-    "dis_pyramid_level": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "dis_pyramid": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "dis_extract_regions": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "dis_extract_banded": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P],
@@ -123,6 +123,8 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dis_error_string.argtypes = [ctypes.c_int]
     lib.dis_error_string.restype = ctypes.c_char_p
+    lib.dis_iclk_layout.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.dis_iclk_layout.restype = ctypes.c_int
     return lib
 
 

@@ -14,45 +14,80 @@
 //       minus its mean (a stripe's row0, the global row of the plane's
 //       first row, moves the y tap base only);
 //     fixed mode: |delta| < conv_eps freezes the patch.
-// A frozen patch never changes, so leaving its loop at once is
-// output-identical to running the full trip count.
 //
-// One warp per patch.  The region (rc^2 floats, rc = 2 ps + 3) sits in
-// shared memory; lane L holds taps [L K, L K + K) of Tdx, Tdy, Tn and q in
-// registers, where 32 K is the power of two >= ps^2 (taps past ps^2 are
-// zero).  Every sum over taps is an in-lane pair tree followed by a xor
-// butterfly over lanes 1, 2, 4, 8, 16: that is the pair tree of
-// ops/iclk.py::pairwise_sum, and float addition is commutative, so every
-// lane holds the same bits and the kernel equals the plain PyTorch version
-// bitwise (the build passes -fmad=false).
+// Layout: a group of G lanes per patch, 32 / G patches per warp.  Lane g of
+// a group holds the K consecutive taps [g K, g K + K) of Tdx, Tdy, Tn and q
+// in registers, where G K is the power of two >= ps^2 (taps past ps^2 are
+// zero).  ps = 8: K = 8, G = 8, so a lane holds one patch row and a warp
+// four patches; ps = 10: K = 8, G = 16; ps = 12, 16: K = 8, G = 32; other
+// even ps up to 22 take a runtime-ps instance (iclk_layout below).  ps is a
+// template parameter for 8, 10, 12, 16, so no tap index needs a runtime
+// division; where a lane's taps lie in one patch row (ps = 8, 16) the lane
+// loads its two region rows once and blends them column then row.
 //
-// Bound on the H100: issue latency of the dependent iteration chain (two
-// butterflies, a 2x2 solve, a resample per trip), not memory: each patch
-// reads about 1.4 KB of region and 0.8 KB of templates once (ps = 8).
-// Patches are independent, so 82,944 warps at the finest 1080p scale keep
-// every SM's schedulers busy.  The TPU kernel's lane packing, rolls and
-// samplers have no counterpart here.
+// Every sum over taps is the in-lane pair tree over K taps followed by
+// log2(G) xor-butterfly levels with offsets below G: that is the balanced
+// pair tree of ops/iclk.py::pairwise_sum over the zero-padded taps, and
+// float addition is commutative, so every lane of a group holds the same
+// bits and the kernel equals the plain PyTorch version bitwise (the build
+// passes -fmad=false).
+//
+// Freezing: a warp loops while any of its groups is active (__any_sync);
+// every lane runs each trip's arithmetic and shuffles under the full mask,
+// and a group's u, q and conv change only while its patch is active, as in
+// iclk_search_plain.  A frozen patch never changes, so leaving the loop
+// when all four are frozen is output-identical to the full trip count.
+//
+// Bound on the H100: instruction issue, not memory.  Each patch reads about
+// 1.4 KB of region and 0.8 KB of templates once (ps = 8); 82,944 patches at
+// the finest 1080p scale move about 210 MB (0.06 ms at 3.35 TB/s).  Issue
+// slots per patch per trip at ps = 8, compat mode with patch normalisation,
+// counted from the source as warp instructions divided by the patches a warp
+// holds (the SASS count differs by the address arithmetic):
+//   before (one warp per patch, K = 2): about 150 -- the 2x2 solve, policing
+//     sqrtf and tap-base ceil/clip on every lane, three 5-level shuffle
+//     butterflies (15 shuffles, 15 dependent adds), a runtime division and
+//     both column blends per tap;
+//   after (four patches per warp, K = 8): about 55 -- per warp 16 products,
+//     three sums of 7 in-lane adds plus 3 shuffle levels, one scalar chain
+//     for four patches, 18 shared loads and 72 blend operations for the 8
+//     taps, 8 mean subtractions and 12 masked updates.
+// Measured on the H100 (PERF.md), the finest 1080p scale takes about 2.3x
+// its memory bound, down from about 7x.  ncu does not run on the measuring
+// machine, so smsp__inst_executed was not read.  Block: 4 warps (16
+// patches at ps = 8), 23.1 KB of shared memory for their regions; the 72
+// registers of the ps = 8 instance limit an SM to 7 such blocks (28
+// warps).  In a sweep on the H100, 64 threads per block ran as fast, and
+// 256 threads or a 64-register cap (8 blocks, with spills) ran slower.
+// Regions are staged with 16-byte loads where
+// the warp's regions start aligned; templates load and q stores as 16-byte
+// vectors where the rows are aligned (every even ps: ps^2 is a multiple
+// of 4).
 //
 // K1b, the batched form (replaces _run_vmap of the same TPU file, which
-// folds the pairs into the block grid): nb pairs are one launch over
-// nb * n warps, pair-major.  Every per-pair array is [nb, n, ...] and is
-// read at the warp's flat index g = pair * n + patch; the centers are shared
-// by the pairs and read at g % n, so no [nb * n, 2] broadcast copy is made
-// per scale.  nb = 1 is K1; the math is the same lines, so each pair's
-// patches get exactly the bits they get alone.
+// folds the pairs into the block grid): nb pairs are one launch over nb * n
+// patches, pair-major.  Every per-pair array is [nb, n, ...] and is read at
+// the patch's flat index i = pair * n + patch; the centers are shared by the
+// pairs and read at i % n, so no [nb * n, 2] broadcast copy is made per
+// scale.  nb = 1 is K1; the math is the same lines, so each pair's patches
+// get exactly the bits they get alone.
 
 #include <cuda_runtime.h>
 
-#include "dis_common.cuh"
+#include <cstdint>
 
-#include <algorithm>
+#include "dis_common.cuh"
 
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
 
-template <int K>
-__device__ __forceinline__ float warp_tree_sum(const float (&v)[K]) {
+// Sum of the group's taps: in-lane pair tree, then the xor butterfly over
+// the G lanes of the group (offsets below G stay inside the group).
+template <int K, int G>
+__device__ __forceinline__ float group_sum(const float (&v)[K]) {
   float t[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) t[k] = v[k];
@@ -63,79 +98,162 @@ __device__ __forceinline__ float warp_tree_sum(const float (&v)[K]) {
   }
   float s = t[0];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) s = s + __shfl_xor_sync(FULL, s, off);
+  for (int off = 1; off < G; off <<= 1) s = s + __shfl_xor_sync(FULL, s, off);
   return s;
+}
+
+// The lane's K taps [t0, t0 + K) of one patch row of a [.., np] array;
+// taps past np read as zero.  vec: the row is 16-byte aligned and np is a
+// multiple of 4, so every 4-tap chunk is wholly in or out.
+template <int K>
+__device__ __forceinline__ void load_taps(const float* __restrict__ row, int t0, int np,
+                                          bool vec, float (&v)[K]) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < K / 4; ++c) {
+      const int t = t0 + 4 * c;
+      const float4 f = t < np ? __ldg(reinterpret_cast<const float4*>(row + t))
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      v[4 * c] = f.x;
+      v[4 * c + 1] = f.y;
+      v[4 * c + 2] = f.z;
+      v[4 * c + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = t0 + k < np ? row[t0 + k] : 0.0f;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void store_taps(float* __restrict__ row, int t0, int np, bool vec,
+                                           const float (&v)[K]) {
+  if (vec) {
+#pragma unroll
+    for (int c = 0; c < K / 4; ++c) {
+      const int t = t0 + 4 * c;
+      if (t < np)
+        *reinterpret_cast<float4*>(row + t) =
+            make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      if (t0 + k < np) row[t0 + k] = v[k];
+  }
 }
 
 struct Patch {
   const float* reg;  // [rc, rc] in shared memory
-  int rc, ps, pad, row0, by, bx;
+  int pad, row0, by, bx;
 };
 
-// Bilinear resample of the patch at (px, py) into this lane's taps.
-template <int K>
-__device__ __forceinline__ void sample(const Patch& P, float px, float py, int lane,
+// Bilinear resample of the patch at (px, py) into this lane's taps, then
+// (normalize) minus the patch mean.  PS > 0: ps is PS; PS = 0: runtime ps.
+template <int PS, int K, int G>
+__device__ __forceinline__ void sample(const Patch& P, int ps_rt, float px, float py, int g,
                                        bool normalize, float inv_ps2, float (&q)[K]) {
-  const int ps = P.ps, half = ps / 2, span = P.rc - (ps + 1);
+  const int ps = PS > 0 ? PS : ps_rt;
+  const int rc = 2 * ps + 3, np = ps * ps, half = ps / 2, span = rc - (ps + 1);
   const float a = px - floorf(px), b = py - floorf(py);
   const float a1 = 1.0f - a, b1 = 1.0f - b;
   const int ws = min(max(dis_ceil_coord(py) + P.pad - P.row0 - half - 1 - P.by, 0), span);
   const int cs = min(max(dis_ceil_coord(px) + P.pad - half - 1 - P.bx, 0), span);
+  const float* w = P.reg + ws * rc + cs;
+  const int t0 = g * K;
+  if constexpr (PS > 0 && PS % K == 0) {
+    // The lane's taps are K consecutive taps of patch row j: two region
+    // rows of K + 1 values give them all.
+    const int j = t0 / PS, i0 = t0 - j * PS;
+    const float* r0 = w + j * rc + i0;
+    const float* r1 = r0 + rc;
+    float x0[K + 1], x1[K + 1];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int t = lane * K + k;
-    q[k] = 0.0f;
-    if (t < ps * ps) {
-      const int j = t / ps, i = t - j * ps;
-      const float* r0 = P.reg + (ws + j) * P.rc + cs + i;
-      const float* r1 = r0 + P.rc;
-      const float c0 = a1 * r0[0] + a * r0[1];
-      const float c1 = a1 * r1[0] + a * r1[1];
+    for (int k = 0; k <= K; ++k) {
+      x0[k] = r0[k];
+      x1[k] = r1[k];
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float c0 = a1 * x0[k] + a * x0[k + 1];
+      const float c1 = a1 * x1[k] + a * x1[k + 1];
       q[k] = b1 * c0 + b * c1;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int t = t0 + k;
+      q[k] = 0.0f;
+      if (t < np) {
+        const int j = t / ps, i = t - j * ps;
+        const float* r0 = w + j * rc + i;
+        const float* r1 = r0 + rc;
+        const float c0 = a1 * r0[0] + a * r0[1];
+        const float c1 = a1 * r1[0] + a * r1[1];
+        q[k] = b1 * c0 + b * c1;
+      }
     }
   }
   if (normalize) {
-    const float m = warp_tree_sum<K>(q) * inv_ps2;
+    const float m = group_sum<K, G>(q) * inv_ps2;
 #pragma unroll
     for (int k = 0; k < K; ++k)
-      if (lane * K + k < ps * ps) q[k] = q[k] - m;
+      if (t0 + k < np) q[k] = q[k] - m;
   }
 }
 
-template <int K>
-__global__ void iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
-                            const int* __restrict__ base_x, const float* __restrict__ T,
-                            const float* __restrict__ Tdx, const float* __restrict__ Tdy,
-                            const float* __restrict__ Tn, const float* __restrict__ Hinv,
-                            const float* __restrict__ centers, const float* __restrict__ init_u,
-                            const unsigned char* __restrict__ conv0, long long total, int n,
-                            int ps, int n_iters, int pad, int row0, int width, int height,
-                            int normalize,
-                            int fixed, float thresh, float conv_eps, float inv_ps2,
-                            float* __restrict__ u_out, float* __restrict__ q_out,
-                            unsigned char* __restrict__ conv_out) {
+template <int PS, int K, int G>
+__global__ void __launch_bounds__(THREADS)
+iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
+            const int* __restrict__ base_x, const float* __restrict__ T,
+            const float* __restrict__ Tdx, const float* __restrict__ Tdy,
+            const float* __restrict__ Tn, const float* __restrict__ Hinv,
+            const float* __restrict__ centers, const float* __restrict__ init_u,
+            const unsigned char* __restrict__ conv0, long long total, int n, int ps_rt,
+            int n_iters, int pad, int row0, int width, int height, int normalize, int fixed,
+            float thresh, float conv_eps, float inv_ps2, int vec, float* __restrict__ u_out,
+            float* __restrict__ q_out, unsigned char* __restrict__ conv_out) {
+  constexpr int PPW = 32 / G;  // patches per warp
   extern __shared__ float smem[];
+  const int ps = PS > 0 ? PS : ps_rt;
+  const int rc = 2 * ps + 3, rr = rc * rc, np = ps * ps;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i = (long long)blockIdx.x * (blockDim.x >> 5) + warp;  // pair * n + patch
-  if (i >= total) return;
-  const long long c = i % n;  // the patch's center, shared by the pairs
-  const int rc = 2 * ps + 3, np = ps * ps;
+  const int g = lane & (G - 1), slot = lane / G;
+  const long long first = ((long long)blockIdx.x * WARPS + warp) * PPW;
+  if (first >= total) return;  // warp-uniform; nothing below syncs the block
+  const int cnt = (int)(total - first < PPW ? total - first : PPW);
 
-  float* reg = smem + warp * rc * rc;
-  const float* greg = regions + (size_t)i * rc * rc;
-  for (int e = lane; e < rc * rc; e += 32) reg[e] = greg[e];
+  // Stage the warp's cnt regions (contiguous in device memory).
+  float* wreg = smem + warp * PPW * rr;
+  const float* greg = regions + first * rr;
+  const int nreg = cnt * rr;
+  if ((reinterpret_cast<uintptr_t>(greg) & 15) == 0 && (nreg & 3) == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(greg);
+    float4* d4 = reinterpret_cast<float4*>(wreg);
+    for (int e = lane; e < nreg / 4; e += 32) d4[e] = __ldg(s4 + e);
+  } else {
+    for (int e = lane; e < nreg; e += 32) wreg[e] = greg[e];
+  }
   __syncwarp();
-  const Patch P{reg, rc, ps, pad, row0, base_y[i], base_x[i]};
+
+  // A group past the end mirrors the warp's first patch, frozen, and
+  // writes nothing; it only keeps the shuffles' full mask.
+  const bool valid = slot < cnt;
+  const long long i = first + (valid ? slot : 0);  // pair * n + patch
+  const long long c = i % n;                        // the patch's center
+  const Patch P{wreg + (valid ? slot : 0) * rr, pad, row0, base_y[i], base_x[i]};
+  const bool v4 = vec != 0;
+  const int t0 = g * K;
+  const size_t row = (size_t)i * np;
 
   float tdx[K], tdy[K], tn[K], q[K];
-  const size_t row = (size_t)i * np;
+  load_taps<K>(Tdx + row, t0, np, v4, tdx);
+  load_taps<K>(Tdy + row, t0, np, v4, tdy);
+  if (fixed) {
+    load_taps<K>(Tn + row, t0, np, v4, tn);
+  } else {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int t = lane * K + k;
-    const bool ok = t < np;
-    tdx[k] = ok ? Tdx[row + t] : 0.0f;
-    tdy[k] = ok ? Tdy[row + t] : 0.0f;
-    tn[k] = (ok && fixed) ? Tn[row + t] : 0.0f;
+    for (int k = 0; k < K; ++k) tn[k] = 0.0f;
   }
   const float h00 = Hinv[4 * i], h01 = Hinv[4 * i + 1];
   const float h10 = Hinv[4 * i + 2], h11 = Hinv[4 * i + 3];
@@ -145,19 +263,14 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
   const float lb = -(float)ps / 2.0f;
   const float ub_w = (float)(width + ps / 2 - 2), ub_h = (float)(height + ps / 2 - 2);
 
-  bool frozen = conv0[i] != 0;
-  if (frozen) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const int t = lane * K + k;
-      q[k] = t < np ? T[row + t] : 0.0f;
-    }
-  } else {
-    sample<K>(P, sx, sy, lane, normalize, inv_ps2, q);
-  }
+  const bool start_frozen = conv0[i] != 0;
+  bool frozen = !valid || start_frozen;
+  sample<PS, K, G>(P, ps, sx, sy, g, normalize, inv_ps2, q);
+  if (start_frozen) load_taps<K>(T + row, t0, np, v4, q);
 
   float ux = iux, uy = iuy;
-  for (int it = 0; it < n_iters && !frozen; ++it) {
+  for (int it = 0; it < n_iters; ++it) {
+    if (!__any_sync(FULL, !frozen)) break;
     float px_[K], py_[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -165,8 +278,8 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
       px_[k] = tdx[k] * r;
       py_[k] = tdy[k] * r;
     }
-    const float rx = warp_tree_sum<K>(px_);
-    const float ry = warp_tree_sum<K>(py_);
+    const float rx = group_sum<K, G>(px_);
+    const float ry = group_sum<K, G>(py_);
     const float dx = h00 * rx + h01 * ry;
     const float dy = h10 * rx + h11 * ry;
     const float uxn = ux - dx, uyn = uy - dy;
@@ -174,51 +287,71 @@ __global__ void iclk_kernel(const float* __restrict__ regions, const int* __rest
     const float mx = sx - pxn, my = sy - pyn;
     const float dist = sqrtf(mx * mx + my * my);
     const bool policed = dist > thresh || pxn < lb || pyn < lb || pxn > ub_w || pyn > ub_h;
-    ux = policed ? iux : uxn;
-    uy = policed ? iuy : uyn;
-    sample<K>(P, cx + ux, cy + uy, lane, normalize, inv_ps2, q);
-    frozen = policed || (fixed && sqrtf(dx * dx + dy * dy) < conv_eps);
+    const float nux = policed ? iux : uxn;
+    const float nuy = policed ? iuy : uyn;
+    float qn[K];
+    sample<PS, K, G>(P, ps, cx + nux, cy + nuy, g, normalize, inv_ps2, qn);
+    if (!frozen) {
+      ux = nux;
+      uy = nuy;
+#pragma unroll
+      for (int k = 0; k < K; ++k) q[k] = qn[k];
+      frozen = policed || (fixed && sqrtf(dx * dx + dy * dy) < conv_eps);
+    }
   }
 
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int t = lane * K + k;
-    if (t < np) q_out[row + t] = q[k];
-  }
-  if (lane == 0) {
+  if (!valid) return;
+  store_taps<K>(q_out + row, t0, np, v4, q);
+  if (g == 0) {
     u_out[2 * i] = ux;
     u_out[2 * i + 1] = uy;
     conv_out[i] = frozen ? 1 : 0;
   }
 }
 
-template <int K>
+template <int PS, int K, int G>
 int launch(const float* regions, const int* base_y, const int* base_x, const float* T,
            const float* Tdx, const float* Tdy, const float* Tn, const float* Hinv,
            const float* centers, const float* init_u, const unsigned char* conv0, long long total,
            int n, int ps, int n_iters, int pad, int row0, int width, int height, int normalize,
-           int fixed, float thresh, float conv_eps, float inv_ps2, float* u_out, float* q_out,
-           unsigned char* conv_out, cudaStream_t stream) {
+           int fixed, float thresh, float conv_eps, float inv_ps2, int vec, float* u_out,
+           float* q_out, unsigned char* conv_out, cudaStream_t stream) {
+  constexpr int PPB = WARPS * (32 / G);  // patches per block
   const int rc = 2 * ps + 3;
-  const int region_bytes = rc * rc * (int)sizeof(float);
-  const int warps = std::max(1, std::min(8, (48 * 1024) / region_bytes));
-  const unsigned blocks = (unsigned)((total + warps - 1) / warps);
-  iclk_kernel<K><<<blocks, warps * 32, warps * region_bytes, stream>>>(
+  const size_t bytes = (size_t)PPB * rc * rc * sizeof(float);
+  const long long blocks = (total + PPB - 1) / PPB;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  iclk_kernel<PS, K, G><<<(unsigned)blocks, THREADS, bytes, stream>>>(
       regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, total, n, ps,
-      n_iters, pad, row0, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, u_out,
+      n_iters, pad, row0, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, vec, u_out,
       q_out, conv_out);
   return (int)cudaGetLastError();
 }
 
+bool aligned16(const void* p) { return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
 }  // namespace
+
+// The lane layout the kernel takes for patch size ps: K taps per lane and
+// G lanes per patch, G * K the power of two >= ps^2 (K = 8 where G <= 32
+// allows it).  Returns 0, or cudaErrorInvalidValue for an odd ps or
+// ps^2 > 512 (ops/cuda/iclk_kernel.py::lane_layout is its copy).
+extern "C" int dis_iclk_layout(int ps, int* k, int* g) {
+  if (ps < 2 || ps % 2 != 0 || ps * ps > 512) return (int)cudaErrorInvalidValue;
+  int p = 1;
+  while (p < ps * ps) p <<= 1;
+  *k = p > 256 ? p / 32 : (p < 8 ? p : 8);
+  *g = p / *k;
+  return 0;
+}
 
 // nb pairs of n patches.  regions [nb, n, rc, rc]; base_y/base_x [nb, n]
 // int32; T/Tdx/Tdy/Tn [nb, n, ps^2] (Tn read only when fixed != 0); Hinv
 // [nb, n, 2, 2]; init_u [nb, n, 2]; conv0 [nb, n] bool; centers [n, 2],
 // shared by the pairs.  Outputs u [nb, n, 2], q [nb, n, ps^2], conv [nb, n]
 // bool.  row0 is the global row of the first row of the plane the regions
-// came from.  ps^2 <= 512.  Returns cudaGetLastError() after the launch
-// (nb * n = 0 launches nothing).
+// came from.  ps even, ps^2 <= 512.  Returns cudaGetLastError() after the
+// launch (nb * n = 0 launches nothing).
 extern "C" int dis_iclk_search(const float* regions, const int* base_y, const int* base_x,
                                const float* T, const float* Tdx, const float* Tdy,
                                const float* Tn, const float* Hinv, const float* centers,
@@ -227,18 +360,26 @@ extern "C" int dis_iclk_search(const float* regions, const int* base_y, const in
                                int height, int normalize, int fixed, float thresh, float conv_eps,
                                float inv_ps2, float* u_out, float* q_out,
                                unsigned char* conv_out, cudaStream_t stream) {
+  int k = 0, g = 0;
+  if (dis_iclk_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)nb * n;
   if (total <= 0) return (int)cudaGetLastError();
-  const int np = ps * ps;
-#define DIS_ICLK_LAUNCH(KK)                                                                   \
-  return launch<KK>(regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, \
-                    total, n, ps, n_iters, pad, row0, width, height, normalize, fixed, thresh, \
-                    conv_eps, inv_ps2, u_out, q_out, conv_out, stream)
-  if (np <= 32) DIS_ICLK_LAUNCH(1);
-  if (np <= 64) DIS_ICLK_LAUNCH(2);
-  if (np <= 128) DIS_ICLK_LAUNCH(4);
-  if (np <= 256) DIS_ICLK_LAUNCH(8);
-  if (np <= 512) DIS_ICLK_LAUNCH(16);
+  const int vec = aligned16(T) && aligned16(Tdx) && aligned16(Tdy) &&
+                  (!fixed || aligned16(Tn)) && aligned16(q_out);
+#define DIS_ICLK_LAUNCH(PS, KK, GG)                                                           \
+  return launch<PS, KK, GG>(regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, \
+                            conv0, total, n, ps, n_iters, pad, row0, width, height, normalize, \
+                            fixed, thresh, conv_eps, inv_ps2, vec, u_out, q_out, conv_out,    \
+                            stream)
+  if (ps == 8) DIS_ICLK_LAUNCH(8, 8, 8);
+  if (ps == 10) DIS_ICLK_LAUNCH(10, 8, 16);
+  if (ps == 12) DIS_ICLK_LAUNCH(12, 8, 32);
+  if (ps == 16) DIS_ICLK_LAUNCH(16, 8, 32);
+  if (k == 4 && g == 1) DIS_ICLK_LAUNCH(0, 4, 1);
+  if (k == 8 && g == 2) DIS_ICLK_LAUNCH(0, 8, 2);
+  if (k == 8 && g == 8) DIS_ICLK_LAUNCH(0, 8, 8);
+  if (k == 8 && g == 32) DIS_ICLK_LAUNCH(0, 8, 32);
+  if (k == 16 && g == 32) DIS_ICLK_LAUNCH(0, 16, 32);
 #undef DIS_ICLK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

@@ -2,15 +2,15 @@
 of ``dis_tpu/models/dis.py``.
 
 ``flow = dis_flow(img1, img2, cfg)`` runs on the device of its inputs:
-on CUDA tensors every pyramid level, region extraction and search goes
+on CUDA tensors each pyramid, region extraction and search goes
 through the hand-written kernels K3, K2 (K2c where the extraction route
 says so: the 4K finest scale) and K1; on CPU tensors through their plain
 PyTorch versions.  Scale shapes are static and the scale loop is a Python
 loop.
 
 A batch of same-shape pairs ``[B, H, W]`` runs the same loop once, with
-the pair axis leading every tensor: one K3 launch per level and image,
-one K2 (K2b or K2c) and one K1 (K1b) launch per scale, whatever B is.
+the pair axis leading every tensor: one K3 launch per image (four
+levels each), one K2 (K2b or K2c) and one K1 (K1b) launch per scale, whatever B is.
 Each pair of a batch gets the bits it gets alone.  Each scale's constants
 come from its plan (``ops/grid.py::scale_plan``), made once per shape and
 device, so a frame makes no host-to-device copy and no host sync, and can

@@ -4,16 +4,17 @@ Replaces ``dis_tpu/ops/pallas/iclk_kernel.py::inverse_search_pallas``
 (kernel body ``_iclk_kernel``; K1) and its batched rule ``_run_vmap``
 (K1b), which folds a batch of pairs into the launch: one launch over
 ``B * N`` patches, the shared centers read at ``patch % N``.  Bound on
-the H100 by the latency of the dependent iteration chain, not memory;
-one warp per patch, region in shared memory, taps in registers, sums as
-an in-lane pair tree plus a warp butterfly.  Plain version:
-``ops/iclk.py::iclk_search_plain``, which the kernel equals bitwise (same
-pair trees, no FMA).
+the H100 by instruction issue, not memory: a group of G lanes per patch
+(:func:`lane_layout`; four patches per warp at ps 8), regions in shared
+memory, K taps per lane in registers, sums as an in-lane pair tree plus
+a butterfly over the group, ps a compile-time constant for 8, 10, 12
+and 16.  Plain version: ``ops/iclk.py::iclk_search_plain``, which the
+kernel equals bitwise (same pair trees, no FMA).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +24,22 @@ from ..iclk import PatchTemplates, iclk_search_plain, inv_taps, region_size
 from . import all_on_cpu, check_input
 
 MAX_TAPS = 512   # ps^2 limit of the kernel's register tiles (ps <= 22)
+
+
+def lane_layout(ps: int) -> Tuple[int, int]:
+    """(K, G): taps per lane and lanes per patch of the kernel for patch
+    size ``ps``; ``G * K`` is the power of two >= ps^2 and K is 8 where
+    ``G <= 32`` allows it (a copy of ``dis_iclk_layout`` in
+    ``csrc/iclk.cu``).  Every sum over a patch's taps is the pair tree over
+    K taps in a lane, then log2(G) xor-butterfly levels."""
+    if ps < 2 or ps % 2 or ps * ps > MAX_TAPS:
+        raise ValueError(f"patch_size {ps}: the kernel takes even sizes with "
+                         f"ps^2 <= {MAX_TAPS}")
+    p = 1
+    while p < ps * ps:
+        p *= 2
+    k = p // 32 if p > 256 else min(p, 8)
+    return k, p // k
 
 
 def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
@@ -46,9 +63,7 @@ def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
                                  init_u, conv0, cfg, width, height, row0)
     ps = cfg.patch_size
     np_ = ps * ps
-    if np_ > MAX_TAPS:
-        raise ValueError(f"patch_size {ps} exceeds the kernel's limit of "
-                         f"{MAX_TAPS} taps per patch")
+    lane_layout(ps)   # raises for a size the kernel does not take
     dev = regions.device
     n = centers.shape[0]
     if init_u.ndim not in (2, 3):

@@ -1,35 +1,57 @@
-"""K3: one pyramid level (``csrc/pyramid_level.cu``).
+"""K3: the pyramid, every level in one launch (``csrc/pyramid_level.cu``).
 
 Replaces ``dis_tpu/ops/pallas/pyramid_kernel.py::pyramid_level_pallas``
-(kernel body ``_level_kernel``).  Memory-bound on the H100 (one plane
-read, three written); the kernel stages level values with a halo in
-shared memory and fuses the x0.5 decimation of coarser levels.  Plain
-version: ``ops/pyramid.py::pyramid_level_plain``, equal bitwise.  A
-batch of planes [B, ...] is one launch (``blockIdx.z`` is the plane).
+(kernel body ``_level_kernel``), which the TPU calls once per level.
+Memory-bound on the H100: a block owns a 64 x 64 tile of the first level
+and the tiles beneath it at the coarser ones, stages the raw image with
+its halo in shared memory, and builds each level's magnitude or box mean
+there, so the raw image is read once and every plane written once.  Up to
+``MAX_LEVELS`` levels per launch; a deeper pyramid chains a launch that
+decimates the last level's image plane.  Plain version: the chain of
+``ops/pyramid.py::pyramid_level_plain``, equal bitwise.  A batch of planes
+[B, ...] is one launch (``blockIdx.z`` is the plane).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ... import _build
-from ..pyramid import pyramid_level_plain
+from ..pyramid import pyramid_plain
 from . import all_on_cpu, check_input
 
-
 MAX_PLANES = 65535   # gridDim.z
+MAX_LEVELS = 4       # per launch: the shared memory of a 64 x 64 base tile
+
+
+def pyramid_levels(src: torch.Tensor, p: int, levels: int, base: bool = True):
+    """[(img_pad, dx_pad, dy_pad)] for ``levels`` levels, finest first, each
+    plane [(B,) h_s + 2p, w_s + 2p] with h_s = h >> s.
+
+    ``base=True``: ``src`` is the raw [(B,) h, w] image (the first level
+    image is its Sobel magnitude).  ``base=False``: ``src`` is the finer
+    level's padded image plane [(B,) 2h + 2p, 2w + 2p] (the first level
+    image is its decimation).  One launch per ``MAX_LEVELS`` levels.
+    """
+    if all_on_cpu(src):
+        return pyramid_plain(src, p, levels, base)
+    out = []
+    while levels > 0:
+        n = min(levels, MAX_LEVELS)
+        out += _launch(src, p, n, base)
+        src, base, levels = out[-1][0], False, levels - n
+    return out
 
 
 def pyramid_level(src: torch.Tensor, p: int, base: bool):
-    """(img_pad, dx_pad, dy_pad) [(B,) h + 2p, w + 2p] of one level.
+    """(img_pad, dx_pad, dy_pad) of one level: :func:`pyramid_levels` with
+    one level."""
+    return pyramid_levels(src, p, 1, base)[0]
 
-    ``base=True``: ``src`` is the raw [(B,) h, w] image (the level image
-    is its Sobel magnitude).  ``base=False``: ``src`` is the finer level's
-    padded image plane [(B,) 2h + 2p, 2w + 2p] (the level image is its
-    decimation).
-    """
-    if all_on_cpu(src):
-        return pyramid_level_plain(src, p, base)
+
+def _launch(src: torch.Tensor, p: int, n: int, base: bool):
     if src.ndim not in (2, 3):
         raise ValueError(f"src must be [H, W] or [B, H, W], got shape {tuple(src.shape)}")
     lead = tuple(src.shape[:-2])
@@ -44,16 +66,20 @@ def pyramid_level(src: torch.Tensor, p: int, base: bool):
             raise ValueError(f"decimation needs an even interior, got "
                              f"{sh - 2 * p}x{sw - 2 * p}")
         h, w = (sh - 2 * p) // 2, (sw - 2 * p) // 2
-    if h < 2 or w < 2:
-        raise ValueError(f"level of {h}x{w} is too small for the 3x3 stencil")
+    f = 1 << (n - 1)
+    if h % f or w % f:
+        raise ValueError(f"{n} levels need dims divisible by {f}, got {h}x{w}")
+    if h // f < 2 or w // f < 2:
+        raise ValueError(f"level of {h // f}x{w // f} is too small for the 3x3 stencil")
     check_input(src, "src", src.device, torch.float32, lead + (sh, sw))
-    img, dx, dy = (torch.empty(lead + (h + 2 * p, w + 2 * p), dtype=torch.float32,
-                               device=src.device) for _ in range(3))
-    _build.launch("dis_pyramid_level", src.device, src.data_ptr(), sh, sw,
-                  img.data_ptr(), dx.data_ptr(), dy.data_ptr(), nplanes, h, w,
-                  p, int(base))
-    pyramid_level.launches += 1
-    return img, dx, dy
+    planes = [tuple(torch.empty(lead + ((h >> s) + 2 * p, (w >> s) + 2 * p),
+                                dtype=torch.float32, device=src.device) for _ in range(3))
+              for s in range(n)]
+    outs = (ctypes.c_void_p * (3 * n))(*(t.data_ptr() for lv in planes for t in lv))
+    _build.launch("dis_pyramid", src.device, src.data_ptr(), sh, sw, outs, nplanes, n,
+                  h, w, p, int(base))
+    pyramid_levels.launches += 1
+    return planes
 
 
-pyramid_level.launches = 0
+pyramid_levels.launches = 0

@@ -7,10 +7,11 @@ Every level carries its own Sobel dx/dy of the magnitude image and is
 padded by ``img_padding``: replicate for the image, zeros for the
 gradients (main.cpp:41-49).
 
-One level is one call of ``ops/cuda/pyramid_kernel.py::pyramid_level``
-(kernel K3 on CUDA tensors, :func:`pyramid_level_plain` on CPU tensors).
-A batch of images ``[B, H, W]`` gives levels ``[B, h + 2p, w + 2p]``,
-still one call (one K3 launch) per level.
+The whole pyramid is one call of
+``ops/cuda/pyramid_kernel.py::pyramid_levels``: kernel K3 on CUDA tensors,
+one launch for up to four levels; :func:`pyramid_plain`, the chain of
+:func:`pyramid_level_plain`, on CPU tensors.  A batch of images
+``[B, H, W]`` gives levels ``[B, h + 2p, w + 2p]``, still one launch.
 """
 
 from __future__ import annotations
@@ -49,25 +50,30 @@ def pyramid_level_plain(src: torch.Tensor, p: int, base: bool):
             im.constant_pad(dy, p, p, p, p))
 
 
+def pyramid_plain(src: torch.Tensor, p: int, levels: int, base: bool = True):
+    """[(img_pad, dx_pad, dy_pad)] for ``levels`` levels, finest first:
+    :func:`pyramid_level_plain` chained level by level (the plain version
+    of kernel K3, which builds them all in one launch)."""
+    out = []
+    for s in range(levels):
+        out.append(pyramid_level_plain(src, p, base and s == 0))
+        src = out[-1][0]
+    return out
+
+
 def construct_pyramid(img: torch.Tensor, coarsest_scale: int,
                       img_padding: int, plain: bool = False
                       ) -> List[PyramidLevel]:
     """Returns levels[0..coarsest], finest first (level index == scale),
     of ``img`` [H, W] or a batch [B, H, W].
 
-    ``plain=True`` runs :func:`pyramid_level_plain` on any device (the
+    ``plain=True`` runs :func:`pyramid_plain` on any device (the
     reference the kernel is checked against on the card).
     """
-    from .cuda.pyramid_kernel import pyramid_level
+    from .cuda.pyramid_kernel import pyramid_levels
 
-    level = pyramid_level_plain if plain else pyramid_level
     p = img_padding
-    levels: List[PyramidLevel] = []
-    src = img
-    for s in range(coarsest_scale + 1):
-        ip, dx, dy = level(src, p, base=(s == 0))
-        levels.append(PyramidLevel(img=ip, dx=dx, dy=dy,
-                                   width=ip.shape[-1] - 2 * p,
-                                   height=ip.shape[-2] - 2 * p))
-        src = ip
-    return levels
+    build = pyramid_plain if plain else pyramid_levels
+    return [PyramidLevel(img=ip, dx=dx, dy=dy, width=ip.shape[-1] - 2 * p,
+                         height=ip.shape[-2] - 2 * p)
+            for ip, dx, dy in build(img, p, coarsest_scale + 1)]

@@ -3,7 +3,7 @@
 
 A stack of same-shape pairs [B, H, W] runs through the pipeline once,
 with the pair axis leading every tensor: on CUDA tensors one K3 launch
-per level and image, one K2b and one K1b launch per scale, whatever B
+per image (up to four levels), one K2b and one K1b launch per scale, whatever B
 is (the TPU side folds the pairs into its kernels' grids through their
 ``custom_vmap`` rules).  Each pair gets the bits it gets alone.
 

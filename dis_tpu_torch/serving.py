@@ -30,7 +30,7 @@ from .models.dis import _check_supported, dis_flow, flow_plans
 from .ops.cuda.extract_banded_kernel import extract_regions_banded
 from .ops.cuda.extract_kernel import extract_regions
 from .ops.cuda.iclk_kernel import iclk_search
-from .ops.cuda.pyramid_kernel import pyramid_level
+from .ops.cuda.pyramid_kernel import pyramid_levels
 from .ops.grid import ScalePlan
 
 WARMUP_CALLS = 2
@@ -134,5 +134,5 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
 
 
 def _launch_counts() -> Dict[str, int]:
-    return {"K3": pyramid_level.launches, "K2": extract_regions.launches,
+    return {"K3": pyramid_levels.launches, "K2": extract_regions.launches,
             "K2c": extract_regions_banded.launches, "K1": iclk_search.launches}

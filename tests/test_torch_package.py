@@ -18,12 +18,12 @@ from dis_tpu_torch.models import dis as tdis
 from dis_tpu_torch.ops import iclk
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
 from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
-from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level
+from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.grid import make_grid
 
 from conftest import synthetic_pair
 
-WRAPPERS = (pyramid_level, extract_regions, iclk_search)
+WRAPPERS = (pyramid_levels, extract_regions, iclk_search)
 
 
 @pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
