@@ -60,8 +60,14 @@ recipe, a (3, 2) px shift) under the compat bench config and
     331,776), bitwise equal to its plain version and to K2 at B = 1, at
     B = 2 and on stripe 1 of 3 (row0 = 544), where K1 with row0 > 0 is
     held to its plain version bitwise; K2c at ps 12 on a small plane; an empty
-    grid launches nothing; the count of windows copied from outside the
-    staged box is printed (expected 0);
+    grid launches nothing; K2 in each of these also with the grid's column
+    length (``num_h``), so that its groups follow the columns; the share of
+    windows that K2c copied from device memory, outside its group's staged
+    box, is printed (a few, where the init flow spreads a group widely);
+1d. windows outside the staged box: inits drawn up to the 4K finest
+    scale's static bound (56 px) on the 4K, 1080p and KITTI B = 8 finest
+    grids, so that many groups' boxes outgrow the fixed stage; K2c, K2
+    and K2 with ``num_h`` bitwise equal to the plain version;
 2d. ``dis_flow`` at 4K: per call K3 launches twice, K2c once and K2 three times
     (none under ``DIS_ULTRAFAST``, whose finest scale is 1), the median
     within 0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX
@@ -72,8 +78,10 @@ recipe, a (3, 2) px shift) under the compat bench config and
     (176 rows; row0 0, 544, 1264) and ``parallel.grid_tiled_flow`` with 3
     parts, each bitwise equal to the untiled flow, K2c once and K3 twice
     per stripe;
-3c. times: K2c and K2 on the same 4K finest inputs, 4K ms/frame eager and
-    replayed (compat and ``DIS_FAST``), 3-stripe tiled 4K ms/frame.
+3c. times: K2c and K2 on the same 4K finest inputs (beside a ``zero_``
+    fill of as many bytes, the card's practical write rate), 4K ms/frame
+    eager and replayed (compat and ``DIS_FAST``), 3-stripe tiled 4K
+    ms/frame.
 
 Each kernel's line gives its bound: the larger of the bytes it must move
 (each input read once, each output written once: K3 the raw image and
@@ -83,10 +91,13 @@ the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks.  No single PyTorch call computes any of these functions,
 so ``library_ms`` is null.
 
-``python3 chip_smoke.py --kernel-times ROOT`` builds and times only K3
-and K1/K1b, on the same inputs, for the ``dis_tpu_torch`` package under
-the directory ROOT (an unpacked earlier commit, say, to compare two trees
-in one run on one card), and prints one JSON line.
+``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
+kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
+B = 8; K2c and K2 on the same 4K finest inputs, and K1 there) and the
+replayed 1080p and 4K compat frames, on the same inputs, for the
+``dis_tpu_torch`` package under the directory ROOT
+(an unpacked earlier commit, say, to compare two trees in one run on one
+card), and prints one JSON line.
 
 It prints one JSON line of kernel results, then the card line, then
 ``{"ok": true, "device": {...}}`` last.  Any failed check raises, so the
@@ -253,6 +264,14 @@ def finest_inputs(img1, img2, cfg, p):
     return cfg, l2, tpl, Tn, plan.centers, init_u, pos0, conv0
 
 
+def num_h_of(level, cfg) -> int:
+    """Column length of the scale's patch grid (the main path hands it to
+    K2 so that its groups follow the columns)."""
+    from dis_tpu_torch.ops.grid import make_grid
+
+    return make_grid(level.width, level.height, cfg.steps).num_h
+
+
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the least time the card could take."""
     tb = nbytes / HBM_BYTES_PER_S * 1e3
@@ -387,19 +406,22 @@ def main() -> int:
         _, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest[name]
 
         kr = extract_regions(l2.img, pos0, cfg.patch_size, p)
+        kg = extract_regions(l2.img, pos0, cfg.patch_size, p, num_h=num_h_of(l2, cfg))
         pr = iclk.extract_regions_plain(l2.img, pos0, cfg.patch_size, p)
         torch.cuda.synchronize()
-        k2_err = max(k2_err, float((kr[0] - pr[0]).abs().max()))
-        for kt, pt in zip(kr, pr):
-            check(torch.equal(kt, pt), f"K2 {name} N={pos0.shape[0]} differs")
+        k2_err = max(k2_err, float((kr[0] - pr[0]).abs().max()),
+                     float((kg[0] - pr[0]).abs().max()))
+        for kt, gt, pt in zip(kr, kg, pr):
+            check(torch.equal(kt, pt) and torch.equal(gt, pt),
+                  f"K2 {name} N={pos0.shape[0]} differs")
         args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
         kout = iclk_search(*kr, *args)
         pout = iclk.iclk_search_plain(*pr, *args)
         torch.cuda.synchronize()
         err, flips = search_gate(f"K1 {name}", kout, pout)
         k1_err = max(k1_err, err)
-        print(f"phase1 {name} finest N={pos0.shape[0]}: K2 and K1 bitwise (K1 max|du| "
-              f"{err} flips {flips})", flush=True)
+        print(f"phase1 {name} finest N={pos0.shape[0]}: K2 (consecutive and column "
+              f"groups) and K1 bitwise (K1 max|du| {err} flips {flips})", flush=True)
 
     empty = torch.zeros((0, 2), dtype=torch.float32, device=dev)
     l2_img = finest["compat"][1].img
@@ -461,15 +483,18 @@ def main() -> int:
         _, l2, tpl, Tn, centers, init_u, pos0, conv0 = kfinest[name]
         ps = cfg.patch_size
         extract_regions.launches = iclk_search.launches = 0
-        kr = extract_regions(l2.img, pos0, ps, p)
+        kr = extract_regions(l2.img, pos0, ps, p, num_h=num_h_of(l2, cfg))
         args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
         ko = iclk_search(*kr, *args)
         check(extract_regions.launches == 1 and iclk_search.launches == 1,
               f"K2b/K1b {name}: not one launch each for the batch")
         pr = iclk.extract_regions_plain(l2.img, pos0, ps, p)
         po = iclk.iclk_search_plain(*pr, *args)
+        kc = extract_regions(l2.img, pos0, ps, p)
         torch.cuda.synchronize()
         k2b_err = max(k2b_err, float((kr[0] - pr[0]).abs().max()))
+        for kt, pt in zip(kc, pr):
+            check(torch.equal(kt, pt), f"K2b {name}: consecutive groups differ")
         k1b_err = max(k1b_err, float((ko[0] - po[0]).abs().max()))
         for kt, pt in zip(kr + ko, pr + po):
             check(torch.equal(kt, pt), f"K2b/K1b {name}: differs from the batched plain version")
@@ -495,23 +520,27 @@ def main() -> int:
     check(route4 == ["K2c", "K2", "K2", "K2"], f"4K routes by scale {route4}")
     bound0 = init_bound(bench_cfg, 0)
 
-    def k2c_check(label, img, pos0, ps, pad, geom, bnd, row0=0):
-        """K2c bitwise equal to its plain version and to K2, in one launch;
-        returns (regions, bases) and the max abs error."""
+    def k2c_check(label, img, pos0, ps, pad, geom, bnd, row0=0, phase="1c"):
+        """K2c bitwise equal to its plain version and to K2 (consecutive
+        and column groups), in one launch; prints the share of windows
+        copied from device memory instead of the staged box; returns
+        (regions, bases) and the max abs error."""
         outside = torch.zeros(1, dtype=torch.int32, device=dev)
         before = extract_regions_banded.launches
         kc = extract_regions_banded(img, pos0, ps, pad, geom, bnd, row0, outside)
         check(extract_regions_banded.launches == before + 1, f"K2c {label}: not one launch")
         k2 = extract_regions(img, pos0, ps, pad, row0)
+        kg = extract_regions(img, pos0, ps, pad, row0, num_h=geom.num_h)
         pr = iclk.extract_regions_plain(img, pos0, ps, pad, row0)
         torch.cuda.synchronize()
         err = float((kc[0] - pr[0]).abs().max()) if kc[0].numel() else 0.0
-        for kt, k2t, pt in zip(kc, k2, pr):
-            check(torch.equal(kt, pt) and torch.equal(kt, k2t),
+        for kt, k2t, kgt, pt in zip(kc, k2, kg, pr):
+            check(torch.equal(kt, pt) and torch.equal(kt, k2t) and torch.equal(kgt, pt),
                   f"K2c {label}: differs from its plain version or from K2")
-        print(f"phase1c K2c {label}: {tuple(pos0.shape[:-1])} patches bitwise equal to "
-              f"plain and K2; windows copied from outside the staged box: {int(outside)}",
-              flush=True)
+        n = pos0.numel() // 2
+        print(f"phase{phase} K2c {label}: {tuple(pos0.shape[:-1])} patches bitwise equal to "
+              f"plain and K2; windows copied from device memory: {int(outside)} "
+              f"({int(outside) / max(n, 1):.6f} of {n})", flush=True)
         return kc, err
 
     f4 = finest_inputs(a4, b4, bench_cfg, p)
@@ -569,6 +598,22 @@ def main() -> int:
     check(extract_regions_banded.launches == before and tuple(kr[0].shape) == (0, 27, 27),
           "K2c on an empty grid")
     print("phase1c K2c num_h=0 launches nothing", flush=True)
+
+    # -- phase 1d: windows outside the staged box ------------------------------
+    # Inits drawn up to the 4K finest scale's static bound (56 px) on the
+    # 4K, 1080p and KITTI B = 8 finest grids: many groups' boxes outgrow the
+    # stage, and their windows come from device memory.
+    for label, lv, cen, cfg in (
+            ("4K finest", l2_4, centers4, bench_cfg),
+            ("1080p finest", finest["compat"][1], finest["compat"][4], bench_cfg),
+            (f"KITTI B={nk} finest", kfinest["config3"][1], kfinest["config3"][4], cfg3)):
+        lead = tuple(lv.img.shape[:-2])
+        big = torch.from_numpy(rng.uniform(-bound0, bound0, lead + tuple(cen.shape))
+                               .astype(np.float32)).to(dev)
+        geom = make_grid(lv.width, lv.height, cfg.steps)
+        _, err = k2c_check(f"{label}, init up to {bound0} px", lv.img, cen + big, 8, p, geom,
+                           bound0, phase="1d")
+        k2c_err = max(k2c_err, err)
 
     # -- phase 2: the main path ---------------------------------------------
     wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
@@ -757,9 +802,13 @@ def main() -> int:
     times["K3"] = (replay_ms(lambda: construct_pyramid(a, 3, p)),
                    time_ms(lambda: construct_pyramid(a, 3, p, plain=True)))
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest["compat"]
+    nh = num_h_of(l2, cfg)
     costs["K2"] = extract_cost(l2.img, pos0, 8)
-    times["K2"] = (replay_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
+    times["K2"] = (replay_ms(lambda: extract_regions(l2.img, pos0, 8, p, num_h=nh)),
                    time_ms(lambda: iclk.extract_regions_plain(l2.img, pos0, 8, p)))
+    print(f"phase3 K2 consecutive groups (no num_h): "
+          f"{replay_ms(lambda: extract_regions(l2.img, pos0, 8, p)):.4f} ms replayed "
+          f"[{card}]", flush=True)
     kr = extract_regions(l2.img, pos0, 8, p)
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
     trips = []
@@ -769,7 +818,7 @@ def main() -> int:
     times["K1"] = (replay_ms(lambda: iclk_search(*kr, *args)),
                    time_ms(lambda: iclk.iclk_search_plain(*kr, *args)))
     eager = {"K3": time_ms(lambda: construct_pyramid(a, 3, p)),
-             "K2": time_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
+             "K2": time_ms(lambda: extract_regions(l2.img, pos0, 8, p, num_h=nh)),
              "K1": time_ms(lambda: iclk_search(*kr, *args))}
     for k, (km, pm) in times.items():
         print(f"phase3 {k}: kernel {km:.4f} ms replayed ({eager[k]:.4f} ms a call with its "
@@ -798,8 +847,9 @@ def main() -> int:
     print(f"phase3b 1080p compat: eager {e:.4f} ms/frame, replayed {r:.4f} ms/frame "
           f"[{card}]", flush=True)
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = kfinest["config3"]
+    nh = num_h_of(l2, cfg)
     costs["K2b"] = extract_cost(l2.img, pos0, 8)
-    times["K2b"] = (replay_ms(lambda: extract_regions(l2.img, pos0, 8, p)),
+    times["K2b"] = (replay_ms(lambda: extract_regions(l2.img, pos0, 8, p, num_h=nh)),
                     time_ms(lambda: iclk.extract_regions_plain(l2.img, pos0, 8, p), reps=10))
     kr = extract_regions(l2.img, pos0, 8, p)
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
@@ -820,10 +870,18 @@ def main() -> int:
                                                              bound0), calls=5),
                     time_ms(lambda: iclk.extract_regions_plain(l2_4.img, pos04, 8, p),
                             reps=PLAIN_REPS_4K, warmup=1))
-    k2_4k = replay_ms(lambda: extract_regions(l2_4.img, pos04, 8, p), calls=5)
+    k2_4k = replay_ms(lambda: extract_regions(l2_4.img, pos04, 8, p, num_h=geom4.num_h),
+                      calls=5)
+    k2_4k_flat = replay_ms(lambda: extract_regions(l2_4.img, pos04, 8, p), calls=5)
+    # A yardstick of the card's write rate, not a kernel of the port: one
+    # fill of as many bytes as the regions.
+    fill = torch.empty_like(kc4[0])
+    fill_4k = replay_ms(lambda: fill.zero_(), calls=5)
+    del fill
     print(f"phase3c 4K finest N={pos04.shape[0]}: K2c {times['K2c'][0]:.4f} ms, K2 "
-          f"{k2_4k:.4f} ms, plain {times['K2c'][1]:.4f} ms, bound "
-          f"{bound(*costs['K2c'])[0]:.4f} ms [{card}]", flush=True)
+          f"{k2_4k:.4f} ms (consecutive groups {k2_4k_flat:.4f}), plain "
+          f"{times['K2c'][1]:.4f} ms, bound {bound(*costs['K2c'])[0]:.4f} ms; a fill of the "
+          f"regions' bytes (zero_) {fill_4k:.4f} ms [{card}]", flush=True)
     k1_4k = replay_ms(lambda: iclk_search(*kc4, tpl4, Tn4, centers4, init4, conv04, bench_cfg,
                                           W4K, H4K), calls=5)
     k3_4k = replay_ms(lambda: (construct_pyramid(a4, 3, p), construct_pyramid(b4, 3, p)),
@@ -871,24 +929,33 @@ def main() -> int:
 
 
 def kernel_times(root: str) -> int:
-    """Times K3 and K1/K1b of the ``dis_tpu_torch`` package under ``root``
+    """Times the kernels of the ``dis_tpu_torch`` package under ``root``
     on the main-path inputs (``replay_ms`` and ``time_ms``) and prints one
-    JSON line: the 1080p pyramid of one image and of both,
-    K1 at the 1080p finest scale (compat bench config and ``DIS_FAST``),
-    K1b on the KITTI B = 8 batch (config 3), the two 4K pyramids and K1 at
-    the 4K finest scale (regions from K2, the same bits as K2c's).  Only
-    functions every tree of the port has are called."""
+    JSON line: K3 on the 1080p pyramid of one image and of both; K2 and K1
+    at the 1080p finest scale (compat bench config; K1 also ``DIS_FAST``);
+    K2b and K1b on the KITTI B = 8 batch (config 3); K3 on the two 4K
+    pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; the
+    replayed 1080p and 4K compat frames (``aot_compile``).  K2
+    gets the grid's column length where the tree's ``extract_regions``
+    takes ``num_h``, as its main path does (``k2_num_h`` says which).
+    Only functions every tree of the port has are called."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs on a CUDA GPU only")
+    import inspect
+
     sys.path.insert(0, root)
     import dis_tpu_torch as dt
     from bench import synth_pair
     from dis_tpu_torch import _build
+    from dis_tpu_torch.models.dis import init_bound
     from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.grid import make_grid
     from dis_tpu_torch.ops.pyramid import construct_pyramid
+    from dis_tpu_torch.serving import aot_compile
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -899,33 +966,50 @@ def kernel_times(root: str) -> int:
                              finest_scale=0, patch_overlap=0.3,
                              patch_normalization=True, mode="compat", early_exit=False)
     p = bench_cfg.img_padding
-    out = {"root": root, "package": dt.__file__, "card": card}
+    takes_num_h = "num_h" in inspect.signature(extract_regions).parameters
+    out = {"root": root, "package": dt.__file__, "card": card, "k2_num_h": takes_num_h}
 
     def both(key, fn, calls=20):
         """Replayed device ms per call, and ms of one call with its host work."""
         out[key + "_replayed_ms"] = replay_ms(fn, calls=calls)
         out[key + "_call_ms"] = time_ms(fn)
 
-    def k1(key, img1, img2, cfg, calls=20):
+    def k2_k1(k2_key, k1_key, img1, img2, cfg, calls=20):
+        """K2 (under k2_key, if given) and K1 on the finest scale's inputs;
+        returns the level plane, the positions and the grid."""
         _, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest_inputs(img1, img2, cfg, p)
+        geom = make_grid(l2.width, l2.height, cfg.steps)
+        kw = {"num_h": geom.num_h} if takes_num_h else {}
+        if k2_key:
+            both(k2_key, lambda: extract_regions(l2.img, pos0, cfg.patch_size, p, **kw), calls)
         kr = extract_regions(l2.img, pos0, cfg.patch_size, p)
         args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
-        both(key, lambda: iclk_search(*kr, *args), calls)
+        both(k1_key, lambda: iclk_search(*kr, *args), calls)
+        return l2.img, pos0, geom
 
     a, b = (torch.from_numpy(q).to(dev) for q in synth_pair())
     both("K3_1080p_one_pyramid", lambda: construct_pyramid(a, 3, p))
     both("K3_1080p_both_pyramids", lambda: (construct_pyramid(a, 3, p),
                                             construct_pyramid(b, 3, p)))
-    k1("K1_1080p_compat", a, b, bench_cfg)
-    k1("K1_1080p_fast", a, b, dt.DIS_FAST)
+    k2_k1("K2_1080p_compat", "K1_1080p_compat", a, b, bench_cfg)
+    k2_k1(None, "K1_1080p_fast", a, b, dt.DIS_FAST)
     kpairs = [kitti_pair(i) for i in range(len(KITTI_SHIFTS))]
     ka, kb = (im.pad_divisible(torch.from_numpy(np.stack([q[j] for q in kpairs])).to(dev), 3)[0]
               for j in (0, 1))
-    k1("K1b_kitti_b8", ka, kb, bench_cfg)
+    k2_k1("K2b_kitti_b8", "K1b_kitti_b8", ka, kb, bench_cfg)
     a4, b4 = (torch.from_numpy(q).to(dev) for q in synth_pair_4k())
     both("K3_4k_both_pyramids", lambda: (construct_pyramid(a4, 3, p),
                                          construct_pyramid(b4, 3, p)), calls=5)
-    k1("K1_4k_compat", a4, b4, bench_cfg, calls=5)
+    img4, pos4, geom4 = k2_k1("K2_4k_finest", "K1_4k_compat", a4, b4, bench_cfg, calls=5)
+    bound0 = init_bound(bench_cfg, 0)
+    both("K2c_4k_finest", lambda: extract_regions_banded(img4, pos4, 8, p, geom4, bound0),
+         calls=5)
+    # Whole frames, replayed from the serving path's CUDA graph: whether a
+    # kernel's gain shows end to end.
+    for key, (x, y) in (("frame_1080p_compat", (a, b)), ("frame_4k_compat", (a4, b4))):
+        served = aot_compile(bench_cfg, *x.shape)
+        out[key + "_replayed_ms"] = time_ms(lambda: served(x, y), reps=10)
+        del served
     print(json.dumps(out), flush=True)
     return 0
 

@@ -36,9 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points: argument types, the trailing stream included.
 SIGNATURES = {
     "dis_pyramid": [_P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P],
-    "dis_extract_regions": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "dis_extract_banded": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P, _P, _P],
+    "dis_extract_regions": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "dis_extract_banded": [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
     "dis_iclk_search": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _P, _P, _P, _P],
@@ -125,6 +124,8 @@ def library() -> ctypes.CDLL:
     lib.dis_error_string.restype = ctypes.c_char_p
     lib.dis_iclk_layout.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.dis_iclk_layout.restype = ctypes.c_int
+    lib.dis_extract_layout.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.dis_extract_layout.restype = ctypes.c_int
     return lib
 
 

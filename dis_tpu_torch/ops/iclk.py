@@ -352,7 +352,8 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
     elif route == "K2c":
         regions = extract_regions_banded(img2, pos0, ps, pad, geom, init_bound, row0)
     else:
-        regions = extract_regions(img2, pos0, ps, pad, row0)
+        regions = extract_regions(img2, pos0, ps, pad, row0,
+                                  num_h=None if geom is None else geom.num_h)
     search = iclk_search_plain if plain else iclk_search
     u, Q, conv = search(*regions, tpl, Tn, centers, init_u, conv0, cfg,
                         width, height, row0)

@@ -35,8 +35,10 @@ from dis_tpu.parallel import tiles as jtiles
 from dis_tpu_torch import interop
 from dis_tpu_torch.models import dis as tdis
 from dis_tpu_torch.ops import iclk as ticlk
-from dis_tpu_torch.ops.cuda.extract_banded_kernel import (extract_regions_banded,
-                                                          shared_bytes, staged_box)
+from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
+from dis_tpu_torch.ops.cuda.extract_kernel import (MIN_BLOCKS_PER_SM, PATCHES_PER_GROUP,
+                                                   STAGE_FLOATS, blocks_per_sm,
+                                                   shared_bytes)
 from dis_tpu_torch.ops.grid import GridGeometry
 from dis_tpu_torch.parallel import tiles as ttiles
 
@@ -219,19 +221,23 @@ def test_banded_refusals():
     with pytest.raises(ValueError, match="CUDA"):
         extract_regions_banded(meta, torch.zeros(pos0.shape, device="meta"), ps, ps,
                                geom, bound)
-    # A bound far past the Q9 chain needs more shared memory than a block has.
-    with pytest.raises(ValueError, match="shared memory"):
-        extract_regions_banded(meta, torch.zeros(pos0.shape, device="meta"), ps, ps,
-                               geom, 400.0)
+    # A region wider than the kernel's table fields.
+    with pytest.raises(ValueError, match="patch_size"):
+        extract_regions_banded(meta, torch.zeros(pos0.shape, device="meta"), 32, 32,
+                               geom, bound)
     assert extract_regions_banded.launches == 0
 
 
 def test_banded_staged_box_fits_the_4k_route():
     """At the 4K finest scale of the compat bench config (stride 5, init
-    bound 56) and of config-like ps 12 grids the route admits, a block's
-    box fits a Hopper block's 227 KB."""
+    bound 56, which no longer sizes the kernel) a 48-patch group of a
+    column with up to 16 px of flow spread in y and 8 in x is staged whole
+    in the fixed stage, a block's shared memory fits a Hopper block's
+    227 KB, and 2 blocks share an SM; the same holds for the ps 12 grids
+    the route admits."""
     cfg = _tcfg(BENCH)
-    bound = tdis.init_bound(cfg, 0)
-    assert bound == 56.0 and staged_box(8, cfg.steps, bound) == (208, 133)
-    assert shared_bytes(8, cfg.steps, bound) <= 232_448
-    assert ticlk.band_width_ok(12, 60.0) and shared_bytes(12, 6, 60.0) <= 232_448
+    assert tdis.init_bound(cfg, 0) == 56.0
+    rows = (PATCHES_PER_GROUP - 1) * cfg.steps + 19 + 16
+    assert rows * ((3 + 19 + 8 + 3) & ~3) <= STAGE_FLOATS
+    assert shared_bytes(8) <= 232_448 and blocks_per_sm(8) == MIN_BLOCKS_PER_SM == 2
+    assert ticlk.band_width_ok(12, 60.0) and blocks_per_sm(12) == 2

@@ -12,7 +12,9 @@ a machine with a card and ``nvcc``:
 (``--noconftest``: the suite's conftest imports JAX, which the GPU
 machine does not need.)  Gates: K3 (every level of a pyramid in one
 launch), K2 and K1 bitwise (K1 uses the plain version's pair trees and
-no FMA), K1 also on warps whose patches freeze at different trips;
+no FMA; K2 and K2c also with windows outside their group's staged box,
+groups straddling columns and ragged last groups), K1 also on warps
+whose patches freeze at different trips;
 ``dis_flow`` through the kernels within 1e-3 px mean of the plain path.
 """
 
@@ -64,7 +66,11 @@ def test_pyramid_level_bitwise(shape):
 
 @pytest.mark.parametrize("ps", [8, 10, 12, 16])
 @pytest.mark.parametrize("mode", ["compat", "fixed"])
-def test_extract_and_search(ps, mode):
+@pytest.mark.parametrize("spread", [2.0, 24.0])
+def test_extract_and_search(ps, mode, spread):
+    """K2 (groups of plain consecutive patches, and groups that follow the
+    grid's columns) and K1 bitwise; a spread of 24 px sends many windows
+    outside their group's staged box."""
     a, b = _smooth(72, 104, ps)
     dev = torch.device("cuda")
     l1 = pyramid_level(torch.from_numpy(np.ascontiguousarray(a)).to(dev), ps, True)
@@ -74,21 +80,41 @@ def test_extract_and_search(ps, mode):
     geom = make_grid(104, 72, cfg.steps)
     centers = torch.from_numpy(geom.centers).to(dev)
     init_u = torch.from_numpy(np.random.default_rng(ps).uniform(
-        -2, 2, geom.centers.shape).astype(np.float32)).to(dev)
+        -spread, spread, geom.centers.shape).astype(np.float32)).to(dev)
     pos0 = centers + init_u
     tpl = iclk.extract_templates_grid(*l1, geom, ps, ps)
     conv0 = iclk.out_of_bounds(pos0, ps, 104, 72)
     Tn = iclk.residual_template(tpl, cfg) if mode == "fixed" else None
     kr = extract_regions(l2[0], pos0, ps, ps)
+    kc = extract_regions(l2[0], pos0, ps, ps, num_h=geom.num_h)
     pr = iclk.extract_regions_plain(l2[0], pos0, ps, ps)
-    for x, y in zip(kr, pr):
-        assert torch.equal(x, y)
+    for x, y, z in zip(kr, kc, pr):
+        assert torch.equal(x, z) and torch.equal(y, z)
     args = (tpl, Tn, centers, init_u, conv0, cfg, 104, 72)
     kout = iclk_search(*kr, *args)
     pout = iclk.iclk_search_plain(*pr, *args)
     torch.cuda.synchronize()
     for k, p in zip(kout, pout):
         assert torch.equal(k, p)
+
+
+def test_extract_patch_sizes_in_any_order():
+    """K2 and K2c at ps 16, 6, 16, 8, 30: a launch for a smaller region
+    after a larger one leaves the larger one launchable (each is bitwise
+    equal to the plain version)."""
+    a, _ = _smooth(96, 128, 7)
+    dev = torch.device("cuda")
+    for ps in (16, 6, 16, 8, 30, 8):
+        plane = pyramid_level_plain(torch.from_numpy(np.ascontiguousarray(a)).to(dev), ps,
+                                    True)[0]
+        geom = make_grid(128, 96, max(1, ps // 2))
+        pos0 = torch.from_numpy(geom.centers + np.random.default_rng(ps).uniform(
+            -3, 3, geom.centers.shape).astype(np.float32)).to(dev)
+        pr = iclk.extract_regions_plain(plane, pos0, ps, ps)
+        for got in (extract_regions(plane, pos0, ps, ps, num_h=geom.num_h),
+                    extract_regions_banded(plane, pos0, ps, ps, geom, 3.0)):
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(got, pr))
 
 
 def test_extract_zero_patches():
@@ -218,6 +244,32 @@ def test_graph_replay_after_plan_churn():
     del junk
 
 
+def _staged_outside(base_y, base_x, num_h, ps, tw):
+    """Windows that lie outside their group's staged rows, from the bases:
+    each column of ``num_h`` patches in the groups of ``group_layout``;
+    the box's left edge aligned down to 4 floats and its pitch up to 4
+    (``tw % 4 == 0``), its rows cut to ``STAGE_FLOATS`` and to none when
+    fewer than one window's."""
+    from dis_tpu_torch.ops.cuda import extract_kernel as ek
+
+    rc = 2 * ps + 3
+    vec = tw % 4 == 0
+    by = base_y.reshape(-1, num_h).cpu().numpy()
+    bx = base_x.reshape(-1, num_h).cpu().numpy()
+    size = ek.group_layout(num_h)[1]
+    count = 0
+    for first in range(0, num_h, size):
+        gy, gx = by[:, first:first + size], bx[:, first:first + size]
+        y0 = gy.min(1, keepdims=True)
+        xa = gx.min(1, keepdims=True) & ~3 if vec else gx.min(1, keepdims=True)
+        pitch = gx.max(1, keepdims=True) + rc - xa
+        pitch = (pitch + 3) & ~3 if vec else pitch
+        rows = np.minimum(gy.max(1, keepdims=True) + rc - y0, ek.STAGE_FLOATS // pitch)
+        rows = np.where(rows < rc, 0, rows)
+        count += int((gy - y0 + rc > rows).sum())
+    return count
+
+
 @pytest.mark.parametrize("ps,row0,batch", [(8, 0, None), (8, 16, None), (12, 8, 2), (8, 0, 3)])
 def test_banded_extract_bitwise(ps, row0, batch):
     """K2c equal to its plain version and to K2 bitwise, one launch, no
@@ -244,24 +296,85 @@ def test_banded_extract_bitwise(ps, row0, batch):
     torch.cuda.synchronize()
     for a, k, p in zip(kc, k2, pr):
         assert torch.equal(a, p) and torch.equal(a, k)
-    assert int(outside) == 0
+    assert int(outside) == 0 == _staged_outside(kc[1], kc[2], geom.num_h, ps, planes.shape[-1])
 
 
-def test_banded_outside_box_is_copied():
-    """Inits far past the stated bound: the windows outside the staged box
-    come from device memory and the result is still exact."""
+@pytest.mark.parametrize("spread,batch", [(30.0, None), (56.0, 2)])
+def test_banded_outside_box_is_copied(spread, batch):
+    """Inits up to the 4K finest scale's static bound (56 px) and past the
+    stated one: the windows outside the staged box come from device memory
+    and the result is still exact, equal to K2's and to the plain one."""
     dev = torch.device("cuda")
-    x, _ = _batch(1, 96, 160, 61)
-    plane = pyramid_level(x[0], 8, True)[0]
-    geom = make_grid(160, 96, 4)
-    init = np.random.default_rng(2).uniform(-30, 30, geom.centers.shape).astype(np.float32)
-    pos0 = torch.from_numpy(geom.centers + init).to(dev)
+    b = batch or 1
+    x, _ = _batch(b, 160, 256, 61)
+    planes = pyramid_level(x, 8, True)[0]
+    if batch is None:
+        planes = planes[0]
+    geom = make_grid(256, 160, 4)
+    init = np.random.default_rng(2).uniform(-spread, spread,
+                                            (b,) + geom.centers.shape).astype(np.float32)
+    pos0 = torch.from_numpy(geom.centers + (init if batch else init[0])).to(dev)
     outside = torch.zeros(1, dtype=torch.int32, device=dev)
-    kc = extract_regions_banded(plane, pos0, 8, 8, geom, 2.0, 0, outside)
-    pr = iclk.extract_regions_plain(plane, pos0, 8, 8)
+    kc = extract_regions_banded(planes, pos0, 8, 8, geom, 2.0, 0, outside)
+    k2 = extract_regions(planes, pos0, 8, 8, num_h=geom.num_h)
+    pr = iclk.extract_regions_plain(planes, pos0, 8, 8)
     torch.cuda.synchronize()
-    assert all(torch.equal(a, p) for a, p in zip(kc, pr))
-    assert int(outside) > 0
+    assert all(torch.equal(a, p) and torch.equal(k, p) for a, k, p in zip(kc, k2, pr))
+    assert int(outside) == _staged_outside(kc[1], kc[2], geom.num_h, 8, planes.shape[-1]) > 0
+
+
+@pytest.mark.parametrize("num_h", [1, 5, 18, 33, 75])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("plane", ["aligned", "odd_width", "offset_pointer"])
+def test_extract_groups_straddle_and_ragged(num_h, batch, plane):
+    """Columns of num_h patches (a ragged last group where num_h is not a
+    multiple of the column's group size, ``group_layout``):
+    K2 with plain consecutive groups (straddling two columns), K2 with the
+    column length and K2c, all bitwise equal to the plain version, on
+    16-byte-aligned planes, planes of odd width and planes that start 4
+    bytes past an aligned address (both staged with 4-byte copies)."""
+    dev = torch.device("cuda")
+    ps, steps = 8, 3
+    num_w = 7
+    h, w = num_h * steps + 4, num_w * steps + 30 + (1 if plane == "odd_width" else 0)
+    r = np.random.default_rng(num_h * 10 + batch)
+    th, tw = h + 2 * ps, w + 2 * ps
+    img = torch.from_numpy((r.random(batch * th * tw + 1) * 255).astype(np.float32)).to(dev)
+    start = 1 if plane == "offset_pointer" else 0
+    planes = img[start:start + batch * th * tw].view(batch, th, tw)
+    assert planes.is_contiguous() and (planes.data_ptr() % 16 == 0) == (start == 0)
+    xs, ys = np.arange(num_w) * steps + 2, np.arange(num_h) * steps + 2
+    cx, cy = np.meshgrid(xs, ys, indexing="ij")
+    centers = np.stack([cx.ravel(), cy.ravel()], -1).astype(np.float32)
+    init = r.uniform(-6, 6, (batch,) + centers.shape).astype(np.float32)
+    pos0 = torch.from_numpy(centers + init).to(dev)
+    from dis_tpu_torch.ops.grid import GridGeometry
+    geom = GridGeometry(num_w, num_h, 2, 2, steps, centers)
+    pr = iclk.extract_regions_plain(planes, pos0, ps, ps)
+    for got in (extract_regions(planes, pos0, ps, ps),
+                extract_regions(planes, pos0, ps, ps, num_h=num_h),
+                extract_regions_banded(planes, pos0, ps, ps, geom, 6.0)):
+        torch.cuda.synchronize()
+        for a, p in zip(got, pr):
+            assert torch.equal(a, p)
+
+
+def test_extract_layout_matches_kernel():
+    """The wrapper's launch constants are the kernel's, and the occupancy
+    calculator gives the blocks per SM the launch arithmetic promises."""
+    import ctypes
+
+    from dis_tpu_torch import _build
+    from dis_tpu_torch.ops.cuda import extract_kernel as ek
+
+    lib = _build.library()
+    out = (ctypes.c_int * 7)()
+    for ps in (8, 10, 12, 16):
+        assert lib.dis_extract_layout(ps, out) == 0
+        assert list(out)[:6] == [ek.THREADS, ek.PATCHES_PER_GROUP, ek.STAGES,
+                                 ek.STAGE_FLOATS, ek.MIN_BLOCKS_PER_SM, ek.shared_bytes(ps)]
+        assert out[6] >= min(ek.blocks_per_sm(ps), ek.MIN_BLOCKS_PER_SM)
+    assert lib.dis_extract_layout(31, out) != 0
 
 
 def test_banded_empty_grid_launches_nothing():
