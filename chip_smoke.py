@@ -83,6 +83,37 @@ recipe, a (3, 2) px shift) under the compat bench config and
     eager and replayed (compat and ``DIS_FAST``), 3-stripe tiled 4K
     ms/frame.
 
+The refinement presets (``DIS_MEDIUM``: ps 8, stride 4, scales 3..0;
+``DIS_FULL``: ps 12, stride 3, scales 4..0; both refine every level on
+the intensity planes, 5 and 10 weight updates of 5 red-black SOR sweeps),
+whose variational refinement is torch ops (no TPU kernel backs it):
+
+1d. (also) K2c and K2 on ``DIS_FULL``'s 1080p finest grid (230,400
+    patches, ps 12) from its own refined init, with the share of windows
+    copied from device memory;
+2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4
+    (``DIS_MEDIUM``) and K3 4, K2 5, K1 5 (``DIS_FULL``, whose five
+    levels take two K3 launches per image), no K2c; the median within
+    0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
+    CPU reading (``tools/jax_epe_readings.py``), the kernel path against
+    the plain path under the phase-2 gates; the refinement of each
+    frame's finest level on the card bitwise equal to the same call on
+    the CPU;
+2g. ``DIS_MEDIUM`` on the other paths: the 8 KITTI pairs batched
+    bitwise equal to serial; ``aot_compile`` graphs at 1080p and KITTI
+    B = 8 (peak memory printed) holding the eager launches, each replay
+    bitwise equal to eager; ``grid_tiled_flow`` (3 parts) and
+    ``tiled_flow_exact`` (3 stripes, routed to the grid engine), and
+    ``refine_per_level=False`` through ``tiled_flow_exact``, bitwise
+    equal to untiled; 4K unclamped (K2 at every scale, no K2c) and 1080p
+    and 4K with ``refined_init_clamp`` (K2c exactly where
+    ``scale_extraction_route`` says), each flow finite with its median
+    within 0.01 px of its shift;
+3d. times: eager and replayed ms/frame for 1080p ``DIS_MEDIUM`` and
+    ``DIS_FULL`` and 4K ``DIS_MEDIUM``, KITTI ``DIS_MEDIUM`` pairs/s at
+    B = 8, and the refinement alone, replayed, per level at 1080p with
+    its launches (non-view torch ops) and its share of the frame.
+
 Each kernel's line gives its bound: the larger of the bytes it must move
 (each input read once, each output written once: K3 the raw image and
 every level's planes, K1 its inputs with the raw template only for the
@@ -107,6 +138,7 @@ without the repository beside it, it fails the same way.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -118,8 +150,10 @@ import torch
 W, H = 1920, 1080
 SHIFT = (3.0, 2.0)
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
-# and configs; the port must land within EPE_TOL of it.
-EPE_JAX = {"compat": 0.1526, "fast": 0.00515}
+# and configs; the port must land within EPE_TOL of it.  DIS_MEDIUM and
+# DIS_FULL: tools/jax_epe_readings.py (64 s and 302 s on the CPU).
+EPE_JAX = {"compat": 0.1526, "fast": 0.00515,
+           "medium": 0.00048054210492409766, "full": 0.0002898645179811865}
 EPE_TOL = 0.002
 REPS = 20
 
@@ -318,6 +352,65 @@ def search_cost(regions, tpl, Tn, centers, init_u, conv0, outputs, cfg, trips):
     return nbytes, sum(trips) * trip + (conv0.numel() - frozen0) * sample
 
 
+def refined_levels(img1, img2, cfg):
+    """``dis_flow_padded``'s main path with per-level refinement, scale by
+    scale: {scale: (l1, l2, coarser refined flow or None, densified
+    flow, refined flow)} and the refinement planes."""
+    from dis_tpu_torch.models.dis import (build_refinement_planes, dis_scale_window,
+                                          refine_level)
+    from dis_tpu_torch.ops.pyramid import construct_pyramid
+
+    pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding)
+    pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding)
+    planes = build_refinement_planes(img1, img2, cfg)
+    out, flow = {}, None
+    for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
+        l1, l2 = pyr1[scale], pyr2[scale]
+        dense, _, _ = dis_scale_window(l1, l2, flow, cfg, scale, 0, l1.height)
+        out[scale] = (l1, l2, flow, dense, refine_level(l1, l2, dense, cfg, scale, planes))
+        flow = out[scale][4]
+    return out, planes
+
+
+def refine_inputs(cfg, levels, planes, scale):
+    """The arguments of the refinement at ``scale`` of a main-path run."""
+    l1, l2, _, dense, _ = levels[scale]
+    if planes is None:
+        return (l1.img, l2.img, dense, cfg)
+    return (planes[0][scale], planes[1][scale], dense, cfg, 0)
+
+
+def torch_ops(fn) -> int:
+    """Non-view aten ops that one call of ``fn`` dispatches: each
+    launches one kernel on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def flow_gates(label, f, shift, epe_jax=None):
+    """The flow [..., H, W, 2] on the host: finite, its median within 0.01
+    px of ``shift`` and, where given, its mean EPE within EPE_TOL of the
+    JAX reading.  Returns (median, EPE)."""
+    check(bool(np.isfinite(f).all()), f"{label}: non-finite flow")
+    med = np.median(f.reshape(-1, 2), axis=0)
+    epe = float(np.sqrt((f[..., 0] - shift[0]) ** 2 + (f[..., 1] - shift[1]) ** 2).mean())
+    check(bool(np.all(np.abs(med - np.array(shift)) <= 0.01)),
+          f"{label}: median {med} not within 0.01 of {shift}")
+    if epe_jax is not None:
+        check(abs(epe - epe_jax) <= EPE_TOL, f"{label}: EPE {epe} vs JAX {epe_jax}")
+    return med, epe
+
+
 def scale_counts(cfg):
     """Launches one call must make, whatever B is: K2 and K1 once per
     scale; K3 once per image (or stack of images) for up to four levels."""
@@ -342,8 +435,9 @@ def main() -> int:
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
-    from dis_tpu_torch.ops.grid import make_grid
+    from dis_tpu_torch.ops.grid import init_from_coarser_flow, make_grid, scale_plan
     from dis_tpu_torch.ops.pyramid import construct_pyramid
+    from dis_tpu_torch.ops.variational import variational_refinement
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile
@@ -615,6 +709,21 @@ def main() -> int:
                            bound0, phase="1d")
         k2c_err = max(k2c_err, err)
 
+    # DIS_FULL's finest scale (ps 12, stride 3; 230,400 patches) from its
+    # own refined init: K2's 48-patch column groups under the fixed stage.
+    # 1080 rows pad to 1088 for DIS_FULL's 2**4 (pad_divisible, as dis_flow pads).
+    (fa, (fpw, fph)), (fb, _) = (im.pad_divisible(t, dt.DIS_FULL.coarsest_scale)
+                                 for t in (a, b))
+    full_levels, full_planes = refined_levels(fa, fb, dt.DIS_FULL)
+    del fa, fb
+    lf1, lf2, coarse, _, _ = full_levels[0]
+    plan_f = scale_plan(lf1.width, lf1.height, dt.DIS_FULL.steps, 12, dev)
+    pos_f = plan_f.centers + init_from_coarser_flow(plan_f, coarse)
+    _, err = k2c_check("DIS_FULL 1080p finest (ps 12, stride 3, refined init)", lf2.img,
+                       pos_f, 12, 12, plan_f.geom, 0.0, phase="1d")
+    k2c_err = max(k2c_err, err)
+    del pos_f
+
     # -- phase 2: the main path ---------------------------------------------
     wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
                 "K1": iclk_search}
@@ -796,6 +905,145 @@ def main() -> int:
               f"untiled", flush=True)
     del untiled, out
 
+    # -- phase 2f: refinement presets at 1080p ----------------------------------
+    refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL}
+    want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4},
+                    "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5}}
+    rflows = {}
+    for name, cfg in refined.items():
+        for w in wrappers.values():
+            w.launches = 0
+        flow = dt.dis_flow(a, b, cfg)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        print(f"phase2f {name} launches {counts}", flush=True)
+        check(counts == want_refined[name] == {**scale_counts(cfg), "K2c": 0},
+              f"{name}: launches {counts}, want {want_refined[name]}")
+        for k in launches:
+            launches[k] += counts[k]
+        check(tuple(flow.shape) == (H, W, 2), f"{name}: flow shape {tuple(flow.shape)}")
+        med, epe = flow_gates(name, flow.cpu().numpy(), SHIFT, EPE_JAX[name])
+        plain = dt.dis_flow(a, b, cfg, plain=True)
+        d = torch.linalg.vector_norm(flow - plain, dim=-1)
+        dmean, dfrac = float(d.mean()), float((d > 1e-2).float().mean())
+        print(f"phase2f {name}: median {med.tolist()} epe {epe} (jax cpu {EPE_JAX[name]}) "
+              f"kernel-vs-plain mean {dmean} frac>1e-2 {dfrac}", flush=True)
+        check(dmean <= 1e-3 and dfrac <= 0.01, f"{name}: kernel vs plain mean {dmean} frac {dfrac}")
+        rflows[name] = flow
+        del plain, d
+    # The refinement alone, on the card and on the CPU, for the finest
+    # level's inputs of each frame (the stepwise run equals dis_flow).
+    med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
+    rlevels = {"medium": (med_levels, med_planes), "full": (full_levels, full_planes)}
+    crops = {"medium": (0, 0), "full": (fpw, fph)}
+    for name, (levels, planes) in rlevels.items():
+        check(torch.equal(im.crop_padding(levels[0][4], *crops[name], W, H), rflows[name]),
+              f"{name}: stepwise run differs")
+        args = refine_inputs(refined[name], levels, planes, 0)
+        t0 = time.perf_counter()
+        on_cpu = variational_refinement(*(x.cpu() if torch.is_tensor(x) else x for x in args))
+        secs = time.perf_counter() - t0
+        on_card = variational_refinement(*args).cpu()
+        err = float((on_card - on_cpu).abs().max())
+        print(f"phase2f {name} refinement of the finest level ({tuple(on_cpu.shape)}): "
+              f"card vs CPU max|d| {err}, bitwise {torch.equal(on_card, on_cpu)} "
+              f"(CPU call {secs:.2f} s)", flush=True)
+        check(torch.equal(on_card, on_cpu), f"{name}: the card's refinement differs from the CPU's")
+        check(torch.equal(on_card, levels[0][4].cpu()), f"{name}: refinement call differs")
+
+    # -- phase 2g: refinement through the other paths (DIS_MEDIUM) ---------------
+    med_cfg = dt.DIS_MEDIUM
+    for label, call in (("batched_flow_fn", lambda: batched_flow_fn(med_cfg)(*kpad)),
+                        ("dis_flow", lambda: dt.dis_flow(ka, kb, med_cfg))):
+        for w in wrappers.values():
+            w.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        check(counts == {**scale_counts(med_cfg), "K2c": 0},
+              f"KITTI medium {label}: launches {counts}")
+        if label == "batched_flow_fn":
+            kmed_padded = out
+    kmed = out
+    check(torch.equal(im.crop_padding(kmed_padded, kpw, kph, KW, KH), kmed),
+          "KITTI medium: batched_flow_fn differs from dis_flow")
+    fk = kmed.cpu().numpy()
+    for i, shift in enumerate(KITTI_SHIFTS):
+        check(torch.equal(kmed[i], dt.dis_flow(ka[i], kb[i], med_cfg)),
+              f"KITTI medium: batched pair {i} differs from its serial dis_flow")
+        med, epe = flow_gates(f"KITTI medium pair {i}", fk[i], shift)
+        print(f"phase2g KITTI medium pair {i} shift {shift}: median {med.tolist()} epe {epe}",
+              flush=True)
+    print(f"phase2g KITTI medium B={nk} launches {counts}: batched flows bitwise equal to "
+          f"{nk} serial dis_flow calls", flush=True)
+
+    served_med = {}
+    for label, shape, inputs, eager in (("1080p", (H, W, None), (a, b), rflows["medium"]),
+                                        ("kitti", (KH, KW, nk), (ka, kb), kmed)):
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cf = aot_compile(med_cfg, *shape)
+        built = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        gl = cf.graph_launches
+        check(gl == {**scale_counts(med_cfg), "K2c": 0}, f"medium {label}: graph holds {gl}")
+        for _ in range(2):
+            out = cf(*inputs)
+            torch.cuda.synchronize()
+            check(torch.equal(out, eager), f"medium {label}: replay differs from eager")
+        print(f"phase2g medium {label} batch={shape[2]}: aot_compile {built:.2f} s, max memory "
+              f"allocated {peak:.3f} GiB; the graph holds launches {gl}; 2 replays bitwise "
+              f"equal to the eager kernel path", flush=True)
+        served_med[label] = cf
+
+    untiled = dis_flow_padded(a, b, med_cfg)
+    check(torch.equal(untiled, rflows["medium"]), "medium: dis_flow_padded differs from dis_flow")
+    halo_m = min_stripe_halo(med_cfg, W, H, N_STRIPES)
+    fin_cfg = dataclasses.replace(med_cfg, refine_per_level=False)
+    untiled_fin = dis_flow_padded(a, b, fin_cfg)
+    halo_f = min_stripe_halo(fin_cfg, W, H, N_STRIPES)
+    for label, run, want in (
+            (f"grid_tiled_flow {N_STRIPES} parts",
+             lambda: grid_tiled_flow(a, b, med_cfg, N_STRIPES), untiled),
+            (f"tiled_flow_exact {N_STRIPES} stripes (to the grid engine)",
+             lambda: tiled_flow_exact(a, b, med_cfg, N_STRIPES, halo_m), untiled),
+            (f"refine_per_level=False tiled_flow_exact {N_STRIPES} stripes halo {halo_f}",
+             lambda: tiled_flow_exact(a, b, fin_cfg, N_STRIPES, halo_f), untiled_fin)):
+        for w in wrappers.values():
+            w.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        check(torch.equal(out, want), f"1080p medium {label}: differs from the untiled flow")
+        flow_gates(f"1080p medium {label}", out.cpu().numpy(), SHIFT)
+        print(f"phase2g 1080p medium {label}: launches {counts}; bitwise equal to untiled",
+              flush=True)
+    del untiled, untiled_fin, out
+
+    for label, img1, img2, cfg in (
+            ("4K medium", a4, b4, med_cfg),
+            ("1080p medium clamped", a, b, dataclasses.replace(med_cfg, refined_init_clamp=True)),
+            ("4K medium clamped", a4, b4, dataclasses.replace(med_cfg, refined_init_clamp=True))):
+        ww, hh = img1.shape[-1], img1.shape[-2]
+        routes = [scale_extraction_route(cfg, ww, hh, s)
+                  for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)]
+        n_k2c = routes.count("K2c")
+        want = {**scale_counts(cfg), "K2": len(routes) - n_k2c, "K2c": n_k2c}
+        for w in wrappers.values():
+            w.launches = 0
+        flow = dt.dis_flow(img1, img2, cfg)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        check(counts == want, f"{label}: launches {counts}, want {want} (routes {routes})")
+        if label == "4K medium":
+            check(n_k2c == 0, f"4K medium unclamped: routes {routes}")
+        med, epe = flow_gates(label, flow.cpu().numpy(), SHIFT)
+        print(f"phase2g {label}: routes by scale (finest first) {routes}, launches {counts}; "
+              f"median {med.tolist()} epe {epe}", flush=True)
+        if label == "4K medium":
+            flow4_med = flow
+        del flow
+
     # -- phase 3: times -------------------------------------------------------
     times = {}
     costs = {"K3": pyramid_cost(a, construct_pyramid(a, 3, p))}
@@ -898,6 +1146,49 @@ def main() -> int:
     e = time_ms(lambda: tiled_flow_exact(a4, b4, bench_cfg, N_STRIPES, halo), reps=5, warmup=1)
     print(f"phase3c 4K compat tiled_flow_exact {N_STRIPES} stripes: eager {e:.4f} ms/frame "
           f"[{card}]", flush=True)
+
+    # -- phase 3d: refinement presets, times ------------------------------------
+    frame_ms = {}
+    for label, cfg, (x, y) in (("1080p medium", dt.DIS_MEDIUM, (a, b)),
+                               ("1080p full", dt.DIS_FULL, (a, b)),
+                               ("4K medium", dt.DIS_MEDIUM, (a4, b4))):
+        cf = served_med["1080p"] if label == "1080p medium" else aot_compile(cfg, *x.shape)
+        want = {"1080p medium": rflows["medium"], "1080p full": rflows["full"],
+                "4K medium": flow4_med}[label]
+        check(torch.equal(cf(x, y), want), f"{label}: graph replay differs from eager")
+        e = time_ms(lambda: dt.dis_flow(x, y, cfg), reps=5, warmup=1)
+        r = time_ms(lambda: cf(x, y), reps=10)
+        frame_ms[label] = r
+        print(f"phase3d {label}: eager {e:.4f} ms/frame, replayed {r:.4f} ms/frame "
+              f"[{card}]", flush=True)
+        del cf
+    e = time_ms(lambda: dt.dis_flow(ka, kb, med_cfg), reps=5, warmup=1)
+    r = time_ms(lambda: served_med["kitti"](ka, kb), reps=10)
+    print(f"phase3d KITTI medium B={nk}: eager {e:.4f} ms/batch ({nk * 1000.0 / e:.2f} "
+          f"pairs/s), replayed {r:.4f} ms/batch ({nk * 1000.0 / r:.2f} pairs/s) [{card}]",
+          flush=True)
+    for name, (levels, planes) in rlevels.items():
+        total = 0.0
+        for scale in sorted(levels):
+            args = refine_inputs(refined[name], levels, planes, scale)
+            ms = replay_ms(lambda: variational_refinement(*args), calls=2, reps=5)
+            ops = torch_ops(lambda: variational_refinement(*args))
+            total += ms
+            print(f"phase3d 1080p {name} refinement at scale {scale} "
+                  f"{tuple(args[2].shape[:-1])}: {ms:.4f} ms replayed, {ops} launches "
+                  f"[{card}]", flush=True)
+        # The same frame without refinement, replayed: the refinement's
+        # share read inside one kind of graph (the per-level graphs above
+        # hold 2 calls each, the frame's graph 1).
+        cfg = refined[name]
+        bare_cf = aot_compile(dataclasses.replace(cfg, refinement_iters=0), H, W)
+        bare = time_ms(lambda: bare_cf(a, b), reps=10)
+        del bare_cf
+        frame = frame_ms[f"1080p {name}"]
+        print(f"phase3d 1080p {name}: the refinement alone {total:.4f} ms replayed (sum of the "
+              f"levels; {100.0 * total / frame:.1f}% of the {frame:.4f} ms replayed frame); "
+              f"the frame without refinement {bare:.4f} ms replayed, so the refinement takes "
+              f"{frame - bare:.4f} ms ({100.0 * (frame - bare) / frame:.1f}%) [{card}]", flush=True)
 
     src = "dis_tpu_torch/csrc/"
     meta = {

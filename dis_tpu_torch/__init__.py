@@ -5,10 +5,11 @@ The port of ``dis_tpu`` (JAX/Pallas on TPU), which stays the reference.
 ``dis_flow(img1, img2, cfg)`` runs on the device of its input tensors:
 on CUDA tensors the pyramid levels, region extraction and IC-LK search
 run as CUDA kernels (``csrc/``, built with ``nvcc`` at first use); on
-CPU tensors the same stages run as their plain PyTorch versions.  It
-also takes a batch of same-shape pairs ``[B, H, W]`` (``parallel``), and
-``serving.aot_compile`` captures one shape bucket into a CUDA graph.  The
-package never imports JAX.
+CPU tensors the same stages run as their plain PyTorch versions.  The
+variational refinement of ``DIS_MEDIUM`` and ``DIS_FULL`` is torch ops on
+either device.  It also takes a batch of same-shape pairs ``[B, H, W]``
+(``parallel``), and ``serving.aot_compile`` captures one shape bucket into
+a CUDA graph.  The package never imports JAX.
 """
 
 from .config import (DISConfig, DIS_ULTRAFAST, DIS_FAST, DIS_MEDIUM,

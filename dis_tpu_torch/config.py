@@ -33,8 +33,9 @@ class DISConfig:
     ``mode="compat"`` reproduces the reference's quirks (SURVEY.md Q1-Q10);
     ``"fixed"`` subtracts the template from the residual, adds a
     per-patch convergence test (``|delta_u| < conv_eps``) and
-    residual-adaptive densification weights.  ``refinement_*`` configure
-    the variational refinement, which the port does not run yet.
+    residual-adaptive densification weights.  ``refinement_*``,
+    ``refine_per_level`` and ``refined_init_clamp`` configure the
+    variational refinement (``ops/variational.py``).
     """
 
     iterations: int = 1000

@@ -16,10 +16,19 @@ come from its plan (``ops/grid.py::scale_plan``), made once per shape and
 device, so a frame makes no host-to-device copy and no host sync, and can
 be captured in a CUDA graph (``serving.py``).
 
+Configs with ``refinement_iters > 0`` (``DIS_MEDIUM``, ``DIS_FULL``)
+refine the densified flow variationally (``ops/variational.py``, torch
+ops: no TPU kernel backs it), after every scale (``refine_per_level``)
+or once at the finest scale, on the Q1 levels or the intensity chain
+(``refinement_planes``).  Without ``refined_init_clamp`` a per-level
+refinement leaves the next scale's init without a static bound, and the
+route takes K2 there.
+
 Exact tiling (``parallel/tiles.py``) runs one scale on a window of
 output rows (:func:`dis_scale_window`) or the whole pipeline on a row
-stripe of the frame (:func:`dis_flow_stripe`).  All geometry stays
-global, so each is bitwise those rows of the untiled flow.
+stripe of the frame (:func:`dis_flow_stripe`, which never refines).  All
+geometry stays global, so each is bitwise those rows of the untiled
+flow.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ from ..ops import iclk
 from ..ops import image as im
 from ..ops.densify import densify
 from ..ops.grid import ScalePlan, init_from_coarser_flow, make_grid, scale_plan
-from ..ops.pyramid import construct_pyramid
+from ..ops.pyramid import construct_pyramid, intensity_pyramid
+from ..ops.variational import variational_refinement
 
 
 def _fixed_weights(res: iclk.SearchResult, tpl: iclk.PatchTemplates,
@@ -66,8 +76,8 @@ def motion_bound(cfg: DISConfig, scale: int) -> float:
 def init_bound(cfg: DISConfig, scale: int) -> Optional[float]:
     """The static bound on ``|init_u|`` at ``scale``: zero at the coarsest
     scale, else twice the policing-chain bound of the coarser scale; None
-    where per-level refinement without the clamp rewrites the init (not
-    ported yet: the extraction route raises there)."""
+    where per-level refinement without the clamp rewrites the init (the
+    extraction route then takes K2)."""
     if scale == cfg.coarsest_scale:
         return 0.0
     refined = cfg.refinement_iters > 0 and cfg.refine_per_level
@@ -176,11 +186,42 @@ def _check_pair(img1: torch.Tensor, img2: torch.Tensor) -> None:
         raise ValueError(f"pair shapes differ: {tuple(img1.shape)} vs {tuple(img2.shape)}")
 
 
-def _check_supported(cfg: DISConfig) -> None:
-    if cfg.refinement_iters > 0:
-        raise NotImplementedError(
-            "variational refinement (refinement_iters > 0, e.g. DIS_MEDIUM, "
-            "DIS_FULL) is not ported yet: ROADMAP.md queue 1, item 9")
+def build_refinement_planes(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
+                            cfg: DISConfig):
+    """Per-scale intensity planes for the refinement's data term (two
+    lists indexed by scale), or None when the refinement reads the Q1
+    pyramid levels or is off (``refinement_planes``).  The untiled and
+    tiled engines pass them unchanged to :func:`refine`, so every engine
+    refines with the same bits."""
+    if cfg.refinement_iters == 0 or cfg.refinement_planes == "q1":
+        return None
+    return (intensity_pyramid(img1_padded, cfg.coarsest_scale),
+            intensity_pyramid(img2_padded, cfg.coarsest_scale))
+
+
+def refine(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
+           planes=None) -> torch.Tensor:
+    """The variational refinement of ``flow`` at ``scale``: on the Q1
+    level planes ``l1.img`` and ``l2.img``, or, where ``planes`` (from
+    :func:`build_refinement_planes`) is given, on the intensity planes of
+    that scale (the levels are then not read and may be None)."""
+    if planes is None:
+        return variational_refinement(l1.img, l2.img, flow, cfg)
+    return variational_refinement(planes[0][scale], planes[1][scale], flow, cfg, pad=0)
+
+
+def refine_level(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
+                 planes=None) -> torch.Tensor:
+    """Per-level variational refinement at ``scale`` (DIS paper sec.
+    3.3), shared by the untiled and grid-tiled engines.  With
+    ``cfg.refined_init_clamp`` the refined field is clipped to the
+    policing-chain bound ``motion_bound(cfg, scale)``, which restores the
+    static init bound that K2c's route needs."""
+    flow = refine(l1, l2, flow, cfg, scale, planes)
+    if cfg.refined_init_clamp:
+        b = motion_bound(cfg, scale)
+        flow = flow.clamp(-b, b)
+    return flow
 
 
 def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
@@ -194,17 +235,25 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
     it exists to check the kernels on the card.
     """
     _check_pair(img1, img2)
-    _check_supported(cfg)
     h, w = img1.shape[-2:]
     f = 2 ** cfg.coarsest_scale
     if w % f or h % f:
         raise ValueError(f"padded input dims must be divisible by {f}")
     pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
     pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
+    planes = build_refinement_planes(img1, img2, cfg)
+    refine_each = cfg.refinement_iters > 0 and cfg.refine_per_level
+    refine_at_end = cfg.refinement_iters > 0 and not cfg.refine_per_level
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        flow, _, _ = dis_scale_window(pyr1[scale], pyr2[scale], flow, cfg, scale,
-                                      0, pyr1[scale].height, plain=plain)
+        l1, l2 = pyr1[scale], pyr2[scale]
+        flow, _, _ = dis_scale_window(l1, l2, flow, cfg, scale, 0, l1.height, plain=plain)
+        if refine_each:
+            # The refined field seeds the next finer scale's init.
+            flow = refine_level(l1, l2, flow, cfg, scale, planes)
+    if refine_at_end:
+        s = cfg.finest_scale
+        flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes)
     return flow
 
 
@@ -275,8 +324,9 @@ def dis_flow_stripe(img1_ext: torch.Tensor, img2_ext: torch.Tensor,
     ``2**coarsest_scale``; the halo must cover the per-scale motion bound
     plus stencil margins (checked, ValueError otherwise).  Refinement is
     a global stencil that a stripe never runs: its config fields are
-    ignored here, as in the JAX package, and the tiling layer refuses
-    them.  Returns [(B,) own_h >> finest, W >> finest, 2]."""
+    ignored here, as in the JAX package; the tiling layer refines the
+    gathered flow or routes per-level refinement to the grid engine.
+    Returns [(B,) own_h >> finest, W >> finest, 2]."""
     _check_pair(img1_ext, img2_ext)
     ext_h, w = img1_ext.shape[-2:]
     f = 2 ** cfg.coarsest_scale
@@ -307,7 +357,6 @@ def dis_flow(img1: torch.Tensor, img2: torch.Tensor,
     finest-scale upsample (main.cpp:191-196) and the crop (main.cpp:198).
     Returns [(B,) H, W, 2] float32."""
     _check_pair(img1, img2)
-    _check_supported(cfg)
     h, w = img1.shape[-2:]
     p1, (padw, padh) = im.pad_divisible(img1.to(torch.float32), cfg.coarsest_scale)
     p2, _ = im.pad_divisible(img2.to(torch.float32), cfg.coarsest_scale)

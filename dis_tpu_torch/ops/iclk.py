@@ -306,19 +306,18 @@ def extraction_route(cfg: DISConfig, img_shape, n_patches: int,
     the plane fits VMEM and the two base arrays fit SMEM), ``"K2c"`` where
     it takes the column-banded kernel (``pallas_banded``: a static init
     bound narrow enough for its band).  Where the TPU falls back to the
-    XLA extraction (``xla_regions``) for want of band width, the port
-    takes K2, which computes that same function at any size.  A missing
-    init bound means per-level refinement without the clamp, which the
-    port does not run yet: that raises."""
-    if init_bound is None:
-        raise NotImplementedError(
-            "no static init bound (per-level refinement): refinement is "
-            "not ported yet, ROADMAP.md queue 1, item 9")
+    XLA extraction (``xla_regions``), for want of band width or of an
+    init bound (``None``: per-level refinement without
+    ``refined_init_clamp``), the port takes K2, which computes that same
+    function at any size.  The TPU warns on that fallback (a cliff of
+    its own: the XLA gather is much slower than its kernels); on the card
+    K2 and K2c run the same code at the same speed, so the port does
+    not."""
     npad = -(-n_patches // 128) * 128
     smem_fits = 8 * npad + 32 * 1024 <= 1 << 20
     if vmem_ok(*img_shape, cfg.patch_size) and smem_fits:
         return "K2"
-    if band_width_ok(cfg.patch_size, init_bound):
+    if init_bound is not None and band_width_ok(cfg.patch_size, init_bound):
         return "K2c"
     return "K2"
 
@@ -326,15 +325,15 @@ def extraction_route(cfg: DISConfig, img_shape, n_patches: int,
 def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
                    centers: torch.Tensor, init_u: torch.Tensor,
                    cfg: DISConfig, width: int, height: int,
-                   row0: int = 0, geom=None, init_bound: float = 0.0,
+                   row0: int = 0, geom=None, init_bound: Optional[float] = 0.0,
                    plain: bool = False) -> SearchResult:
     """Run the full IC-LK iteration for every patch at one scale:
     region extraction (K2, or K2c where :func:`extraction_route` says so,
     which needs the grid ``geom`` and the static bound ``init_bound`` on
-    ``|init_u|``), then the search loop (K1).  ``img2`` [(B,) th, tw],
-    ``tpl`` and ``init_u`` [(B,) N, 2] carry the pair axis of a batch
-    (then K2b or K2c and K1b: still one launch each); ``centers`` [N, 2]
-    is shared.  ``width`` and ``height`` are the scale's global size;
+    ``|init_u|``, None where there is none), then the search loop (K1).
+    ``img2`` [(B,) th, tw], ``tpl`` and ``init_u`` [(B,) N, 2] carry the
+    pair axis of a batch (then K2b or K2c and K1b: still one launch
+    each); ``centers`` [N, 2] is shared.  ``width`` and ``height`` are the scale's global size;
     ``row0`` is the global row of the plane's first row.  ``plain=True``
     runs the plain versions on any device."""
     from .cuda.extract_banded_kernel import extract_regions_banded

@@ -77,3 +77,16 @@ def construct_pyramid(img: torch.Tensor, coarsest_scale: int,
     return [PyramidLevel(img=ip, dx=dx, dy=dy, width=ip.shape[-1] - 2 * p,
                          height=ip.shape[-2] - 2 * p)
             for ip, dx, dy in build(img, p, coarsest_scale + 1)]
+
+
+def intensity_pyramid(img: torch.Tensor, coarsest_scale: int) -> List[torch.Tensor]:
+    """The raw-intensity resize chain ``[img, img/2, ...]`` (unpadded
+    planes [(B,) h, w], one per scale, finest first) that the refinement
+    reads under ``refinement_planes="intensity"``: the DIS paper's data
+    term, where the pyramid levels above are gradient-magnitude planes
+    (quirk Q1).  The same x0.5 decimation as the Q1 levels
+    (:func:`image.resize_half`), on the device of ``img``."""
+    out = [img]
+    for _ in range(coarsest_scale):
+        out.append(im.resize_half(out[-1]))
+    return out

@@ -1,0 +1,235 @@
+"""Variational refinement of the densified flow field; counterpart of
+``dis_tpu/ops/variational.py``.
+
+The DIS paper (Kroeger et al., ECCV 2016, sec. 3.3) refines the
+patch-densified flow with the Brox-style energy
+
+    E(U) = int  delta * Psi(|I2(x+U) - I1(x)|^2)
+              + gamma * Psi(|grad I2(x+U) - grad I1(x)|^2)
+              + alpha * Psi(|grad u|^2 + |grad v|^2)
+
+with Psi(s^2) = sqrt(s^2 + eps^2): ``refinement_iters`` outer warps, per
+warp ``refinement_inner_sweeps`` lagged robust-weight updates, per update
+``refinement_sor_sweeps`` red-black block-SOR sweeps with factor
+``refinement_omega``, each a pair of masked half-sweeps over the whole
+plane.  No TPU kernel backs it: it is elementwise torch ops in plain
+Python loops, on the device of its inputs.
+
+Every expression keeps the JAX package's order of operations, and each
+step is its own op, so no multiply-add is contracted.  Where the JAX
+package takes ``rsqrt`` (not correctly rounded in XLA's CPU build), the
+IRLS weight here is ``0.5 / sqrt_f32(s2 + eps2)``, correctly rounded on
+every device.  The refinement has no reduction, so a call gives the same
+bits on the CPU and on the card, a pair of a batch the bits it gets
+alone, and a tiled flow the bits of the untiled one; it agrees with the
+JAX package to about 1e-5 px.  It reads no device value on the host and
+copies nothing from it, so a CUDA graph can capture it.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import DISConfig
+from . import image as im
+
+# Charbonnier epsilon^2 per term (copy of the JAX package's values): the
+# data and gradient terms are in 0..255 intensity units (eps 0.1), the
+# smoothness term in px.
+_EPS2_DATA = 1e-2
+_EPS2_SMOOTH = 1e-6
+
+
+def _coords(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Row and column indices [h, 1] and [1, w] as int64, made on the device."""
+    return (torch.arange(h, device=device)[:, None],
+            torch.arange(w, device=device)[None, :])
+
+
+def _warp_bilinear(planes: torch.Tensor, flow: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sample stacked ``planes`` [(B,) H, W, C] at ``x + flow`` (flow
+    [(B,) H, W, 2], edge clamp) with one shared set of four taps (the
+    JAX package's ``take4`` route).  Returns (warped [(B,) H, W, C],
+    in_bounds [(B,) H, W] bool)."""
+    h, w, c = planes.shape[-3:]
+    lead = planes.shape[:-3]
+    ys, xs = (t.to(torch.float32) for t in _coords(h, w, planes.device))
+    fx = xs + flow[..., 0]
+    fy = ys + flow[..., 1]
+    inb = (fx >= 0) & (fx <= w - 1) & (fy >= 0) & (fy <= h - 1)
+    fxc = fx.clamp(0.0, w - 1.0)
+    fyc = fy.clamp(0.0, h - 1.0)
+    x0f = torch.floor(fxc)
+    y0f = torch.floor(fyc)
+    a = (fxc - x0f)[..., None]
+    b = (fyc - y0f)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    x1 = (x0 + 1).clamp(max=w - 1)
+    y1 = (y0 + 1).clamp(max=h - 1)
+    flat = planes.reshape(*lead, h * w, c)
+
+    def g(yy, xx):
+        idx = (yy * w + xx).reshape(*lead, h * w, 1).expand(*lead, h * w, c)
+        return flat.gather(-2, idx).reshape(*lead, h, w, c)
+
+    c00, c01 = g(y0, x0), g(y0, x1)
+    c10, c11 = g(y1, x0), g(y1, x1)
+    out = ((1 - a) * (1 - b) * c00 + a * (1 - b) * c01
+           + (1 - a) * b * c10 + a * b * c11)
+    return out, inb
+
+
+def _psi_deriv(s2: torch.Tensor, eps2: float) -> torch.Tensor:
+    """Psi'(s^2) = 1 / (2 sqrt(s^2 + eps^2)), the IRLS weight, from the
+    correctly rounded root (the JAX package's ``0.5 * rsqrt`` is not
+    correctly rounded on its CPU build)."""
+    return 0.5 / im.sqrt_f32(s2 + eps2)
+
+
+def _edge_pad(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [(B,) h, w] with a replicated border of one pixel."""
+    return im.replicate_pad(x, 1, 1, 1, 1)
+
+
+def _shift_edge(xp: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """Neighbour value at (y + dy, x + dx) with replicate border, read
+    from the edge-padded plane ``xp = _edge_pad(x)`` (one pad serves all
+    four neighbours)."""
+    h, w = xp.shape[-2] - 2, xp.shape[-1] - 2
+    return xp[..., 1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+
+
+def _neighbour_sum(x: torch.Tensor, wE, wW, wS, wN) -> torch.Tensor:
+    """``wE x(E) + wW x(W) + wS x(S) + wN x(N)``, summed in that order."""
+    xp = _edge_pad(x)
+    return (wE * _shift_edge(xp, 0, 1) + wW * _shift_edge(xp, 0, -1)
+            + wS * _shift_edge(xp, 1, 0) + wN * _shift_edge(xp, -1, 0))
+
+
+def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
+                           flow: torch.Tensor, cfg: DISConfig,
+                           pad: Optional[int] = None) -> torch.Tensor:
+    """Refine ``flow`` [(B,) h, w, 2] given the level image planes
+    [(B,) h + 2 pad, w + 2 pad].
+
+    ``pad`` is the border width to slice off the planes (default
+    ``cfg.img_padding``, matching the Q1 pyramid levels; 0 for the
+    exact-size intensity planes of ``refinement_planes="intensity"``).
+    A leading pair axis runs through every step.  Returns the refined
+    flow, of the shape of ``flow``.
+    """
+    h, w = flow.shape[-3:-1]
+    p = cfg.img_padding if pad is None else pad
+    I1 = img1_padded[..., p:p + h, p:p + w]
+    I2 = img2_padded[..., p:p + h, p:p + w]
+
+    I1x = im.sobel3(I1, "x")
+    I1y = im.sobel3(I1, "y")
+    warp1 = cfg.refinement_scheme == "warp1"
+    if warp1:
+        # Only I2 itself is warped; gradients come from Sobel of the
+        # warped image (see below).
+        planes = I2[..., None]
+    else:
+        I2x = im.sobel3(I2, "x")
+        I2y = im.sobel3(I2, "y")
+        I2xx = im.sobel3(I2x, "x")
+        I2xy = im.sobel3(I2x, "y")
+        I2yy = im.sobel3(I2y, "y")
+        planes = torch.stack([I2, I2x, I2y, I2xx, I2xy, I2yy], dim=-1)
+
+    alpha = cfg.refinement_alpha
+    delta = cfg.refinement_delta
+    gamma = cfg.refinement_gamma
+    omega = cfg.refinement_omega
+    ys, xs = _coords(h, w, flow.device)
+    red = (xs + ys) % 2 == 0
+    black = ~red
+
+    for _ in range(cfg.refinement_iters):
+        u0 = flow[..., 0]
+        v0 = flow[..., 1]
+        warped, inb = _warp_bilinear(planes, flow)
+        if warp1:
+            # Warp only I2, then differentiate the WARPED image and
+            # average with I1's gradients (the gradient-averaging
+            # linearization of the DIS authors' OpenCV refinement).
+            W = warped[..., 0]
+            Wxr = im.sobel3(W, "x")
+            Wyr = im.sobel3(W, "y")
+            Wx = 0.5 * (I1x + Wxr)
+            Wy = 0.5 * (I1y + Wyr)
+            Iz = W - I1
+            Izx = Wxr - I1x
+            Izy = Wyr - I1y
+            Wxx = im.sobel3(Wx, "x")
+            Wxy = im.sobel3(Wx, "y")
+            Wyy = im.sobel3(Wy, "y")
+        else:
+            W, Wx, Wy, Wxx, Wxy, Wyy = warped.unbind(-1)
+            Iz = W - I1
+            Izx = Wx - I1x
+            Izy = Wy - I1y
+        m = inb.to(torch.float32)
+
+        du = torch.zeros_like(u0)
+        dv = torch.zeros_like(v0)
+        for _ in range(cfg.refinement_inner_sweeps):
+            # Lagged robust weights.
+            r_d = Iz + Wx * du + Wy * dv
+            wd = delta * _psi_deriv(r_d * r_d, _EPS2_DATA) * m
+            r_gx = Izx + Wxx * du + Wxy * dv
+            r_gy = Izy + Wxy * du + Wyy * dv
+            wg = gamma * _psi_deriv(r_gx * r_gx + r_gy * r_gy, _EPS2_DATA) * m
+
+            U = u0 + du
+            V = v0 + dv
+            Up, Vp = _edge_pad(U), _edge_pad(V)
+            Ux = _shift_edge(Up, 0, 1) - U
+            Uy = _shift_edge(Up, 1, 0) - U
+            Vx = _shift_edge(Vp, 0, 1) - V
+            Vy = _shift_edge(Vp, 1, 0) - V
+            ws_c = alpha * _psi_deriv(Ux * Ux + Uy * Uy + Vx * Vx + Vy * Vy,
+                                      _EPS2_SMOOTH)
+
+            # Edge weights: average of the endpoint diffusivities.
+            wsp = _edge_pad(ws_c)
+            wE = 0.5 * (ws_c + _shift_edge(wsp, 0, 1))
+            wW = 0.5 * (ws_c + _shift_edge(wsp, 0, -1))
+            wS = 0.5 * (ws_c + _shift_edge(wsp, 1, 0))
+            wN = 0.5 * (ws_c + _shift_edge(wsp, -1, 0))
+            S = wE + wW + wS + wN
+
+            A11 = wd * Wx * Wx + wg * (Wxx * Wxx + Wxy * Wxy) + S
+            A12 = wd * Wx * Wy + wg * (Wxy * (Wxx + Wyy))
+            A22 = wd * Wy * Wy + wg * (Wxy * Wxy + Wyy * Wyy) + S
+            b1c = -(wd * Wx * Iz + wg * (Wxx * Izx + Wxy * Izy))
+            b2c = -(wd * Wy * Iz + wg * (Wxy * Izx + Wyy * Izy))
+            # Fixed over the sweeps of this weight update (the JAX package
+            # writes them inside each half-sweep; the values are the same).
+            det = A11 * A22 - A12 * A12
+            det = det.masked_fill(det.abs() < 1e-12, 1e-12)
+            Su0 = S * u0
+            Sv0 = S * v0
+
+            for _ in range(cfg.refinement_sor_sweeps):
+                for mask in (red, black):
+                    nU = _neighbour_sum(u0 + du, wE, wW, wS, wN)
+                    nV = _neighbour_sum(v0 + dv, wE, wW, wS, wN)
+                    b1 = b1c + nU - Su0
+                    b2 = b2c + nV - Sv0
+                    du_new = (A22 * b1 - A12 * b2) / det
+                    dv_new = (A11 * b2 - A12 * b1) / det
+                    # Block SOR: over-relax the exact 2x2 point solve
+                    # (omega = 1 is plain red-black Gauss-Seidel, kept as
+                    # the direct assignment).
+                    if omega != 1.0:
+                        du_new = du + omega * (du_new - du)
+                        dv_new = dv + omega * (dv_new - dv)
+                    du = torch.where(mask, du_new, du)
+                    dv = torch.where(mask, dv_new, dv)
+        flow = torch.stack([u0 + du, v0 + dv], dim=-1)
+    return flow

@@ -26,7 +26,7 @@ import torch
 
 from . import _build
 from .config import DISConfig
-from .models.dis import _check_supported, dis_flow, flow_plans
+from .models.dis import dis_flow, flow_plans
 from .ops.cuda.extract_banded_kernel import extract_regions_banded
 from .ops.cuda.extract_kernel import extract_regions
 from .ops.cuda.iclk_kernel import iclk_search
@@ -93,8 +93,8 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
     """The flow pipeline for one shape bucket, built now rather than at
     the first request.  ``batch=None`` takes a single pair [H, W];
     ``batch=B`` a batch [B, H, W], whose kernels fold the pairs into
-    their launches."""
-    _check_supported(cfg)
+    their launches.  A refinement config (``DIS_MEDIUM``, ``DIS_FULL``)
+    captures its sweeps into the same graph."""
     dev = torch.device(device)
     if batch is not None and batch < 1:
         raise ValueError(f"batch must be None or >= 1, got {batch}")

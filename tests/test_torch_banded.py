@@ -26,6 +26,8 @@ import torch
 
 import dis_tpu_torch
 from dis_tpu.config import DIS_FAST as J_FAST
+from dis_tpu.config import DIS_FULL as J_FULL
+from dis_tpu.config import DIS_MEDIUM as J_MEDIUM
 from dis_tpu.config import DIS_ULTRAFAST as J_ULTRAFAST
 from dis_tpu.config import DISConfig as JConfig
 from dis_tpu.models import dis as jdis
@@ -140,12 +142,31 @@ def test_route_gates_match_jax():
         assert ticlk.band_width_ok(ps, bound) == jext.band_width_ok(ps, bound)
 
 
-def test_route_raises_without_an_init_bound():
-    med = dataclasses.replace(dis_tpu_torch.DIS_MEDIUM, coarsest_scale=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdis.scale_extraction_route(med, 3840, 2160, 0)
-    clamped = dataclasses.replace(med, refined_init_clamp=True)
-    assert tdis.scale_extraction_route(clamped, 3840, 2160, 0) == "K2c"
+def test_route_raises_without_an_init_bound(tpu_backend):
+    """Without a static init bound (per-level refinement, no clamp) the
+    route no longer raises: it takes K2 at every scale of every size,
+    which is the TPU's route mapped to the port (its whole-image kernel
+    where that fits, its XLA extraction elsewhere: both K2 here).  With
+    the clamp the bound returns, and so does K2c where the TPU bands."""
+    no_bound = {**JAX_TO_PORT, "xla_regions": "K2"}
+    for jcfg in (J_MEDIUM, J_FULL):
+        tcfg = _tcfg(jcfg)
+        for size in ROUTE_SIZES:
+            for s in range(jcfg.finest_scale, jcfg.coarsest_scale):
+                assert tdis.init_bound(tcfg, s) is None
+                want = no_bound[jdis.scale_extraction_route(jcfg, *size, s)]
+                assert tdis.scale_extraction_route(tcfg, *size, s) == want == "K2"
+    jclamped = dataclasses.replace(J_MEDIUM, refined_init_clamp=True)
+    clamped = _tcfg(jclamped)
+    routes = {}
+    for size in ROUTE_SIZES:
+        for s in range(clamped.coarsest_scale + 1):
+            want = jdis.scale_extraction_route(jclamped, *size, s)
+            assert want in JAX_TO_PORT, want
+            routes[size, s] = tdis.scale_extraction_route(clamped, *size, s)
+            assert routes[size, s] == JAX_TO_PORT[want], (size, s)
+    assert {k for k, r in routes.items() if r == "K2c"} == {
+        ((1920, 1088), 0), ((3840, 2160), 0), ((3840, 2160), 1)}
 
 
 # -- K2c's function -----------------------------------------------------------

@@ -45,6 +45,7 @@ from dis_tpu_torch.parallel import batched_flow_epe_fn, batched_flow_fn
 from dis_tpu_torch.utils import epe
 
 from conftest import synthetic_pair
+from torch_threads import one_thread
 
 CPU = torch.device("cpu")
 FAMILIES = ("zoom", "shear", "discontinuous", "smooth_warp", "natural_warp")
@@ -278,6 +279,13 @@ def test_batched_flow_fn_refusals():
         batched_flow_fn(cfg)(*single)
     with pytest.raises(ValueError, match=r"\[B, H, W\]"):
         batched_flow_epe_fn(cfg)(*single, torch.zeros(32, 32, 2))
-    pairs = (torch.zeros(2, 32, 32), torch.zeros(2, 32, 32))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        batched_flow_fn(dis_tpu_torch.DIS_MEDIUM)(*pairs)
+    # A refinement preset is no longer refused: the batch runs, each pair
+    # bitwise its serial flow.
+    a, b = _pairs(2, 32, 48)
+    cfg = dis_tpu_torch.DIS_MEDIUM
+    with one_thread():
+        flows = batched_flow_fn(cfg)(a, b)
+        assert flows.shape == (2, 32, 48, 2)
+        for i in range(2):
+            assert torch.equal(flows[i], dis_tpu_torch.dis_flow_padded(
+                a[i].contiguous(), b[i].contiguous(), cfg)), i

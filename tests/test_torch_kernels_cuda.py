@@ -15,7 +15,9 @@ launch), K2 and K1 bitwise (K1 uses the plain version's pair trees and
 no FMA; K2 and K2c also with windows outside their group's staged box,
 groups straddling columns and ragged last groups), K1 also on warps
 whose patches freeze at different trips;
-``dis_flow`` through the kernels within 1e-3 px mean of the plain path.
+``dis_flow`` through the kernels within 1e-3 px mean of the plain path,
+with the refinement presets too; the refinement (torch ops) on the card
+bitwise equal to the same call on the CPU.
 """
 
 import numpy as np
@@ -509,3 +511,63 @@ def test_search_mixed_trips_bitwise(ps, mode):
     for k, p in zip(kout, pout):
         assert torch.equal(k, p)
     assert len(set(trips)) > 1          # some patches froze inside the loop
+
+
+@pytest.mark.parametrize("scheme", ["planes6", "warp1"])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_refinement_card_equals_cpu(scheme, batch):
+    """The refinement (torch ops, no kernel of its own) on the card equals
+    the same call on the CPU bitwise: no reduction, correctly rounded
+    roots and divisions, no contracted multiply-add."""
+    from dis_tpu_torch.ops.variational import variational_refinement
+
+    b = batch or 1
+    x, y = _batch(b, 72, 104, 101)
+    if batch is None:
+        x, y = x[0], y[0]
+    flow = torch.from_numpy(((np.random.default_rng(3).random(x.shape + (2,)) - 0.5) * 4)
+                            .astype(np.float32)).cuda()
+    cfg = dis_tpu_torch.DISConfig(mode="fixed", refinement_iters=1, refinement_inner_sweeps=5,
+                                  refinement_sor_sweeps=5, refinement_omega=1.6,
+                                  refinement_alpha=40.0, refinement_scheme=scheme)
+    card = variational_refinement(x, y, flow, cfg, pad=0)
+    cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=0)
+    torch.cuda.synchronize()
+    assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("preset", ["DIS_MEDIUM", "DIS_FULL"])
+def test_refined_dis_flow_kernels_vs_plain(preset):
+    a, b = _smooth(96, 160, 5)
+    x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
+    cfg = getattr(dis_tpu_torch, preset)
+    wrappers = (pyramid_levels, extract_regions, iclk_search)
+    for w in wrappers:
+        w.launches = 0
+    flow = dis_tpu_torch.dis_flow(x, y, cfg)
+    assert all(w.launches > 0 for w in wrappers)
+    plain = dis_tpu_torch.dis_flow(x, y, cfg, plain=True)
+    d = torch.linalg.vector_norm(flow - plain, dim=-1)
+    assert flow.device.type == "cuda" and bool(torch.isfinite(flow).all())
+    assert float(d.mean()) <= 1e-3 and float((d > 1e-2).float().mean()) <= 0.01
+
+
+def test_refined_graph_batch_and_tiles():
+    """DIS_MEDIUM: a graph replay of a batch of 2 equals the eager batch,
+    which equals its pairs alone; both tiling engines equal the untiled
+    flow, all bitwise."""
+    from dis_tpu_torch.parallel import grid_tiled_flow, min_stripe_halo, tiled_flow_exact
+    from dis_tpu_torch.serving import aot_compile
+
+    cfg = dis_tpu_torch.DIS_MEDIUM
+    x, y = _batch(2, 96, 128, 111)
+    eager = dis_tpu_torch.dis_flow(x, y, cfg)
+    compiled = aot_compile(cfg, 96, 128, batch=2)
+    for _ in range(2):
+        assert torch.equal(compiled(x, y), eager)
+    for i in range(2):
+        assert torch.equal(eager[i], dis_tpu_torch.dis_flow(x[i], y[i], cfg))
+    a, b = x[0], y[0]
+    untiled = dis_tpu_torch.dis_flow_padded(a, b, cfg)
+    assert torch.equal(grid_tiled_flow(a, b, cfg, 3), untiled)
+    assert torch.equal(tiled_flow_exact(a, b, cfg, 2, min_stripe_halo(cfg, 128, 96, 2)), untiled)

@@ -1,5 +1,5 @@
-"""The port as a package: config drift against dis_tpu, a JAX-free
-import, CPU dispatch of the kernel wrappers, and its refusals."""
+"""The port as a package: config and constant drift against dis_tpu, a
+JAX-free import, CPU dispatch of the kernel wrappers, and its refusals."""
 
 import dataclasses
 import subprocess
@@ -22,6 +22,7 @@ from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.grid import make_grid
 
 from conftest import synthetic_pair
+from torch_threads import one_thread
 
 WRAPPERS = (pyramid_levels, extract_regions, iclk_search)
 
@@ -57,7 +58,7 @@ def test_import_is_jax_free():
             "import dis_tpu_torch.ops.cuda.iclk_kernel, dis_tpu_torch.ops.cuda.extract_kernel, "
             "dis_tpu_torch.ops.cuda.extract_banded_kernel, dis_tpu_torch.parallel.tiles, "
             "dis_tpu_torch.ops.cuda.pyramid_kernel, dis_tpu_torch.serving, "
-            "dis_tpu_torch.parallel, dis_tpu_torch.utils; "
+            "dis_tpu_torch.parallel, dis_tpu_torch.utils, dis_tpu_torch.ops.variational; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dis_tpu')); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -106,10 +107,23 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch):
 
 
 def test_refinement_configs_raise():
-    x = torch.zeros((32, 32))
+    """``DIS_MEDIUM`` and ``DIS_FULL`` no longer raise: ``dis_flow`` runs
+    them through the refinement (an odd size, so padding and crop run)."""
+    i1, i2 = synthetic_pair(45, 61)
     for cfg in (dis_tpu_torch.DIS_MEDIUM, dis_tpu_torch.DIS_FULL):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            dis_tpu_torch.dis_flow(x, x, cfg)
+        with one_thread():
+            flow = dis_tpu_torch.dis_flow(torch.from_numpy(i1), torch.from_numpy(i2), cfg)
+        assert flow.shape == (45, 61, 2) and bool(torch.isfinite(flow).all())
+
+
+def test_refinement_epsilons_have_not_drifted():
+    """The port's copies of the Charbonnier epsilons equal the JAX
+    package's."""
+    from dis_tpu.ops import variational as jvar
+    from dis_tpu_torch.ops import variational as tvar
+
+    assert (tvar._EPS2_DATA, tvar._EPS2_SMOOTH) == (jvar._EPS2_DATA, jvar._EPS2_SMOOTH)
+    assert (tvar._EPS2_DATA, tvar._EPS2_SMOOTH) == (1e-2, 1e-6)
 
 
 def test_pair_checks():

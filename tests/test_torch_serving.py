@@ -23,6 +23,7 @@ from dis_tpu_torch.ops import grid as tgrid
 from dis_tpu_torch.serving import CompiledFlow, aot_compile
 
 from conftest import synthetic_pair
+from torch_threads import one_thread
 
 JCFG = JConfig(iterations=8, patch_size=8, coarsest_scale=2, finest_scale=0,
                patch_overlap=0.3, mode="compat", early_exit=False)
@@ -86,8 +87,12 @@ def test_aot_compile_refusals():
         aot_compile(CFG, 40, 56, device="meta")
     with pytest.raises(ValueError, match="batch"):
         aot_compile(CFG, 40, 56, batch=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        aot_compile(dis_tpu_torch.DIS_MEDIUM, 40, 56, device="cpu")
+    # A refinement preset is no longer refused: it builds and runs.
+    med = aot_compile(dis_tpu_torch.DIS_MEDIUM, 40, 56, device="cpu")
+    i1, i2 = synthetic_pair(40, 56)
+    with one_thread():
+        assert torch.equal(med(i1, i2), dis_tpu_torch.dis_flow(
+            torch.from_numpy(i1), torch.from_numpy(i2), dis_tpu_torch.DIS_MEDIUM))
     if not torch.cuda.is_available():
         # A CUDA device either captures or raises: never a CPU fallback.
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -26,6 +26,7 @@ from dis_tpu_torch.models import dis as tdis
 from dis_tpu_torch.parallel import tiles as ttiles
 
 from conftest import synthetic_pair
+from torch_threads import one_thread
 
 BENCH = JConfig(iterations=16, patch_size=8, coarsest_scale=3, finest_scale=0,
                 patch_overlap=0.3, patch_normalization=True, mode="compat",
@@ -171,9 +172,20 @@ def test_stripe_bounds_and_partition_match_jax(h, n, i, halo):
 
 
 def test_tiling_engines_refuse_refinement():
-    x = torch.zeros((64, 48))
-    for cfg in (dis_tpu_torch.DIS_MEDIUM, dis_tpu_torch.DIS_FULL):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttiles.tiled_flow_exact(x, x, cfg, 2, 64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ttiles.grid_tiled_flow(x, x, cfg, 2)
+    """The engines no longer refuse ``DIS_MEDIUM`` and ``DIS_FULL`` (the
+    presets themselves): both run them and equal the untiled flow
+    bitwise, and ``tiled_flow_exact(refine=False)`` gives the stripes'
+    flow without refinement."""
+    h, w = 64, 48
+    i1, i2 = synthetic_pair(h, w, shift=(1.0, 1.0), seed=19)
+    a, b = _t(i1), _t(i2)
+    with one_thread():
+        for cfg in (dis_tpu_torch.DIS_MEDIUM, dis_tpu_torch.DIS_FULL):
+            untiled = tdis.dis_flow_padded(a, b, cfg)
+            assert untiled.shape == (h, w, 2) and bool(torch.isfinite(untiled).all())
+            halo = ttiles.min_stripe_halo(cfg, w, h, 2)
+            assert torch.equal(ttiles.tiled_flow_exact(a, b, cfg, 2, halo), untiled)
+            assert torch.equal(ttiles.grid_tiled_flow(a, b, cfg, 2), untiled)
+            bare = dataclasses.replace(cfg, refinement_iters=0)
+            assert torch.equal(ttiles.tiled_flow_exact(a, b, cfg, 2, halo, refine=False),
+                               tdis.dis_flow_padded(a, b, bare))
