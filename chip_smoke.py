@@ -114,6 +114,28 @@ whose variational refinement is torch ops (no TPU kernel backs it):
     B = 8, and the refinement alone, replayed, per level at 1080p with
     its launches (non-view torch ops) and its share of the frame.
 
+The user-facing surface (phase 4, after the times): the CLI
+(``dis_tpu_torch.cli.main``) and the sequence runner on a 9-frame
+1920x1080 sequence (``write_sequence``: ``bench.synth_pair``'s recipe,
+each frame shifted (3, 2) px from the last, quantised to 8-bit PNG by the
+port's own writer, with ``.flo`` ground truth) in a temporary directory:
+
+4.  the native I/O library builds (required); the compat bench config
+    over the 8 pairs writes 8 colourised PNGs and ``.flo`` files, each
+    ``.flo`` bitwise equal to the eager kernel path on the decoded
+    frames, its graph capturing K3 2, K2 4, K1 4 a frame (the counts move
+    at the 2 warm-up calls and the capture, never at a replay), its mean
+    EPE within 0.002 px of the JAX CLI's CPU reading (``EPE_JAX_CLI``);
+    ``--batch 4`` (K2b, K1b), ``--preset medium``, ``draw_grid = 1``,
+    ``DIS_TPU_CHECK=1``, ``--profile-dir`` (a trace naming ``pyramid``
+    and ``scale_0``) and the runner stopped after pair 4 and resumed,
+    each bitwise equal to the serial run; a 4K pair through the CLI
+    (K2c once); and the CLI's steady-state rate with its split by phase
+    (``PhaseTimer``: decode, flow, colorize, encode, flo, score), the
+    card's busy time a pair read from the ``--profile-dir`` trace, and
+    the port's PNG writer timed against PIL's (where PIL is installed) on
+    a 1080p colour frame.
+
 Each kernel's line gives its bound: the larger of the bytes it must move
 (each input read once, each output written once: K3 the raw image and
 every level's planes, K1 its inputs with the raw template only for the
@@ -418,6 +440,307 @@ def scale_counts(cfg):
 
     n = cfg.coarsest_scale - cfg.finest_scale + 1
     return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n}
+
+
+SEQ_FRAMES = 9
+# Mean EPE against the (3, 2) shift of the JAX package's CLI on CPU over the
+# 8 pairs of write_sequence() (1920x1080, quantised to uint8) under the
+# compat bench config: the mean of the "epe" records of
+#   python3 -c "import chip_smoke as c; c.write_sequence('_seq')"
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu');
+#     from dis_tpu.cli import main; main(['_seq/frames', '1', '9', '16', '8',
+#     '3', '0', '0.3', '1', '0', '--no-early-exit', '--gt-dir', '_seq/gt',
+#     '--json-log', '_seq/jax.jsonl', '--out-dir', '_seq/OF'])"
+# (102 s and 1.2 GiB on the CPU).  The port's CLI must land within EPE_TOL
+# of it.
+EPE_JAX_CLI = 0.15257339738309383
+
+
+def sequence_frames(n: int, h: int, w: int):
+    """n frames [h, w] uint8, made as ``bench.synth_pair`` makes its pair
+    (a uniform random plane, seed 42, under a 7x7 box mean with a
+    symmetric border), frame t shifted by SHIFT px from frame t - 1 and
+    rounded to uint8."""
+    from scipy.signal import convolve2d
+
+    dx, dy = int(SHIFT[0]), int(SHIFT[1])
+    m = 4
+    r = np.random.default_rng(42)
+    big = (r.random((h + dy * (n - 1) + 2 * m, w + dx * (n - 1) + 2 * m)) * 255
+           ).astype(np.float32)
+    k = np.ones((7, 7), np.float32) / 49.0
+    big = convolve2d(big, k, mode="same", boundary="symm").astype(np.float32)
+    out = []
+    for t in range(n):
+        y0, x0 = m + dy * (n - 1 - t), m + dx * (n - 1 - t)
+        fr = big[y0:y0 + h, x0:x0 + w]
+        out.append(np.clip(np.rint(fr), 0, 255).astype(np.uint8))
+    return out
+
+
+def write_sequence(root, n: int = SEQ_FRAMES, h: int = H, w: int = W) -> None:
+    """``root/frames/frame_%04d.png`` (1-based) of :func:`sequence_frames`,
+    written with the port's own ``imwrite``, and the ground truth of every
+    pair, a uniform SHIFT, as ``root/gt/frame_%04d.flo``."""
+    import os
+
+    from dis_tpu_torch.utils.flo import save_flo
+    from dis_tpu_torch.utils.io import imwrite
+
+    os.makedirs(os.path.join(root, "frames"), exist_ok=True)
+    os.makedirs(os.path.join(root, "gt"), exist_ok=True)
+    for t, fr in enumerate(sequence_frames(n, h, w), start=1):
+        imwrite(os.path.join(root, "frames", f"frame_{t:04d}.png"), fr)
+    gt = np.broadcast_to(np.float32(SHIFT), (h, w, 2))
+    for t in range(1, n):
+        save_flo(os.path.join(root, "gt", f"frame_{t:04d}.flo"), gt)
+
+
+def device_busy_ms(trace: dict) -> float:
+    """Milliseconds in which the card ran a kernel, a copy or a fill, from
+    a ``torch.profiler`` Chrome trace (the union of those events' spans)."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
+                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def time_png_writers(root, flow) -> str:
+    """The port's ``imwrite`` (Up-filtered rows, zlib level 1) against
+    PIL's PNG encoder, where PIL is installed, on ``flow``'s colourised
+    frame: the median ms of 5 writes each."""
+    from dis_tpu_torch.utils.color import draw_optical_flow
+    from dis_tpu_torch.utils.io import imwrite
+
+    img = draw_optical_flow(flow)
+
+    def ms(write):
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            write()
+            t.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(t))
+
+    own = ms(lambda: imwrite(str(root / "writer_own.png"), img))
+    try:
+        from PIL import Image
+    except ImportError:
+        return f"port's writer {own:.3f} ms; PIL not installed"
+    pil = ms(lambda: Image.fromarray(np.ascontiguousarray(img[..., ::-1]))
+             .save(str(root / "writer_pil.png")))
+    return f"port's writer {own:.3f} ms, PIL {pil:.3f} ms ({pil / own:.2f}x)"
+
+
+def run_cli(argv, timer=None):
+    """``dis_tpu_torch.cli.main(argv)`` with its stdout captured; fails
+    unless it exits 0.  Returns the stdout lines."""
+    import contextlib
+    import io
+
+    from dis_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv], timer=timer)
+    out = buf.getvalue().splitlines()
+    check(rc == 0, f"CLI {argv} exited {rc}; stdout tail {out[-3:]}")
+    return out
+
+
+def cli_phase(dev, card, bench_cfg, wrappers):
+    """Phase 4: the CLI and the runner on a 9-frame 1080p sequence (and a
+    2-frame 4K one) in a temporary directory.  Returns the launches by
+    kernel of the CLI's main-path runs (K2b/K1b: the ``--batch`` run)."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import dis_tpu_torch as dt
+    from dis_tpu_torch import serving
+    from dis_tpu_torch.runner import run_sequence
+    from dis_tpu_torch.utils import native
+    from dis_tpu_torch.utils.flo import load_flo
+    from dis_tpu_torch.utils.io import imread_gray
+    from dis_tpu_torch.utils.profiling import PhaseTimer
+
+    t0 = time.perf_counter()
+    built = native.available()
+    print(f"phase4 native I/O library: {'built' if built else 'NOT built'} "
+          f"({native.library_path().name}, {time.perf_counter() - t0:.2f} s)", flush=True)
+    native.require()
+    per_capture = serving.WARMUP_CALLS + 1     # eager warm-up calls and the capture
+    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c")}
+
+    def counted(label, argv, want, timer=None, batched=False):
+        """The CLI with every count set to 0 just before and read just after;
+        a graph's kernels count at the warm-up and the capture, never at a
+        replay, so ``want`` (one frame's launches) comes per_capture times.
+        The counts join ``launches`` (K2 and K1 as K2b and K1b where
+        ``batched``)."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = run_cli(argv, timer)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        check(counts == {k: per_capture * v for k, v in want.items()},
+              f"{label}: launches {counts}, want {per_capture} x {want}")
+        for k, n in counts.items():
+            launches[k + "b" if batched and k in ("K2", "K1") else k] += n
+        print(f"phase4 {label}: launches {counts} = {per_capture} x {want} (warm-up and "
+              f"capture; replays launch through the graph)", flush=True)
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="dis_cli_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_sequence(root)
+        print(f"phase4 wrote {SEQ_FRAMES} frames {W}x{H} and {SEQ_FRAMES - 1} .flo GT "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        frames = root / "frames"
+        decoded = [torch.from_numpy(imread_gray(str(frames / f"frame_{t:04d}.png"))
+                                    .astype(np.float32)).to(dev)
+                   for t in range(1, SEQ_FRAMES + 1)]
+
+        def eager(cfg, t):
+            return dt.dis_flow(decoded[t - 1], decoded[t], cfg).cpu().numpy()
+
+        def flows(out, pairs):
+            return {t: load_flo(str(root / out / f"frame_{t:04d}.flo")) for t in pairs}
+
+        pairs = range(1, SEQ_FRAMES)
+        pos = [frames, 1, SEQ_FRAMES, 16, 8, 3, 0, 0.3, 1, 0]
+        common = ["--no-early-exit", "--save-flo", "--device", "cuda"]
+        want = {**scale_counts(bench_cfg), "K2c": 0}
+
+        # The compat bench config over the 8 pairs.
+        timer = PhaseTimer(device=dev)
+        out = counted("CLI compat 8 pairs", pos + common + [
+            "--gt-dir", root / "gt", "--json-log", root / "compat.jsonl",
+            "--out-dir", root / "compat"], want, timer)
+        names = sorted(p.name for p in (root / "compat").iterdir())
+        check(names == sorted([f"frame_{t:04d}.{e}" for t in pairs for e in ("png", "flo")]),
+              f"CLI compat wrote {names}")
+        base = flows("compat", pairs)
+        for t in pairs:
+            check(np.array_equal(base[t], eager(bench_cfg, t)),
+                  f"CLI compat pair {t}: .flo differs from the eager kernel path")
+        recs = [json.loads(x) for x in (root / "compat.jsonl").read_text().splitlines()]
+        check([r["frame"] for r in recs] == list(pairs) and all("epe" in r for r in recs),
+              f"CLI compat JSON records {recs}")
+        epe = float(np.mean([r["epe"] for r in recs]))
+        print(f"phase4 CLI compat: 8 colourised PNGs and .flo files, each .flo bitwise equal "
+              f"to the eager kernel path; mean EPE {epe} (JAX CLI on CPU {EPE_JAX_CLI}); "
+              f"stdout: {out[-2:]}", flush=True)
+        check(abs(epe - EPE_JAX_CLI) <= EPE_TOL, f"CLI EPE {epe} vs JAX {EPE_JAX_CLI}")
+        fps_line = [x for x in out if "fps steady-state" in x]
+        writer = time_png_writers(root, base[2])
+        split = {}
+        for r in timer.records:
+            if r["frame"] != 1:       # steady state: the first pair captures the graph
+                split[r["phase"]] = split.get(r["phase"], 0.0) + r["seconds"] / (SEQ_FRAMES - 2)
+        total = sum(split.values())
+        print(f"phase4 CLI steady state: {fps_line}; per pair (pairs 2-8, PhaseTimer) "
+              + ", ".join(f"{k} {v * 1e3:.3f} ms ({100 * v / total:.1f}%)"
+                          for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+              + f"; sum {total * 1e3:.3f} ms ({1.0 / total:.2f} pairs/s) [{card}]", flush=True)
+        print(f"phase4 1080p colour PNG, median of 5 writes: {writer} [{card}]", flush=True)
+
+        # --batch 4: two chunks through one batched graph (K2b, K1b).
+        counted("CLI compat --batch 4", pos + common + [
+            "--batch", 4, "--out-dir", root / "batch"], want, batched=True)
+        got = flows("batch", pairs)
+        check(all(np.array_equal(got[t], base[t]) for t in pairs),
+              "CLI --batch 4 differs from the serial run")
+        print("phase4 CLI --batch 4: 8 flows bitwise equal to the serial run", flush=True)
+
+        # --preset medium on 2 pairs.
+        med = dt.DIS_MEDIUM
+        counted("CLI --preset medium 2 pairs", [frames, 1, 3, "--preset", "medium", "--save-flo",
+                                                "--device", "cuda", "--out-dir", root / "medium"],
+                {**scale_counts(med), "K2c": 0})
+        got = flows("medium", (1, 2))
+        check(all(np.array_equal(got[t], eager(med, t)) for t in (1, 2)),
+              "CLI --preset medium differs from the eager kernel path")
+        print("phase4 CLI --preset medium: 2 flows bitwise equal to the eager kernel path",
+              flush=True)
+
+        # draw_grid = 1, DIS_TPU_CHECK=1 and --profile-dir: eager, same bits.
+        two = [frames, 1, 3, 16, 8, 3, 0, 0.3, 1]
+        run_cli(two + [1] + common + ["--out-dir", root / "grid"])
+        names = {p.name for p in (root / "grid").iterdir()}
+        grids = {f"frame_{t:04d}_grid_s{sc}.png" for t in (1, 2) for sc in range(4)}
+        check(grids <= names, f"draw_grid: overlays missing: {sorted(grids - names)}")
+        os.environ["DIS_TPU_CHECK"] = "1"
+        try:
+            run_cli(two + [0] + common + ["--out-dir", root / "checked"])
+        finally:
+            del os.environ["DIS_TPU_CHECK"]
+        run_cli(two + [0] + common + ["--out-dir", root / "prof", "--profile-dir",
+                                      root / "trace"])
+        for out in ("grid", "checked", "prof"):
+            got = flows(out, (1, 2))
+            check(all(np.array_equal(got[t], base[t]) for t in (1, 2)),
+                  f"CLI {out}: flow differs from the run without it")
+        traces = list((root / "trace").glob("*.json"))
+        text = "".join(x.read_text() for x in traces)
+        check(len(traces) == 1 and '"pyramid"' in text and '"scale_0"' in text,
+              f"--profile-dir: {len(traces)} traces, stage names missing")
+        busy = device_busy_ms(json.loads(text)) / 2
+        print(f"phase4 CLI draw_grid = 1 ({len(grids)} overlays), DIS_TPU_CHECK=1 (guards "
+              f"pass) and --profile-dir (a {len(text) / 2 ** 20:.1f} MiB trace naming "
+              f"pyramid and scale_0): 2 flows each bitwise equal to the plain run", flush=True)
+        print(f"phase4 card busy a pair (kernels, copies and fills of the --profile-dir "
+              f"trace, eager, 2 pairs): {busy:.3f} ms; against the steady serial pair's "
+              f"{total * 1e3:.3f} ms the card is {100 * (1 - busy / (total * 1e3)):.2f}% idle "
+              f"[{card}]", flush=True)
+
+        # The runner: stopped after pair 4, resumed at 5, equal to a fresh run.
+        class Stop(Exception):
+            pass
+
+        def stop_after_4(i, flow):
+            if i == 4:
+                raise Stop()
+
+        kw = dict(save_flo=True, device=dev)
+        try:
+            run_sequence(str(frames), 1, SEQ_FRAMES, bench_cfg, out_dir=str(root / "run"),
+                         ckpt_dir=str(root / "ck"), on_pair=stop_after_4, **kw)
+        except Stop:
+            pass
+        else:
+            check(False, "runner: on_pair did not stop the run")
+        resumed = run_sequence(str(frames), 1, SEQ_FRAMES, bench_cfg, out_dir=str(root / "run"),
+                               ckpt_dir=str(root / "ck"), **kw)
+        fresh = run_sequence(str(frames), 1, SEQ_FRAMES, bench_cfg,
+                             out_dir=str(root / "fresh"), **kw)
+        check((resumed["resumed_from"], resumed["pairs_done"]) == (5, 4)
+              and fresh["pairs_done"] == 8, f"runner: resumed {resumed}, fresh {fresh}")
+        a, b = flows("run", pairs), flows("fresh", pairs)
+        check(all(np.array_equal(a[t], b[t]) and np.array_equal(a[t], base[t]) for t in pairs),
+              "runner: the resumed run differs from a fresh run or from the CLI")
+        print(f"phase4 runner: stopped after pair 4, resumed from {resumed['resumed_from']} "
+              f"({resumed['pairs_done']} pairs); 8 flows bitwise equal to a fresh run and to "
+              f"the CLI's; fresh run {fresh['mean_seconds'] * 1e3:.3f} ms a pair [{card}]",
+              flush=True)
+        del decoded
+
+        # 4K: one pair through the CLI, K2c at the finest scale.
+        root4 = root / "4k"
+        write_sequence(root4, 2, H4K, W4K)
+        counted("CLI compat 4K 1 pair", [root4 / "frames", 1, 2, 16, 8, 3, 0, 0.3, 1, 0]
+                + common + ["--out-dir", root4 / "out"], {"K3": 2, "K2": 3, "K2c": 1, "K1": 4})
+        a4, b4 = (torch.from_numpy(imread_gray(str(root4 / "frames" / f"frame_{t:04d}.png"))
+                                   .astype(np.float32)).to(dev) for t in (1, 2))
+        check(np.array_equal(load_flo(str(root4 / "out" / "frame_0001.flo")),
+                             dt.dis_flow(a4, b4, bench_cfg).cpu().numpy()),
+              "CLI 4K: .flo differs from the eager kernel path")
+        print("phase4 CLI 4K: the flow bitwise equal to the eager kernel path", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1189,6 +1512,12 @@ def main() -> int:
               f"levels; {100.0 * total / frame:.1f}% of the {frame:.4f} ms replayed frame); "
               f"the frame without refinement {bare:.4f} ms replayed, so the refinement takes "
               f"{frame - bare:.4f} ms ({100.0 * (frame - bare) / frame:.1f}%) [{card}]", flush=True)
+
+    # -- phase 4: the CLI and the runner on frame sequences -------------------
+    t0 = time.perf_counter()
+    for k, n in cli_phase(dev, card, bench_cfg, wrappers).items():
+        launches[k] += n
+    print(f"phase4 took {time.perf_counter() - t0:.2f} s", flush=True)
 
     src = "dis_tpu_torch/csrc/"
     meta = {

@@ -29,6 +29,14 @@ output rows (:func:`dis_scale_window`) or the whole pipeline on a row
 stripe of the frame (:func:`dis_flow_stripe`, which never refines).  All
 geometry stays global, so each is bitwise those rows of the untiled
 flow.
+
+Each stage runs inside a ``torch.profiler.record_function`` range named as
+the JAX package's ``jax.named_scope`` (``pyramid``, ``scale_{s}``,
+``refine_s{s}``, ``variational_refinement``, ``stripe_scale_{s}``), so a
+profile (``utils/profiling.py``) attributes device time to stages.  The
+``DIS_TPU_CHECK`` guards (``utils/checks.py``) sit in the search and at
+the end of :func:`dis_flow_padded`; they cost nothing unless a
+``checks.checked`` call is running.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from ..config import DISConfig
 from ..ops import iclk
@@ -46,6 +55,7 @@ from ..ops.densify import densify
 from ..ops.grid import ScalePlan, init_from_coarser_flow, make_grid, scale_plan
 from ..ops.pyramid import construct_pyramid, intensity_pyramid
 from ..ops.variational import variational_refinement
+from ..utils import checks
 
 
 def _fixed_weights(res: iclk.SearchResult, tpl: iclk.PatchTemplates,
@@ -225,35 +235,55 @@ def refine_level(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
 
 
 def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
-                    cfg: DISConfig, plain: bool = False) -> torch.Tensor:
+                    cfg: DISConfig, plain: bool = False,
+                    return_debug: bool = False):
     """DIS flow on an already divisibility-padded float32 pair [H, W], or
     a batch of pairs [B, H, W].
 
     Returns flow at scale ``finest_scale``: [(B,) H / 2**finest,
-    W / 2**finest, 2].
+    W / 2**finest, 2].  With ``return_debug``, also returns a per-scale
+    list of (scale, centers [N, 2] NumPy, u [(B,) N, 2], level image
+    [(B,) h_s, w_s]) for the C12 grid overlay (optical_flow.cpp:92-123),
+    coarsest scale first.
     ``plain=True`` runs the kernels' plain PyTorch versions on any device;
     it exists to check the kernels on the card.
+    Under ``utils.checks.checked`` with ``DIS_TPU_CHECK=1``, the flow
+    must be finite (and each scale's search passes its guards).
     """
     _check_pair(img1, img2)
     h, w = img1.shape[-2:]
     f = 2 ** cfg.coarsest_scale
     if w % f or h % f:
         raise ValueError(f"padded input dims must be divisible by {f}")
-    pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
-    pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
+    with record_function("pyramid"):
+        pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
+        pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
     planes = build_refinement_planes(img1, img2, cfg)
     refine_each = cfg.refinement_iters > 0 and cfg.refine_per_level
     refine_at_end = cfg.refinement_iters > 0 and not cfg.refine_per_level
     flow = None
+    debug = []
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        l1, l2 = pyr1[scale], pyr2[scale]
-        flow, _, _ = dis_scale_window(l1, l2, flow, cfg, scale, 0, l1.height, plain=plain)
-        if refine_each:
-            # The refined field seeds the next finer scale's init.
-            flow = refine_level(l1, l2, flow, cfg, scale, planes)
+        with record_function(f"scale_{scale}"):
+            l1, l2 = pyr1[scale], pyr2[scale]
+            flow, geom, res = dis_scale_window(l1, l2, flow, cfg, scale, 0, l1.height,
+                                               plain=plain)
+            if refine_each:
+                # The refined field seeds the next finer scale's init.
+                with record_function(f"refine_s{scale}"):
+                    flow = refine_level(l1, l2, flow, cfg, scale, planes)
+            if return_debug:
+                p = cfg.img_padding
+                debug.append((scale, geom.centers, res.u,
+                              l1.img[..., p:p + l1.height, p:p + l1.width]))
     if refine_at_end:
-        s = cfg.finest_scale
-        flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes)
+        with record_function("variational_refinement"):
+            s = cfg.finest_scale
+            flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes)
+    if checks.active():
+        checks.check(torch.isfinite(flow).all(), "pipeline produced non-finite flow")
+    if return_debug:
+        return flow, debug
     return flow
 
 
@@ -338,14 +368,16 @@ def dis_flow_stripe(img1_ext: torch.Tensor, img2_ext: torch.Tensor,
         cfg = dataclasses.replace(cfg, refinement_iters=0)
     iy_plan, win_plan = _stripe_plan(cfg, global_h, own_r0, own_h)
     validate_stripe_geometry(cfg, w, global_h, row0, ext_h, own_r0, own_h)
-    pyr1 = construct_pyramid(img1_ext, cfg.coarsest_scale, cfg.img_padding, plain)
-    pyr2 = construct_pyramid(img2_ext, cfg.coarsest_scale, cfg.img_padding, plain)
+    with record_function("pyramid"):
+        pyr1 = construct_pyramid(img1_ext, cfg.coarsest_scale, cfg.img_padding, plain)
+        pyr2 = construct_pyramid(img2_ext, cfg.coarsest_scale, cfg.img_padding, plain)
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        coarse_r0 = 0 if flow is None else win_plan[scale + 1][0]
-        flow, _, _ = _scale(pyr1[scale], pyr2[scale], flow, cfg, scale,
-                            global_h >> scale, iy_plan[scale], win_plan[scale],
-                            row0 >> scale, coarse_r0, plain)
+        with record_function(f"stripe_scale_{scale}"):
+            coarse_r0 = 0 if flow is None else win_plan[scale + 1][0]
+            flow, _, _ = _scale(pyr1[scale], pyr2[scale], flow, cfg, scale,
+                                global_h >> scale, iy_plan[scale], win_plan[scale],
+                                row0 >> scale, coarse_r0, plain)
     return flow
 
 

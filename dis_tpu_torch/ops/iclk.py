@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..config import DISConfig
+from ..utils import checks
 from .image import sqrt_f32
 
 
@@ -356,4 +357,22 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
     search = iclk_search_plain if plain else iclk_search
     u, Q, conv = search(*regions, tpl, Tn, centers, init_u, conv0, cfg,
                         width, height, row0)
+    if checks.active():
+        _guard_result(u, Q, centers, init_u, pos0, cfg)
     return SearchResult(u=u, Q=Q, converged=conv, start_oob=conv0)
+
+
+def _guard_result(u, Q, centers, init_u, start, cfg: DISConfig) -> None:
+    """``DIS_TPU_CHECK`` invariants on a scale's search result (counterpart
+    of ``dis_tpu/ops/iclk.py::_guard_result``): finite state, and the Q9
+    policing guarantee, that every patch's final position is within
+    ``outlier_thresh`` (plus 1e-3 of slack) of its start or exactly reset
+    to the init (patch.cpp:185-194)."""
+    checks.check(torch.isfinite(u).all(), "IC-LK produced non-finite u")
+    checks.check(torch.isfinite(Q).all(), "IC-LK produced non-finite Q")
+    d = start - (centers + u)
+    dist = sqrt_f32(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    at_init = (u == init_u).all(-1)
+    ok = (dist <= cfg.outlier_thresh + 1e-3) | at_init
+    checks.check(ok.all(), "policing invariant violated: patch moved "
+                 "beyond outlier_thresh without reset")

@@ -18,7 +18,7 @@ import torch
 
 from ..config import DISConfig
 from ..models.dis import dis_flow_padded
-from ..utils.metrics import epe
+from ..utils.metrics import epe_torch
 
 
 def _check_batched(aa) -> None:
@@ -44,6 +44,6 @@ def batched_flow_epe_fn(cfg: DISConfig):
     def run(aa, bb, gg):
         _check_batched(aa)
         flows = dis_flow_padded(aa, bb, cfg)
-        return flows, epe(flows, gg).mean()
+        return flows, epe_torch(flows, gg).mean()
 
     return run

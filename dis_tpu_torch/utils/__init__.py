@@ -1,3 +1,3 @@
-from .metrics import epe
+from .metrics import epe_torch
 
-__all__ = ["epe"]
+__all__ = ["epe_torch"]

@@ -42,7 +42,7 @@ from dis_tpu_torch.ops import iclk as ticlk
 from dis_tpu_torch.ops import image as tim
 from dis_tpu_torch.ops import pyramid as tpyr
 from dis_tpu_torch.parallel import batched_flow_epe_fn, batched_flow_fn
-from dis_tpu_torch.utils import epe
+from dis_tpu_torch.utils import epe_torch
 
 from conftest import synthetic_pair
 from torch_threads import one_thread
@@ -182,9 +182,9 @@ def test_epe_matches_epe_jax():
     gt[0, :3] = 1e10                      # sentinel ground truth
     flow[1, 5, 5] = np.nan                # non-finite error
     ref = [float(epe_jax(jnp.asarray(flow[i]), jnp.asarray(gt[i]))) for i in range(2)]
-    got = epe(torch.from_numpy(flow), torch.from_numpy(gt))
+    got = epe_torch(torch.from_numpy(flow), torch.from_numpy(gt))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6)
-    assert float(epe(torch.from_numpy(flow[0]), torch.from_numpy(gt[0]))) == float(got[0])
+    assert float(epe_torch(torch.from_numpy(flow[0]), torch.from_numpy(gt[0]))) == float(got[0])
 
 
 def _jax_levels(b, h, w, ps):

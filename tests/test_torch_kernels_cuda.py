@@ -571,3 +571,80 @@ def test_refined_graph_batch_and_tiles():
     untiled = dis_tpu_torch.dis_flow_padded(a, b, cfg)
     assert torch.equal(grid_tiled_flow(a, b, cfg, 3), untiled)
     assert torch.equal(tiled_flow_exact(a, b, cfg, 2, min_stripe_halo(cfg, 128, 96, 2)), untiled)
+
+
+def _write_sequence(root, n, h, w, seed):
+    """``root/frames/frame_000{1..n}.png``: 8-bit frames, each shifted by
+    (3, 2) px from the one before, written with the port's own writer."""
+    from dis_tpu_torch.utils.io import imwrite
+
+    from scipy.signal import convolve2d
+
+    r = np.random.default_rng(seed)
+    big = (r.random((h + 3 * n, w + 4 * n)) * 255).astype(np.float32)
+    k = np.ones((7, 7), np.float32) / 49.0
+    big = convolve2d(big, k, mode="same", boundary="symm")
+    (root / "frames").mkdir()
+    for t in range(n):
+        y0, x0 = 2 * (n - t), 3 * (n - t)
+        fr = np.clip(np.rint(big[y0:y0 + h, x0:x0 + w]), 0, 255).astype(np.uint8)
+        imwrite(str(root / "frames" / f"frame_{t + 1:04d}.png"), fr)
+
+
+def test_cli_batch_equals_serial_on_the_card(tmp_path, monkeypatch, capsys):
+    """The CLI on the card (a CUDA graph per shape): ``--batch 2`` over 3
+    pairs (its tail chunk repeats the last pair) writes the serial run's
+    flows bitwise, and both are the eager kernel path's."""
+    from dis_tpu_torch.cli import main
+    from dis_tpu_torch.utils.flo import load_flo
+    from dis_tpu_torch.utils.io import imread_gray
+
+    _write_sequence(tmp_path, 4, 75, 118, 201)
+    monkeypatch.chdir(tmp_path)
+    params = ["frames", "1", "4", "16", "8", "3", "0", "0.3", "1", "0", "--save-flo",
+              "--no-early-exit"]
+    assert main(params + ["--out-dir", "serial"]) == 0
+    assert main(params + ["--out-dir", "batch", "--batch", "2"]) == 0
+    assert "fps steady-state" in capsys.readouterr().out
+    cfg = dis_tpu_torch.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
+                                  patch_overlap=0.3, early_exit=False)
+    for t in (1, 2, 3):
+        a, b = (torch.from_numpy(imread_gray(f"frames/frame_{i:04d}.png").astype(np.float32))
+                .cuda() for i in (t, t + 1))
+        want = dis_tpu_torch.dis_flow(a, b, cfg).cpu().numpy()
+        for out in ("serial", "batch"):
+            np.testing.assert_array_equal(load_flo(f"{out}/frame_{t:04d}.flo"), want)
+
+
+def test_checked_raises_on_nan_on_the_card(monkeypatch):
+    from dis_tpu_torch.utils import checks
+
+    monkeypatch.setenv("DIS_TPU_CHECK", "1")
+    x, y = _smooth(64, 96, 211)
+    a = torch.from_numpy(np.ascontiguousarray(x)).cuda()
+    b = torch.from_numpy(np.ascontiguousarray(y)).cuda()
+    fn = checks.checked(lambda p, q: dis_tpu_torch.dis_flow(p, q, dis_tpu_torch.DIS_FAST))
+    assert torch.equal(fn(a, b), dis_tpu_torch.dis_flow(a, b, dis_tpu_torch.DIS_FAST))
+    a[10, 10] = float("nan")
+    with pytest.raises(RuntimeError, match="non-finite"):
+        fn(a, b)
+
+
+def test_cli_without_visible_devices_exits_nonzero(tmp_path):
+    """``--device cuda`` in a process that sees no card exits non-zero
+    with a reason: the CLI never carries on on the CPU."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    _write_sequence(tmp_path, 2, 32, 48, 221)
+    root = str(Path(__file__).resolve().parents[1])
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")]))}
+    proc = subprocess.run([sys.executable, "-m", "dis_tpu_torch", "--device", "cuda",
+                           "frames", "1", "2"], cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert not (tmp_path / "OF_frames").exists()

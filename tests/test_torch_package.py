@@ -58,7 +58,12 @@ def test_import_is_jax_free():
             "import dis_tpu_torch.ops.cuda.iclk_kernel, dis_tpu_torch.ops.cuda.extract_kernel, "
             "dis_tpu_torch.ops.cuda.extract_banded_kernel, dis_tpu_torch.parallel.tiles, "
             "dis_tpu_torch.ops.cuda.pyramid_kernel, dis_tpu_torch.serving, "
-            "dis_tpu_torch.parallel, dis_tpu_torch.utils, dis_tpu_torch.ops.variational; "
+            "dis_tpu_torch.parallel, dis_tpu_torch.utils, dis_tpu_torch.ops.variational, "
+            "dis_tpu_torch.cli, dis_tpu_torch.runner, dis_tpu_torch.__main__, "
+            "dis_tpu_torch.utils.flo, dis_tpu_torch.utils.native, dis_tpu_torch.utils.io, "
+            "dis_tpu_torch.utils.color, dis_tpu_torch.utils.kitti, dis_tpu_torch.utils.metrics, "
+            "dis_tpu_torch.utils.overlay, dis_tpu_torch.utils.checkpoint, "
+            "dis_tpu_torch.utils.profiling, dis_tpu_torch.utils.checks; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dis_tpu')); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
