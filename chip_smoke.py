@@ -114,6 +114,26 @@ whose variational refinement is torch ops (no TPU kernel backs it):
     B = 8, and the refinement alone, replayed, per level at 1080p with
     its launches (non-view torch ops) and its share of the frame.
 
+The saved serving artifact (``serving.export_flow``, ``torch.export``
+with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
+
+2h. the compat bench config exported at 1080p (B = None), config 3 at
+    KITTI size with B = 8 and the compat 4K bucket: each program holds the
+    kernel ops in the counts of ``scale_counts`` (at 4K one extraction is
+    K2c) and no gather of a plain K2 or K1; the KITTI and 4K artifacts,
+    reloaded in this process (``load_exported``), replay bitwise equal to
+    their eager kernel flows; the 1080p artifact, loaded in a fresh process
+    that has the pipeline's functions replaced by ones that raise
+    (``--serve-child``; this process waits for it, so nothing else runs on
+    the card or the host meanwhile), gives a flow bitwise equal to phase
+    2c's replay, its graph holding K3 2, K2 4, K1 4; export time, bytes,
+    the child's time from import to the first flow and its replayed frame
+    are printed, then the 1080p artifact's replay and ``aot_compile``'s in
+    turns;
+    then ``cost_analysis()`` and ``memory_analysis()`` of the 1080p
+    bucket, whose kernel entries give the ``kernels`` line's bounds (K3,
+    K2 exactly; K1, counted for its fixed loop, within 0.1%).
+
 The user-facing surface (phase 4, after the times): the CLI
 (``dis_tpu_torch.cli.main``) and the sequence runner on a 9-frame
 1920x1080 sequence (``write_sequence``: ``bench.synth_pair``'s recipe,
@@ -141,8 +161,9 @@ Each kernel's line gives its bound: the larger of the bytes it must move
 every level's planes, K1 its inputs with the raw template only for the
 patches frozen at the start) over 3.35 TB/s and its operations (K1's for
 the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
-float32 peaks.  No single PyTorch call computes any of these functions,
-so ``library_ms`` is null.
+float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
+No single PyTorch call computes any of these functions, so
+``library_ms`` is null.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
 kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
@@ -162,8 +183,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -335,43 +358,25 @@ def bound(nbytes: float, ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def io_bytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def pyramid_cost(img, levels):
-    """(bytes, operations) of one pyramid's K3 launch: the raw image read
-    once and every level's three padded planes written once; about 24
-    operations per base-level pixel (two Sobels, the magnitude, two more
-    Sobels) and 14 per decimated pixel."""
-    nbytes = io_bytes(img) + sum(io_bytes(lv.img, lv.dx, lv.dy) for lv in levels)
-    ops = sum(lv.width * lv.height * (24 if s == 0 else 14) for s, lv in enumerate(levels))
-    return nbytes, ops
-
-
 def extract_cost(img, pos0, ps):
-    """(bytes, operations) of one K2/K2b/K2c call: planes and positions
-    read once, regions and bases written once; about 12 operations per
-    patch for its two bases."""
-    n = pos0.numel() // 2
-    rc = 2 * ps + 3
-    return io_bytes(img, pos0) + n * (rc * rc + 2) * 4, 12 * n
+    """(bytes, operations) of the K2/K2b/K2c launch on these inputs
+    (``dis_tpu_torch/cost.py``)."""
+    from dis_tpu_torch import cost
+
+    nb = img.shape[0] if img.ndim == 3 else 1
+    return cost.extract_cost(nb, *img.shape[-2:], pos0.shape[-2], ps)
 
 
-def search_cost(regions, tpl, Tn, centers, init_u, conv0, outputs, cfg, trips):
-    """(bytes, operations) of one K1/K1b call: inputs read once (the raw
-    template T only for the patches frozen at the start, which take it as
-    their q), outputs written once; operations for the trips these inputs
-    run (``trips``: active patches per trip, from the plain version) plus
-    the start resample of every patch not frozen at start."""
-    taps = cfg.patch_size ** 2
-    fixed = cfg.mode == "fixed"
-    sample = 9 * taps + 6 + (2 * taps if cfg.patch_normalization else 0)
-    trip = 4 * taps + (taps if fixed else 0) + 21 + (5 if fixed else 0) + sample
-    frozen0 = int(conv0.sum())
-    nbytes = (io_bytes(*regions, tpl.Tdx, tpl.Tdy, tpl.Hinv, Tn, centers, init_u, conv0,
-                       *outputs) + frozen0 * taps * 4)
-    return nbytes, sum(trips) * trip + (conv0.numel() - frozen0) * sample
+def search_cost(init_u, conv0, cfg, trips):
+    """(bytes, operations) of the K1/K1b launch on these inputs, for the
+    trips they run (``trips``: active patches per trip, from the plain
+    version) and the patches frozen at the start (``conv0``)
+    (``dis_tpu_torch/cost.py``)."""
+    from dis_tpu_torch import cost
+
+    nb = init_u.shape[0] if init_u.ndim == 3 else 1
+    return cost.search_cost(nb, init_u.shape[-2], cfg.patch_size, cfg.mode == "fixed",
+                            cfg.patch_normalization, sum(trips), int(conv0.sum()))
 
 
 def refined_levels(img1, img2, cfg):
@@ -440,6 +445,62 @@ def scale_counts(cfg):
 
     n = cfg.coarsest_scale - cfg.finest_scale + 1
     return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n}
+
+
+def serve_child(artifact: str, out: str) -> int:
+    """Phase 2h's fresh process: load the 1080p artifact and run it on
+    ``bench.synth_pair()``, with the pipeline's functions replaced by ones
+    that raise (the loaded program must not run them); save the flow to
+    ``out`` and print one JSON line of times and launches."""
+    from bench import synth_pair
+
+    i1, i2 = synth_pair()
+    t0 = time.perf_counter()
+    import dis_tpu_torch.models.dis as pipeline
+    from dis_tpu_torch import serving
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("the loaded program ran a pipeline function")
+
+    pipeline._scale = pipeline.construct_pyramid = serving.dis_flow = refuse
+    import_s = time.perf_counter() - t0
+    run, _ = serving.load_exported(artifact)
+    load_s = time.perf_counter() - t0 - import_s
+    a, b = (torch.from_numpy(x).cuda() for x in (i1, i2))
+    flow = run(a, b)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    torch.save(flow.cpu(), out)
+    print(json.dumps({"import_s": import_s, "load_s": load_s, "first_flow_s": first,
+                      "replay_ms": time_ms(lambda: run(a, b), reps=10),
+                      "launches": run.graph_launches}))
+    return 0
+
+
+def fresh_process(data: bytes):
+    """Run the saved 1080p artifact ``data`` in a fresh process
+    (:func:`serve_child`) and wait for it: its JSON line, its flow (on the
+    CPU) and its wall seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path, out = os.path.join(tmp, "flow.pt2"), os.path.join(tmp, "flow.pt")
+        with open(path, "wb") as f:
+            f.write(data)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-child",
+                               path, out], capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"serving child failed:\n{proc.stdout}{proc.stderr}")
+        return json.loads(proc.stdout.strip().splitlines()[-1]), torch.load(out), wall
+
+
+def in_turns(fns, a, b, reps: int = 10):
+    """Median ms of each of two flow executables on (a, b), timed in turns
+    (first, second, second, first): {name: [ms, ms]}."""
+    (n1, f1), (n2, f2) = fns.items()
+    turns = {n1: [], n2: []}
+    for name, fn in ((n1, f1), (n2, f2), (n2, f2), (n1, f1)):
+        turns[name].append(time_ms(lambda: fn(a, b), reps=reps))
+    return turns
 
 
 SEQ_FRAMES = 9
@@ -749,7 +810,7 @@ def main() -> int:
                          "this check runs on a CUDA GPU only")
     import dis_tpu_torch as dt
     from bench import synth_pair
-    from dis_tpu_torch import _build
+    from dis_tpu_torch import _build, cost
     from dis_tpu_torch.models.dis import (_stripe_plan, dis_flow_padded, init_bound,
                                           scale_extraction_route)
     from dis_tpu_torch.ops import iclk
@@ -763,7 +824,7 @@ def main() -> int:
     from dis_tpu_torch.ops.variational import variational_refinement
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
-    from dis_tpu_torch.serving import aot_compile
+    from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
 
     # -- phase 0: device, versions, build ---------------------------------
     card = subprocess.run(
@@ -1367,9 +1428,62 @@ def main() -> int:
             flow4_med = flow
         del flow
 
+    # -- phase 2h: the saved serving artifact (torch.export) ----------------------
+    t2h = time.perf_counter()
+    for label, cfg, shape, inputs, eager, want in (
+            ("1080p", bench_cfg, (H, W, None), (a, b), flows["compat"],
+             {**scale_counts(bench_cfg), "K2c": 0}),
+            ("kitti", cfg3, (KH, KW, nk), (ka, kb), kflows["config3"],
+             {**scale_counts(cfg3), "K2c": 0}),
+            ("4K", bench_cfg, (H4K, W4K, None), (a4, b4), flows4["compat"], want4)):
+        t0 = time.perf_counter()
+        data = export_flow(cfg, *shape)
+        made = time.perf_counter() - t0
+        if label == "1080p":
+            # The fresh process runs alone: this one waits for it.
+            got, flow_child, wall = fresh_process(data)
+            check(torch.equal(flow_child.to(dev), served["1080p"](a, b)),
+                  "1080p artifact in a fresh process: flow differs from aot_compile's replay")
+            check(got["launches"] == want,
+                  f"serving child: its graph holds launches {got['launches']}")
+            print(f"phase2h 1080p artifact in a fresh process (no pipeline function run, "
+                  f"alone on the card): imported the package in {got['import_s']:.2f} s, "
+                  f"loaded it in {got['load_s']:.2f} s, {got['first_flow_s']:.2f} s from "
+                  f"import to the first flow, replays {got['replay_ms']:.4f} ms/frame; "
+                  f"process wall {wall:.2f} s; its flow bitwise equal to aot_compile's "
+                  f"replay [{card}]", flush=True)
+        t0 = time.perf_counter()
+        run, program = load_exported(data)
+        loaded = time.perf_counter() - t0
+        ops = cost.kernel_ops(program)
+        check(ops == want, f"{label} artifact: kernel ops {ops}, want {want}")
+        plain = sum(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
+        check(plain == 0, f"{label} artifact: {plain} gathers of a plain K2 or K1")
+        for _ in range(2):
+            out = run(*inputs)
+            torch.cuda.synchronize()
+            check(torch.equal(out, eager), f"{label} artifact: reloaded flow differs "
+                  "from the eager kernel path")
+        check(run.graph_launches == want,
+              f"{label} artifact: graph holds {run.graph_launches}")
+        line = (f"phase2h {label} batch={shape[2]}: export {made:.2f} s, {len(data)} "
+                f"bytes, {len(program.graph.nodes)} graph nodes, kernel ops {ops}; loaded "
+                f"in this process in {loaded:.2f} s, 2 replays bitwise equal to the eager "
+                f"kernel path")
+        if label == "1080p":
+            turns = in_turns({"artifact": run, "aot_compile": served["1080p"]}, a, b)
+            line += f"; replayed ms/frame in turns {turns}"
+        print(f"{line} [{card}]", flush=True)
+        del run, program, data
+    served_cost = served["1080p"].cost_analysis()
+    print("phase2h 1080p cost_analysis: " + json.dumps(served_cost), flush=True)
+    print("phase2h 1080p memory_analysis: " + json.dumps(served["1080p"].memory_analysis()),
+          flush=True)
+    print(f"phase2h took {time.perf_counter() - t2h:.2f} s", flush=True)
+
     # -- phase 3: times -------------------------------------------------------
     times = {}
-    costs = {"K3": pyramid_cost(a, construct_pyramid(a, 3, p))}
+    costs = {"K3": cost.pyramid_cost(1, H, W, p, 4)}
     times["K3"] = (replay_ms(lambda: construct_pyramid(a, 3, p)),
                    time_ms(lambda: construct_pyramid(a, 3, p, plain=True)))
     cfg, l2, tpl, Tn, centers, init_u, pos0, conv0 = finest["compat"]
@@ -1384,8 +1498,7 @@ def main() -> int:
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
     trips = []
     iclk.iclk_search_plain(*kr, *args, trips=trips)
-    costs["K1"] = search_cost(kr, tpl, Tn, centers, init_u, conv0, iclk_search(*kr, *args),
-                              cfg, trips)
+    costs["K1"] = search_cost(init_u, conv0, cfg, trips)
     times["K1"] = (replay_ms(lambda: iclk_search(*kr, *args)),
                    time_ms(lambda: iclk.iclk_search_plain(*kr, *args)))
     eager = {"K3": time_ms(lambda: construct_pyramid(a, 3, p)),
@@ -1426,8 +1539,7 @@ def main() -> int:
     args = (tpl, Tn, centers, init_u, conv0, cfg, l2.width, l2.height)
     trips = []
     iclk.iclk_search_plain(*kr, *args, trips=trips)
-    costs["K1b"] = search_cost(kr, tpl, Tn, centers, init_u, conv0, iclk_search(*kr, *args),
-                               cfg, trips)
+    costs["K1b"] = search_cost(init_u, conv0, cfg, trips)
     times["K1b"] = (replay_ms(lambda: iclk_search(*kr, *args)),
                     time_ms(lambda: iclk.iclk_search_plain(*kr, *args), reps=5, warmup=1))
     for k in ("K2b", "K1b"):
@@ -1534,6 +1646,19 @@ def main() -> int:
         "K2c": ("extract_regions_banded", src + "extract_banded.cu",
                 "dis_tpu/ops/pallas/extract_kernel.py:163", k2c_err),
     }
+    # cost_analysis's entries against the kernels line: K3 (one pyramid) and
+    # K2 at the finest scale give the same bounds; K1 counts its fixed loop
+    # and no start freezes, so its bytes differ by the raw templates of the
+    # patches frozen at the start (a few hundred at 1080p).
+    kc = served_cost["kernels"]
+    for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
+                          ("K1", kc["K1"][-1], 1e-3)):
+        static = bound(entry["bytes accessed"], entry["flops"])
+        run_bound = bound(*costs[k])
+        print(f"cost_analysis {k}: bound {static[0]:.6f} ms by {static[1]}; kernels line "
+              f"{run_bound[0]:.6f} ms by {run_bound[1]}", flush=True)
+        check(static[1] == run_bound[1] and abs(static[0] - run_bound[0]) <= tol * run_bound[0],
+              f"cost_analysis {k} bound {static} vs the kernels line {run_bound}")
     rows = []
     for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c"):
         bound_ms, bound_by = bound(*costs[k])
@@ -1637,6 +1762,8 @@ def kernel_times(root: str) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--kernel-times":
         sys.exit(kernel_times(sys.argv[2]))
+    if len(sys.argv) == 4 and sys.argv[1] == "--serve-child":
+        sys.exit(serve_child(sys.argv[2], sys.argv[3]))
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py [--kernel-times ROOT]")
     sys.exit(main())

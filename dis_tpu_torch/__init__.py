@@ -9,7 +9,9 @@ CPU tensors the same stages run as their plain PyTorch versions.  The
 variational refinement of ``DIS_MEDIUM`` and ``DIS_FULL`` is torch ops on
 either device.  It also takes a batch of same-shape pairs ``[B, H, W]``
 (``parallel``), and ``serving.aot_compile`` captures one shape bucket into
-a CUDA graph.  The package never imports JAX.
+a CUDA graph; ``serving.export_flow`` saves a bucket's program with
+``torch.export``, the kernels as ``dis_tpu_torch`` ops.  The package never
+imports JAX.
 """
 
 from .config import (DISConfig, DIS_ULTRAFAST, DIS_FAST, DIS_MEDIUM,

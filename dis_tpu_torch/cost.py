@@ -1,0 +1,179 @@
+"""The static cost of a flow program: operations and bytes, from shapes.
+
+Each kernel's work is a formula of its launch's shapes
+(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`): each
+input read once, each output written once, and the operations its
+arithmetic does.  ``chip_smoke.py`` reads the same formulas for the
+bounds of its ``kernels`` line, with the trips that its run's data
+needs; :func:`flow_cost` counts K1's fixed loop instead, ``iterations +
+1`` trips for every patch, as a compiler counts a fixed program.
+
+:func:`flow_cost` traces one call of ``dis_flow`` for a shape bucket on
+fake CPU tensors (``FakeTensorMode``: nothing is computed), with the
+kernels routed through their ops (``ops/cuda::ops_on_cpu``), under a
+dispatch mode that sees every top-level op once.  A kernel op is counted
+by its formula; every other non-view ATen op (the glue) by the bytes it
+must move (:func:`glue_bytes`) and, for an elementwise op, its output
+elements as operations.  Nothing inside a kernel's plain version is
+glue.  The trace does not depend on the device, so a bucket and config
+give the same numbers on the CPU and on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch.utils._pytree import tree_leaves
+
+from .config import DISConfig
+from .ops.cuda.pyramid_kernel import first_level_dims
+
+# The kernel each op launches, by op name.
+KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
+           "extract_regions_banded": "K2c", "iclk_search": "K1"}
+
+F32 = 4
+
+# Glue ops that move no data: an allocation, or a new tensor over its
+# input's storage.
+NO_BYTES = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
+            "_unsafe_view"}
+# Fills: they write their output and read no tensor's data.
+FILLS = {"zeros", "zeros_like", "ones", "ones_like", "full", "full_like", "new_zeros",
+         "new_ones", "new_full", "arange", "scalar_tensor"}
+# Gathers: each output element reads one element of the source (their
+# first argument), so the source counts at most the output's bytes.
+GATHERS = {"gather", "index", "index_select"}
+
+
+def pyramid_cost(nplanes: int, h: int, w: int, p: int, levels: int,
+                 base: bool = True) -> Tuple[int, int]:
+    """(bytes, operations) of one K3 launch over ``nplanes`` images whose
+    first level is [h, w] (unpadded): the source read once (the raw image,
+    or the finer level's padded plane where ``base`` is false) and every
+    level's three padded planes written once; about 24 operations per
+    base-level pixel (two Sobels, the magnitude, two more Sobels) and 14
+    per decimated pixel."""
+    src = h * w if base else (2 * h + 2 * p) * (2 * w + 2 * p)
+    planes = sum(3 * ((h >> s) + 2 * p) * ((w >> s) + 2 * p) for s in range(levels))
+    ops = sum((h >> s) * (w >> s) * (24 if s == 0 and base else 14) for s in range(levels))
+    return nplanes * (src + planes) * F32, nplanes * ops
+
+
+def extract_cost(nb: int, th: int, tw: int, n: int, ps: int) -> Tuple[int, int]:
+    """(bytes, operations) of one K2/K2b/K2c launch over ``nb`` padded
+    planes [th, tw] and ``n`` patches each: planes and positions read
+    once, regions and bases written once; about 12 operations per patch
+    for its two bases."""
+    rc = 2 * ps + 3
+    return nb * (th * tw + n * 2 + n * (rc * rc + 2)) * F32, 12 * nb * n
+
+
+def search_cost(nb: int, n: int, ps: int, fixed: bool, normalize: bool,
+                active_trips: int, frozen0: int = 0) -> Tuple[int, int]:
+    """(bytes, operations) of one K1/K1b launch over ``nb`` pairs of ``n``
+    patches: inputs read once (the raw template only for the ``frozen0``
+    patches frozen at the start, which take it as their Q), outputs
+    written once; the operations of ``active_trips`` patch trips (the sum
+    over trips of the patches still active) plus the start resample of
+    every patch not frozen at the start."""
+    taps = ps * ps
+    rc = 2 * ps + 3
+    sample = 9 * taps + 6 + (2 * taps if normalize else 0)
+    trip = 4 * taps + (taps if fixed else 0) + 21 + (5 if fixed else 0) + sample
+    per_patch = (rc * rc + 2) * F32 + 2 * taps * F32 + 4 * F32 + 2 * F32 + 1
+    per_patch += (taps * F32 if fixed else 0) + 2 * F32 + taps * F32 + 1
+    nbytes = nb * n * per_patch + n * 2 * F32 + frozen0 * taps * F32
+    return nbytes, active_trips * trip + (nb * n - frozen0) * sample
+
+
+def op_cost(name: str, args) -> Tuple[int, int]:
+    """(bytes, operations) of one call of the kernel op ``name`` with the
+    op's arguments, K1 for its fixed loop (every patch, every trip)."""
+    if name == "pyramid_levels":
+        src, p, levels, base = args
+        nplanes = src.shape[0] if src.ndim == 3 else 1
+        return pyramid_cost(nplanes, *first_level_dims(src, p, base), p, levels, base)
+    if name in ("extract_regions", "extract_regions_banded"):
+        img2, pos0, ps = args[:3]
+        nb = img2.shape[0] if img2.ndim == 3 else 1
+        return extract_cost(nb, *img2.shape[-2:], pos0.shape[-2], ps)
+    if name == "iclk_search":
+        init_u, ps, iterations = args[9], args[11], args[12]
+        normalize, fixed = args[16], args[17]
+        nb = init_u.shape[0] if init_u.ndim == 3 else 1
+        n = init_u.shape[-2]
+        return search_cost(nb, n, ps, fixed, normalize, nb * n * (iterations + 1))
+    raise ValueError(f"no cost formula for the op {name!r}")
+
+
+def glue_bytes(func, args, kwargs, out) -> int:
+    """The bytes one glue op ``func`` must move: its tensor inputs read
+    once and its outputs written once, except as ``NO_BYTES``, ``FILLS``
+    and ``GATHERS`` say."""
+    name = func._overloadpacket.__name__
+    if name in NO_BYTES:
+        return 0
+    written = sum(t.nbytes for t in tree_leaves(out) if isinstance(t, torch.Tensor))
+    if name in FILLS:
+        return written
+    ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+    if name in GATHERS and ins and ins[0] is args[0]:
+        return written + min(ins[0].nbytes, written) + sum(t.nbytes for t in ins[1:])
+    return written + sum(t.nbytes for t in ins)
+
+
+def kernel_ops(program) -> Dict[str, int]:
+    """The kernel ops in an exported program's graph, by kernel."""
+    ops = dict.fromkeys(("K3", "K2", "K2c", "K1"), 0)
+    for node in program.graph.nodes:
+        name = getattr(node.target, "name", lambda: "")()
+        if name.startswith("dis_tpu_torch::"):
+            ops[KERNELS[name.split("::")[1]]] += 1
+    return ops
+
+
+def flow_cost(cfg: DISConfig, height: int, width: int,
+              batch: Optional[int] = None) -> Dict:
+    """``{"flops", "bytes accessed", "kernels", "glue"}`` of one
+    ``dis_flow`` call on a [(batch,) height, width] bucket: totals, each
+    kernel launch's ``{"flops", "bytes accessed"}`` in launch order by
+    kernel, and the glue's op count and totals.  The CPU plans of the
+    bucket are built (and cached) first: the trace reads them."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from .models.dis import dis_flow, flow_plans
+    from .ops.cuda import ops_on_cpu
+
+    kernels = {k: [] for k in ("K3", "K2", "K2c", "K1")}
+    glue = {"ops": 0, "flops": 0, "bytes accessed": 0}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.namespace == "dis_tpu_torch":
+                name = func.name().split("::")[1].split(".")[0]
+                nbytes, ops = op_cost(name, args)
+                kernels[KERNELS[name]].append({"flops": ops, "bytes accessed": nbytes})
+            elif func.namespace == "aten" and not func.is_view:
+                glue["ops"] += 1
+                glue["bytes accessed"] += glue_bytes(func, args, kwargs, out)
+                if torch.Tag.pointwise in func.tags:
+                    glue["flops"] += sum(t.numel() for t in tree_leaves(out)
+                                         if isinstance(t, torch.Tensor))
+            return out
+
+    cpu = torch.device("cpu")
+    flow_plans(cfg, height, width, cpu)
+    shape = (height, width) if batch is None else (batch, height, width)
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        a, b = torch.empty(shape), torch.empty(shape)
+        with Count(), ops_on_cpu():
+            dis_flow(a, b, cfg)
+    launches = [c for calls in kernels.values() for c in calls]
+    return {"flops": glue["flops"] + sum(c["flops"] for c in launches),
+            "bytes accessed": glue["bytes accessed"] + sum(c["bytes accessed"]
+                                                           for c in launches),
+            "kernels": kernels, "glue": glue}

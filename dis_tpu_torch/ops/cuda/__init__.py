@@ -1,29 +1,68 @@
 """Wrappers of the hand-written CUDA kernels K1-K3 (K2 and K1 with their
 batched forms K2b and K1b: a leading pair axis on their inputs) and K2c,
-the column-banded form of K2.
+the column-banded form of K2, and the ops they launch through.
 
-Each wrapper takes its kernel's plain PyTorch version when every input
-tensor lies on the CPU; otherwise it checks the inputs (CUDA, one
-device, dtype, shape, contiguity), allocates the outputs with
-``torch.empty``, launches the kernel on the current stream and adds one
-to its ``launches`` count.  There is no fallback from a CUDA tensor to
-the plain version.
+Each C entry point of ``csrc/`` is registered as an op of the
+``dis_tpu_torch`` namespace (``torch.library.custom_op``) with a flat
+schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
+``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c) and
+``iclk_search`` (K1, K1b).  Each op has three functions: for CUDA, which
+allocates the outputs with ``torch.empty``, launches the kernel on the
+current stream (``_build.launch``) and adds one to its wrapper's
+``launches`` count; a fake one (``register_fake``), which gives the
+outputs' shapes and dtypes only, so that ``torch.export`` records the op
+as one node of a saved program (``serving.export_flow``); and for the
+CPU, the kernel's plain PyTorch version, so that
+``torch.library.opcheck`` can hold the fake function against a real one
+where there is no card.
+
+A wrapper takes its kernel's plain version inline when every input
+tensor lies on the CPU, so a CPU export holds ATen ops only.  Otherwise
+it checks the inputs (CUDA, one device, dtype, shape, contiguity) and
+calls the op's CUDA function (:func:`dispatch`): through the op while
+``torch.export`` traces, straight otherwise.  There is no path from a
+CUDA tensor to the plain version.  Inside :func:`ops_on_cpu` (the cost count of
+``serving.CompiledFlow.cost_analysis``) CPU inputs go through the op
+too, so that each kernel shows as one call.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def ops_on_cpu():
+    """Within this context the wrappers send CPU tensors through their ops
+    (whose CPU function is the plain version, and whose fake function
+    runs under a ``FakeTensorMode``), so that a dispatch mode sees each
+    kernel call as one op."""
+    outer = getattr(_local, "ops_on_cpu", False)
+    _local.ops_on_cpu = True
+    try:
+        yield
+    finally:
+        _local.ops_on_cpu = outer
 
 
 def all_on_cpu(*tensors: torch.Tensor) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
+    """Whether a wrapper takes its plain version inline: every tensor on
+    the CPU, outside :func:`ops_on_cpu`."""
+    return (all(t.device.type == "cpu" for t in tensors)
+            and not getattr(_local, "ops_on_cpu", False))
 
 
 def check_input(t: torch.Tensor, name: str, device: torch.device,
                 dtype: torch.dtype, shape) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    the CUDA device ``device``."""
-    if t.device.type != "cuda" or t.device != device:
+    the CUDA device ``device`` (or on the CPU within :func:`ops_on_cpu`)."""
+    on_cpu_op = device.type == "cpu" and getattr(_local, "ops_on_cpu", False)
+    if (t.device.type != "cuda" and not on_cpu_op) or t.device != device:
         raise ValueError(f"{name} is on {t.device}; the kernel takes tensors "
                          f"on one CUDA device ({device})")
     if t.dtype != dtype:
@@ -32,3 +71,28 @@ def check_input(t: torch.Tensor, name: str, device: torch.device,
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def dispatch(op, cuda_fn, device: torch.device, *args):
+    """Call the registered ``op`` on checked inputs, or, for an eager call
+    on CUDA tensors, its CUDA function ``cuda_fn`` straight: the same
+    function either way.  A trace (``torch.export``) records the op; an
+    eager call skips the dispatcher, which added 12-13% to the eager 1080p
+    compat frame (``serving_cost.py``, PERF.md)."""
+    if device.type == "cuda" and not torch.compiler.is_exporting():
+        return cuda_fn(*args)
+    return op(*args)
+
+
+def register(name: str, cuda_fn, fake_fn, cpu_fn, mutates_args=()):
+    """The op ``dis_tpu_torch::name`` with its CUDA, fake and CPU functions."""
+    op = torch.library.custom_op(f"dis_tpu_torch::{name}", cuda_fn,
+                                 mutates_args=mutates_args, device_types="cuda")
+    op.register_fake(fake_fn)
+    op.register_kernel("cpu", cpu_fn)
+    return op
+
+
+# The ops are registered when their modules are imported; importing this
+# package registers all four (a loaded artifact needs them).
+from . import extract_banded_kernel, extract_kernel, iclk_kernel, pyramid_kernel  # noqa: E402,F401

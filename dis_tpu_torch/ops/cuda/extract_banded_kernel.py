@@ -21,14 +21,14 @@ pairs is one launch.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ... import _build
 from ..iclk import extract_regions_plain, region_size
-from . import all_on_cpu, check_input
-from .extract_kernel import check_patch_size
+from . import all_on_cpu, check_input, dispatch, register
+from .extract_kernel import check_patch_size, empty_regions
 
 MAX_PAIRS = 65_535
 
@@ -68,17 +68,37 @@ def extract_regions_banded(img2: torch.Tensor, pos0: torch.Tensor, ps: int,
     check_input(pos0, "pos0", dev, torch.float32, lead + (n, 2))
     if outside is not None:
         check_input(outside, "outside", dev, torch.int32, (1,))
-    regions = torch.empty(lead + (n, rc, rc), dtype=torch.float32, device=dev)
-    base_y = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
-    base_x = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
-    if nb * n == 0:
+    return dispatch(extract_regions_banded_op, _banded_cuda, dev, img2, pos0, ps, pad,
+                    row0, geom.num_w, geom.num_h, outside)
+
+
+def _banded_cuda(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int, row0: int,
+                 num_w: int, num_h: int, outside: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2c on checked inputs; adds to ``outside`` where given."""
+    regions, base_y, base_x = empty_regions(img2, pos0, ps)
+    nb = img2.shape[0] if img2.ndim == 3 else 1
+    th, tw = img2.shape[-2:]
+    if nb * num_w * num_h == 0:
         return regions, base_y, base_x
-    _build.launch("dis_extract_banded", dev, img2.data_ptr(), nb, th, tw,
-                  pos0.data_ptr(), geom.num_w, geom.num_h, ps, pad, row0,
+    _build.launch("dis_extract_banded", img2.device, img2.data_ptr(), nb, th, tw,
+                  pos0.data_ptr(), num_w, num_h, ps, pad, row0,
                   regions.data_ptr(), base_y.data_ptr(), base_x.data_ptr(),
                   None if outside is None else outside.data_ptr())
     extract_regions_banded.launches += 1
     return regions, base_y, base_x
 
 
+def _banded_fake(img2, pos0, ps, pad, row0, num_w, num_h, outside):
+    return empty_regions(img2, pos0, ps)
+
+
+def _banded_cpu(img2, pos0, ps, pad, row0, num_w, num_h, outside):
+    """The plain version (it counts no windows: ``outside`` is left as it
+    is)."""
+    return extract_regions_plain(img2, pos0, ps, pad, row0)
+
+
 extract_regions_banded.launches = 0
+extract_regions_banded_op = register("extract_regions_banded", _banded_cuda, _banded_fake,
+                                     _banded_cpu, mutates_args=("outside",))

@@ -26,13 +26,13 @@ them on the card); ``shared_bytes``, ``blocks_per_sm`` and
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ... import _build
 from ..iclk import extract_regions_plain, region_size
-from . import all_on_cpu, check_input
+from . import all_on_cpu, check_input, dispatch, register
 
 THREADS = 256
 PATCHES_PER_GROUP = 48
@@ -92,7 +92,6 @@ def extract_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int,
                          "expected [th, tw] and [N, 2], or [B, th, tw] and [B, N, 2]")
     check_patch_size(ps)
     lead = tuple(img2.shape[:-2])
-    nb = lead[0] if lead else 1
     th, tw = img2.shape[-2:]
     n = pos0.shape[-2]
     if num_h is None:
@@ -104,16 +103,42 @@ def extract_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int,
         raise ValueError(f"plane {th}x{tw} is smaller than a {rc}x{rc} region")
     check_input(img2, "img2", dev, torch.float32, lead + (th, tw))
     check_input(pos0, "pos0", dev, torch.float32, lead + (n, 2))
-    regions = torch.empty(lead + (n, rc, rc), dtype=torch.float32, device=dev)
-    base_y = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
-    base_x = torch.empty(lead + (n,), dtype=torch.int32, device=dev)
+    return dispatch(extract_regions_op, _extract_cuda, dev, img2, pos0, ps, pad, row0,
+                    num_h)
+
+
+def empty_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int):
+    """Uninitialised (regions, base_y, base_x) for ``pos0``'s patches."""
+    lead = tuple(pos0.shape[:-1])
+    rc = region_size(ps)
+    return (torch.empty(lead + (rc, rc), dtype=torch.float32, device=img2.device),
+            torch.empty(lead, dtype=torch.int32, device=img2.device),
+            torch.empty(lead, dtype=torch.int32, device=img2.device))
+
+
+def _extract_cuda(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int, row0: int,
+                  num_h: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2/K2b on checked inputs."""
+    regions, base_y, base_x = empty_regions(img2, pos0, ps)
+    nb = img2.shape[0] if img2.ndim == 3 else 1
+    th, tw = img2.shape[-2:]
+    n = pos0.shape[-2]
     if nb * n == 0:
         return regions, base_y, base_x
-    _build.launch("dis_extract_regions", dev, img2.data_ptr(), nb, th, tw,
+    _build.launch("dis_extract_regions", img2.device, img2.data_ptr(), nb, th, tw,
                   pos0.data_ptr(), n, num_h, ps, pad, row0, regions.data_ptr(),
                   base_y.data_ptr(), base_x.data_ptr())
     extract_regions.launches += 1
     return regions, base_y, base_x
 
 
+def _extract_fake(img2, pos0, ps, pad, row0, num_h):
+    return empty_regions(img2, pos0, ps)
+
+
+def _extract_cpu(img2, pos0, ps, pad, row0, num_h):
+    return extract_regions_plain(img2, pos0, ps, pad, row0)
+
+
 extract_regions.launches = 0
+extract_regions_op = register("extract_regions", _extract_cuda, _extract_fake, _extract_cpu)

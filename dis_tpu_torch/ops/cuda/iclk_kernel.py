@@ -21,7 +21,7 @@ import torch
 from ... import _build
 from ...config import DISConfig
 from ..iclk import PatchTemplates, iclk_search_plain, inv_taps, region_size
-from . import all_on_cpu, check_input
+from . import all_on_cpu, check_input, dispatch, register
 
 MAX_TAPS = 512   # ps^2 limit of the kernel's register tiles (ps <= 22)
 
@@ -69,7 +69,6 @@ def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
     if init_u.ndim not in (2, 3):
         raise ValueError(f"init_u must be [N, 2] or [B, N, 2], got {tuple(init_u.shape)}")
     lead = tuple(init_u.shape[:-2])
-    nb = lead[0] if lead else 1
     rc = region_size(ps)
     f32 = torch.float32
     for t, name, dtype, shape in [
@@ -84,22 +83,55 @@ def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
         check_input(t, name, dev, dtype, shape)
     if fixed:
         check_input(Tn, "Tn", dev, f32, lead + (n, np_))
-    u = torch.empty(lead + (n, 2), dtype=f32, device=dev)
-    Q = torch.empty(lead + (n, np_), dtype=f32, device=dev)
-    conv = torch.empty(lead + (n,), dtype=torch.bool, device=dev)
+    return dispatch(iclk_search_op, _search_cuda, dev, regions, base_y, base_x, *tpl,
+                    Tn if fixed else None, centers, init_u, conv0, ps, cfg.iterations,
+                    row0, width, height, cfg.patch_normalization, fixed, cfg.conv_eps)
+
+
+def _empty_result(init_u: torch.Tensor, ps: int):
+    lead = tuple(init_u.shape[:-1])
+    dev = init_u.device
+    return (torch.empty(lead + (2,), dtype=torch.float32, device=dev),
+            torch.empty(lead + (ps * ps,), dtype=torch.float32, device=dev),
+            torch.empty(lead, dtype=torch.bool, device=dev))
+
+
+def _search_cuda(regions: torch.Tensor, base_y: torch.Tensor, base_x: torch.Tensor,
+                 T: torch.Tensor, Tdx: torch.Tensor, Tdy: torch.Tensor,
+                 Hinv: torch.Tensor, Tn: Optional[torch.Tensor], centers: torch.Tensor,
+                 init_u: torch.Tensor, conv0: torch.Tensor, ps: int, iterations: int,
+                 row0: int, width: int, height: int, normalize: bool, fixed: bool,
+                 conv_eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1/K1b on checked inputs: ``iterations + 1`` trips, the padding
+    ``ps`` and the policing threshold ``ps / 2`` (``DISConfig``'s)."""
+    u, Q, conv = _empty_result(init_u, ps)
+    nb = init_u.shape[0] if init_u.ndim == 3 else 1
+    n = centers.shape[0]
     if nb * n == 0:
         return u, Q, conv
     _build.launch(
-        "dis_iclk_search", dev, regions.data_ptr(), base_y.data_ptr(),
-        base_x.data_ptr(), tpl.T.data_ptr(), tpl.Tdx.data_ptr(),
-        tpl.Tdy.data_ptr(), Tn.data_ptr() if fixed else None,
-        tpl.Hinv.data_ptr(), centers.data_ptr(), init_u.data_ptr(),
-        conv0.data_ptr(), nb, n, ps, cfg.iterations + 1, cfg.img_padding, row0, width,
-        height, int(cfg.patch_normalization), int(fixed),
-        cfg.outlier_thresh, cfg.conv_eps, inv_taps(ps), u.data_ptr(),
-        Q.data_ptr(), conv.data_ptr())
+        "dis_iclk_search", init_u.device, regions.data_ptr(), base_y.data_ptr(),
+        base_x.data_ptr(), T.data_ptr(), Tdx.data_ptr(), Tdy.data_ptr(),
+        Tn.data_ptr() if fixed else None, Hinv.data_ptr(), centers.data_ptr(),
+        init_u.data_ptr(), conv0.data_ptr(), nb, n, ps, iterations + 1, ps, row0, width,
+        height, int(normalize), int(fixed), ps / 2.0, conv_eps, inv_taps(ps),
+        u.data_ptr(), Q.data_ptr(), conv.data_ptr())
     iclk_search.launches += 1
     return u, Q, conv
 
 
+def _search_fake(regions, base_y, base_x, T, Tdx, Tdy, Hinv, Tn, centers, init_u, conv0,
+                 ps, iterations, row0, width, height, normalize, fixed, conv_eps):
+    return _empty_result(init_u, ps)
+
+
+def _search_cpu(regions, base_y, base_x, T, Tdx, Tdy, Hinv, Tn, centers, init_u, conv0,
+                ps, iterations, row0, width, height, normalize, fixed, conv_eps):
+    cfg = DISConfig(iterations=iterations, patch_size=ps, patch_normalization=normalize,
+                    mode="fixed" if fixed else "compat", conv_eps=conv_eps)
+    return iclk_search_plain(regions, base_y, base_x, PatchTemplates(T, Tdx, Tdy, Hinv),
+                             Tn, centers, init_u, conv0, cfg, width, height, row0)
+
+
 iclk_search.launches = 0
+iclk_search_op = register("iclk_search", _search_cuda, _search_fake, _search_cpu)

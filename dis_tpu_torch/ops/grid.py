@@ -17,17 +17,21 @@ Every constant a scale needs (centers, the NN-init picks, densify's cover
 indices and uniform weight plane) is made once per (shape, stride, patch
 size, row range, output window, device) by :func:`scale_plan` and kept on
 the device, so a frame makes no host-to-device copy after the first one
-of its shape (a CUDA graph cannot capture such a copy).
+of its shape (a CUDA graph cannot capture such a copy).  The cache never
+evicts; :func:`plan_cache_bytes` says how much it holds.  A plan is made
+from real tensors only: under a trace's fake tensors (``torch.export``)
+it raises rather than cache a fake plan, so an export builds its plans
+first (``models/dis.py::flow_plans``).
 """
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 
 class GridGeometry(NamedTuple):
@@ -129,9 +133,34 @@ def scale_plan(width: int, height: int, steps: int, ps: int,
                  max(iy0, iy1), lo, hi)
 
 
-@functools.cache
-def _plan(width: int, height: int, steps: int, ps: int, device: torch.device,
-          iy0: int, iy1: int, out_lo: int, out_hi: int) -> ScalePlan:
+_PLANS: Dict[tuple, ScalePlan] = {}
+
+
+def _plan(*key) -> ScalePlan:
+    """The cached plan of ``key`` (:func:`_make_plan`'s arguments), made at
+    its first use.  Raises, caching nothing, where the plan would hold a
+    fake tensor: a plan first made inside a trace would break every later
+    eager call of its shape."""
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _make_plan(*key)
+        if any(is_fake(t) for t in plan[1:]):
+            raise RuntimeError(
+                f"the scale plan {key} was first asked for under fake tensors (a "
+                "trace such as torch.export): build the plans eagerly first "
+                "(models.dis.flow_plans)")
+        plan = _PLANS.setdefault(key, plan)
+    return plan
+
+
+def plan_cache_bytes(device: torch.device) -> Tuple[int, int]:
+    """(plans, bytes) the process-wide plan cache holds on ``device``."""
+    plans = [p for key, p in list(_PLANS.items()) if key[4] == torch.device(device)]
+    return len(plans), sum(t.nbytes for p in plans for t in p[1:])
+
+
+def _make_plan(width: int, height: int, steps: int, ps: int, device: torch.device,
+               iy0: int, iy1: int, out_lo: int, out_hi: int) -> ScalePlan:
     geom = make_grid(width, height, steps, iy_range=(iy0, iy1))
 
     def put(a):

@@ -648,3 +648,44 @@ def test_cli_without_visible_devices_exits_nonzero(tmp_path):
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is False" in proc.stderr
     assert not (tmp_path / "OF_frames").exists()
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+def test_cuda_artifact_replays_as_aot_compile(batch):
+    """A CUDA artifact holds the kernels as ``dis_tpu_torch`` ops, one per
+    launch of an eager call and no gather of a plain K2 or K1; reloaded,
+    its replays equal ``aot_compile``'s bitwise."""
+    from dis_tpu_torch.cost import kernel_ops
+    from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
+
+    x, y = _batch(batch or 1, 75, 118, 231)
+    if batch is None:
+        x, y = x[0], y[0]
+    cfg = dis_tpu_torch.DIS_FAST
+    run, program = load_exported(export_flow(cfg, 75, 118, batch=batch))
+    assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4}
+    assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
+    compiled = aot_compile(cfg, 75, 118, batch=batch)
+    for _ in range(2):
+        assert torch.equal(run(x, y), compiled(x, y))
+    assert run.graph_launches == compiled.graph_launches
+    for flow in (run, compiled):
+        mem = flow.memory_analysis()
+        assert mem["graph pool bytes"] >= mem["output bytes"] > 0
+        assert mem["plan bytes"] > 0 and mem["plan cache bytes"] >= mem["plan bytes"]
+    assert run.cost_analysis() == compiled.cost_analysis()
+    with pytest.raises(ValueError, match="not for"):
+        load_exported(export_flow(cfg, 75, 118, batch=batch), device="cpu")
+
+
+def test_cuda_artifact_4k_holds_k2c():
+    """At the 4K bucket the finest extraction is K2c, in the program as
+    ``extract_regions_banded``."""
+    from dis_tpu_torch.cost import kernel_ops
+    from dis_tpu_torch.serving import export_flow, load_exported
+
+    cfg = dis_tpu_torch.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
+                                  finest_scale=0, patch_overlap=0.3, mode="compat",
+                                  early_exit=False)
+    _, program = load_exported(export_flow(cfg, 2160, 3840))
+    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4}

@@ -63,7 +63,7 @@ def test_import_is_jax_free():
             "dis_tpu_torch.utils.flo, dis_tpu_torch.utils.native, dis_tpu_torch.utils.io, "
             "dis_tpu_torch.utils.color, dis_tpu_torch.utils.kitti, dis_tpu_torch.utils.metrics, "
             "dis_tpu_torch.utils.overlay, dis_tpu_torch.utils.checkpoint, "
-            "dis_tpu_torch.utils.profiling, dis_tpu_torch.utils.checks; "
+            "dis_tpu_torch.utils.profiling, dis_tpu_torch.utils.checks, dis_tpu_torch.cost; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dis_tpu')); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
