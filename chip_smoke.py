@@ -156,6 +156,36 @@ port's own writer, with ``.flo`` ground truth) in a temporary directory:
     the port's PNG writer timed against PIL's (where PIL is installed) on
     a 1080p colour frame.
 
+The multi-rank engines (phase 5, last), every rank a process on card 0
+with gloo (NCCL refuses two ranks on one card; gloo's point-to-point ops
+take host tensors, so ``parallel.mesh.shift`` stages those through the
+host and counts the bytes), spawned by ``parallel.launch.spawn``; each
+rank's launches are counted on its first call, and a second, timed call
+must give the same bits:
+
+5a. ``tiled_flow_fn`` at 4K compat over 2 ranks (halo 176 by neighbour
+    shifts) and 3 ranks (halo 176), the stitched flow bitwise equal to
+    phase 2d's, K3 twice and K2c exactly where ``part_routes`` puts it
+    on each rank (the finest scale);
+5b. 1080p ``DIS_MEDIUM`` through ``tiled_flow_fn`` (routed to
+    ``grid_tiled_flow_fn``) over 3 ranks, bitwise equal to phase 2f's;
+5c. ``sequence_pair_flow_fn`` (9 frames) and ``sequence_flow_fn`` (the
+    first 8) over 2 ranks on phase 4's 1080p sequence, bitwise equal to
+    the serial flows (K2b and K1b on each rank);
+5d. the batch mesh over 2 ranks on the 8 KITTI pairs: flows bitwise equal
+    to phase 2b's, the mean EPE to the single-device
+    ``batched_flow_epe_fn``'s on every rank;
+5e. NCCL at world size 1 (``init_multi_host`` from ``MASTER_ADDR`` and
+    friends): ``tiled_flow_fn`` and the batch mesh with n = 1, bitwise,
+    nothing staged;
+5f. ``run_sequence_shard`` with 2 hosts on the sequence, host 1 killed
+    after one pair and relaunched: every ``.flo`` bitwise equal to the
+    serial flow;
+5g. ``dryrun_multichip(4, device="cuda:0")``.
+
+Each rank's time is printed as that of N ranks sharing one H100, not a
+scaling figure, and the phase's seconds.
+
 Each kernel's line gives its bound: the larger of the bytes it must move
 (each input read once, each output written once: K3 the raw image and
 every level's planes, K1 its inputs with the raw template only for the
@@ -801,6 +831,305 @@ def cli_phase(dev, card, bench_cfg, wrappers):
                              dt.dis_flow(a4, b4, bench_cfg).cpu().numpy()),
               "CLI 4K: .flo differs from the eager kernel path")
         print("phase4 CLI 4K: the flow bitwise equal to the eager kernel path", flush=True)
+    return launches
+
+
+def part_routes(cfg, width, height, n, i, halo=None):
+    """The extraction kernel ("K2" or "K2c") of each scale, finest first,
+    that rank i of n launches: on its stripe of ``tiled_flow_fn`` with
+    ``halo``, or (``halo`` None) on its windows of ``grid_tiled_flow_fn``,
+    read from the same static shapes as ``ops/iclk.py::inverse_search``."""
+    from dis_tpu_torch.models.dis import _stripe_plan, init_bound, window_patch_rows
+    from dis_tpu_torch.ops import iclk
+    from dis_tpu_torch.ops.grid import make_grid
+    from dis_tpu_torch.parallel import stripe_bounds, window_partition
+
+    p = cfg.img_padding
+    if halo is not None:
+        row0, ext_h, own_r0, own_h = stripe_bounds(cfg, height, n, i, halo)
+        iy = _stripe_plan(cfg, height, own_r0, own_h)[0]
+    else:
+        ext_h = height
+        iy = {s: window_patch_rows(cfg, height >> s, *window_partition(height >> s, n)[i])
+              for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)}
+    return [iclk.extraction_route(
+        cfg, ((ext_h >> s) + 2 * p, (width >> s) + 2 * p),
+        make_grid(width >> s, height >> s, cfg.steps).num_w * (iy[s][1] - iy[s][0]),
+        init_bound(cfg, s)) for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)]
+
+
+def phase5_rank(dev, inputs_path: str, steps) -> dict:
+    """One rank of phase 5 (``parallel.launch.spawn``, gloo, every rank on
+    card 0): each step ``(label, kind, cfg, n, keys)`` of ``steps`` on a
+    mesh of the first n ranks, once with the kernel counts set to 0 just
+    before and read just after, then once more timed between two
+    barriers, which must give the same bits.  Returns by label this
+    rank's output on the CPU, its launches, the bytes ``shift`` staged
+    through the host and the timed call's ms."""
+    import torch.distributed as dist
+
+    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
+    from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
+    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
+    from dis_tpu_torch.parallel import (batch_sharding, batched_flow_epe_fn, make_mesh,
+                                        row_sharding, sequence_flow_fn,
+                                        sequence_pair_flow_fn, tiled_flow_fn)
+    from dis_tpu_torch.parallel.mesh import shift
+
+    wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
+                "K1": iclk_search}
+    x = torch.load(inputs_path, map_location="cpu")
+    rank = dist.get_rank()
+    out = {}
+    for label, kind, cfg, n, keys in steps:
+        axes = {"tiled": ("batch", "space"), "batch": ("batch",)}.get(kind, ("seq",))
+        mesh = make_mesh((1, n) if kind == "tiled" else (n,), axes, device_type=dev.type)
+        if rank >= n:
+            continue
+        group = mesh.get_group(axes[-1])
+        t = [x[k] for k in keys]
+        if kind == "tiled":
+            h, w = t[0].shape
+            fn = tiled_flow_fn(cfg, mesh, h, w)
+            args = [row_sharding(mesh, v).to(dev) for v in t]
+        elif kind == "seq_pair":
+            clip = t[0].to(torch.float32)
+            fn = sequence_pair_flow_fn(cfg, mesh)
+            args = [batch_sharding(mesh, clip[:-1], "seq").to(dev), clip[-1].to(dev)]
+        elif kind == "seq_frame":
+            fn = sequence_flow_fn(cfg, mesh)
+            args = [batch_sharding(mesh, t[0][:-1].to(torch.float32), "seq").to(dev)]
+        else:
+            fn = batched_flow_epe_fn(cfg, mesh)
+            args = [batch_sharding(mesh, v).to(dev) for v in t]
+        for w in wrappers.values():
+            w.launches = 0
+        shift.staged_bytes = 0
+        first = fn(*args)
+        torch.cuda.synchronize(dev)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        staged = shift.staged_bytes
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        again = fn(*args)
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        dist.barrier(group)
+        first, again = (r if isinstance(r, tuple) else (r,) for r in (first, again))
+        check(all(torch.equal(p, q) for p, q in zip(first, again)),
+              f"rank {rank} {label}: a second call gave other bits")
+        out[label] = {"out": [r.cpu() for r in first], "counts": counts, "staged": staged,
+                      "ms": ms}
+    return out
+
+
+def shard_host(host_id: int, die_after: int, root: str, cfg, device) -> None:
+    """Host ``host_id`` of 2 in phase 5f: its shard of pairs [1,
+    SEQ_FRAMES) of ``root/frames`` through ``run_sequence_shard`` on
+    ``device``, with no master address (the shards need no collective); exits with
+    code 17 after ``die_after`` pairs (0: never), as a preempted host, and
+    otherwise writes its summary to ``root/host{id}.json``."""
+    from dis_tpu_torch.parallel.distributed import run_sequence_shard
+
+    os.environ.update(RANK=str(host_id), WORLD_SIZE="2")
+    os.environ.pop("MASTER_ADDR", None)
+    done = []
+
+    def on_pair(i, flow):
+        done.append(i)
+        if die_after and len(done) >= die_after:
+            os._exit(17)
+
+    summary = run_sequence_shard(os.path.join(root, "frames"), 1, SEQ_FRAMES, cfg,
+                                 os.path.join(root, "ck"), out_dir=os.path.join(root, "out"),
+                                 save_flo=True, on_pair=on_pair, device=device)
+    with open(os.path.join(root, f"host{host_id}.json"), "w") as f:
+        json.dump(summary, f)
+
+
+def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
+    """Phase 5: the multi-rank engines on the card, every rank a process
+    on card 0 with gloo (NCCL refuses two ranks on one card), each
+    result bitwise equal to the single-device flow it splits.  ``ref``
+    holds the inputs and flows of the earlier phases.  Returns the
+    launches by kernel of the ranks' first calls and of 5e (K2b and K1b:
+    the batched ones)."""
+    import multiprocessing
+    import socket
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    import dis_tpu_torch as dt
+    from dis_tpu_torch.dryrun import dryrun_multichip
+    from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
+    from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
+    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
+    from dis_tpu_torch.parallel import (batched_flow_epe_fn, make_mesh, min_stripe_halo,
+                                        tiled_flow_fn)
+    from dis_tpu_torch.parallel.distributed import init_multi_host
+    from dis_tpu_torch.parallel.launch import spawn
+    from dis_tpu_torch.parallel.mesh import shift
+    from dis_tpu_torch.utils.flo import load_flo
+    from dis_tpu_torch.utils.io import imread_gray
+
+    wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
+                "K1": iclk_search}
+    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c")}
+
+    def add(counts, batched):
+        for k, v in counts.items():
+            launches[k + "b" if batched and k in ("K2", "K1") else k] += v
+
+    t_phase = time.perf_counter()
+    cfg3, med = ref["cfg3"], dt.DIS_MEDIUM
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="dis_ranks_") as tmp:
+        root = Path(tmp)
+        write_sequence(root)
+        decoded = [torch.from_numpy(imread_gray(str(root / "frames" / f"frame_{t:04d}.png")))
+                   for t in range(1, SEQ_FRAMES + 1)]
+        clip = torch.stack(decoded)
+        serial = [dt.dis_flow(clip[t].to(dev, torch.float32), clip[t + 1].to(dev, torch.float32),
+                              bench_cfg).cpu() for t in range(SEQ_FRAMES - 1)]
+        kgt = torch.tensor([[float(sx), float(sy)] for sx, sy in KITTI_SHIFTS], device=dev)[
+            :, None, None, :].expand(len(KITTI_SHIFTS), *ref["kpad"][0].shape[-2:], 2).contiguous()
+        inputs = str(root / "inputs.pt")
+        torch.save({"a4": ref["a4"].cpu(), "b4": ref["b4"].cpu(), "a": ref["a"].cpu(),
+                    "b": ref["b"].cpu(), "clip": clip, "ka": ref["kpad"][0].cpu(),
+                    "kb": ref["kpad"][1].cpu(), "kgt": kgt.cpu()}, inputs)
+        halos = {n: min_stripe_halo(bench_cfg, W4K, H4K, n) for n in (2, 3)}
+        check(halos[3] == 176, f"4K 3-way halo {halos[3]}")
+        steps = [("5a 4K compat n=2", "tiled", bench_cfg, 2, ("a4", "b4")),
+                 ("5a 4K compat n=3", "tiled", bench_cfg, 3, ("a4", "b4")),
+                 ("5b 1080p medium n=3", "tiled", med, 3, ("a", "b")),
+                 ("5c sequence pairs n=2", "seq_pair", bench_cfg, 2, ("clip",)),
+                 ("5c sequence frames n=2", "seq_frame", bench_cfg, 2, ("clip",)),
+                 ("5d KITTI batch n=2", "batch", cfg3, 2, ("ka", "kb", "kgt"))]
+        t0 = time.perf_counter()
+        res = spawn(3, phase5_rank, inputs, steps, device="cuda:0", timeout_s=120)
+        print(f"phase5 3 ranks on cuda:0 (gloo): {len(steps)} steps in "
+              f"{time.perf_counter() - t0:.2f} s, process start included", flush=True)
+        single_epe = batched_flow_epe_fn(cfg3)(*ref["kpad"], kgt)
+        wants = {
+            "5a 4K compat n=2": ref["flow4"], "5a 4K compat n=3": ref["flow4"],
+            "5b 1080p medium n=3": ref["medium"],
+            "5c sequence pairs n=2": torch.stack(serial),
+            "5c sequence frames n=2": torch.stack(serial[:-1] + [torch.zeros_like(serial[0])]),
+        }
+        for label, kind, cfg, n, _ in steps:
+            got = [res[r][label] for r in range(n)]
+            if kind == "tiled":
+                halo = halos[n] if cfg is bench_cfg else None
+                hh, ww = (H4K, W4K) if cfg is bench_cfg else (H, W)
+                routes = [part_routes(cfg, ww, hh, n, i, halo) for i in range(n)]
+                expect = [{"K3": 2, "K2": r.count("K2"), "K2c": r.count("K2c"), "K1": len(r)}
+                          for r in routes]
+            else:
+                expect = [{**scale_counts(cfg), "K2c": 0}] * n
+            for i, g in enumerate(got):
+                check(g["counts"] == expect[i], f"{label} rank {i}: launches {g['counts']}, "
+                      f"want {expect[i]}")
+                add(g["counts"], kind != "tiled")
+            flows = torch.cat([g["out"][0] for g in got])
+            if kind == "batch":
+                check(torch.equal(im.crop_padding(flows, ref["kpw"], ref["kph"], KW, KH),
+                                  ref["kitti"].cpu()), f"{label}: flows differ from phase 2b's")
+                check(torch.equal(flows, single_epe[0].cpu()), f"{label}: flows differ from "
+                      "the single-device batched_flow_epe_fn")
+                for i, g in enumerate(got):
+                    check(torch.equal(g["out"][1], single_epe[1].cpu()),
+                          f"{label} rank {i}: mean EPE {g['out'][1]} vs {single_epe[1]}")
+            else:
+                check(torch.equal(flows, wants[label].cpu()), f"{label}: the stitched flow "
+                      "differs from the single-device flow")
+            print(f"phase5 {label}: launches by rank {[g['counts'] for g in got]}; bytes "
+                  f"staged through the host by rank {[g['staged'] for g in got]}; bitwise "
+                  f"equal to the single-device flow"
+                  + (f", mean EPE {float(single_epe[1])} on every rank" if kind == "batch"
+                     else "")
+                  + f"; a call's ms by rank {[round(g['ms'], 3) for g in got]} ({n} ranks "
+                  f"sharing one H100, not a scaling figure) [{card}]", flush=True)
+
+        # 5e: NCCL moves CUDA tensors directly; at world size 1 (one card).
+        keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+        saved = {k: os.environ.get(k) for k in keys}
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1",
+                          RANK="0", LOCAL_RANK="0")
+        try:
+            d = init_multi_host(backend="nccl")
+            check(d == dev and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                  f"NCCL group: {d}, {dist.get_backend()}, {dist.get_world_size()}")
+            for w in wrappers.values():
+                w.launches = 0
+            shift.staged_bytes = 0
+            flow = tiled_flow_fn(bench_cfg, make_mesh((1, 1)), H, W)(ref["a"], ref["b"])
+            fk, mean = batched_flow_epe_fn(cfg3, make_mesh((1,), ("batch",)))(*ref["kpad"], kgt)
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            check(counts == {k: 2 * v for k, v in {**scale_counts(bench_cfg), "K2c": 0}.items()},
+                  f"5e: launches {counts}")
+            add({k: v // 2 for k, v in counts.items()}, False)
+            add({k: v // 2 for k, v in counts.items()}, True)
+            check(torch.equal(flow, ref["flow1080"]), "5e: NCCL tiled flow differs")
+            check(torch.equal(fk, single_epe[0]) and torch.equal(mean, single_epe[1]),
+                  "5e: NCCL batch differs")
+            check(shift.staged_bytes == 0, f"5e: NCCL staged {shift.staged_bytes} bytes")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        print(f"phase5 5e NCCL at world size 1 on {dev}: tiled_flow_fn n=1 (1080p compat) "
+              f"and the KITTI batch mesh n=1 (EPE gathered by NCCL) bitwise equal to the "
+              f"single-device flows; launches {counts}; 0 bytes staged", flush=True)
+
+        # 5f: two hosts shard the sequence; host 1 is killed after one pair
+        # and relaunched with the same arguments.
+        t0 = time.perf_counter()
+        ctx = multiprocessing.get_context("spawn")
+
+        def host(host_id, die_after):
+            p = ctx.Process(target=shard_host,
+                            args=(host_id, die_after, str(root), bench_cfg, "cuda:0"))
+            p.start()
+            return p
+
+        h0, h1 = host(0, 0), host(1, 1)
+        for p in (h0, h1):
+            p.join(timeout=300)
+        check((h0.exitcode, h1.exitcode) == (0, 17), f"5f: exit codes {h0.exitcode}, "
+              f"{h1.exitcode} (want 0 and 17)")
+        h1 = host(1, 0)
+        h1.join(timeout=300)
+        check(h1.exitcode == 0, f"5f: relaunched host 1 exited {h1.exitcode}")
+        s0, s1 = (json.loads((root / f"host{i}.json").read_text()) for i in (0, 1))
+        check((s0["shard"], s0["pairs_done"]) == ([1, 5], 4)
+              and (s1["shard"], s1["resumed_from"], s1["pairs_done"]) == ([5, 9], 6, 3),
+              f"5f: summaries {s0}, {s1}")
+        for t in range(1, SEQ_FRAMES):
+            got = load_flo(str(root / "out" / f"frame_{t:04d}.flo"))
+            check(np.array_equal(got, serial[t - 1].numpy()),
+                  f"5f: pair {t} differs from the serial flow")
+        print(f"phase5 5f run_sequence_shard: host 0 shard {s0['shard']}, host 1 killed after "
+              f"one pair and resumed from {s1['resumed_from']}; 8 .flo files bitwise equal to "
+              f"the serial flows ({time.perf_counter() - t0:.2f} s)", flush=True)
+
+    # 5g: the dry run over 4 ranks on card 0.
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device="cuda:0")
+    print(f"phase5 5g dryrun_multichip(4) on cuda:0: {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    print(f"phase5 took {time.perf_counter() - t_phase:.2f} s [{card}]", flush=True)
     return launches
 
 
@@ -1630,6 +1959,13 @@ def main() -> int:
     for k, n in cli_phase(dev, card, bench_cfg, wrappers).items():
         launches[k] += n
     print(f"phase4 took {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # -- phase 5: the multi-rank engines, every rank on card 0 ------------------
+    ref = {"cfg3": cfg3, "a": a, "b": b, "a4": a4, "b4": b4, "kpad": kpad, "kpw": kpw,
+           "kph": kph, "flow4": flows4["compat"], "medium": rflows["medium"],
+           "kitti": kflows["config3"], "flow1080": flows["compat"]}
+    for k, n in multi_rank_phase(dev, card, bench_cfg, ref).items():
+        launches[k] += n
 
     src = "dis_tpu_torch/csrc/"
     meta = {

@@ -32,7 +32,7 @@ from dis_tpu.ops.pallas.extract_kernel import extract_regions_pallas
 from dis_tpu.ops.pallas.iclk_kernel import inverse_search_pallas
 from dis_tpu.ops.pyramid import construct_pyramid as jpyramid
 from dis_tpu.parallel import batched_flow_epe_fn as jbatched_flow_epe_fn
-from dis_tpu.utils import synth
+from dis_tpu_torch.utils import synth
 from dis_tpu.utils.metrics import epe_jax
 from dis_tpu_torch import interop
 from dis_tpu_torch.models import dis as tdis

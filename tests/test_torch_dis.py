@@ -1,6 +1,6 @@
 """Port parity end to end: ``dis_tpu_torch.dis_flow`` vs ``dis_tpu.dis_flow``.
 
-Two of the synthetic motion families of ``dis_tpu.utils.synth`` and the
+Two of the synthetic motion families of ``dis_tpu_torch.utils.synth`` and the
 translated pair of ``conftest.synthetic_pair``, in compat and fixed
 mode, on CPU (the port's plain paths of kernels K1-K3).
 
@@ -21,7 +21,7 @@ import torch
 import dis_tpu_torch
 from dis_tpu.config import DISConfig as JConfig
 from dis_tpu.models import dis as jdis
-from dis_tpu.utils import synth
+from dis_tpu_torch.utils import synth
 from dis_tpu_torch import interop
 
 from conftest import synthetic_pair

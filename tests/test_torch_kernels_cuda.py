@@ -689,3 +689,23 @@ def test_cuda_artifact_4k_holds_k2c():
                                   early_exit=False)
     _, program = load_exported(export_flow(cfg, 2160, 3840))
     assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4}
+
+
+def test_two_gloo_ranks_on_one_card():
+    """``tiled_flow_fn`` (halo by neighbour shifts, staged through the
+    host under gloo) and ``grid_tiled_flow_fn`` over 2 ranks on card 0
+    (``parallel.launch.spawn``, gloo): each bitwise the single-device
+    flow on the card."""
+    import torch_ranks
+    from dis_tpu_torch.models.dis import dis_flow_padded
+    from dis_tpu_torch.parallel.launch import spawn
+
+    i1, i2 = (np.ascontiguousarray(x) for x in _smooth(256, 48, 3))
+    cfg = dis_tpu_torch.DISConfig(iterations=6, coarsest_scale=2, patch_overlap=0.5,
+                                  early_exit=False)
+    cases = [("stripes", "tiled", cfg, 2, None, i1, i2), ("grid", "grid", cfg, 2, None, i1, i2)]
+    out = spawn(2, torch_ranks.tiling_world, cases, device="cuda:0", timeout_s=120)
+    want = dis_flow_padded(torch.from_numpy(i1).cuda(), torch.from_numpy(i2).cuda(), cfg).cpu()
+    for label in ("stripes", "grid"):
+        assert torch.equal(torch.cat([out[r][label] for r in range(2)]), want), label
+    assert all(r["staged_bytes"] > 0 for r in out)

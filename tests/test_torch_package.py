@@ -63,12 +63,28 @@ def test_import_is_jax_free():
             "dis_tpu_torch.utils.flo, dis_tpu_torch.utils.native, dis_tpu_torch.utils.io, "
             "dis_tpu_torch.utils.color, dis_tpu_torch.utils.kitti, dis_tpu_torch.utils.metrics, "
             "dis_tpu_torch.utils.overlay, dis_tpu_torch.utils.checkpoint, "
-            "dis_tpu_torch.utils.profiling, dis_tpu_torch.utils.checks, dis_tpu_torch.cost; "
+            "dis_tpu_torch.utils.profiling, dis_tpu_torch.utils.checks, dis_tpu_torch.cost, "
+            "dis_tpu_torch.parallel.mesh, dis_tpu_torch.parallel.distributed, "
+            "dis_tpu_torch.parallel.sequence, dis_tpu_torch.parallel.launch, "
+            "dis_tpu_torch.utils.synth, dis_tpu_torch.dryrun; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dis_tpu')); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_names_have_counterparts():
+    """Every public name of ``dis_tpu.parallel`` exists in the port's
+    ``parallel``, and those of ``__graft_entry__.py`` in ``dryrun``."""
+    import dis_tpu.parallel as jparallel
+    import dis_tpu_torch.parallel as tparallel
+    from dis_tpu_torch import dryrun
+
+    assert set(jparallel.__all__) <= set(tparallel.__all__)
+    for name in tparallel.__all__:
+        assert callable(getattr(tparallel, name)), name
+    assert callable(dryrun.entry) and callable(dryrun.dryrun_multichip)
 
 
 def test_wrappers_take_plain_path_on_cpu():

@@ -35,7 +35,7 @@ from dis_tpu.config import DIS_FULL as J_FULL
 from dis_tpu.config import DIS_MEDIUM as J_MEDIUM
 from dis_tpu.models import dis as jdis
 from dis_tpu.parallel import tiles as jtiles
-from dis_tpu.utils import synth
+from dis_tpu_torch.utils import synth
 from dis_tpu_torch import interop
 from dis_tpu_torch.models import dis as tdis
 from dis_tpu_torch.parallel import tiles as ttiles

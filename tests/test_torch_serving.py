@@ -72,7 +72,7 @@ def test_compiled_flow_matches_jax_aot():
     got = aot_compile(CFG, 40, 56, batch=3, device="cpu")(a, b).numpy()
     gt = np.broadcast_to(np.float32([2.0, 1.0]), (40, 56, 2))
     valid = np.ones((40, 56), bool)
-    from dis_tpu.utils.synth import masked_epe
+    from dis_tpu_torch.utils.synth import masked_epe
 
     for k in range(3):
         d = np.sqrt(((got[k] - ref[k]) ** 2).sum(-1))

@@ -109,7 +109,7 @@ def test_reloaded_flow_matches_jax_export(single, loaded, tmp_path):
     """The port's reloaded flow against ``dis_tpu.serving``'s reloaded
     ``jax.export`` artifact (JAX CPU), under the gates of
     ``test_compiled_flow_matches_jax_aot``."""
-    from dis_tpu.utils.synth import masked_epe
+    from dis_tpu_torch.utils.synth import masked_epe
 
     _, (i1, i2), _ = single
     path = str(tmp_path / "flow.jaxexp")
