@@ -174,7 +174,9 @@ must give the same bits:
     the serial flows (K2b and K1b on each rank);
 5d. the batch mesh over 2 ranks on the 8 KITTI pairs: flows bitwise equal
     to phase 2b's, the mean EPE to the single-device
-    ``batched_flow_epe_fn``'s on every rank;
+    ``batched_flow_epe_fn``'s on every rank; read beside it: whether one
+    reduction over 8 pairs gives each pair's EPE the bits of one over 4,
+    and both forms' times;
 5e. NCCL at world size 1 (``init_multi_host`` from ``MASTER_ADDR`` and
     friends): ``tiled_flow_fn`` and the batch mesh with n = 1, bitwise,
     nothing staged;
@@ -970,11 +972,13 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
     from dis_tpu_torch.parallel import (batched_flow_epe_fn, make_mesh, min_stripe_halo,
                                         tiled_flow_fn)
+    from dis_tpu_torch.parallel.batch import _pair_epes
     from dis_tpu_torch.parallel.distributed import init_multi_host
     from dis_tpu_torch.parallel.launch import spawn
     from dis_tpu_torch.parallel.mesh import shift
     from dis_tpu_torch.utils.flo import load_flo
     from dis_tpu_torch.utils.io import imread_gray
+    from dis_tpu_torch.utils.metrics import epe_torch
 
     wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
                 "K1": iclk_search}
@@ -1054,6 +1058,21 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
                   + f"; a call's ms by rank {[round(g['ms'], 3) for g in got]} ({n} ranks "
                   f"sharing one H100, not a scaling figure) [{card}]", flush=True)
 
+        # Why the mean EPE reduces each pair alone: on the card one reduction
+        # over a stack of pairs may give a pair other bits than one over half
+        # the stack, as the batch mesh's ranks would.  A reading, not a gate.
+        fk1, half = single_epe[0], len(KITTI_SHIFTS) // 2
+        whole = epe_torch(fk1, kgt)
+        halves = torch.cat([epe_torch(fk1[i:i + half], kgt[i:i + half]) for i in (0, half)])
+        alone_ms = time_ms(lambda: _pair_epes(fk1, kgt).mean())
+        stack_ms = time_ms(lambda: epe_torch(fk1, kgt).mean())
+        print(f"phase5 5d EPE forms: one reduction over the {len(KITTI_SHIFTS)} pairs' "
+              f"flows against one over each {half}: per-pair EPEs "
+              f"{'equal' if torch.equal(whole, halves) else 'differ'} (max |d| "
+              f"{float((whole - halves).abs().max())}); each pair reduced alone "
+              f"(batched_flow_epe_fn) {alone_ms:.4f} ms, one reduction over the stack "
+              f"{stack_ms:.4f} ms, eager [{card}]", flush=True)
+
         # 5e: NCCL moves CUDA tensors directly; at world size 1 (one card).
         keys = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
         saved = {k: os.environ.get(k) for k in keys}
@@ -1066,17 +1085,27 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
             d = init_multi_host(backend="nccl")
             check(d == dev and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
                   f"NCCL group: {d}, {dist.get_backend()}, {dist.get_world_size()}")
-            for w in wrappers.values():
-                w.launches = 0
             shift.staged_bytes = 0
-            flow = tiled_flow_fn(bench_cfg, make_mesh((1, 1)), H, W)(ref["a"], ref["b"])
-            fk, mean = batched_flow_epe_fn(cfg3, make_mesh((1,), ("batch",)))(*ref["kpad"], kgt)
-            torch.cuda.synchronize()
-            counts = {k: w.launches for k, w in wrappers.items()}
-            check(counts == {k: 2 * v for k, v in {**scale_counts(bench_cfg), "K2c": 0}.items()},
-                  f"5e: launches {counts}")
-            add({k: v // 2 for k, v in counts.items()}, False)
-            add({k: v // 2 for k, v in counts.items()}, True)
+            counts = {}
+
+            def counted(label, cfg, batched, fn, *args):
+                # This call's launches alone: the counts start at 0 here.
+                for w in wrappers.values():
+                    w.launches = 0
+                out = fn(*args)
+                torch.cuda.synchronize()
+                counts[label] = {k: w.launches for k, w in wrappers.items()}
+                want = {**scale_counts(cfg), "K2c": 0}
+                check(counts[label] == want, f"5e {label}: launches {counts[label]}, "
+                      f"want {want}")
+                add(counts[label], batched)
+                return out
+
+            flow = counted("tiled", bench_cfg, False,
+                           tiled_flow_fn(bench_cfg, make_mesh((1, 1)), H, W), ref["a"], ref["b"])
+            fk, mean = counted("batch", cfg3, True,
+                               batched_flow_epe_fn(cfg3, make_mesh((1,), ("batch",))),
+                               *ref["kpad"], kgt)
             check(torch.equal(flow, ref["flow1080"]), "5e: NCCL tiled flow differs")
             check(torch.equal(fk, single_epe[0]) and torch.equal(mean, single_epe[1]),
                   "5e: NCCL batch differs")

@@ -31,7 +31,9 @@ def _check_batched(aa) -> None:
 
 def _pair_epes(flows: torch.Tensor, gg: torch.Tensor) -> torch.Tensor:
     """[B] per-pair mean EPEs, each reduced alone (``epe_torch`` on one
-    pair), so a pair's EPE has the same bits in any batch."""
+    pair), so a pair's EPE has the same bits in any batch: on the card,
+    one reduction over 8 KITTI-size pairs gives some pairs other bits
+    than one over 4 (``chip_smoke.py`` phase 5d)."""
     return torch.stack([epe_torch(f, g) for f, g in zip(flows, gg)])
 
 

@@ -16,7 +16,7 @@ import datetime
 import os
 import shutil
 import tempfile
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List
 
 import torch
 import torch.distributed as dist
@@ -71,21 +71,19 @@ def _rank_main(rank: int, n: int, init_file: str, out_dir: str, backend: str,
         dist.destroy_process_group()
 
 
-def spawn(n: int, fn: Callable, *args, device="cuda", backend: Optional[str] = None,
-          timeout_s: float = 300.0) -> List[Any]:
+def spawn(n: int, fn: Callable, *args, device="cuda", timeout_s: float = 300.0) -> List[Any]:
     """Run ``fn(device, *args)`` on n ranks of a new group and return
     each rank's result, rank order (moved to the CPU: results travel
     through ``torch.save``).  ``device`` is as :func:`rank_device` reads
-    it; ``backend`` defaults to :func:`default_backend`.  A rank that
+    it, and so is the backend, by :func:`default_backend`.  A rank that
     raises or dies fails the call (``torch.multiprocessing`` stops the
     others and raises its error); a collective that waits longer than
     ``timeout_s`` raises in its rank."""
-    backend = backend or default_backend(device)
     tmp = tempfile.mkdtemp(prefix="dis_tpu_torch_spawn_")
     try:
         mp.start_processes(_rank_main, nprocs=n, join=True, start_method="spawn",
-                           args=(n, os.path.join(tmp, "rendezvous"), tmp, backend,
-                                 str(device), timeout_s, fn, args))
+                           args=(n, os.path.join(tmp, "rendezvous"), tmp,
+                                 default_backend(device), str(device), timeout_s, fn, args))
         return [torch.load(os.path.join(tmp, f"rank{r}.pt"), map_location="cpu",
                            weights_only=False) for r in range(n)]
     finally:
