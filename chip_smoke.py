@@ -86,14 +86,27 @@ recipe, a (3, 2) px shift) under the compat bench config and
 The refinement presets (``DIS_MEDIUM``: ps 8, stride 4, scales 3..0;
 ``DIS_FULL``: ps 12, stride 3, scales 4..0; both refine every level on
 the intensity planes, 5 and 10 weight updates of 5 red-black SOR sweeps),
-whose variational refinement is torch ops (no TPU kernel backs it):
+whose variational refinement runs as the kernels R1 (the warp, once per
+level), R2 (a weight update) and R3 (a half-sweep), which no
+``pallas_call`` backs (they replace XLA's fusions of the JAX package's
+refinement code):
 
 1d. (also) K2c and K2 on ``DIS_FULL``'s 1080p finest grid (230,400
     patches, ps 12) from its own refined init, with the share of windows
     copied from device memory;
-2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4
-    (``DIS_MEDIUM``) and K3 4, K2 5, K1 5 (``DIS_FULL``, whose five
-    levels take two K3 launches per image), no K2c; the median within
+1e. R1, R2 and R3 on the inputs the main path gives them at the finest
+    level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames and of the
+    KITTI B = 8 ``DIS_MEDIUM`` batch (R1's call, R2's second, R3's 11th
+    and 12th: a red and a black half-sweep with nonzero increments),
+    recorded from a refinement run (``refine_step_inputs``), each bitwise
+    equal to its plain version and timed beside it (kernel replayed,
+    plain eager and replayed) with its bound; R1 also beside
+    ``grid_sample`` (bilinear, border padding), the yardstick of its
+    ``library_ms``;
+2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R1 4,
+    R2 20, R3 200 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R1 5, R2 50, R3
+    500 (``DIS_FULL``, whose five levels take two K3 launches per image),
+    no K2c; the median within
     0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
     CPU reading (``tools/jax_epe_readings.py``), the kernel path against
     the plain path under the phase-2 gates; the refinement of each
@@ -104,25 +117,31 @@ whose variational refinement is torch ops (no TPU kernel backs it):
     B = 8 (peak memory printed) holding the eager launches, each replay
     bitwise equal to eager; ``grid_tiled_flow`` (3 parts) and
     ``tiled_flow_exact`` (3 stripes, routed to the grid engine), and
-    ``refine_per_level=False`` through ``tiled_flow_exact``, bitwise
-    equal to untiled; 4K unclamped (K2 at every scale, no K2c) and 1080p
+    ``refine_per_level=False`` through ``tiled_flow_exact`` (R1 1, R2 5,
+    R3 50), bitwise equal to untiled; 4K unclamped (K2 at every scale,
+    no K2c) and 1080p
     and 4K with ``refined_init_clamp`` (K2c exactly where
     ``scale_extraction_route`` says), each flow finite with its median
     within 0.01 px of its shift;
 3d. times: eager and replayed ms/frame for 1080p ``DIS_MEDIUM`` and
-    ``DIS_FULL`` and 4K ``DIS_MEDIUM``, KITTI ``DIS_MEDIUM`` pairs/s at
-    B = 8, and the refinement alone, replayed, per level at 1080p with
-    its launches (non-view torch ops) and its share of the frame.
+    ``DIS_FULL`` and 4K ``DIS_MEDIUM``, each beside the same frame without
+    refinement, replayed, which gives the refinement's share; KITTI
+    ``DIS_MEDIUM`` pairs/s at B = 8; and the refinement alone, replayed,
+    per level at 1080p with its launches (non-view torch ops and R1-R3).
 
 The saved serving artifact (``serving.export_flow``, ``torch.export``
 with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
 
 2h. the compat bench config exported at 1080p (B = None), config 3 at
-    KITTI size with B = 8 and the compat 4K bucket: each program holds the
-    kernel ops in the counts of ``scale_counts`` (at 4K one extraction is
-    K2c) and no gather of a plain K2 or K1; the KITTI and 4K artifacts,
-    reloaded in this process (``load_exported``), replay bitwise equal to
-    their eager kernel flows; the 1080p artifact, loaded in a fresh process
+    KITTI size with B = 8, the compat 4K bucket and ``DIS_MEDIUM`` at
+    1080p: each program holds the kernel ops in the counts of
+    ``scale_counts`` (at 4K one extraction is K2c; ``DIS_MEDIUM`` also R1
+    4, R2 20, R3 200) and no gather of a plain K2, K1 or R1; the KITTI,
+    4K and ``DIS_MEDIUM`` artifacts, reloaded in this process
+    (``load_exported``), replay bitwise equal to their eager kernel flows
+    (``DIS_MEDIUM``'s also to ``aot_compile``'s replay), with each
+    artifact's graph nodes and export and load seconds printed; the 1080p
+    artifact, loaded in a fresh process
     that has the pipeline's functions replaced by ones that raise
     (``--serve-child``; this process waits for it, so nothing else runs on
     the card or the host meanwhile), gives a flow bitwise equal to phase
@@ -132,7 +151,9 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     turns;
     then ``cost_analysis()`` and ``memory_analysis()`` of the 1080p
     bucket, whose kernel entries give the ``kernels`` line's bounds (K3,
-    K2 exactly; K1, counted for its fixed loop, within 0.1%).
+    K2 exactly; K1, counted for its fixed loop, within 0.1%), and the
+    1080p ``DIS_MEDIUM`` bucket's ``cost_analysis()``, whose finest-level
+    R1, R2 and R3 entries give theirs exactly.
 
 The user-facing surface (phase 4, after the times): the CLI
 (``dis_tpu_torch.cli.main``) and the sequence runner on a 9-frame
@@ -194,13 +215,16 @@ every level's planes, K1 its inputs with the raw template only for the
 patches frozen at the start) over 3.35 TB/s and its operations (K1's for
 the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
-No single PyTorch call computes any of these functions, so
-``library_ms`` is null.
+No single PyTorch call computes K1-K3, R2 or R3, so their ``library_ms``
+is null; R1's is ``grid_sample``'s (phase 1e).
 
 ``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
 kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
-B = 8; K2c and K2 on the same 4K finest inputs, and K1 there) and the
-replayed 1080p and 4K compat frames, on the same inputs, for the
+B = 8; K2c and K2 on the same 4K finest inputs, and K1 there), the
+replayed 1080p and 4K compat frames, and the refinement of the finest
+level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames (with R1-R3
+where the tree has them), those frames and the 1080p ``DIS_MEDIUM``
+artifact's export and load, on the same inputs, for the
 ``dis_tpu_torch`` package under the directory ROOT
 (an unpacked earlier commit, say, to compare two trees in one run on one
 card), and prints one JSON line.
@@ -470,13 +494,98 @@ def flow_gates(label, f, shift, epe_jax=None):
     return med, epe
 
 
+def refine_counts(cfg):
+    """The refinement's launches in one call, whatever B is: R1 once per
+    outer iteration, R2 once per weight update and R3 once per half-sweep,
+    at every scale (``refine_per_level``) or the finest; none without
+    refinement."""
+    if cfg.refinement_iters == 0:
+        return {}
+    levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
+    r1 = levels * cfg.refinement_iters
+    r2 = r1 * cfg.refinement_inner_sweeps
+    return {"R1": r1, "R2": r2, "R3": 2 * cfg.refinement_sor_sweeps * r2}
+
+
 def scale_counts(cfg):
     """Launches one call must make, whatever B is: K2 and K1 once per
-    scale; K3 once per image (or stack of images) for up to four levels."""
+    scale; K3 once per image (or stack of images) for up to four levels;
+    R1-R3 as ``refine_counts`` says."""
     from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS
 
     n = cfg.coarsest_scale - cfg.finest_scale + 1
-    return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n}
+    return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n,
+            **refine_counts(cfg)}
+
+
+def kernel_wrappers():
+    """Every kernel's wrapper, by kernel."""
+    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
+    from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
+    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
+    from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
+
+    return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
+            "K1": iclk_search, "R1": refine_warp, "R2": refine_weights, "R3": refine_sor}
+
+
+def read_counts(wrappers):
+    """Each wrapper's launches since its count was set to 0: K3, K2, K2c
+    and K1 always, R1-R3 where they ran (as ``CompiledFlow.graph_launches``
+    and ``cost.kernel_ops`` give them)."""
+    return {k: w.launches for k, w in wrappers.items() if k[0] == "K" or w.launches}
+
+
+def grid_sample_ms(planes, flow, warped, card) -> float:
+    """The yardstick of R1, not a kernel of the port: the device ms of one
+    ``torch.nn.functional.grid_sample`` call (bilinear, border padding,
+    corner-aligned) that samples the same planes [h, w, C] (made planar
+    outside the timed call) at ``x + flow``; its largest difference from
+    R1's ``warped`` is printed (its own rounding of the same blend)."""
+    h, w, c = planes.shape
+    nchw = planes.movedim(-1, 0)[None].contiguous()
+    ys, xs = (torch.arange(n, device=planes.device, dtype=torch.float32) for n in (h, w))
+    grid = torch.stack([(xs[None, :] + flow[..., 0]) * (2.0 / (w - 1)) - 1.0,
+                        (ys[:, None] + flow[..., 1]) * (2.0 / (h - 1)) - 1.0], dim=-1)[None]
+
+    def sample():
+        return torch.nn.functional.grid_sample(nchw, grid, mode="bilinear",
+                                               padding_mode="border", align_corners=True)
+
+    diff = float((sample()[0].movedim(0, -1) - warped).abs().max())
+    ms = replay_ms(sample)
+    print(f"phase1e R1 yardstick: grid_sample {ms:.4f} ms replayed, max |d| {diff} from R1 "
+          f"[{card}]", flush=True)
+    return ms
+
+
+def refine_step_inputs(args, picks):
+    """Runs ``variational_refinement(*args)`` and returns, by kernel, the
+    inputs that the ``picks[kernel]``-th calls of R1, R2 and R3 gave their
+    kernel (the checked arguments of the ops' CUDA functions): the main
+    path's own inputs for each."""
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+    from dis_tpu_torch.ops.variational import variational_refinement
+
+    names = {"R1": "_warp_cuda", "R2": "_weights_cuda", "R3": "_sor_cuda"}
+    seen = {k: [] for k in names}
+    originals = {k: getattr(rk, fn) for k, fn in names.items()}
+
+    def recorder(k):
+        def call(*a):
+            seen[k].append(a if len(seen[k]) in picks[k] else None)
+            return originals[k](*a)
+        return call
+
+    try:
+        for k, fn in names.items():
+            setattr(rk, fn, recorder(k))
+        variational_refinement(*args)
+    finally:
+        for k, fn in names.items():
+            setattr(rk, fn, originals[k])
+    return {k: [seen[k][i] for i in picks[k]] for k in names}
 
 
 def serve_child(artifact: str, out: str) -> int:
@@ -667,7 +776,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
           f"({native.library_path().name}, {time.perf_counter() - t0:.2f} s)", flush=True)
     native.require()
     per_capture = serving.WARMUP_CALLS + 1     # eager warm-up calls and the capture
-    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c")}
+    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3")}
 
     def counted(label, argv, want, timer=None, batched=False):
         """The CLI with every count set to 0 just before and read just after;
@@ -678,7 +787,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
         for w in wrappers.values():
             w.launches = 0
         out = run_cli(argv, timer)
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         check(counts == {k: per_capture * v for k, v in want.items()},
               f"{label}: launches {counts}, want {per_capture} x {want}")
         for k, n in counts.items():
@@ -870,17 +979,12 @@ def phase5_rank(dev, inputs_path: str, steps) -> dict:
     through the host and the timed call's ms."""
     import torch.distributed as dist
 
-    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
-    from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
-    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
     from dis_tpu_torch.parallel import (batch_sharding, batched_flow_epe_fn, make_mesh,
                                         row_sharding, sequence_flow_fn,
                                         sequence_pair_flow_fn, tiled_flow_fn)
     from dis_tpu_torch.parallel.mesh import shift
 
-    wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-                "K1": iclk_search}
+    wrappers = kernel_wrappers()
     x = torch.load(inputs_path, map_location="cpu")
     rank = dist.get_rank()
     out = {}
@@ -910,7 +1014,7 @@ def phase5_rank(dev, inputs_path: str, steps) -> dict:
         shift.staged_bytes = 0
         first = fn(*args)
         torch.cuda.synchronize(dev)
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         staged = shift.staged_bytes
         dist.barrier(group)
         t0 = time.perf_counter()
@@ -966,10 +1070,6 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     import dis_tpu_torch as dt
     from dis_tpu_torch.dryrun import dryrun_multichip
     from dis_tpu_torch.ops import image as im
-    from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
-    from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
-    from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
     from dis_tpu_torch.parallel import (batched_flow_epe_fn, make_mesh, min_stripe_halo,
                                         tiled_flow_fn)
     from dis_tpu_torch.parallel.batch import _pair_epes
@@ -980,9 +1080,8 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     from dis_tpu_torch.utils.io import imread_gray
     from dis_tpu_torch.utils.metrics import epe_torch
 
-    wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-                "K1": iclk_search}
-    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c")}
+    wrappers = kernel_wrappers()
+    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3")}
 
     def add(counts, batched):
         for k, v in counts.items():
@@ -1030,8 +1129,8 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
                 halo = halos[n] if cfg is bench_cfg else None
                 hh, ww = (H4K, W4K) if cfg is bench_cfg else (H, W)
                 routes = [part_routes(cfg, ww, hh, n, i, halo) for i in range(n)]
-                expect = [{"K3": 2, "K2": r.count("K2"), "K2c": r.count("K2c"), "K1": len(r)}
-                          for r in routes]
+                expect = [{"K3": 2, "K2": r.count("K2"), "K2c": r.count("K2c"), "K1": len(r),
+                           **refine_counts(cfg)} for r in routes]
             else:
                 expect = [{**scale_counts(cfg), "K2c": 0}] * n
             for i, g in enumerate(got):
@@ -1094,7 +1193,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
                     w.launches = 0
                 out = fn(*args)
                 torch.cuda.synchronize()
-                counts[label] = {k: w.launches for k, w in wrappers.items()}
+                counts[label] = read_counts(wrappers)
                 want = {**scale_counts(cfg), "K2c": 0}
                 check(counts[label] == want, f"5e {label}: launches {counts[label]}, "
                       f"want {want}")
@@ -1177,9 +1276,11 @@ def main() -> int:
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
+    from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
     from dis_tpu_torch.ops.grid import init_from_coarser_flow, make_grid, scale_plan
     from dis_tpu_torch.ops.pyramid import construct_pyramid
-    from dis_tpu_torch.ops.variational import variational_refinement
+    from dis_tpu_torch.ops.variational import (refine_sor_plain, refine_warp_plain,
+                                               refine_weights_plain, variational_refinement)
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
@@ -1466,21 +1567,65 @@ def main() -> int:
     k2c_err = max(k2c_err, err)
     del pos_f
 
+    # -- phase 1e: the refinement's kernels R1-R3 ---------------------------------
+    # Each on the inputs the main path gives it at the finest level of the
+    # 1080p DIS_MEDIUM and DIS_FULL frames and of the KITTI B = 8 DIS_MEDIUM
+    # batch (R1's call, R2's second, R3's 11th and 12th: the second weight
+    # update's first red and black half-sweeps, where du and dv are not 0),
+    # bitwise equal to its plain version; then timed beside it.
+    med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
+    kmed_levels, kmed_planes = refined_levels(*kpad, dt.DIS_MEDIUM)
+    r_fns = {"R1": (refine_warp, refine_warp_plain, "refine_warp"),
+             "R2": (refine_weights, refine_weights_plain, "refine_weights"),
+             "R3": (refine_sor, refine_sor_plain, "refine_sor")}
+    r_err = {k: 0.0 for k in r_fns}
+    rtimes, rcosts = {}, {}
+    r1_library = None
+    for label, cfg, levels, planes in (
+            ("1080p medium", dt.DIS_MEDIUM, med_levels, med_planes),
+            ("1080p full", dt.DIS_FULL, full_levels, full_planes),
+            (f"KITTI medium B={nk}", dt.DIS_MEDIUM, kmed_levels, kmed_planes)):
+        steps = refine_step_inputs(refine_inputs(cfg, levels, planes, 0),
+                                   {"R1": (0,), "R2": (1,), "R3": (10, 11)})
+        for k, (kern, plain, op) in r_fns.items():
+            for args in steps[k]:
+                before = kern.launches
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                check(kern.launches == before + 1, f"{k} {label}: not one launch")
+                for g, v in zip(got, want):
+                    r_err[k] = max(r_err[k], float((g.float() - v.float()).abs().max()))
+                    check(torch.equal(g, v), f"{k} {label}: differs from its plain version")
+            args = steps[k][0]
+            km = replay_ms(lambda: kern(*args))
+            pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
+            nbytes, ops = cost.op_cost(op, args)
+            bms, by = bound(nbytes, ops)
+            if label == "1080p medium":
+                rtimes[k], rcosts[k] = (km, pm), (nbytes, ops)
+            if label == "1080p medium" and k == "R1":
+                r1_library = grid_sample_ms(*args, refine_warp(*args)[0], card)
+            print(f"phase1e {label} {k} {tuple(args[0].shape)}: {len(steps[k])} call(s) "
+                  f"bitwise equal to the plain version; kernel {km:.4f} ms replayed, plain "
+                  f"{pm:.4f} ms ({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} "
+                  f"[{card}]", flush=True)
+        del steps
+    del kmed_levels, kmed_planes
+
     # -- phase 2: the main path ---------------------------------------------
-    wrappers = {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-                "K1": iclk_search}
-    launches = {"K3": 0, "K2": 0, "K1": 0}
+    wrappers = kernel_wrappers()
+    launches = {"K3": 0, "K2": 0, "K1": 0, "R1": 0, "R2": 0, "R3": 0}
     flows = {}
     for name, cfg in configs.items():
         for w in wrappers.values():
             w.launches = 0
         flow = dt.dis_flow(a, b, cfg)
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         print(f"phase2 {name} launches {counts}", flush=True)
         check(counts == {**scale_counts(cfg), "K2c": 0}, f"{name}: launches {counts}, want "
               f"{scale_counts(cfg)} and no K2c at 1080p")
-        for k in launches:
+        for k in ("K3", "K2", "K1"):
             check(counts[k] > 0, f"{name}: kernel {k} was not launched on the main path")
             launches[k] += counts[k]
         f = flow.cpu().numpy()
@@ -1516,7 +1661,7 @@ def main() -> int:
                 w.launches = 0
             runs[label] = call()
             torch.cuda.synchronize()
-            counts = {k: w.launches for k, w in wrappers.items()}
+            counts = read_counts(wrappers)
             print(f"phase2b {name} {label} B={nk} launches {counts}", flush=True)
             check(counts == {**want, "K2c": 0},
                   f"{name} {label}: launches {counts}, want {want} per batch")
@@ -1579,7 +1724,7 @@ def main() -> int:
             w.launches = 0
         flow = dt.dis_flow(a4, b4, cfg)
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         print(f"phase2d 4K {name} launches {counts}", flush=True)
         if name == "ultrafast":
             check(counts["K2c"] == 0 and counts["K2"] == 3, f"4K ultrafast: launches {counts}")
@@ -1607,7 +1752,7 @@ def main() -> int:
         w.launches = 0
     fb = dt.dis_flow(torch.stack([a4, b4]), torch.stack([b4, a4]), bench_cfg)
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = read_counts(wrappers)
     check(counts == want4, f"4K B=2: launches {counts}, want {want4}")
     check(torch.equal(fb[0], flows4["compat"]) and torch.equal(fb[1], dt.dis_flow(b4, a4, bench_cfg)),
           "4K B=2: the batched flows differ from 2 serial dis_flow calls")
@@ -1638,7 +1783,7 @@ def main() -> int:
             w.launches = 0
         out = run()
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         parts = N_STRIPES if label.startswith("tiled") else 1
         check(counts["K2c"] == N_STRIPES and counts["K2"] == 3 * N_STRIPES
               and counts["K3"] == 2 * parts, f"4K {label}: launches {counts}")
@@ -1649,15 +1794,17 @@ def main() -> int:
 
     # -- phase 2f: refinement presets at 1080p ----------------------------------
     refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL}
-    want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4},
-                    "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5}}
+    want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
+                               "R1": 4, "R2": 20, "R3": 200},
+                    "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
+                             "R1": 5, "R2": 50, "R3": 500}}
     rflows = {}
     for name, cfg in refined.items():
         for w in wrappers.values():
             w.launches = 0
         flow = dt.dis_flow(a, b, cfg)
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         print(f"phase2f {name} launches {counts}", flush=True)
         check(counts == want_refined[name] == {**scale_counts(cfg), "K2c": 0},
               f"{name}: launches {counts}, want {want_refined[name]}")
@@ -1675,7 +1822,6 @@ def main() -> int:
         del plain, d
     # The refinement alone, on the card and on the CPU, for the finest
     # level's inputs of each frame (the stepwise run equals dis_flow).
-    med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
     rlevels = {"medium": (med_levels, med_planes), "full": (full_levels, full_planes)}
     crops = {"medium": (0, 0), "full": (fpw, fph)}
     for name, (levels, planes) in rlevels.items():
@@ -1701,9 +1847,11 @@ def main() -> int:
             w.launches = 0
         out = call()
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         check(counts == {**scale_counts(med_cfg), "K2c": 0},
               f"KITTI medium {label}: launches {counts}")
+        for k in refine_counts(med_cfg):
+            launches[k] += counts[k]
         if label == "batched_flow_fn":
             kmed_padded = out
     kmed = out
@@ -1755,7 +1903,10 @@ def main() -> int:
             w.launches = 0
         out = run()
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
+        rc = refine_counts(fin_cfg if "refine_per_level=False" in label else med_cfg)
+        check({k: counts.get(k, 0) for k in rc} == rc,
+              f"1080p medium {label}: launches {counts}, want {rc}")
         check(torch.equal(out, want), f"1080p medium {label}: differs from the untiled flow")
         flow_gates(f"1080p medium {label}", out.cpu().numpy(), SHIFT)
         print(f"phase2g 1080p medium {label}: launches {counts}; bitwise equal to untiled",
@@ -1775,7 +1926,7 @@ def main() -> int:
             w.launches = 0
         flow = dt.dis_flow(img1, img2, cfg)
         torch.cuda.synchronize()
-        counts = {k: w.launches for k, w in wrappers.items()}
+        counts = read_counts(wrappers)
         check(counts == want, f"{label}: launches {counts}, want {want} (routes {routes})")
         if label == "4K medium":
             check(n_k2c == 0, f"4K medium unclamped: routes {routes}")
@@ -1793,7 +1944,9 @@ def main() -> int:
              {**scale_counts(bench_cfg), "K2c": 0}),
             ("kitti", cfg3, (KH, KW, nk), (ka, kb), kflows["config3"],
              {**scale_counts(cfg3), "K2c": 0}),
-            ("4K", bench_cfg, (H4K, W4K, None), (a4, b4), flows4["compat"], want4)):
+            ("4K", bench_cfg, (H4K, W4K, None), (a4, b4), flows4["compat"], want4),
+            ("1080p medium", med_cfg, (H, W, None), (a, b), rflows["medium"],
+             {**scale_counts(med_cfg), "K2c": 0})):
         t0 = time.perf_counter()
         data = export_flow(cfg, *shape)
         made = time.perf_counter() - t0
@@ -1816,12 +1969,15 @@ def main() -> int:
         ops = cost.kernel_ops(program)
         check(ops == want, f"{label} artifact: kernel ops {ops}, want {want}")
         plain = sum(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
-        check(plain == 0, f"{label} artifact: {plain} gathers of a plain K2 or K1")
+        check(plain == 0, f"{label} artifact: {plain} gathers of a plain K2, K1 or R1")
         for _ in range(2):
             out = run(*inputs)
             torch.cuda.synchronize()
             check(torch.equal(out, eager), f"{label} artifact: reloaded flow differs "
                   "from the eager kernel path")
+        if label == "1080p medium":
+            check(torch.equal(out, served_med["1080p"](a, b)),
+                  "1080p medium artifact: its replay differs from aot_compile's")
         check(run.graph_launches == want,
               f"{label} artifact: graph holds {run.graph_launches}")
         line = (f"phase2h {label} batch={shape[2]}: export {made:.2f} s, {len(data)} "
@@ -1831,10 +1987,16 @@ def main() -> int:
         if label == "1080p":
             turns = in_turns({"artifact": run, "aot_compile": served["1080p"]}, a, b)
             line += f"; replayed ms/frame in turns {turns}"
+        if label == "1080p medium":
+            line += "; its replay bitwise equal to aot_compile's"
         print(f"{line} [{card}]", flush=True)
         del run, program, data
     served_cost = served["1080p"].cost_analysis()
     print("phase2h 1080p cost_analysis: " + json.dumps(served_cost), flush=True)
+    med_cost = served_med["1080p"].cost_analysis()
+    print("phase2h 1080p medium cost_analysis: " + json.dumps(
+        {k: v for k, v in med_cost.items() if k != "kernels"}) + "; launches by kernel "
+        + json.dumps({k: len(v) for k, v in med_cost["kernels"].items()}), flush=True)
     print("phase2h 1080p memory_analysis: " + json.dumps(served["1080p"].memory_analysis()),
           flush=True)
     print(f"phase2h took {time.perf_counter() - t2h:.2f} s", flush=True)
@@ -1941,7 +2103,7 @@ def main() -> int:
           f"[{card}]", flush=True)
 
     # -- phase 3d: refinement presets, times ------------------------------------
-    frame_ms = {}
+    frame_ms, bare_ms = {}, {}
     for label, cfg, (x, y) in (("1080p medium", dt.DIS_MEDIUM, (a, b)),
                                ("1080p full", dt.DIS_FULL, (a, b)),
                                ("4K medium", dt.DIS_MEDIUM, (a4, b4))):
@@ -1951,10 +2113,16 @@ def main() -> int:
         check(torch.equal(cf(x, y), want), f"{label}: graph replay differs from eager")
         e = time_ms(lambda: dt.dis_flow(x, y, cfg), reps=5, warmup=1)
         r = time_ms(lambda: cf(x, y), reps=10)
-        frame_ms[label] = r
-        print(f"phase3d {label}: eager {e:.4f} ms/frame, replayed {r:.4f} ms/frame "
-              f"[{card}]", flush=True)
         del cf
+        # The same frame without refinement, replayed: the refinement's
+        # share read inside one kind of graph.
+        bare_cf = aot_compile(dataclasses.replace(cfg, refinement_iters=0), *x.shape)
+        bare = time_ms(lambda: bare_cf(x, y), reps=10)
+        del bare_cf
+        frame_ms[label], bare_ms[label] = r, bare
+        print(f"phase3d {label}: eager {e:.4f} ms/frame, replayed {r:.4f} ms/frame; "
+              f"without refinement {bare:.4f} ms replayed, so the refinement takes "
+              f"{r - bare:.4f} ms ({100.0 * (r - bare) / r:.1f}%) [{card}]", flush=True)
     e = time_ms(lambda: dt.dis_flow(ka, kb, med_cfg), reps=5, warmup=1)
     r = time_ms(lambda: served_med["kitti"](ka, kb), reps=10)
     print(f"phase3d KITTI medium B={nk}: eager {e:.4f} ms/batch ({nk * 1000.0 / e:.2f} "
@@ -1965,19 +2133,16 @@ def main() -> int:
         for scale in sorted(levels):
             args = refine_inputs(refined[name], levels, planes, scale)
             ms = replay_ms(lambda: variational_refinement(*args), calls=2, reps=5)
+            for w in wrappers.values():
+                w.launches = 0
             ops = torch_ops(lambda: variational_refinement(*args))
+            rl = {k: v for k, v in read_counts(wrappers).items() if k[0] == "R"}
             total += ms
             print(f"phase3d 1080p {name} refinement at scale {scale} "
-                  f"{tuple(args[2].shape[:-1])}: {ms:.4f} ms replayed, {ops} launches "
-                  f"[{card}]", flush=True)
-        # The same frame without refinement, replayed: the refinement's
-        # share read inside one kind of graph (the per-level graphs above
-        # hold 2 calls each, the frame's graph 1).
-        cfg = refined[name]
-        bare_cf = aot_compile(dataclasses.replace(cfg, refinement_iters=0), H, W)
-        bare = time_ms(lambda: bare_cf(a, b), reps=10)
-        del bare_cf
-        frame = frame_ms[f"1080p {name}"]
+                  f"{tuple(args[2].shape[:-1])}: {ms:.4f} ms replayed; launches: "
+                  f"{ops} torch ops and the kernels {rl} [{card}]", flush=True)
+        # The per-level graphs hold 2 calls each, the frame's graph 1.
+        frame, bare = frame_ms[f"1080p {name}"], bare_ms[f"1080p {name}"]
         print(f"phase3d 1080p {name}: the refinement alone {total:.4f} ms replayed (sum of the "
               f"levels; {100.0 * total / frame:.1f}% of the {frame:.4f} ms replayed frame); "
               f"the frame without refinement {bare:.4f} ms replayed, so the refinement takes "
@@ -2010,14 +2175,27 @@ def main() -> int:
                 "dis_tpu/ops/pallas/iclk_kernel.py:573", k1b_err),
         "K2c": ("extract_regions_banded", src + "extract_banded.cu",
                 "dis_tpu/ops/pallas/extract_kernel.py:163", k2c_err),
+        # No pallas_call backs R1-R3: they replace XLA's fusions of the JAX
+        # package's refinement code (_warp_bilinear, inner, half_sweep).
+        "R1": ("refine_warp", src + "variational.cu", "dis_tpu/ops/variational.py:88",
+               r_err["R1"]),
+        "R2": ("refine_weights", src + "variational.cu", "dis_tpu/ops/variational.py:252",
+               r_err["R2"]),
+        "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
+               r_err["R3"]),
     }
+    times.update(rtimes)
+    costs.update(rcosts)
     # cost_analysis's entries against the kernels line: K3 (one pyramid) and
     # K2 at the finest scale give the same bounds; K1 counts its fixed loop
     # and no start freezes, so its bytes differ by the raw templates of the
-    # patches frozen at the start (a few hundred at 1080p).
-    kc = served_cost["kernels"]
+    # patches frozen at the start (a few hundred at 1080p).  The 1080p
+    # DIS_MEDIUM bucket's last R1 and R2 and its last red R3 are the finest
+    # level's, which the kernels line times.
+    kc, kcm = served_cost["kernels"], med_cost["kernels"]
     for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
-                          ("K1", kc["K1"][-1], 1e-3)):
+                          ("K1", kc["K1"][-1], 1e-3), ("R1", kcm["R1"][-1], 0.0),
+                          ("R2", kcm["R2"][-1], 0.0), ("R3", kcm["R3"][-2], 0.0)):
         static = bound(entry["bytes accessed"], entry["flops"])
         run_bound = bound(*costs[k])
         print(f"cost_analysis {k}: bound {static[0]:.6f} ms by {static[1]}; kernels line "
@@ -2025,12 +2203,13 @@ def main() -> int:
         check(static[1] == run_bound[1] and abs(static[0] - run_bound[0]) <= tol * run_bound[0],
               f"cost_analysis {k} bound {static} vs the kernels line {run_bound}")
     rows = []
-    for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c"):
+    for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3"):
         bound_ms, bound_by = bound(*costs[k])
         rows.append({"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                      "replaces": meta[k][2], "launches": launches[k],
                      "max_abs_err": meta[k][3], "ms": times[k][0], "plain_ms": times[k][1],
-                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": r1_library if k == "R1" else None})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2045,13 +2224,19 @@ def kernel_times(root: str) -> int:
     at the 1080p finest scale (compat bench config; K1 also ``DIS_FAST``);
     K2b and K1b on the KITTI B = 8 batch (config 3); K3 on the two 4K
     pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; the
-    replayed 1080p and 4K compat frames (``aot_compile``).  K2
+    replayed 1080p and 4K compat frames (``aot_compile``); the refinement
+    of the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames
+    and those frames, replayed and eager, and, in a tree that has them, R1,
+    R2 and R3 on that level's inputs (the parent's refinement is torch
+    ops); the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
+    nodes and bytes.  K2
     gets the grid's column length where the tree's ``extract_regions``
     takes ``num_h``, as its main path does (``k2_num_h`` says which).
     Only functions every tree of the port has are called."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs on a CUDA GPU only")
+    import importlib.util
     import inspect
 
     sys.path.insert(0, root)
@@ -2065,7 +2250,7 @@ def kernel_times(root: str) -> int:
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.grid import make_grid
     from dis_tpu_torch.ops.pyramid import construct_pyramid
-    from dis_tpu_torch.serving import aot_compile
+    from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2120,6 +2305,43 @@ def kernel_times(root: str) -> int:
         served = aot_compile(bench_cfg, *x.shape)
         out[key + "_replayed_ms"] = time_ms(lambda: served(x, y), reps=10)
         del served
+    # The refinement: torch ops in a tree without R1-R3.  Its finest level
+    # alone and the whole frame, replayed, for the 1080p DIS_MEDIUM and
+    # DIS_FULL frames; R1, R2 and R3 alone where the tree has them.
+    from dis_tpu_torch.ops.variational import variational_refinement
+
+    kernels = importlib.util.find_spec("dis_tpu_torch.ops.cuda.refine_kernel") is not None
+    out["refine_kernels"] = kernels
+    for key, cfg in (("medium", dt.DIS_MEDIUM), ("full", dt.DIS_FULL)):
+        x, y = (im.pad_divisible(t, cfg.coarsest_scale)[0] for t in (a, b))
+        levels, planes = refined_levels(x, y, cfg)
+        args = refine_inputs(cfg, levels, planes, 0)
+        out[f"refine_1080p_{key}_finest_replayed_ms"] = replay_ms(
+            lambda: variational_refinement(*args), calls=5, reps=5)
+        if kernels:
+            from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+            steps = refine_step_inputs(args, {"R1": (0,), "R2": (1,), "R3": (10,)})
+            for k, fn in (("R1", rk.refine_warp), ("R2", rk.refine_weights),
+                          ("R3", rk.refine_sor)):
+                out[f"{k}_1080p_{key}_finest_replayed_ms"] = replay_ms(
+                    lambda: fn(*steps[k][0]))
+            del steps
+        del levels, planes, args
+        served = aot_compile(cfg, H, W)
+        out[f"frame_1080p_{key}_replayed_ms"] = time_ms(lambda: served(a, b), reps=10)
+        del served
+        out[f"frame_1080p_{key}_eager_ms"] = time_ms(lambda: dt.dis_flow(a, b, cfg), reps=5,
+                                                     warmup=1)
+    # The 1080p DIS_MEDIUM artifact: its size, export and load in this process.
+    t0 = time.perf_counter()
+    data = export_flow(dt.DIS_MEDIUM, H, W)
+    out["artifact_1080p_medium_export_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, program = load_exported(data)
+    out["artifact_1080p_medium_load_s"] = time.perf_counter() - t0
+    out["artifact_1080p_medium_nodes"] = len(program.graph.nodes)
+    out["artifact_1080p_medium_bytes"] = len(data)
     print(json.dumps(out), flush=True)
     return 0
 

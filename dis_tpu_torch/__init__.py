@@ -3,11 +3,11 @@ hand-written CUDA kernels for NVIDIA Hopper (H100).
 
 The port of ``dis_tpu`` (JAX/Pallas on TPU), which stays the reference.
 ``dis_flow(img1, img2, cfg)`` runs on the device of its input tensors:
-on CUDA tensors the pyramid levels, region extraction and IC-LK search
-run as CUDA kernels (``csrc/``, built with ``nvcc`` at first use); on
-CPU tensors the same stages run as their plain PyTorch versions.  The
-variational refinement of ``DIS_MEDIUM`` and ``DIS_FULL`` is torch ops on
-either device.  It also takes a batch of same-shape pairs ``[B, H, W]``
+on CUDA tensors the pyramid levels, region extraction, IC-LK search and
+the variational refinement of ``DIS_MEDIUM`` and ``DIS_FULL`` (its warp,
+weight updates and SOR half-sweeps) run as CUDA kernels (``csrc/``, built
+with ``nvcc`` at first use); on CPU tensors the same stages run as their
+plain PyTorch versions.  It also takes a batch of same-shape pairs ``[B, H, W]``
 (``parallel``), and ``serving.aot_compile`` captures one shape bucket into
 a CUDA graph; ``serving.export_flow`` saves a bucket's program with
 ``torch.export``, the kernels as ``dis_tpu_torch`` ops.  The package never

@@ -1,7 +1,9 @@
 """The static cost of a flow program: operations and bytes, from shapes.
 
 Each kernel's work is a formula of its launch's shapes
-(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`): each
+(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, and the
+refinement's :func:`refine_warp_cost`, :func:`refine_weights_cost`,
+:func:`refine_sor_cost`): each
 input read once, each output written once, and the operations its
 arithmetic does.  ``chip_smoke.py`` reads the same formulas for the
 bounds of its ``kernels`` line, with the trips that its run's data
@@ -31,7 +33,11 @@ from .ops.cuda.pyramid_kernel import first_level_dims
 
 # The kernel each op launches, by op name.
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
-           "extract_regions_banded": "K2c", "iclk_search": "K1"}
+           "extract_regions_banded": "K2c", "iclk_search": "K1",
+           "refine_warp": "R1", "refine_weights": "R2", "refine_sor": "R3"}
+# The kernels every count names; the refinement's (R1-R3) appear only
+# where a program refines.
+CORE_KERNELS = ("K3", "K2", "K2c", "K1")
 
 F32 = 4
 
@@ -88,6 +94,34 @@ def search_cost(nb: int, n: int, ps: int, fixed: bool, normalize: bool,
     return nbytes, active_trips * trip + (nb * n - frozen0) * sample
 
 
+def refine_warp_cost(nb: int, h: int, w: int, c: int) -> Tuple[int, int]:
+    """(bytes, operations) of one R1 launch over ``nb`` planes of ``h`` x
+    ``w`` pixels and ``c`` channels: the planes and the flow read once, the
+    warped planes and the mask (a byte a pixel) written once; about 37
+    operations a pixel for the taps and weights and 7 a channel for the
+    blend."""
+    px = nb * h * w
+    return px * (2 * c * F32 + 2 * F32 + 1), px * (37 + 7 * c)
+
+
+def refine_weights_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
+    """(bytes, operations) of one R2 launch over ``nb`` planes of ``h`` x
+    ``w``: 13 planes read once and 12 written once; about 195 operations a
+    pixel (the smoothness weights of the pixel and of its four neighbours
+    take 110 of them)."""
+    px = nb * h * w
+    return px * 25 * F32, px * 195
+
+
+def refine_sor_cost(nb: int, h: int, w: int, color: int, relax: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one R3 half-sweep over ``nb`` planes of ``h``
+    x ``w``: 16 planes read once and 2 written once; 34 operations for each
+    pixel of ``color`` (0: ``x + y`` even), 40 where it over-relaxes."""
+    px = nb * h * w
+    updated = nb * ((h * w + 1) // 2 if color == 0 else h * w // 2)
+    return px * 18 * F32, updated * (40 if relax else 34)
+
+
 def op_cost(name: str, args) -> Tuple[int, int]:
     """(bytes, operations) of one call of the kernel op ``name`` with the
     op's arguments, K1 for its fixed loop (every patch, every trip)."""
@@ -105,6 +139,16 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         nb = init_u.shape[0] if init_u.ndim == 3 else 1
         n = init_u.shape[-2]
         return search_cost(nb, n, ps, fixed, normalize, nb * n * (iterations + 1))
+    if name == "refine_warp":
+        planes = args[0]
+        nb = planes.shape[0] if planes.ndim == 4 else 1
+        return refine_warp_cost(nb, *planes.shape[-3:])
+    if name in ("refine_weights", "refine_sor"):
+        plane = args[0]
+        nb = plane.shape[0] if plane.ndim == 3 else 1
+        if name == "refine_weights":
+            return refine_weights_cost(nb, *plane.shape[-2:])
+        return refine_sor_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
     raise ValueError(f"no cost formula for the op {name!r}")
 
 
@@ -125,12 +169,14 @@ def glue_bytes(func, args, kwargs, out) -> int:
 
 
 def kernel_ops(program) -> Dict[str, int]:
-    """The kernel ops in an exported program's graph, by kernel."""
-    ops = dict.fromkeys(("K3", "K2", "K2c", "K1"), 0)
+    """The kernel ops in an exported program's graph, by kernel: K3, K2,
+    K2c and K1 always, R1-R3 where the program refines."""
+    ops = dict.fromkeys(CORE_KERNELS, 0)
     for node in program.graph.nodes:
         name = getattr(node.target, "name", lambda: "")()
         if name.startswith("dis_tpu_torch::"):
-            ops[KERNELS[name.split("::")[1]]] += 1
+            k = KERNELS[name.split("::")[1]]
+            ops[k] = ops.get(k, 0) + 1
     return ops
 
 
@@ -139,7 +185,8 @@ def flow_cost(cfg: DISConfig, height: int, width: int,
     """``{"flops", "bytes accessed", "kernels", "glue"}`` of one
     ``dis_flow`` call on a [(batch,) height, width] bucket: totals, each
     kernel launch's ``{"flops", "bytes accessed"}`` in launch order by
-    kernel, and the glue's op count and totals.  The CPU plans of the
+    kernel (K3, K2, K2c and K1 always, R1-R3 where the config refines),
+    and the glue's op count and totals.  The CPU plans of the
     bucket are built (and cached) first: the trace reads them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -147,7 +194,7 @@ def flow_cost(cfg: DISConfig, height: int, width: int,
     from .models.dis import dis_flow, flow_plans
     from .ops.cuda import ops_on_cpu
 
-    kernels = {k: [] for k in ("K3", "K2", "K2c", "K1")}
+    kernels = {k: [] for k in CORE_KERNELS}
     glue = {"ops": 0, "flops": 0, "bytes accessed": 0}
 
     class Count(TorchDispatchMode):
@@ -156,7 +203,8 @@ def flow_cost(cfg: DISConfig, height: int, width: int,
             if func.namespace == "dis_tpu_torch":
                 name = func.name().split("::")[1].split(".")[0]
                 nbytes, ops = op_cost(name, args)
-                kernels[KERNELS[name]].append({"flops": ops, "bytes accessed": nbytes})
+                kernels.setdefault(KERNELS[name], []).append(
+                    {"flops": ops, "bytes accessed": nbytes})
             elif func.namespace == "aten" and not func.is_view:
                 glue["ops"] += 1
                 glue["bytes accessed"] += glue_bytes(func, args, kwargs, out)

@@ -1,0 +1,293 @@
+// R1-R3: the variational refinement's device loop, one launch per step.
+//
+// No Pallas kernel backs these: on the TPU the refinement is elementwise
+// jnp code (dis_tpu/ops/variational.py) that XLA fuses into a few loops
+// per masked half-sweep.  They replace those fusions:
+//   R1 dis_refine_warp     the bilinear warp, _warp_bilinear (:88);
+//   R2 dis_refine_weights  the lagged weight update, the head of inner
+//                          (:252-283) and the per-update coefficients;
+//   R3 dis_refine_sor      one red or black SOR half-sweep, half_sweep
+//                          (:286-307).
+// Their plain versions are refine_warp_plain, refine_weights_plain and
+// refine_sor_plain in dis_tpu_torch/ops/variational.py.  Each kernel keeps
+// the plain version's operations, one float32 rounding per operation and
+// in its order (the build passes -fmad=false, so no product is contracted
+// into a multiply-add); the IRLS weight is 0.5 * (1 / sqrt(s2 + eps2))
+// with the correctly rounded root and reciprocal (__fsqrt_rn, __frcp_rn:
+// the plain version's sqrt_f32 and Tensor.__rtruediv__), the solve divides
+// with __fdiv_rn, and every Python scalar of the plain version is a
+// float32 here.  There is no reduction, so each kernel equals its plain
+// version bitwise.
+//
+// Layout: planes [nb, h, w] float32, contiguous, nb pairs (the batch axis)
+// of h x w pixels each; a stencil clamps its neighbour's row and column to
+// the pair's own plane (the plain version's replicate border), so it never
+// crosses a pair boundary.  One thread per pixel over a 1-D grid of the
+// nb * h * w pixels: consecutive threads take consecutive columns, so every
+// plane is read and written in coalesced rows.  Outputs are new planes:
+// R1 writes its C warped planes one after another ([C, nb, h, w]), R2 its
+// twelve coefficient planes ([12, nb, h, w]), R3 the new du and dv
+// ([2, nb, h, w]), every pixel, the other colour's copied through.
+//
+// Bound on the H100: memory.  At the 1080p finest level (2,073,600 px, a
+// plane 8.29 MB) R3 reads 16 planes and writes 2 (149 MB, 44.6 us at
+// 3.35 TB/s), R2 reads 13 and writes 12 (207 MB, 62 us), R1 at C = 6
+// reads 8 planes and writes 6 and the mask (118 MB, 35 us); their
+// arithmetic is at most about 200 float32 operations a pixel (R2), under
+// 7 us at the card's 67 TFLOP/s.  The neighbour reads of a stencil (R2
+// recomputes the smoothness weight of each of the four neighbours from U
+// and V, R3 reads u0 + du at four neighbours) and R1's four taps come
+// from lines the warp's neighbours just brought into L1 and L2, so device
+// memory sees each plane about once.  Measured there (H100 80GB HBM3 at
+// 700 W, chip_smoke.py phase 1e): R1 0.046, R2 0.085, R3 0.051 ms, 73-87%
+// of those bounds, where the torch ops they replace take 0.87, 1.27 and
+// 0.33 ms replayed.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr float EPS2_DATA = 1e-2f;     // variational.py::_EPS2_DATA
+constexpr float EPS2_SMOOTH = 1e-6f;   // variational.py::_EPS2_SMOOTH
+constexpr float DET_FLOOR = 1e-12f;    // the masked_fill of det
+
+// Psi'(s^2) = 0.5 / sqrt(s^2 + eps^2) as the plain version rounds it:
+// fl(s2 + eps2), the correctly rounded root, its correctly rounded
+// reciprocal, then the exact scaling by 0.5.
+__device__ __forceinline__ float psi_deriv(float s2, float eps2) {
+  return __frcp_rn(__fsqrt_rn(s2 + eps2)) * 0.5f;
+}
+
+// A pixel's pair, row and column from its index in [0, nb * h * w).
+struct Pixel {
+  int64_t base;   // index of the pair's first pixel
+  int y, x;
+};
+
+__device__ __forceinline__ Pixel pixel_of(int64_t i, int h, int w) {
+  const int64_t hw = (int64_t)h * w;
+  const int64_t b = i / hw;
+  const int r = (int)(i - b * hw);
+  return {b * hw, r / w, r % w};
+}
+
+// ---------------------------------------------------------------------------
+// R1: planes [nb, h, w, C] (C interleaved) sampled at x + flow, flow
+// [nb, h, w, 2]; writes out [C, nb, h, w] and inb [nb, h, w] (bool).
+template <int C>
+__global__ void __launch_bounds__(THREADS)
+warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, int h, int w,
+            int64_t n, float* __restrict__ out, uint8_t* __restrict__ inb) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const Pixel p = pixel_of(i, h, w);
+  const float wm1 = (float)(w - 1), hm1 = (float)(h - 1);
+  const float fx = (float)p.x + flow[2 * i];
+  const float fy = (float)p.y + flow[2 * i + 1];
+  inb[i] = (fx >= 0.f) & (fx <= wm1) & (fy >= 0.f) & (fy <= hm1);
+  const float fxc = fminf(fmaxf(fx, 0.f), wm1);
+  const float fyc = fminf(fmaxf(fy, 0.f), hm1);
+  const float x0f = floorf(fxc), y0f = floorf(fyc);
+  const float a = fxc - x0f, b = fyc - y0f;
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const int x1 = min(x0 + 1, w - 1), y1 = min(y0 + 1, h - 1);
+  // ((1 - a) * (1 - b)) * c00 + (a * (1 - b)) * c01 + ((1 - a) * b) * c10
+  // + (a * b) * c11, the terms summed left to right.
+  const float w00 = (1.f - a) * (1.f - b), w01 = a * (1.f - b);
+  const float w10 = (1.f - a) * b, w11 = a * b;
+  const float* c00 = planes + (p.base + (int64_t)y0 * w + x0) * C;
+  const float* c01 = planes + (p.base + (int64_t)y0 * w + x1) * C;
+  const float* c10 = planes + (p.base + (int64_t)y1 * w + x0) * C;
+  const float* c11 = planes + (p.base + (int64_t)y1 * w + x1) * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    float v = w00 * c00[c] + w01 * c01[c];
+    v = v + w10 * c10[c];
+    out[c * n + i] = v + w11 * c11[c];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// R2: the inputs in the order of refine_weights_plain's arguments.
+enum WeightIn { IZ, IZX, IZY, WX, WY, WXX, WXY, WYY, M, U0, V0, DU, DV, N_WEIGHT_IN };
+// Its outputs, planes of out [12, nb, h, w] in the plain version's order.
+enum WeightOut { WE, WW, WS, WN, A11, A12, A22, B1C, B2C, DET, SU0, SV0, N_WEIGHT_OUT };
+
+struct WeightArgs {
+  const float* in[N_WEIGHT_IN];
+};
+
+// alpha * Psi'(|grad U|^2 + |grad V|^2) at (y, x) of one pair: forward
+// differences to the clamped right and lower neighbours of U = u0 + du and
+// V = v0 + dv, the squares summed as ((Ux^2 + Uy^2) + Vx^2) + Vy^2.
+__device__ __forceinline__ float smooth_weight(const WeightArgs& g, int64_t base, int y, int x,
+                                               int h, int w, float alpha) {
+  const int64_t c = base + (int64_t)y * w + x;
+  const int64_t e = base + (int64_t)y * w + min(x + 1, w - 1);
+  const int64_t s = base + (int64_t)min(y + 1, h - 1) * w + x;
+  const float* u0 = g.in[U0];
+  const float* du = g.in[DU];
+  const float* v0 = g.in[V0];
+  const float* dv = g.in[DV];
+  const float U = u0[c] + du[c], V = v0[c] + dv[c];
+  const float Ux = (u0[e] + du[e]) - U, Uy = (u0[s] + du[s]) - U;
+  const float Vx = (v0[e] + dv[e]) - V, Vy = (v0[s] + dv[s]) - V;
+  float sum = Ux * Ux + Uy * Uy;
+  sum = sum + Vx * Vx;
+  sum = sum + Vy * Vy;
+  return psi_deriv(sum, EPS2_SMOOTH) * alpha;
+}
+
+__global__ void __launch_bounds__(THREADS)
+weights_kernel(WeightArgs g, int h, int w, int64_t n, float alpha, float delta, float gamma,
+               float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const Pixel p = pixel_of(i, h, w);
+  const float Iz = g.in[IZ][i], Izx = g.in[IZX][i], Izy = g.in[IZY][i];
+  const float Wx = g.in[WX][i], Wy = g.in[WY][i];
+  const float Wxx = g.in[WXX][i], Wxy = g.in[WXY][i], Wyy = g.in[WYY][i];
+  const float m = g.in[M][i], u0 = g.in[U0][i], v0 = g.in[V0][i];
+  const float du = g.in[DU][i], dv = g.in[DV][i];
+
+  // Lagged robust weights of the data and gradient terms.
+  float r_d = Iz + Wx * du;
+  r_d = r_d + Wy * dv;
+  const float wd = (psi_deriv(r_d * r_d, EPS2_DATA) * delta) * m;
+  float r_gx = Izx + Wxx * du;
+  r_gx = r_gx + Wxy * dv;
+  float r_gy = Izy + Wxy * du;
+  r_gy = r_gy + Wyy * dv;
+  const float wg = (psi_deriv(r_gx * r_gx + r_gy * r_gy, EPS2_DATA) * gamma) * m;
+
+  // Edge weights: the mean of the endpoints' smoothness weights, each
+  // neighbour's recomputed from U and V with the same operations.
+  const float ws = smooth_weight(g, p.base, p.y, p.x, h, w, alpha);
+  const float wsE = smooth_weight(g, p.base, p.y, min(p.x + 1, w - 1), h, w, alpha);
+  const float wsW = smooth_weight(g, p.base, p.y, max(p.x - 1, 0), h, w, alpha);
+  const float wsS = smooth_weight(g, p.base, min(p.y + 1, h - 1), p.x, h, w, alpha);
+  const float wsN = smooth_weight(g, p.base, max(p.y - 1, 0), p.x, h, w, alpha);
+  const float wE = (ws + wsE) * 0.5f, wW = (ws + wsW) * 0.5f;
+  const float wS = (ws + wsS) * 0.5f, wN = (ws + wsN) * 0.5f;
+  float S = wE + wW;
+  S = S + wS;
+  S = S + wN;
+
+  float A11 = (wd * Wx) * Wx + wg * (Wxx * Wxx + Wxy * Wxy);
+  A11 = A11 + S;
+  const float A12 = (wd * Wx) * Wy + wg * (Wxy * (Wxx + Wyy));
+  float A22 = (wd * Wy) * Wy + wg * (Wxy * Wxy + Wyy * Wyy);
+  A22 = A22 + S;
+  const float b1c = -((wd * Wx) * Iz + wg * (Wxx * Izx + Wxy * Izy));
+  const float b2c = -((wd * Wy) * Iz + wg * (Wxy * Izx + Wyy * Izy));
+  float det = A11 * A22 - A12 * A12;
+  det = fabsf(det) < DET_FLOOR ? DET_FLOOR : det;
+
+  const float vals[N_WEIGHT_OUT] = {wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
+                                    S * u0, S * v0};
+#pragma unroll
+  for (int k = 0; k < N_WEIGHT_OUT; ++k) out[k * n + i] = vals[k];
+}
+
+// ---------------------------------------------------------------------------
+// R3: the inputs in the order of refine_sor_plain's arguments.
+enum SorIn {
+  S_U0, S_V0, S_DU, S_DV, S_WE, S_WW, S_WS, S_WN, S_A11, S_A12, S_A22, S_B1C, S_B2C, S_DET,
+  S_SU0, S_SV0, N_SOR_IN
+};
+
+struct SorArgs {
+  const float* in[N_SOR_IN];
+};
+
+__global__ void __launch_bounds__(THREADS)
+sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax,
+           float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (i >= n) return;
+  const Pixel p = pixel_of(i, h, w);
+  const float* u0 = g.in[S_U0];
+  const float* v0 = g.in[S_V0];
+  const float* du = g.in[S_DU];
+  const float* dv = g.in[S_DV];
+  const float du_c = du[i], dv_c = dv[i];
+  if (((p.x + p.y) & 1) != color) {   // the other colour passes through
+    out[i] = du_c;
+    out[n + i] = dv_c;
+    return;
+  }
+  const int64_t row = p.base + (int64_t)p.y * w;
+  const int64_t e = row + min(p.x + 1, w - 1);
+  const int64_t ww = row + max(p.x - 1, 0);
+  const int64_t s = p.base + (int64_t)min(p.y + 1, h - 1) * w + p.x;
+  const int64_t nn = p.base + (int64_t)max(p.y - 1, 0) * w + p.x;
+  const float wE = g.in[S_WE][i], wW = g.in[S_WW][i];
+  const float wS = g.in[S_WS][i], wN = g.in[S_WN][i];
+  // wE U(E) + wW U(W) + wS U(S) + wN U(N), U = u0 + du, left to right.
+  float nU = wE * (u0[e] + du[e]) + wW * (u0[ww] + du[ww]);
+  nU = nU + wS * (u0[s] + du[s]);
+  nU = nU + wN * (u0[nn] + du[nn]);
+  float nV = wE * (v0[e] + dv[e]) + wW * (v0[ww] + dv[ww]);
+  nV = nV + wS * (v0[s] + dv[s]);
+  nV = nV + wN * (v0[nn] + dv[nn]);
+  const float b1 = (g.in[S_B1C][i] + nU) - g.in[S_SU0][i];
+  const float b2 = (g.in[S_B2C][i] + nV) - g.in[S_SV0][i];
+  const float A11 = g.in[S_A11][i], A12 = g.in[S_A12][i], A22 = g.in[S_A22][i];
+  const float det = g.in[S_DET][i];
+  float du_new = __fdiv_rn(A22 * b1 - A12 * b2, det);
+  float dv_new = __fdiv_rn(A11 * b2 - A12 * b1, det);
+  if (relax) {   // omega != 1: over-relax; omega == 1 keeps the direct assignment
+    du_new = du_c + (du_new - du_c) * omega;
+    dv_new = dv_c + (dv_new - dv_c) * omega;
+  }
+  out[i] = du_new;
+  out[n + i] = dv_new;
+}
+
+int blocks_for(int64_t n) { return (int)((n + THREADS - 1) / THREADS); }
+
+bool shape_ok(int nb, int h, int w) {
+  return nb >= 1 && h >= 1 && w >= 1 && (int64_t)nb * h * w <= ((int64_t)1 << 31) - THREADS;
+}
+
+}  // namespace
+
+extern "C" int dis_refine_warp(const float* planes, const float* flow, int nb, int h, int w,
+                               int c, float* out, uint8_t* inb, cudaStream_t stream) {
+  if (!shape_ok(nb, h, w)) return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)nb * h * w;
+  switch (c) {
+    case 1:
+      warp_kernel<1><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out, inb);
+      break;
+    case 6:
+      warp_kernel<6><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out, inb);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dis_refine_weights(const float* const* ins, int nb, int h, int w, float alpha,
+                                  float delta, float gamma, float* out, cudaStream_t stream) {
+  if (!shape_ok(nb, h, w)) return (int)cudaErrorInvalidValue;
+  WeightArgs g;
+  for (int k = 0; k < N_WEIGHT_IN; ++k) g.in[k] = ins[k];
+  const int64_t n = (int64_t)nb * h * w;
+  weights_kernel<<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, alpha, delta, gamma, out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int dis_refine_sor(const float* const* ins, int nb, int h, int w, int color,
+                              float omega, int relax, float* out, cudaStream_t stream) {
+  if (!shape_ok(nb, h, w) || (color != 0 && color != 1)) return (int)cudaErrorInvalidValue;
+  SorArgs g;
+  for (int k = 0; k < N_SOR_IN; ++k) g.in[k] = ins[k];
+  const int64_t n = (int64_t)nb * h * w;
+  sor_kernel<<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax, out);
+  return (int)cudaGetLastError();
+}

@@ -17,9 +17,10 @@ device, so a frame makes no host-to-device copy and no host sync, and can
 be captured in a CUDA graph (``serving.py``).
 
 Configs with ``refinement_iters > 0`` (``DIS_MEDIUM``, ``DIS_FULL``)
-refine the densified flow variationally (``ops/variational.py``, torch
-ops: no TPU kernel backs it), after every scale (``refine_per_level``)
-or once at the finest scale, on the Q1 levels or the intensity chain
+refine the densified flow variationally (``ops/variational.py``: on CUDA
+tensors the kernels R1-R3, a launch per warp, weight update and
+half-sweep), after every scale (``refine_per_level``) or once at the
+finest scale, on the Q1 levels or the intensity chain
 (``refinement_planes``).  Without ``refined_init_clamp`` a per-level
 refinement leaves the next scale's init without a static bound, and the
 route takes K2 there.
@@ -210,24 +211,26 @@ def build_refinement_planes(img1_padded: torch.Tensor, img2_padded: torch.Tensor
 
 
 def refine(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
-           planes=None) -> torch.Tensor:
+           planes=None, plain: bool = False) -> torch.Tensor:
     """The variational refinement of ``flow`` at ``scale``: on the Q1
     level planes ``l1.img`` and ``l2.img``, or, where ``planes`` (from
     :func:`build_refinement_planes`) is given, on the intensity planes of
-    that scale (the levels are then not read and may be None)."""
+    that scale (the levels are then not read and may be None).
+    ``plain=True`` runs the plain versions of R1-R3 on any device."""
     if planes is None:
-        return variational_refinement(l1.img, l2.img, flow, cfg)
-    return variational_refinement(planes[0][scale], planes[1][scale], flow, cfg, pad=0)
+        return variational_refinement(l1.img, l2.img, flow, cfg, plain=plain)
+    return variational_refinement(planes[0][scale], planes[1][scale], flow, cfg, pad=0,
+                                  plain=plain)
 
 
 def refine_level(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
-                 planes=None) -> torch.Tensor:
+                 planes=None, plain: bool = False) -> torch.Tensor:
     """Per-level variational refinement at ``scale`` (DIS paper sec.
     3.3), shared by the untiled and grid-tiled engines.  With
     ``cfg.refined_init_clamp`` the refined field is clipped to the
     policing-chain bound ``motion_bound(cfg, scale)``, which restores the
     static init bound that K2c's route needs."""
-    flow = refine(l1, l2, flow, cfg, scale, planes)
+    flow = refine(l1, l2, flow, cfg, scale, planes, plain)
     if cfg.refined_init_clamp:
         b = motion_bound(cfg, scale)
         flow = flow.clamp(-b, b)
@@ -245,8 +248,8 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
     list of (scale, centers [N, 2] NumPy, u [(B,) N, 2], level image
     [(B,) h_s, w_s]) for the C12 grid overlay (optical_flow.cpp:92-123),
     coarsest scale first.
-    ``plain=True`` runs the kernels' plain PyTorch versions on any device;
-    it exists to check the kernels on the card.
+    ``plain=True`` runs the kernels' plain PyTorch versions on any device,
+    the refinement's too; it exists to check the kernels on the card.
     Under ``utils.checks.checked`` with ``DIS_TPU_CHECK=1``, the flow
     must be finite (and each scale's search passes its guards).
     """
@@ -271,7 +274,7 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
             if refine_each:
                 # The refined field seeds the next finer scale's init.
                 with record_function(f"refine_s{scale}"):
-                    flow = refine_level(l1, l2, flow, cfg, scale, planes)
+                    flow = refine_level(l1, l2, flow, cfg, scale, planes, plain)
             if return_debug:
                 p = cfg.img_padding
                 debug.append((scale, geom.centers, res.u,
@@ -279,7 +282,7 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
     if refine_at_end:
         with record_function("variational_refinement"):
             s = cfg.finest_scale
-            flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes)
+            flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes, plain)
     if checks.active():
         checks.check(torch.isfinite(flow).all(), "pipeline produced non-finite flow")
     if return_debug:

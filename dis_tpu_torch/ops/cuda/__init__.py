@@ -94,5 +94,6 @@ def register(name: str, cuda_fn, fake_fn, cpu_fn, mutates_args=()):
 
 
 # The ops are registered when their modules are imported; importing this
-# package registers all four (a loaded artifact needs them).
-from . import extract_banded_kernel, extract_kernel, iclk_kernel, pyramid_kernel  # noqa: E402,F401
+# package registers all seven (a loaded artifact needs them).
+from . import (extract_banded_kernel, extract_kernel, iclk_kernel,  # noqa: E402,F401
+               pyramid_kernel, refine_kernel)

@@ -12,18 +12,25 @@ with Psi(s^2) = sqrt(s^2 + eps^2): ``refinement_iters`` outer warps, per
 warp ``refinement_inner_sweeps`` lagged robust-weight updates, per update
 ``refinement_sor_sweeps`` red-black block-SOR sweeps with factor
 ``refinement_omega``, each a pair of masked half-sweeps over the whole
-plane.  No TPU kernel backs it: it is elementwise torch ops in plain
-Python loops, on the device of its inputs.
+plane.  No TPU kernel backs it: the JAX package writes it as elementwise
+code that XLA fuses.  Here :func:`variational_refinement` is a Python
+loop over three steps, each one kernel on CUDA tensors
+(``ops/cuda/refine_kernel.py``, ``csrc/variational.cu``): R1 the warp
+(:func:`refine_warp_plain`), R2 one weight update
+(:func:`refine_weights_plain`) and R3 one half-sweep
+(:func:`refine_sor_plain`).  The three plain functions are the kernels'
+plain versions: torch ops, which CPU tensors (and ``plain=True``) run.
 
 Every expression keeps the JAX package's order of operations, and each
 step is its own op, so no multiply-add is contracted.  Where the JAX
 package takes ``rsqrt`` (not correctly rounded in XLA's CPU build), the
 IRLS weight here is ``0.5 / sqrt_f32(s2 + eps2)``, correctly rounded on
 every device.  The refinement has no reduction, so a call gives the same
-bits on the CPU and on the card, a pair of a batch the bits it gets
-alone, and a tiled flow the bits of the untiled one; it agrees with the
-JAX package to about 1e-5 px.  It reads no device value on the host and
-copies nothing from it, so a CUDA graph can capture it.
+bits on the CPU and on the card, through the kernels or not, a pair of a
+batch the bits it gets alone, and a tiled flow the bits of the untiled
+one; it agrees with the JAX package to about 1e-5 px.  It reads no device
+value on the host and copies nothing from it, so a CUDA graph can capture
+it.
 """
 
 from __future__ import annotations
@@ -48,12 +55,12 @@ def _coords(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
             torch.arange(w, device=device)[None, :])
 
 
-def _warp_bilinear(planes: torch.Tensor, flow: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def refine_warp_plain(planes: torch.Tensor, flow: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample stacked ``planes`` [(B,) H, W, C] at ``x + flow`` (flow
     [(B,) H, W, 2], edge clamp) with one shared set of four taps (the
     JAX package's ``take4`` route).  Returns (warped [(B,) H, W, C],
-    in_bounds [(B,) H, W] bool)."""
+    in_bounds [(B,) H, W] bool).  The plain version of kernel R1."""
     h, w, c = planes.shape[-3:]
     lead = planes.shape[:-3]
     ys, xs = (t.to(torch.float32) for t in _coords(h, w, planes.device))
@@ -109,18 +116,91 @@ def _neighbour_sum(x: torch.Tensor, wE, wW, wS, wN) -> torch.Tensor:
             + wS * _shift_edge(xp, 1, 0) + wN * _shift_edge(xp, -1, 0))
 
 
+def refine_weights_plain(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
+                         alpha: float, delta: float, gamma: float):
+    """One lagged weight update from the increments ``du``, ``dv`` (every
+    plane [(B,) h, w]): the robust data and gradient weights, the
+    smoothness diffusivity and its four edge weights, and the 2x2 system
+    of each pixel, fixed over the SOR sweeps that follow.  Returns (wE,
+    wW, wS, wN, A11, A12, A22, b1c, b2c, det, Su0, Sv0).  The plain
+    version of kernel R2."""
+    r_d = Iz + Wx * du + Wy * dv
+    wd = delta * _psi_deriv(r_d * r_d, _EPS2_DATA) * m
+    r_gx = Izx + Wxx * du + Wxy * dv
+    r_gy = Izy + Wxy * du + Wyy * dv
+    wg = gamma * _psi_deriv(r_gx * r_gx + r_gy * r_gy, _EPS2_DATA) * m
+
+    U = u0 + du
+    V = v0 + dv
+    Up, Vp = _edge_pad(U), _edge_pad(V)
+    Ux = _shift_edge(Up, 0, 1) - U
+    Uy = _shift_edge(Up, 1, 0) - U
+    Vx = _shift_edge(Vp, 0, 1) - V
+    Vy = _shift_edge(Vp, 1, 0) - V
+    ws_c = alpha * _psi_deriv(Ux * Ux + Uy * Uy + Vx * Vx + Vy * Vy, _EPS2_SMOOTH)
+
+    # Edge weights: average of the endpoint diffusivities.
+    wsp = _edge_pad(ws_c)
+    wE = 0.5 * (ws_c + _shift_edge(wsp, 0, 1))
+    wW = 0.5 * (ws_c + _shift_edge(wsp, 0, -1))
+    wS = 0.5 * (ws_c + _shift_edge(wsp, 1, 0))
+    wN = 0.5 * (ws_c + _shift_edge(wsp, -1, 0))
+    S = wE + wW + wS + wN
+
+    A11 = wd * Wx * Wx + wg * (Wxx * Wxx + Wxy * Wxy) + S
+    A12 = wd * Wx * Wy + wg * (Wxy * (Wxx + Wyy))
+    A22 = wd * Wy * Wy + wg * (Wxy * Wxy + Wyy * Wyy) + S
+    b1c = -(wd * Wx * Iz + wg * (Wxx * Izx + Wxy * Izy))
+    b2c = -(wd * Wy * Iz + wg * (Wxy * Izx + Wyy * Izy))
+    # Fixed over the sweeps of this weight update (the JAX package writes
+    # them inside each half-sweep; the values are the same).
+    det = A11 * A22 - A12 * A12
+    det = det.masked_fill(det.abs() < 1e-12, 1e-12)
+    return wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det, S * u0, S * v0
+
+
+def refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
+                     Su0, Sv0, color: int, omega: float):
+    """One masked half-sweep of red-black block SOR over the pixels of
+    ``color`` (0: red, ``(x + y) % 2 == 0``; 1: black): the exact 2x2
+    point solve of each, over-relaxed by ``omega`` (``omega == 1`` is
+    plain Gauss-Seidel, kept as the direct assignment).  Returns the new
+    (du, dv); the other colour's pixels pass through.  The plain version
+    of kernel R3."""
+    ys, xs = _coords(*du.shape[-2:], du.device)
+    mask = (xs + ys) % 2 == color
+    nU = _neighbour_sum(u0 + du, wE, wW, wS, wN)
+    nV = _neighbour_sum(v0 + dv, wE, wW, wS, wN)
+    b1 = b1c + nU - Su0
+    b2 = b2c + nV - Sv0
+    du_new = (A22 * b1 - A12 * b2) / det
+    dv_new = (A11 * b2 - A12 * b1) / det
+    if omega != 1.0:
+        du_new = du + omega * (du_new - du)
+        dv_new = dv + omega * (dv_new - dv)
+    return torch.where(mask, du_new, du), torch.where(mask, dv_new, dv)
+
+
 def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
                            flow: torch.Tensor, cfg: DISConfig,
-                           pad: Optional[int] = None) -> torch.Tensor:
+                           pad: Optional[int] = None, plain: bool = False) -> torch.Tensor:
     """Refine ``flow`` [(B,) h, w, 2] given the level image planes
     [(B,) h + 2 pad, w + 2 pad].
 
     ``pad`` is the border width to slice off the planes (default
     ``cfg.img_padding``, matching the Q1 pyramid levels; 0 for the
     exact-size intensity planes of ``refinement_planes="intensity"``).
-    A leading pair axis runs through every step.  Returns the refined
-    flow, of the shape of ``flow``.
+    A leading pair axis runs through every step.  Each outer iteration
+    launches R1 once, each weight update R2 once and each half-sweep R3
+    once on CUDA tensors; ``plain=True`` runs their plain versions on any
+    device.  Returns the refined flow, of the shape of ``flow``.
     """
+    if plain:
+        warp, weights, sor = refine_warp_plain, refine_weights_plain, refine_sor_plain
+    else:
+        from .cuda.refine_kernel import refine_sor as sor
+        from .cuda.refine_kernel import refine_warp as warp
+        from .cuda.refine_kernel import refine_weights as weights
     h, w = flow.shape[-3:-1]
     p = cfg.img_padding if pad is None else pad
     I1 = img1_padded[..., p:p + h, p:p + w]
@@ -132,7 +212,7 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     if warp1:
         # Only I2 itself is warped; gradients come from Sobel of the
         # warped image (see below).
-        planes = I2[..., None]
+        planes = I2.contiguous()[..., None]
     else:
         I2x = im.sobel3(I2, "x")
         I2y = im.sobel3(I2, "y")
@@ -145,14 +225,12 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     delta = cfg.refinement_delta
     gamma = cfg.refinement_gamma
     omega = cfg.refinement_omega
-    ys, xs = _coords(h, w, flow.device)
-    red = (xs + ys) % 2 == 0
-    black = ~red
 
     for _ in range(cfg.refinement_iters):
-        u0 = flow[..., 0]
-        v0 = flow[..., 1]
-        warped, inb = _warp_bilinear(planes, flow)
+        flow = flow.contiguous()
+        # The kernels take whole planes: u0 and v0 as planes of their own.
+        u0, v0 = (c.contiguous() for c in flow.unbind(-1))
+        warped, inb = warp(planes, flow)
         if warp1:
             # Warp only I2, then differentiate the WARPED image and
             # average with I1's gradients (the gradient-averaging
@@ -178,58 +256,10 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
         du = torch.zeros_like(u0)
         dv = torch.zeros_like(v0)
         for _ in range(cfg.refinement_inner_sweeps):
-            # Lagged robust weights.
-            r_d = Iz + Wx * du + Wy * dv
-            wd = delta * _psi_deriv(r_d * r_d, _EPS2_DATA) * m
-            r_gx = Izx + Wxx * du + Wxy * dv
-            r_gy = Izy + Wxy * du + Wyy * dv
-            wg = gamma * _psi_deriv(r_gx * r_gx + r_gy * r_gy, _EPS2_DATA) * m
-
-            U = u0 + du
-            V = v0 + dv
-            Up, Vp = _edge_pad(U), _edge_pad(V)
-            Ux = _shift_edge(Up, 0, 1) - U
-            Uy = _shift_edge(Up, 1, 0) - U
-            Vx = _shift_edge(Vp, 0, 1) - V
-            Vy = _shift_edge(Vp, 1, 0) - V
-            ws_c = alpha * _psi_deriv(Ux * Ux + Uy * Uy + Vx * Vx + Vy * Vy,
-                                      _EPS2_SMOOTH)
-
-            # Edge weights: average of the endpoint diffusivities.
-            wsp = _edge_pad(ws_c)
-            wE = 0.5 * (ws_c + _shift_edge(wsp, 0, 1))
-            wW = 0.5 * (ws_c + _shift_edge(wsp, 0, -1))
-            wS = 0.5 * (ws_c + _shift_edge(wsp, 1, 0))
-            wN = 0.5 * (ws_c + _shift_edge(wsp, -1, 0))
-            S = wE + wW + wS + wN
-
-            A11 = wd * Wx * Wx + wg * (Wxx * Wxx + Wxy * Wxy) + S
-            A12 = wd * Wx * Wy + wg * (Wxy * (Wxx + Wyy))
-            A22 = wd * Wy * Wy + wg * (Wxy * Wxy + Wyy * Wyy) + S
-            b1c = -(wd * Wx * Iz + wg * (Wxx * Izx + Wxy * Izy))
-            b2c = -(wd * Wy * Iz + wg * (Wxy * Izx + Wyy * Izy))
-            # Fixed over the sweeps of this weight update (the JAX package
-            # writes them inside each half-sweep; the values are the same).
-            det = A11 * A22 - A12 * A12
-            det = det.masked_fill(det.abs() < 1e-12, 1e-12)
-            Su0 = S * u0
-            Sv0 = S * v0
-
+            coef = weights(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
+                           alpha, delta, gamma)
             for _ in range(cfg.refinement_sor_sweeps):
-                for mask in (red, black):
-                    nU = _neighbour_sum(u0 + du, wE, wW, wS, wN)
-                    nV = _neighbour_sum(v0 + dv, wE, wW, wS, wN)
-                    b1 = b1c + nU - Su0
-                    b2 = b2c + nV - Sv0
-                    du_new = (A22 * b1 - A12 * b2) / det
-                    dv_new = (A11 * b2 - A12 * b1) / det
-                    # Block SOR: over-relax the exact 2x2 point solve
-                    # (omega = 1 is plain red-black Gauss-Seidel, kept as
-                    # the direct assignment).
-                    if omega != 1.0:
-                        du_new = du + omega * (du_new - du)
-                        dv_new = dv + omega * (dv_new - dv)
-                    du = torch.where(mask, du_new, du)
-                    dv = torch.where(mask, dv_new, dv)
+                for color in (0, 1):   # red, then black
+                    du, dv = sor(u0, v0, du, dv, *coef, color, omega)
         flow = torch.stack([u0 + du, v0 + dv], dim=-1)
     return flow

@@ -90,10 +90,10 @@ def _refine_full(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor,
     s = cfg.finest_scale
     planes = build_refinement_planes(img1, img2, cfg)
     if planes is not None:
-        return refine(None, None, flow, cfg, s, planes)
+        return refine(None, None, flow, cfg, s, planes, plain)
     pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
     pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
-    return refine(pyr1[s], pyr2[s], flow, cfg, s)
+    return refine(pyr1[s], pyr2[s], flow, cfg, s, plain=plain)
 
 
 def grid_tiled_flow(img1: torch.Tensor, img2: torch.Tensor, cfg: DISConfig,
@@ -119,10 +119,10 @@ def grid_tiled_flow(img1: torch.Tensor, img2: torch.Tensor, cfg: DISConfig,
                  for lo, hi in window_partition(h >> scale, n_parts)]
         flow = torch.cat(parts, dim=-3)
         if cfg.refinement_iters > 0 and cfg.refine_per_level:
-            flow = refine_level(l1, l2, flow, cfg, scale, planes)
+            flow = refine_level(l1, l2, flow, cfg, scale, planes, plain)
     if cfg.refinement_iters > 0 and not cfg.refine_per_level:
         s = cfg.finest_scale
-        flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes)
+        flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes, plain)
     return flow
 
 

@@ -18,9 +18,10 @@ the card.
 ``torch.export`` archive (:func:`save_exported` writes it to a file), and
 :func:`load_exported` loads it as a :class:`CompiledFlow`, with no
 tracing of the pipeline's Python.  Shapes are static: one program per
-bucket, as on the TPU.  On a CUDA device the program holds the four
-kernels as ops of the ``dis_tpu_torch`` namespace (``ops/cuda``), so the
-loading process imports the package for their registrations only; on
+bucket, as on the TPU.  On a CUDA device the program holds the kernels
+as ops of the ``dis_tpu_torch`` namespace (``ops/cuda``; R1-R3 where the
+config refines), so the loading process imports the package for their
+registrations only; on
 the CPU it holds the plain versions as ATen ops and loads without the
 package.  The bucket's plans are the program's constants.  The archive
 keeps beside the program the config, the bucket, the device and, for a
@@ -50,12 +51,13 @@ import torch
 
 from . import _build
 from .config import PRESETS, DISConfig
-from .cost import flow_cost
+from .cost import CORE_KERNELS, flow_cost
 from .models.dis import dis_flow, flow_plans
 from .ops.cuda.extract_banded_kernel import extract_regions_banded
 from .ops.cuda.extract_kernel import extract_regions
 from .ops.cuda.iclk_kernel import iclk_search
 from .ops.cuda.pyramid_kernel import pyramid_levels
+from .ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
 from .ops.grid import ScalePlan, plan_cache_bytes
 from .utils import checks
 
@@ -148,7 +150,9 @@ class CompiledFlow:
                 static_out = self._run(*static_in)
             after = _launch_counts()
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
-        self.graph_launches = {k: after[k] - before[k] for k in after}
+        # K3, K2, K2c and K1 always; R1-R3 where the program refines.
+        self.graph_launches = {k: after[k] - before[k] for k in after
+                               if k in CORE_KERNELS or after[k] != before[k]}
 
     def cost_analysis(self) -> Dict:
         """``{"flops", "bytes accessed", "kernels", "glue"}`` of one call,
@@ -215,7 +219,9 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
 
 def _launch_counts() -> Dict[str, int]:
     return {"K3": pyramid_levels.launches, "K2": extract_regions.launches,
-            "K2c": extract_regions_banded.launches, "K1": iclk_search.launches}
+            "K2c": extract_regions_banded.launches, "K1": iclk_search.launches,
+            "R1": refine_warp.launches, "R2": refine_weights.launches,
+            "R3": refine_sor.launches}
 
 
 class _Flow(torch.nn.Module):

@@ -45,9 +45,10 @@ def op_route():
     """Within this context each wrapper calls its registered op, eagerly
     too, not the op's CUDA function."""
     from dis_tpu_torch.ops.cuda import (extract_banded_kernel as bk, extract_kernel as ek,
-                                        iclk_kernel as ik, pyramid_kernel as pk)
+                                        iclk_kernel as ik, pyramid_kernel as pk,
+                                        refine_kernel as rk)
 
-    modules = (pk, ek, bk, ik)
+    modules = (pk, ek, bk, ik, rk)
     saved = [m.dispatch for m in modules]
     for m in modules:
         m.dispatch = lambda op, cuda_fn, device, *args: op(*args)

@@ -16,8 +16,11 @@ no FMA; K2 and K2c also with windows outside their group's staged box,
 groups straddling columns and ragged last groups), K1 also on warps
 whose patches freeze at different trips;
 ``dis_flow`` through the kernels within 1e-3 px mean of the plain path,
-with the refinement presets too; the refinement (torch ops) on the card
-bitwise equal to the same call on the CPU.
+with the refinement presets too; the refinement's kernels R1 (warp), R2
+(weight update) and R3 (half-sweep) bitwise equal to their plain
+versions at 1, 2 and odd rows and columns, B = 8 and the 1080p finest
+level; the refinement through them on the card bitwise equal to the same
+call on the CPU, and ``plain=True`` launching none of them.
 """
 
 import numpy as np
@@ -30,6 +33,7 @@ from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
 from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, lane_layout
 from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS, pyramid_level, pyramid_levels
+from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
 from dis_tpu_torch.ops.grid import make_grid
 from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
 
@@ -516,9 +520,10 @@ def test_search_mixed_trips_bitwise(ps, mode):
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
 @pytest.mark.parametrize("batch", [None, 2])
 def test_refinement_card_equals_cpu(scheme, batch):
-    """The refinement (torch ops, no kernel of its own) on the card equals
-    the same call on the CPU bitwise: no reduction, correctly rounded
-    roots and divisions, no contracted multiply-add."""
+    """The refinement on the card, through R1-R3 (one warp, 5 weight
+    updates, 50 half-sweeps), equals the same call on the CPU (their
+    plain versions) bitwise: no reduction, correctly rounded roots and
+    divisions, no contracted multiply-add."""
     from dis_tpu_torch.ops.variational import variational_refinement
 
     b = batch or 1
@@ -530,7 +535,10 @@ def test_refinement_card_equals_cpu(scheme, batch):
     cfg = dis_tpu_torch.DISConfig(mode="fixed", refinement_iters=1, refinement_inner_sweeps=5,
                                   refinement_sor_sweeps=5, refinement_omega=1.6,
                                   refinement_alpha=40.0, refinement_scheme=scheme)
+    for w in REFINE_WRAPPERS:
+        w.launches = 0
     card = variational_refinement(x, y, flow, cfg, pad=0)
+    assert [w.launches for w in REFINE_WRAPPERS] == [1, 5, 50]
     cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=0)
     torch.cuda.synchronize()
     assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
@@ -541,12 +549,19 @@ def test_refined_dis_flow_kernels_vs_plain(preset):
     a, b = _smooth(96, 160, 5)
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = getattr(dis_tpu_torch, preset)
-    wrappers = (pyramid_levels, extract_regions, iclk_search)
+    wrappers = (pyramid_levels, extract_regions, iclk_search) + REFINE_WRAPPERS
     for w in wrappers:
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
     assert all(w.launches > 0 for w in wrappers)
+    levels = cfg.coarsest_scale - cfg.finest_scale + 1
+    updates = levels * cfg.refinement_inner_sweeps
+    assert [w.launches for w in REFINE_WRAPPERS] == [levels, updates,
+                                                     updates * cfg.refinement_sor_sweeps * 2]
+    for w in wrappers:
+        w.launches = 0
     plain = dis_tpu_torch.dis_flow(x, y, cfg, plain=True)
+    assert [w.launches for w in wrappers] == [0] * len(wrappers)
     d = torch.linalg.vector_norm(flow - plain, dim=-1)
     assert flow.device.type == "cuda" and bool(torch.isfinite(flow).all())
     assert float(d.mean()) <= 1e-3 and float((d > 1e-2).float().mean()) <= 0.01
@@ -563,6 +578,8 @@ def test_refined_graph_batch_and_tiles():
     x, y = _batch(2, 96, 128, 111)
     eager = dis_tpu_torch.dis_flow(x, y, cfg)
     compiled = aot_compile(cfg, 96, 128, batch=2)
+    assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R1": 4,
+                                       "R2": 20, "R3": 200}
     for _ in range(2):
         assert torch.equal(compiled(x, y), eager)
     for i in range(2):
@@ -571,6 +588,66 @@ def test_refined_graph_batch_and_tiles():
     untiled = dis_tpu_torch.dis_flow_padded(a, b, cfg)
     assert torch.equal(grid_tiled_flow(a, b, cfg, 3), untiled)
     assert torch.equal(tiled_flow_exact(a, b, cfg, 2, min_stripe_halo(cfg, 128, 96, 2)), untiled)
+
+
+REFINE_WRAPPERS = (refine_warp, refine_weights, refine_sor)
+
+
+def _refine_step_inputs(batch, h, w, seed):
+    """CUDA inputs of R1-R3 on [(B,) h, w]: six smooth-ish planes and a
+    flow up to 4.5 px for the warp, then the weight update's planes
+    (0..255 differences, a 0/1 mask, increments of a few hundredths of a
+    px) and, for the sweep, the coefficients the plain R2 makes of them."""
+    from dis_tpu_torch.ops.variational import refine_weights_plain
+
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).cuda()
+
+    planes = t(rng.random(lead + (h, w, 6)) * 255)
+    flow = t((rng.random(lead + (h, w, 2)) - 0.5) * 9)
+    ins = [t(rng.standard_normal(lead + (h, w)) * (20.0 if k < 3 else 10.0)) for k in range(8)]
+    m = t(rng.random(lead + (h, w)) < 0.8)
+    u0, v0 = (t(rng.standard_normal(lead + (h, w)) * 2) for _ in range(2))
+    du, dv = (t(rng.standard_normal(lead + (h, w)) * 0.05) for _ in range(2))
+    weights = (*ins, m, u0, v0, du, dv, 40.0, 5.0, 10.0)
+    return planes, flow, weights, (u0, v0, du, dv, *refine_weights_plain(*weights))
+
+
+def _check_refine_kernels(batch, h, w, seed):
+    """R1 (6 and 1 channels), R2 and R3 (both colours, omega 1.6 and
+    1.0) against their plain versions on the same CUDA inputs, bitwise;
+    each a launch of its own."""
+    from dis_tpu_torch.ops.variational import (refine_sor_plain, refine_warp_plain,
+                                               refine_weights_plain)
+
+    planes, flow, weights, sor = _refine_step_inputs(batch, h, w, seed)
+    for w_ in REFINE_WRAPPERS:
+        w_.launches = 0
+    for p in (planes, planes[..., :1].contiguous()):
+        got, want = refine_warp(p, flow), refine_warp_plain(p, flow)
+        assert all(torch.equal(g, v) for g, v in zip(got, want))
+        assert not bool(want[1].all())            # some taps fell outside
+    got, want = refine_weights(*weights), refine_weights_plain(*weights)
+    assert all(torch.equal(g, v) for g, v in zip(got, want))
+    for color in (0, 1):
+        for omega in (1.6, 1.0):
+            got, want = refine_sor(*sor, color, omega), refine_sor_plain(*sor, color, omega)
+            assert all(torch.equal(g, v) for g, v in zip(got, want)), (color, omega)
+    torch.cuda.synchronize()
+    assert [w_.launches for w_ in REFINE_WRAPPERS] == [2, 1, 4]
+
+
+@pytest.mark.parametrize("shape", [(1, 9), (2, 2), (7, 1), (9, 13), (37, 53)])
+@pytest.mark.parametrize("batch", [None, 8])
+def test_refine_kernels_bitwise(shape, batch):
+    _check_refine_kernels(batch, *shape, seed=sum(shape))
+
+
+def test_refine_kernels_bitwise_1080p():
+    _check_refine_kernels(None, 1080, 1920, seed=7)
 
 
 def _write_sequence(root, n, h, w, seed):

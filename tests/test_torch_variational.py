@@ -4,7 +4,7 @@
 ``dis_tpu/ops/variational.py`` on JAX CPU, on 40x56 planes made from
 numpy seeds:
 
-- ``_warp_bilinear`` (the ``take4`` taps) bitwise, its in-bounds mask
+- ``refine_warp_plain`` (the ``take4`` taps) bitwise, its in-bounds mask
   equal;
 - ``variational_refinement`` within 1e-4 px max |d| (the port's IRLS
   weight takes a correctly rounded ``0.5 / sqrt``, XLA's CPU ``rsqrt`` is
@@ -96,7 +96,7 @@ def test_warp_bilinear_bitwise(shape, c):
     planes = rng.random(shape + (c,)).astype(np.float32)
     flow = ((rng.random(shape + (2,)) - 0.5) * 9).astype(np.float32)
     want, want_inb = jvar._warp_bilinear(jnp.asarray(planes), jnp.asarray(flow))
-    got, got_inb = tvar._warp_bilinear(_t(planes), _t(flow))
+    got, got_inb = tvar.refine_warp_plain(_t(planes), _t(flow))
     assert not bool(got_inb.all()) and bool(got_inb.any())
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     np.testing.assert_array_equal(got_inb.numpy(), np.asarray(want_inb))
