@@ -209,6 +209,31 @@ must give the same bits:
 Each rank's time is printed as that of N ranks sharing one H100, not a
 scaling figure, and the phase's seconds.
 
+The port's measurement tools (phase 6, after phase 5; ``dis_tpu_torch/
+tools``), each with the counts set to 0 just before and read just after:
+
+6a. ``tools.quality_sweep`` (its CLI and ``sweep``) for ``DIS_MEDIUM`` and
+    ``DIS_FULL`` over the seven ``synth`` families at 384 x 512: each
+    family's EPE within EPE_TOL of the JAX tool's CPU reading
+    (``EPE_JAX_SWEEP``), and each family's flow within 1e-4 px mean of
+    the port's own CPU flow (computed meanwhile in a child process,
+    ``--sweep-child``, while 6c times the card);
+6c. ``tools.scaling_measure`` at 1080p and 4K (1088 x 1920 and 2176 x
+    3840) for n = 2 and 4: every stripe and window program of the tiling
+    engines timed by graph replay, every stitched flow bitwise the
+    untiled one, and the projected efficiencies with their link
+    assumption;
+6b. ``tools.trace_budget`` of the replayed and the eager 1080p compat
+    frame, the 1080p ``DIS_MEDIUM`` frame and the KITTI config 3 batch
+    of 8 (K2b, K1b): the top 15 names, the scope totals, a frame's busy
+    time, device time and span on the card, and the busy share; the
+    budget's device ms per frame (the replay's launches from their
+    first event's start to their last one's end: its ops and the idle
+    time between the graph's kernels) within 10% of the same run's
+    ``replay_ms`` of the frame (a graph of 5 ``dis_flow`` calls); a
+    served request's time (``time_ms`` of ``aot_compile``'s graph, which
+    adds the host's launches) printed beside.
+
 Each kernel's line gives its bound: the larger of the bytes it must move
 (each input read once, each output written once: K3 the raw image and
 every level's planes, K1 its inputs with the raw template only for the
@@ -217,6 +242,9 @@ the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
 No single PyTorch call computes K1-K3, R2 or R3, so their ``library_ms``
 is null; R1's is ``grid_sample``'s (phase 1e).
+
+``python3 chip_smoke.py --sweep-child OUT`` is phase 6a's CPU process, not
+an entry point.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
 kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
@@ -657,6 +685,23 @@ SEQ_FRAMES = 9
 # of it.
 EPE_JAX_CLI = 0.15257339738309383
 
+# Per-family masked EPE of the JAX package's sweep on the CPU at 384 x 512
+# (the JSON lines of
+#   JAX_PLATFORMS=cpu python tools/quality_sweep.py --preset medium
+#   JAX_PLATFORMS=cpu python tools/quality_sweep.py --preset full
+# 109 s and 272 s on the CPU); phase 6a holds the port's card
+# sweep to them within EPE_TOL.
+SWEEP_SIZE = (384, 512)
+EPE_JAX_SWEEP = {
+    "medium": {"discontinuous": 0.0005, "natural_warp": 0.0526, "rotation": 0.0155,
+               "shear": 0.0139, "smooth_warp": 0.0267, "translation": 0.0004,
+               "zoom": 0.0163},
+    "full": {"discontinuous": 0.0005, "natural_warp": 0.0543, "rotation": 0.0159,
+             "shear": 0.0123, "smooth_warp": 0.0282, "translation": 0.0003,
+             "zoom": 0.0169},
+}
+BUDGET_FRAMES = 3
+
 
 def sequence_frames(n: int, h: int, w: int):
     """n frames [h, w] uint8, made as ``bench.synth_pair`` makes its pair
@@ -696,19 +741,6 @@ def write_sequence(root, n: int = SEQ_FRAMES, h: int = H, w: int = W) -> None:
     gt = np.broadcast_to(np.float32(SHIFT), (h, w, 2))
     for t in range(1, n):
         save_flo(os.path.join(root, "gt", f"frame_{t:04d}.flo"), gt)
-
-
-def device_busy_ms(trace: dict) -> float:
-    """Milliseconds in which the card ran a kernel, a copy or a fill, from
-    a ``torch.profiler`` Chrome trace (the union of those events' spans)."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in trace["traceEvents"]
-                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e)
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
 
 
 def time_png_writers(root, flow) -> str:
@@ -765,6 +797,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
     import dis_tpu_torch as dt
     from dis_tpu_torch import serving
     from dis_tpu_torch.runner import run_sequence
+    from dis_tpu_torch.tools.trace_budget import device_busy_ms
     from dis_tpu_torch.utils import native
     from dis_tpu_torch.utils.flo import load_flo
     from dis_tpu_torch.utils.io import imread_gray
@@ -1258,6 +1291,164 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     print(f"phase5 5g dryrun_multichip(4) on cuda:0: {time.perf_counter() - t0:.2f} s",
           flush=True)
     print(f"phase5 took {time.perf_counter() - t_phase:.2f} s [{card}]", flush=True)
+    return launches
+
+
+def sweep_child(out: str) -> int:
+    """Phase 6a's CPU process: the port's quality sweep of ``DIS_MEDIUM``
+    and ``DIS_FULL`` at SWEEP_SIZE on the CPU, saved to ``out`` as
+    {preset: {family: (EPE, flow)}}; prints its seconds."""
+    from dis_tpu_torch import PRESETS
+    from dis_tpu_torch.tools.quality_sweep import sweep
+
+    t0 = time.perf_counter()
+    got = {p: sweep(PRESETS[p], *SWEEP_SIZE, device="cpu") for p in EPE_JAX_SWEEP}
+    torch.save(got, out)
+    print(json.dumps({"seconds": time.perf_counter() - t0}))
+    return 0
+
+
+def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
+    """Phase 6: the quality sweep (6a), the scaling projection (6c, while
+    the sweep's CPU half runs in a child process) and the trace budget
+    (6b, on a quiet host).  Returns the launches by kernel of its runs."""
+    import contextlib
+    import io
+
+    import dis_tpu_torch as dt
+    from dis_tpu_torch import serving
+    from dis_tpu_torch.tools import quality_sweep, scaling_measure, trace_budget
+
+    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3")}
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read(label, batched=False):
+        torch.cuda.synchronize()
+        counts = read_counts(wrappers)
+        for k, n in counts.items():
+            launches[k + "b" if batched and k in ("K2", "K1") else k] += n
+        print(f"phase6 {label}: launches {counts}", flush=True)
+        return counts
+
+    # -- 6a: the quality sweep on the card ----------------------------------------
+    t_phase = time.perf_counter()
+    sh, sw = SWEEP_SIZE
+    card_sweep = {}
+    for preset in EPE_JAX_SWEEP:
+        cfg = dt.PRESETS[preset]
+        zero()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = quality_sweep.main(["--preset", preset, "--size", f"{sh}x{sw}",
+                                     "--device", str(dev)])
+        lines = buf.getvalue().splitlines()
+        check(rc == 0, f"quality_sweep --preset {preset} exited {rc}")
+        card_sweep[preset] = quality_sweep.sweep(cfg, sh, sw, device=dev)
+        counts = read(f"6a quality_sweep {preset} (its CLI, then sweep())")
+        want = scale_counts(cfg)
+        check(counts == {**{k: 2 * len(EPE_JAX_SWEEP[preset]) * v for k, v in want.items()},
+                         "K2c": 0}, f"6a {preset}: launches {counts}, want 14 x {want}")
+        printed = json.loads(lines[-1])["epe"]
+        for fam, want_epe in EPE_JAX_SWEEP[preset].items():
+            epe = card_sweep[preset][fam][0]
+            print(f"phase6 6a {preset} {fam:14s} card {epe:.6f} (printed {printed[fam]:.4f}) "
+                  f"jax cpu {want_epe:.4f}", flush=True)
+            check(abs(epe - want_epe) <= EPE_TOL and round(epe, 4) == printed[fam],
+                  f"6a {preset} {fam}: EPE {epe} vs JAX {want_epe}, printed {printed[fam]}")
+        print("phase6 6a " + lines[-1], flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="dis_tools_") as tmp:
+        out = os.path.join(tmp, "sweep_cpu.pt")
+        child = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--sweep-child",
+                                  out], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True)
+        try:
+            # -- 6c: the scaling projection (device-timed while the child runs) ----
+            for name, (h, w) in scaling_measure.SIZES.items():
+                zero()
+                t0 = time.perf_counter()
+                rec = scaling_measure.measure(name, h, w, (2, 4), bench_cfg, device=dev)
+                counts = read(f"6c scaling_measure {name} n = 2, 4")
+                check(all(counts[k] > 0 for k in ("K3", "K2", "K1"))
+                      and (counts["K2c"] > 0) == (name == "4K"),
+                      f"6c {name}: launches {counts}")
+                print("phase6 6c " + json.dumps(rec), flush=True)
+                for engine in ("stripe", "grid"):
+                    for n, e in rec[engine].items():
+                        check(e["stitched_bitwise"],
+                              f"6c {name} {engine} n={n}: stitched flow differs from untiled")
+                        print(f"phase6 6c {name} {engine} n={n}: ranks {e['rank_ms']} ms, "
+                              f"link {e['link_bytes']} B {e['link_ms']:.4f} ms, projected "
+                              f"efficiency {e['efficiency']:.3f} (T1 {rec['t1_ms']:.4f} ms); "
+                              f"stitched bitwise the untiled flow [{card}]", flush=True)
+                print(f"phase6 6c {name}: halo table {json.dumps(rec['halo'])}; link "
+                      f"assumption: {rec['link_assumption']} ({time.perf_counter() - t0:.2f} s)",
+                      flush=True)
+            stdout, stderr = child.communicate(timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.communicate()
+        check(child.returncode == 0, f"sweep child failed:\n{stdout}{stderr}")
+        cpu_sweep = torch.load(out, weights_only=False)
+    for preset, fams in card_sweep.items():
+        for fam, (epe, flow) in fams.items():
+            d = float(np.abs(flow - cpu_sweep[preset][fam][1]).mean())
+            print(f"phase6 6a {preset} {fam:14s} card vs CPU flow: mean |d| {d:.3g} px "
+                  f"(CPU EPE {cpu_sweep[preset][fam][0]:.6f})", flush=True)
+            check(d <= 1e-4, f"6a {preset} {fam}: card flow {d} px from the CPU flow")
+    print(f"phase6 6a CPU sweep child: {json.loads(stdout.splitlines()[-1])['seconds']:.2f} s",
+          flush=True)
+
+    # -- 6b: the trace budget, on a quiet host ---------------------------------------
+    per_frame = serving.WARMUP_CALLS + 1 + 1 + BUDGET_FRAMES   # graph, eager warm-up, frames
+    with tempfile.TemporaryDirectory(prefix="dis_budget_") as tmp:
+        for label, cfg, (h, w), batch in (("1080p compat", bench_cfg, (H, W), None),
+                                          ("1080p medium", dt.DIS_MEDIUM, (H, W), None),
+                                          ("KITTI config 3 B=8", bench_cfg, (KH, KW), 8)):
+            x, y = trace_budget.frame_inputs(h, w, batch, dev)
+            zero()
+            t0 = time.perf_counter()
+            paths = trace_budget.capture(cfg, h, w, os.path.join(tmp, label.replace(" ", "_")),
+                                         BUDGET_FRAMES, batch, dev, inputs=(x, y))
+            counts = read(f"6b trace_budget {label}", batched=batch is not None)
+            want = scale_counts(cfg)
+            check(counts == {**{k: per_frame * v for k, v in want.items()}, "K2c": 0},
+                  f"6b {label}: launches {counts}, want {per_frame} x {want}")
+            print(f"phase6 6b {label}: captured in {time.perf_counter() - t0:.2f} s", flush=True)
+            got = {}
+            for kind, path in paths.items():
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    got[kind] = trace_budget.summarize(path, top=15)
+                for line in buf.getvalue().splitlines():
+                    print(f"phase6 6b {label} {kind}: {line}", flush=True)
+            # The frame's device time with no host work inside (a graph of 5
+            # frames), and a served request's (copies in, the replay, a copy
+            # out, with the host's launches between them).
+            replayed = replay_ms(lambda: dt.dis_flow(x, y, cfg), calls=5, reps=5)
+            served = serving.aot_compile(cfg, h, w, batch=batch)
+            request = time_ms(lambda: served(x, y), reps=10)
+            del served
+            # A graph's kernels may not reach a trace one by one with every
+            # CUDA version; the eager trace launches the same kernels.
+            read_by = "replay" if got["replay"]["kernels"] > 0 else "eager"
+            b = got[read_by]
+            print(f"phase6 6b {label}: budget ({read_by} trace) {b['device_ms']:.4f} device ms a "
+                  f"frame: ops {b['total_ms']:.4f} ms ({b['kernels']:.0f} kernels), busy "
+                  f"{b['busy_ms']:.4f} ms, idle between a graph's kernels "
+                  f"{b['device_ms'] - b['busy_ms']:.4f} ms; the frame spans {b['span_ms']:.4f} ms "
+                  f"on the card under the profiler; eager trace ops {got['eager']['total_ms']:.4f}"
+                  f" ms ({got['eager']['kernels']:.0f} kernels), the card "
+                  f"{100 * got['eager']['busy_share']:.1f}% busy; replay_ms "
+                  f"{replayed:.4f} ms, a served request {request:.4f} ms [{card}]", flush=True)
+            check(abs(b["device_ms"] - replayed) <= 0.1 * replayed,
+                  f"6b {label}: budget {b['device_ms']} device ms a frame vs replay_ms "
+                  f"{replayed} ms")
+    print(f"phase6 took {time.perf_counter() - t_phase:.2f} s [{card}]", flush=True)
     return launches
 
 
@@ -2161,6 +2352,10 @@ def main() -> int:
     for k, n in multi_rank_phase(dev, card, bench_cfg, ref).items():
         launches[k] += n
 
+    # -- phase 6: the measurement tools ------------------------------------------
+    for k, n in tools_phase(dev, card, bench_cfg, wrappers).items():
+        launches[k] += n
+
     src = "dis_tpu_torch/csrc/"
     meta = {
         "K3": ("pyramid_level", src + "pyramid_level.cu",
@@ -2351,6 +2546,8 @@ if __name__ == "__main__":
         sys.exit(kernel_times(sys.argv[2]))
     if len(sys.argv) == 4 and sys.argv[1] == "--serve-child":
         sys.exit(serve_child(sys.argv[2], sys.argv[3]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--sweep-child":
+        sys.exit(sweep_child(sys.argv[2]))
     if len(sys.argv) > 1:
         raise SystemExit("usage: python3 chip_smoke.py [--kernel-times ROOT]")
     sys.exit(main())

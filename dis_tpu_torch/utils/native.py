@@ -2,7 +2,7 @@
 ``dis_tpu/utils/native.py``.
 
 ``tools/native_io/native_io.cpp`` provides PNG-gray decode, the .flo
-writer, the KITTI 16-bit flow reader and colour-wheel rasterization in C++
+codec, the KITTI 16-bit flow codec and colour-wheel rasterization in C++
 (the reference's host runtime is native too: OpenCV and its own .flo
 code).  The port compiles that source itself, with one ``g++`` command,
 into ``dis_tpu_torch/_build/`` under a name keyed by a hash of the source
@@ -10,8 +10,9 @@ and flags (as ``dis_tpu_torch/_build.py`` does for the CUDA kernels), so
 it never writes into the JAX package's tree.  The build runs at the first
 use, never at import.  Where it cannot build, every call site falls back
 to its NumPy version; :func:`require` raises instead, for callers that
-must have it (the CLI on a CUDA device).  Only the entry points the
-port calls are bound.
+must have it (the CLI on a CUDA device).  The library is built from the
+source in the checkout, so every entry point the source exports is
+there (the JAX package's stale-library check has no counterpart).
 """
 
 from __future__ import annotations
@@ -89,6 +90,12 @@ def _load() -> Tuple[Optional[ctypes.CDLL], str]:
     lib.flo_write.restype = ctypes.c_int
     lib.flo_write.argtypes = [ctypes.c_char_p, ctypes.c_void_p,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.flo_peek.restype = ctypes.c_int
+    lib.flo_peek.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
+                             ctypes.POINTER(ctypes.c_int)]
+    lib.flo_read.restype = ctypes.c_int
+    lib.flo_read.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_long,
+                             ctypes.c_int]
     lib.flow_to_bgr.restype = None
     lib.flow_to_bgr.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                 ctypes.c_float, ctypes.c_void_p]
@@ -97,6 +104,9 @@ def _load() -> Tuple[Optional[ctypes.CDLL], str]:
         ctypes.c_char_p, ctypes.c_void_p, ctypes.c_long,
         ctypes.c_void_p, ctypes.c_long,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    lib.kitti_flow_write.restype = ctypes.c_int
+    lib.kitti_flow_write.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int]
     lib.png_peek.restype = ctypes.c_int
     lib.png_peek.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
                              ctypes.POINTER(ctypes.c_int)]
@@ -143,6 +153,23 @@ def flo_write(path: str, data: np.ndarray) -> bool:
     return lib.flo_write(path.encode(), arr.ctypes.data, w, h, c) == 0
 
 
+def flo_read(path: str, channels: int = 2) -> Optional[np.ndarray]:
+    """Native .flo decode -> [H, W, channels] float32, or None when the
+    library is unavailable or the file unsupported."""
+    lib = _load()[0]
+    if lib is None:
+        return None
+    w = ctypes.c_int()
+    h = ctypes.c_int()
+    if lib.flo_peek(path.encode(), ctypes.byref(w), ctypes.byref(h)) != 0:
+        return None
+    if not _dims_ok(w.value, h.value):  # untrusted header: bound before alloc
+        return None
+    out = np.empty((h.value, w.value, channels), "<f4")
+    rc = lib.flo_read(path.encode(), out.ctypes.data, out.size, channels)
+    return out if rc == 0 else None
+
+
 def kitti_flow_read(path: str):
     """Native KITTI GT decode -> (flow [H,W,2] f32, valid [H,W] bool),
     or None when the library is unavailable or the file unsupported."""
@@ -163,6 +190,28 @@ def kitti_flow_read(path: str):
     if rc != 0:
         return None
     return flow, valid.astype(bool)
+
+
+def kitti_flow_write(path: str, flow: np.ndarray,
+                     valid: Optional[np.ndarray] = None) -> bool:
+    """Native KITTI GT encode of flow [H, W, 2] (and valid [H, W], all
+    valid when None); False when the library is unavailable or the write
+    fails.  Other shapes raise ValueError before any pointer is passed."""
+    lib = _load()[0]
+    if lib is None:
+        return False
+    arr = np.ascontiguousarray(flow, np.float32)
+    if arr.ndim != 3 or arr.shape[2] != 2:
+        raise ValueError(f"flow must be [H, W, 2], got {arr.shape}")
+    h, w = arr.shape[:2]
+    vptr = None
+    if valid is not None:
+        varr = np.ascontiguousarray(valid, np.uint8)
+        if varr.shape != (h, w):
+            raise ValueError(f"valid must be [{h}, {w}], got {varr.shape}")
+        vptr = varr.ctypes.data
+    return lib.kitti_flow_write(path.encode(), arr.ctypes.data,
+                                vptr, w, h) == 0
 
 
 def flow_to_bgr(flow: np.ndarray, maxmotion: float = -1.0) -> Optional[np.ndarray]:

@@ -66,7 +66,9 @@ def test_import_is_jax_free():
             "dis_tpu_torch.utils.profiling, dis_tpu_torch.utils.checks, dis_tpu_torch.cost, "
             "dis_tpu_torch.parallel.mesh, dis_tpu_torch.parallel.distributed, "
             "dis_tpu_torch.parallel.sequence, dis_tpu_torch.parallel.launch, "
-            "dis_tpu_torch.utils.synth, dis_tpu_torch.dryrun; "
+            "dis_tpu_torch.utils.synth, dis_tpu_torch.dryrun, dis_tpu_torch.tools, "
+            "dis_tpu_torch.tools.quality_sweep, dis_tpu_torch.tools.trace_budget, "
+            "dis_tpu_torch.tools.scaling_measure; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'dis_tpu')); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -85,6 +87,31 @@ def test_parallel_names_have_counterparts():
     for name in tparallel.__all__:
         assert callable(getattr(tparallel, name)), name
     assert callable(dryrun.entry) and callable(dryrun.dryrun_multichip)
+
+
+def test_utils_names_have_counterparts():
+    """Every public top-level function and class of ``dis_tpu.utils``'s
+    modules has a counterpart of the same name in the port's module of
+    the same name, except the two that exist for JAX only."""
+    import ast
+    import pathlib
+
+    import dis_tpu.utils as jutils
+    import dis_tpu_torch.utils as tutils
+
+    def names(pkg):
+        out = {}
+        for path in pathlib.Path(pkg.__file__).parent.glob("*.py"):
+            tree = ast.parse(path.read_text())
+            out[path.stem] = {n.name for n in tree.body
+                              if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                              and not n.name.startswith("_")}
+        return out
+
+    jax_only = {("metrics", "epe_jax"), ("checks", "checked_vmap")}
+    jnames, tnames = names(jutils), names(tutils)
+    missing = {(m, n) for m, ns in jnames.items() for n in ns - tnames.get(m, set())}
+    assert missing == jax_only
 
 
 def test_wrappers_take_plain_path_on_cpu():

@@ -137,3 +137,39 @@ def several(dev, calls) -> dict:
     """Each ``(name, fn, args)`` of ``calls`` in order, ``fn(dev, *args)``
     by name: one world for a test file's cases."""
     return {name: fn(dev, *args) for name, fn, args in calls}
+
+
+def collective_bytes_world(dev, cases) -> dict:
+    """Each case ``(label, engine, cfg, n, i1, i2)`` through
+    ``tiled_flow_fn`` ("stripe") or ``grid_tiled_flow_fn`` ("grid") on a
+    mesh of the first n ranks, with the engines' ``shift`` and
+    ``all_gather_rows`` wrapped to record, call by call, the bytes this
+    rank receives: this rank's list by label."""
+    from dis_tpu_torch.parallel import tiles
+
+    rank = dist.get_rank()
+    seen = []
+
+    def shift_rec(x, group, pairs):
+        me = dist.get_rank(group)
+        seen.append(x.nbytes * sum(dst == me for _, dst in pairs))
+        return shift(x, group, pairs)
+
+    def gather_rec(x, group):
+        seen.append(x.nbytes * (dist.get_world_size(group) - 1))
+        return all_gather_rows(x, group)
+
+    tiles.shift, tiles.all_gather_rows = shift_rec, gather_rec
+    out = {}
+    for label, engine, cfg, n, i1, i2 in cases:
+        mesh = make_mesh((1, n), ("batch", "space"), device_type=dev.type)
+        if rank >= n:
+            continue
+        h, w = i1.shape
+        fn = (tiled_flow_fn(cfg, mesh, h, w) if engine == "stripe"
+              else grid_tiled_flow_fn(cfg, mesh, h, w))
+        a, b = (row_sharding(mesh, torch.from_numpy(x)).to(dev) for x in (i1, i2))
+        seen.clear()
+        fn(a, b)
+        out[label] = list(seen)
+    return out
