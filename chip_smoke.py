@@ -103,6 +103,17 @@ refinement code):
     plain eager and replayed) with its bound; R1 also beside
     ``grid_sample`` (bilinear, border padding), the yardstick of its
     ``library_ms``;
+1f. (each scale's glue) S1 (templates, inverse Hessians and fixed mode's
+    ``Tn``), S2 (the NN init and the start test), S3 (fixed mode's
+    weights) and S4 (densification) on the inputs the main path gives them
+    at the finest scale of the 1080p compat and ``DIS_FAST`` frames, the
+    KITTI B = 8 config 3 batch, stripe 1 of 3 of the 4K compat frame (row0
+    544, a row-ranged grid and an output window) and the 1080p ``DIS_FULL``
+    frame (ps 12), recorded from a run (``scale_step_inputs``), each
+    bitwise equal to its plain version and timed beside it with its bound;
+    every path through ``models/dis.py::_scale`` launches S1, S2 and S4
+    once per scale (and S3 in fixed mode), which every launch count below
+    includes (``glue_counts``);
 2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R1 4,
     R2 20, R3 200 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R1 5, R2 50, R3
     500 (``DIS_FULL``, whose five levels take two K3 launches per image),
@@ -240,8 +251,11 @@ every level's planes, K1 its inputs with the raw template only for the
 patches frozen at the start) over 3.35 TB/s and its operations (K1's for
 the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
-No single PyTorch call computes K1-K3, R2 or R3, so their ``library_ms``
-is null; R1's is ``grid_sample``'s (phase 1e).
+No single PyTorch call computes K1-K3, R2, R3 or S1-S4, so their
+``library_ms`` is null; R1's is ``grid_sample``'s (phase 1e).  Phase 6b
+also prints a replayed frame's kernels and splits its ops' time into the
+port's kernels and torch's (the glue, copies and fills); 6a says for how
+many families the card flow is bitwise the CPU flow.
 
 ``python3 chip_smoke.py --sweep-child OUT`` is phase 6a's CPU process, not
 an entry point.
@@ -266,8 +280,10 @@ without the repository beside it, it fails the same way.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -278,6 +294,9 @@ import torch
 
 W, H = 1920, 1080
 SHIFT = (3.0, 2.0)
+# The kernels line's rows, each with its launches summed over the main-path
+# phases (K2 and K1 with a pair axis count as K2b and K1b).
+LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3", "S1", "S2", "S3", "S4")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
 # and configs; the port must land within EPE_TOL of it.  DIS_MEDIUM and
 # DIS_FULL: tools/jax_epe_readings.py (64 s and 302 s on the CPU).
@@ -535,15 +554,26 @@ def refine_counts(cfg):
     return {"R1": r1, "R2": r2, "R3": 2 * cfg.refinement_sor_sweeps * r2}
 
 
+def glue_counts(cfg, n: int):
+    """Launches of each scale's S1-S4 over ``n`` scales: S1, S2 and S4 once
+    per scale, S3 once per scale in fixed mode."""
+    return {"S1": n, "S2": n, **({"S3": n} if cfg.mode == "fixed" else {}), "S4": n}
+
+
 def scale_counts(cfg):
-    """Launches one call must make, whatever B is: K2 and K1 once per
-    scale; K3 once per image (or stack of images) for up to four levels;
-    R1-R3 as ``refine_counts`` says."""
+    """Launches one call must make, whatever B is: K2, K1 and S1-S4 once
+    per scale (``glue_counts``); K3 once per image (or stack of images) for
+    up to four levels; R1-R3 as ``refine_counts`` says."""
     from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS
 
     n = cfg.coarsest_scale - cfg.finest_scale + 1
     return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n,
-            **refine_counts(cfg)}
+            **refine_counts(cfg), **glue_counts(cfg, n)}
+
+
+def want_4k(cfg):
+    """Launches of one 4K frame without refinement: K2c at the finest scale."""
+    return {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, **glue_counts(cfg, 4)}
 
 
 def kernel_wrappers():
@@ -553,15 +583,18 @@ def kernel_wrappers():
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
     from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
+    from dis_tpu_torch.ops.cuda.scale_kernel import (densify, fixed_weights, scale_templates,
+                                                     search_start)
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-            "K1": iclk_search, "R1": refine_warp, "R2": refine_weights, "R3": refine_sor}
+            "K1": iclk_search, "R1": refine_warp, "R2": refine_weights, "R3": refine_sor,
+            "S1": scale_templates, "S2": search_start, "S3": fixed_weights, "S4": densify}
 
 
 def read_counts(wrappers):
     """Each wrapper's launches since its count was set to 0: K3, K2, K2c
-    and K1 always, R1-R3 where they ran (as ``CompiledFlow.graph_launches``
-    and ``cost.kernel_ops`` give them)."""
+    and K1 always, R1-R3 and S1-S4 where they ran (as
+    ``CompiledFlow.graph_launches`` and ``cost.kernel_ops`` give them)."""
     return {k: w.launches for k, w in wrappers.items() if k[0] == "K" or w.launches}
 
 
@@ -614,6 +647,50 @@ def refine_step_inputs(args, picks):
         for k, fn in names.items():
             setattr(rk, fn, originals[k])
     return {k: [seen[k][i] for i in picks[k]] for k in names}
+
+
+def scale_step_inputs(run):
+    """Runs ``run()`` and returns, by kernel, the inputs that the last call
+    of S1, S2, S3 and S4 gave their kernel (the checked arguments of the
+    ops' CUDA functions): the finest scale's, the main path's own inputs.
+    S3 is missing where the config is not in fixed mode."""
+    from dis_tpu_torch.ops.cuda import scale_kernel as sk
+
+    names = {"S1": "_templates_cuda", "S2": "_start_cuda", "S3": "_weights_cuda",
+             "S4": "_densify_cuda"}
+    seen = {}
+    originals = {k: getattr(sk, fn) for k, fn in names.items()}
+
+    def recorder(k):
+        def call(*a):
+            seen[k] = a
+            return originals[k](*a)
+        return call
+
+    try:
+        for k, fn in names.items():
+            setattr(sk, fn, recorder(k))
+        run()
+    finally:
+        for k, fn in names.items():
+            setattr(sk, fn, originals[k])
+    return seen
+
+
+def flat_tensors(x):
+    """The tensors of a kernel's result, in order (a PatchTemplates and its
+    Tn, a tuple, or a tensor); None gives none."""
+    if x is None:
+        return []
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for item in x for t in flat_tensors(item)]
+
+
+# The port's own kernels (csrc/) by their names in a trace; every other
+# kernel there is torch's: the glue, copies and fills.
+PORT_KERNEL = re.compile(r"(?:^|[\s:])(?:templates|start|weights|densify|iclk|extract|banded|"
+                         r"pyramid|warp|sor)_kernel\b")
 
 
 def serve_child(artifact: str, out: str) -> int:
@@ -809,7 +886,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
           f"({native.library_path().name}, {time.perf_counter() - t0:.2f} s)", flush=True)
     native.require()
     per_capture = serving.WARMUP_CALLS + 1     # eager warm-up calls and the capture
-    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3")}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
 
     def counted(label, argv, want, timer=None, batched=False):
         """The CLI with every count set to 0 just before and read just after;
@@ -968,7 +1045,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
         root4 = root / "4k"
         write_sequence(root4, 2, H4K, W4K)
         counted("CLI compat 4K 1 pair", [root4 / "frames", 1, 2, 16, 8, 3, 0, 0.3, 1, 0]
-                + common + ["--out-dir", root4 / "out"], {"K3": 2, "K2": 3, "K2c": 1, "K1": 4})
+                + common + ["--out-dir", root4 / "out"], want_4k(bench_cfg))
         a4, b4 = (torch.from_numpy(imread_gray(str(root4 / "frames" / f"frame_{t:04d}.png"))
                                    .astype(np.float32)).to(dev) for t in (1, 2))
         check(np.array_equal(load_flo(str(root4 / "out" / "frame_0001.flo")),
@@ -1114,7 +1191,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     from dis_tpu_torch.utils.metrics import epe_torch
 
     wrappers = kernel_wrappers()
-    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3")}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
 
     def add(counts, batched):
         for k, v in counts.items():
@@ -1163,7 +1240,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
                 hh, ww = (H4K, W4K) if cfg is bench_cfg else (H, W)
                 routes = [part_routes(cfg, ww, hh, n, i, halo) for i in range(n)]
                 expect = [{"K3": 2, "K2": r.count("K2"), "K2c": r.count("K2c"), "K1": len(r),
-                           **refine_counts(cfg)} for r in routes]
+                           **refine_counts(cfg), **glue_counts(cfg, len(r))} for r in routes]
             else:
                 expect = [{**scale_counts(cfg), "K2c": 0}] * n
             for i, g in enumerate(got):
@@ -1319,7 +1396,7 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
     from dis_tpu_torch import serving
     from dis_tpu_torch.tools import quality_sweep, scaling_measure, trace_budget
 
-    launches = {k: 0 for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3")}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
 
     def zero():
         for w in wrappers.values():
@@ -1395,11 +1472,18 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
         check(child.returncode == 0, f"sweep child failed:\n{stdout}{stderr}")
         cpu_sweep = torch.load(out, weights_only=False)
     for preset, fams in card_sweep.items():
+        same = 0
         for fam, (epe, flow) in fams.items():
             d = float(np.abs(flow - cpu_sweep[preset][fam][1]).mean())
-            print(f"phase6 6a {preset} {fam:14s} card vs CPU flow: mean |d| {d:.3g} px "
+            same += bool(np.array_equal(flow, cpu_sweep[preset][fam][1]))
+            print(f"phase6 6a {preset} {fam:14s} card vs CPU flow: mean |d| {d:.3g} px, "
+                  f"bitwise {np.array_equal(flow, cpu_sweep[preset][fam][1])} "
                   f"(CPU EPE {cpu_sweep[preset][fam][0]:.6f})", flush=True)
             check(d <= 1e-4, f"6a {preset} {fam}: card flow {d} px from the CPU flow")
+        # DIS_FULL (ps 12) divides its fixed-mode weight's mean by 144 as a
+        # tensor since S3, so card and CPU round it alike; read, not gated.
+        print(f"phase6 6a {preset}: card flow bitwise equal to the CPU flow for {same} of "
+              f"{len(fams)} families", flush=True)
     print(f"phase6 6a CPU sweep child: {json.loads(stdout.splitlines()[-1])['seconds']:.2f} s",
           flush=True)
 
@@ -1437,6 +1521,11 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
             # CUDA version; the eager trace launches the same kernels.
             read_by = "replay" if got["replay"]["kernels"] > 0 else "eager"
             b = got[read_by]
+            port_ms = sum(v for k, v in b["ops"].items() if PORT_KERNEL.search(k))
+            print(f"phase6 6b {label}: {b['kernels']:.0f} kernels a frame; the port's kernels "
+                  f"(K, R, S) {port_ms:.4f} ms, torch glue, copies and fills "
+                  f"{b['total_ms'] - port_ms:.4f} ms of the {b['total_ms']:.4f} ms of ops "
+                  f"({read_by} trace) [{card}]", flush=True)
             print(f"phase6 6b {label}: budget ({read_by} trace) {b['device_ms']:.4f} device ms a "
                   f"frame: ops {b['total_ms']:.4f} ms ({b['kernels']:.0f} kernels), busy "
                   f"{b['busy_ms']:.4f} ms, idle between a graph's kernels "
@@ -1459,8 +1548,8 @@ def main() -> int:
     import dis_tpu_torch as dt
     from bench import synth_pair
     from dis_tpu_torch import _build, cost
-    from dis_tpu_torch.models.dis import (_stripe_plan, dis_flow_padded, init_bound,
-                                          scale_extraction_route)
+    from dis_tpu_torch.models.dis import (_stripe_plan, dis_flow_padded, dis_flow_stripe,
+                                          init_bound, scale_extraction_route)
     from dis_tpu_torch.ops import iclk
     from dis_tpu_torch.ops import image as im
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
@@ -1803,9 +1892,62 @@ def main() -> int:
         del steps
     del kmed_levels, kmed_planes
 
+    # -- phase 1f: each scale's glue, S1-S4 ---------------------------------------
+    # Each on the inputs the main path gives it at the finest scale (its last
+    # call in a run, recorded by scale_step_inputs) of the 1080p compat and
+    # DIS_FAST frames, the KITTI B = 8 config 3 batch, stripe 1 of 3 of the
+    # 4K compat frame (row0 544: its patch rows and output window) and the
+    # 1080p DIS_FULL frame (ps 12, stride 3), bitwise equal to its plain
+    # version; then timed beside it (kernel replayed, plain eager and
+    # replayed) with its bound.
+    from dis_tpu_torch.ops.cuda import scale_kernel as sk
+    from dis_tpu_torch.ops.densify import densify_plain, fixed_weights_plain
+
+    s_fns = {"S1": (sk.scale_templates, iclk.templates_plain, "scale_templates"),
+             "S2": (sk.search_start, iclk.search_start_plain, "search_start"),
+             "S3": (sk.fixed_weights, fixed_weights_plain, "fixed_weights"),
+             "S4": (sk.densify, densify_plain, "densify")}
+    s_err = dict.fromkeys(s_fns, 0.0)
+    stimes, scosts = {}, {}
+    srow0, sext, sown0, sownh = stripe_bounds(bench_cfg, H4K, N_STRIPES, 1, halo)
+    for label, cfg, run in (
+            ("1080p compat", bench_cfg, lambda: dt.dis_flow(a, b, bench_cfg)),
+            ("1080p fast", dt.DIS_FAST, lambda: dt.dis_flow(a, b, dt.DIS_FAST)),
+            (f"KITTI config3 B={nk}", cfg3, lambda: dt.dis_flow(ka, kb, cfg3)),
+            (f"4K compat stripe 1 of {N_STRIPES} (row0 {srow0})", bench_cfg,
+             lambda: dis_flow_stripe(a4[srow0:srow0 + sext], b4[srow0:srow0 + sext], bench_cfg,
+                                     srow0, sown0, sownh, H4K)),
+            ("1080p full", dt.DIS_FULL, lambda: dt.dis_flow(a, b, dt.DIS_FULL))):
+        steps = scale_step_inputs(run)
+        check(sorted(steps) == sorted(glue_counts(cfg, 1)),
+              f"1f {label}: calls {sorted(steps)}")
+        for k, args in sorted(steps.items()):
+            kern, plain, op = s_fns[k]
+            before = kern.launches
+            got, want = flat_tensors(kern(*args)), flat_tensors(plain(*args))
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, f"{k} {label}: not one launch")
+            check(len(got) == len(want), f"{k} {label}: {len(got)} outputs, plain {len(want)}")
+            for g, v in zip(got, want):
+                s_err[k] = max(s_err[k], float((g.float() - v.float()).abs().max())
+                               if g.numel() else 0.0)
+                check(g.shape == v.shape and torch.equal(g, v),
+                      f"{k} {label}: differs from its plain version")
+            km = replay_ms(lambda: kern(*args))
+            pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
+            nbytes, ops = cost.op_cost(op, args)
+            bms, by = bound(nbytes, ops)
+            if label == ("1080p fast" if k == "S3" else "1080p compat"):
+                stimes[k], scosts[k] = (km, pm), (nbytes, ops)
+            print(f"phase1f {label} {k} {tuple(args[0].shape) if args[0] is not None else ''}"
+                  f" -> {tuple(got[0].shape)}: bitwise equal to the plain version; kernel "
+                  f"{km:.4f} ms replayed, plain {pm:.4f} ms ({prm:.4f} ms replayed), bound "
+                  f"{bms:.4f} ms by {by} [{card}]", flush=True)
+        del steps
+
     # -- phase 2: the main path ---------------------------------------------
     wrappers = kernel_wrappers()
-    launches = {"K3": 0, "K2": 0, "K1": 0, "R1": 0, "R2": 0, "R3": 0}
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
     flows = {}
     for name, cfg in configs.items():
         for w in wrappers.values():
@@ -1816,7 +1958,7 @@ def main() -> int:
         print(f"phase2 {name} launches {counts}", flush=True)
         check(counts == {**scale_counts(cfg), "K2c": 0}, f"{name}: launches {counts}, want "
               f"{scale_counts(cfg)} and no K2c at 1080p")
-        for k in ("K3", "K2", "K1"):
+        for k in ("K3", "K2", "K1", *glue_counts(cfg, 1)):
             check(counts[k] > 0, f"{name}: kernel {k} was not launched on the main path")
             launches[k] += counts[k]
         f = flow.cpu().numpy()
@@ -1858,6 +2000,8 @@ def main() -> int:
                   f"{name} {label}: launches {counts}, want {want} per batch")
             kl["K2b"] += counts["K2"]
             kl["K1b"] += counts["K1"]
+            for k in glue_counts(cfg, 1):
+                launches[k] += counts[k]
         flows_b = runs["dis_flow"]
         check(tuple(flows_b.shape) == (nk, KH, KW, 2), f"{name}: flow shape {tuple(flows_b.shape)}")
         check(bool(torch.isfinite(flows_b).all()), f"{name}: non-finite flow")
@@ -1908,7 +2052,7 @@ def main() -> int:
         served[label] = cf
 
     # -- phase 2d: dis_flow at 4K ---------------------------------------------
-    want4 = {"K3": 2, "K2": 3, "K2c": 1, "K1": 4}
+    want4 = want_4k(bench_cfg)
     flows4 = {}
     for name, cfg in {**configs, "ultrafast": dt.DIS_ULTRAFAST}.items():
         for w in wrappers.values():
@@ -1920,8 +2064,9 @@ def main() -> int:
         if name == "ultrafast":
             check(counts["K2c"] == 0 and counts["K2"] == 3, f"4K ultrafast: launches {counts}")
             continue
-        check(counts == want4, f"4K {name}: launches {counts}, want {want4}")
-        launches["K2c"] = launches.get("K2c", 0) + counts["K2c"]
+        check(counts == want_4k(cfg), f"4K {name}: launches {counts}, want {want_4k(cfg)}")
+        for k in ("K2c", *glue_counts(cfg, 1)):
+            launches[k] += counts[k]
         f = flow.cpu().numpy()
         check(f.shape == (H4K, W4K, 2), f"4K {name}: flow shape {f.shape}")
         check(bool(np.isfinite(f).all()), f"4K {name}: non-finite flow")
@@ -1986,9 +2131,11 @@ def main() -> int:
     # -- phase 2f: refinement presets at 1080p ----------------------------------
     refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL}
     want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
-                               "R1": 4, "R2": 20, "R3": 200},
+                               "R1": 4, "R2": 20, "R3": 200,
+                               "S1": 4, "S2": 4, "S3": 4, "S4": 4},
                     "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
-                             "R1": 5, "R2": 50, "R3": 500}}
+                             "R1": 5, "R2": 50, "R3": 500,
+                             "S1": 5, "S2": 5, "S3": 5, "S4": 5}}
     rflows = {}
     for name, cfg in refined.items():
         for w in wrappers.values():
@@ -2000,7 +2147,7 @@ def main() -> int:
         check(counts == want_refined[name] == {**scale_counts(cfg), "K2c": 0},
               f"{name}: launches {counts}, want {want_refined[name]}")
         for k in launches:
-            launches[k] += counts[k]
+            launches[k] += counts.get(k, 0)
         check(tuple(flow.shape) == (H, W, 2), f"{name}: flow shape {tuple(flow.shape)}")
         med, epe = flow_gates(name, flow.cpu().numpy(), SHIFT, EPE_JAX[name])
         plain = dt.dis_flow(a, b, cfg, plain=True)
@@ -2041,7 +2188,7 @@ def main() -> int:
         counts = read_counts(wrappers)
         check(counts == {**scale_counts(med_cfg), "K2c": 0},
               f"KITTI medium {label}: launches {counts}")
-        for k in refine_counts(med_cfg):
+        for k in (*refine_counts(med_cfg), *glue_counts(med_cfg, 1)):
             launches[k] += counts[k]
         if label == "batched_flow_fn":
             kmed_padded = out
@@ -2378,9 +2525,18 @@ def main() -> int:
                r_err["R2"]),
         "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
                r_err["R3"]),
+        # Nor S1-S4: they replace XLA's fusions of each scale's jnp code.
+        "S1": ("scale_templates", src + "scale_glue.cu", "dis_tpu/ops/iclk.py:155",
+               s_err["S1"]),
+        "S2": ("search_start", src + "scale_glue.cu", "dis_tpu/ops/grid.py:52", s_err["S2"]),
+        "S3": ("fixed_weights", src + "scale_glue.cu", "dis_tpu/models/dis.py:27",
+               s_err["S3"]),
+        "S4": ("densify", src + "scale_glue.cu", "dis_tpu/ops/densify.py:58", s_err["S4"]),
     }
     times.update(rtimes)
     costs.update(rcosts)
+    times.update(stimes)
+    costs.update(scosts)
     # cost_analysis's entries against the kernels line: K3 (one pyramid) and
     # K2 at the finest scale give the same bounds; K1 counts its fixed loop
     # and no start freezes, so its bytes differ by the raw templates of the
@@ -2390,7 +2546,9 @@ def main() -> int:
     kc, kcm = served_cost["kernels"], med_cost["kernels"]
     for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
                           ("K1", kc["K1"][-1], 1e-3), ("R1", kcm["R1"][-1], 0.0),
-                          ("R2", kcm["R2"][-1], 0.0), ("R3", kcm["R3"][-2], 0.0)):
+                          ("R2", kcm["R2"][-1], 0.0), ("R3", kcm["R3"][-2], 0.0),
+                          ("S1", kc["S1"][-1], 0.0), ("S2", kc["S2"][-1], 0.0),
+                          ("S4", kc["S4"][-1], 0.0)):
         static = bound(entry["bytes accessed"], entry["flops"])
         run_bound = bound(*costs[k])
         print(f"cost_analysis {k}: bound {static[0]:.6f} ms by {static[1]}; kernels line "
@@ -2398,7 +2556,7 @@ def main() -> int:
         check(static[1] == run_bound[1] and abs(static[0] - run_bound[0]) <= tol * run_bound[0],
               f"cost_analysis {k} bound {static} vs the kernels line {run_bound}")
     rows = []
-    for k in ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3"):
+    for k in LAUNCH_KEYS:
         bound_ms, bound_by = bound(*costs[k])
         rows.append({"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                      "replaces": meta[k][2], "launches": launches[k],
@@ -2419,9 +2577,11 @@ def kernel_times(root: str) -> int:
     at the 1080p finest scale (compat bench config; K1 also ``DIS_FAST``);
     K2b and K1b on the KITTI B = 8 batch (config 3); K3 on the two 4K
     pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; the
-    replayed 1080p and 4K compat frames (``aot_compile``); the refinement
+    replayed 1080p and 4K compat frames (``aot_compile``), the eager 1080p
+    compat frame and the KITTI B = 8 batch, eager and replayed; the refinement
     of the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames
-    and those frames, replayed and eager, and, in a tree that has them, R1,
+    and those frames, replayed and eager, a hash of the flow of each of
+    eight configs and inputs (``flow_sha256``), and, in a tree that has them, R1,
     R2 and R3 on that level's inputs (the parent's refinement is torch
     ops); the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
     nodes and bytes.  K2
@@ -2500,6 +2660,12 @@ def kernel_times(root: str) -> int:
         served = aot_compile(bench_cfg, *x.shape)
         out[key + "_replayed_ms"] = time_ms(lambda: served(x, y), reps=10)
         del served
+    out["frame_1080p_compat_eager_ms"] = time_ms(lambda: dt.dis_flow(a, b, bench_cfg), reps=10)
+    served = aot_compile(bench_cfg, *ka.shape[-2:], batch=ka.shape[0])
+    out["batch_kitti_b8_compat_replayed_ms"] = time_ms(lambda: served(ka, kb), reps=10)
+    del served
+    out["batch_kitti_b8_compat_eager_ms"] = time_ms(lambda: dt.dis_flow(ka, kb, bench_cfg),
+                                                    reps=10)
     # The refinement: torch ops in a tree without R1-R3.  Its finest level
     # alone and the whole frame, replayed, for the 1080p DIS_MEDIUM and
     # DIS_FULL frames; R1, R2 and R3 alone where the tree has them.
@@ -2528,6 +2694,16 @@ def kernel_times(root: str) -> int:
         del served
         out[f"frame_1080p_{key}_eager_ms"] = time_ms(lambda: dt.dis_flow(a, b, cfg), reps=5,
                                                      warmup=1)
+    # The flows' bits, to hold two trees' flows to each other: a hash of
+    # each config's flow on the same inputs.
+    out["flow_sha256"] = {
+        key: hashlib.sha256(dt.dis_flow(x, y, cfg).cpu().numpy().tobytes()).hexdigest()[:16]
+        for key, (cfg, x, y) in {
+            "compat_1080p": (bench_cfg, a, b), "fast_1080p": (dt.DIS_FAST, a, b),
+            "medium_1080p": (dt.DIS_MEDIUM, a, b), "full_1080p": (dt.DIS_FULL, a, b),
+            "compat_4k": (bench_cfg, a4, b4), "fast_4k": (dt.DIS_FAST, a4, b4),
+            "compat_kitti_b8": (bench_cfg, ka, kb),
+            "ultrafast_kitti_b8": (dt.DIS_ULTRAFAST, ka, kb)}.items()}
     # The 1080p DIS_MEDIUM artifact: its size, export and load in this process.
     t0 = time.perf_counter()
     data = export_flow(dt.DIS_MEDIUM, H, W)

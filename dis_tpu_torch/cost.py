@@ -1,9 +1,10 @@
 """The static cost of a flow program: operations and bytes, from shapes.
 
 Each kernel's work is a formula of its launch's shapes
-(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, and the
+(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, the
 refinement's :func:`refine_warp_cost`, :func:`refine_weights_cost`,
-:func:`refine_sor_cost`): each
+:func:`refine_sor_cost`, and each scale's :func:`templates_cost`,
+:func:`start_cost`, :func:`weights_cost`, :func:`densify_cost`): each
 input read once, each output written once, and the operations its
 arithmetic does.  ``chip_smoke.py`` reads the same formulas for the
 bounds of its ``kernels`` line, with the trips that its run's data
@@ -34,9 +35,12 @@ from .ops.cuda.pyramid_kernel import first_level_dims
 # The kernel each op launches, by op name.
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
            "extract_regions_banded": "K2c", "iclk_search": "K1",
-           "refine_warp": "R1", "refine_weights": "R2", "refine_sor": "R3"}
+           "refine_warp": "R1", "refine_weights": "R2", "refine_sor": "R3",
+           "scale_templates": "S1", "search_start": "S2", "fixed_weights": "S3",
+           "densify": "S4"}
 # The kernels every count names; the refinement's (R1-R3) appear only
-# where a program refines.
+# where a program refines, each scale's (S1-S4) where they launch (S3 in
+# fixed mode only).
 CORE_KERNELS = ("K3", "K2", "K2c", "K1")
 
 F32 = 4
@@ -122,6 +126,55 @@ def refine_sor_cost(nb: int, h: int, w: int, color: int, relax: bool) -> Tuple[i
     return px * 18 * F32, updated * (40 if relax else 34)
 
 
+def templates_cost(nb: int, th: int, tw: int, n: int, ps: int,
+                   residual: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one S1 launch over ``nb`` triples of padded
+    planes [th, tw] (level, dx, dy) and ``n`` patches each: the planes read
+    once, T, Tdx, Tdy (and Tn where ``residual``) and the 2x2 inverses
+    written once; per patch three products and three sums a tap, about 12
+    operations for the inverse, and for Tn a sum and a subtraction a tap."""
+    taps = ps * ps
+    per_patch = (3 * taps + 4 + (taps if residual else 0)) * F32
+    ops = 6 * taps + 12 + (2 * taps + 1 if residual else 0)
+    return nb * (3 * th * tw * F32 + n * per_patch), nb * n * ops
+
+
+def start_cost(nb: int, num_w: int, num_h: int, coarser: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one S2 launch over ``nb`` pairs of a ``num_w``
+    x ``num_h`` grid: the picks (int64) and centers read once, each
+    patch's picked flow value where there is a ``coarser`` flow, init_u
+    and pos0 (two floats each) and the start flag (a byte) written once;
+    about 8 operations a patch."""
+    n = num_w * num_h
+    read = (num_w + num_h) * 8 + n * 2 * F32 + (nb * n * 2 * F32 if coarser else 0)
+    return read + nb * n * (4 * F32 + 1), nb * n * 8
+
+
+def weights_cost(nb: int, n: int, ps: int, normalize: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one S3 launch over ``nb`` pairs of ``n``
+    patches: Q and T read once, the start flags (a byte) read and the
+    weights written once; per tap a subtraction, a product and a sum (and
+    for the mean a sum and a subtraction), and 3 operations a patch."""
+    taps = ps * ps
+    ops = 3 * taps + 3 + (2 * taps + 1 if normalize else 0)
+    return nb * n * (2 * taps * F32 + 1 + F32), nb * n * ops
+
+
+def densify_cost(nb: int, n: int, out_h: int, width: int, kr: int, kc: int,
+                 weighted: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one S4 launch over ``nb`` pairs of ``n``
+    patches into [out_h, width] pixels: u (and the weights) read once, the
+    cover indices (int64) read once, the uniform weight plane read once
+    where there are no weights, the flow written once; per pixel ``kr *
+    kc`` adds a channel (and the weight's sum and two products a term where
+    ``weighted``), two divisions and a test."""
+    px = out_h * width
+    read = nb * n * (3 if weighted else 2) * F32 + (out_h * kr + width * kc) * 8
+    read += 0 if weighted else px * F32
+    per_px = (5 if weighted else 2) * kr * kc + 3
+    return read + nb * px * 2 * F32, nb * px * per_px
+
+
 def op_cost(name: str, args) -> Tuple[int, int]:
     """(bytes, operations) of one call of the kernel op ``name`` with the
     op's arguments, K1 for its fixed loop (every patch, every trip)."""
@@ -149,6 +202,23 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         if name == "refine_weights":
             return refine_weights_cost(nb, *plane.shape[-2:])
         return refine_sor_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
+    if name == "scale_templates":
+        img, num_w, num_h, ps, residual = args[0], args[3], args[4], args[8], args[9]
+        nb = img.shape[0] if img.ndim == 3 else 1
+        return templates_cost(nb, *img.shape[-2:], num_w * num_h, ps, residual)
+    if name == "search_start":
+        flow, nn_rows, nn_cols, nb = args[0], args[1], args[2], args[8]
+        pairs = (flow.shape[0] if flow.ndim == 4 else 1) if flow is not None else max(nb, 1)
+        return start_cost(pairs, nn_cols.shape[0], nn_rows.shape[0], flow is not None)
+    if name == "fixed_weights":
+        Q, ps, normalize = args[0], args[3], args[4]
+        nb = Q.shape[0] if Q.ndim == 3 else 1
+        return weights_cost(nb, Q.shape[-2], ps, normalize)
+    if name == "densify":
+        u, weights, cover_rows, cover_cols = args[:4]
+        nb = u.shape[0] if u.ndim == 3 else 1
+        return densify_cost(nb, u.shape[-2], cover_rows.shape[0], cover_cols.shape[0],
+                            cover_rows.shape[1], cover_cols.shape[1], weights is not None)
     raise ValueError(f"no cost formula for the op {name!r}")
 
 
@@ -170,7 +240,8 @@ def glue_bytes(func, args, kwargs, out) -> int:
 
 def kernel_ops(program) -> Dict[str, int]:
     """The kernel ops in an exported program's graph, by kernel: K3, K2,
-    K2c and K1 always, R1-R3 where the program refines."""
+    K2c and K1 always, R1-R3 where the program refines, S1-S4 where they
+    launch."""
     ops = dict.fromkeys(CORE_KERNELS, 0)
     for node in program.graph.nodes:
         name = getattr(node.target, "name", lambda: "")()
@@ -185,8 +256,8 @@ def flow_cost(cfg: DISConfig, height: int, width: int,
     """``{"flops", "bytes accessed", "kernels", "glue"}`` of one
     ``dis_flow`` call on a [(batch,) height, width] bucket: totals, each
     kernel launch's ``{"flops", "bytes accessed"}`` in launch order by
-    kernel (K3, K2, K2c and K1 always, R1-R3 where the config refines),
-    and the glue's op count and totals.  The CPU plans of the
+    kernel (K3, K2, K2c and K1 always, R1-R3 where the config refines,
+    S1-S4 where they launch), and the glue's op count and totals.  The CPU plans of the
     bucket are built (and cached) first: the trace reads them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._python_dispatch import TorchDispatchMode

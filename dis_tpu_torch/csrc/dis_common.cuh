@@ -10,3 +10,26 @@ __device__ __forceinline__ int dis_ceil_coord(float v) {
   const float c = ceilf(v + 1e-5f);
   return (int)fminf(fmaxf(c, -1e6f), 1e6f);
 }
+
+// Sum of a patch's taps held by a group of G lanes, K taps a lane (taps
+// past the patch are zero): the in-lane pair tree, then the xor butterfly
+// over the G lanes of the group (offsets below G stay inside the group).
+// That is the balanced pair tree of ops/iclk.py::pairwise_sum over the
+// taps zero-padded to G * K, and float addition is commutative, so every
+// lane of the group holds the same bits.  K1 (iclk.cu) and S1 and S3
+// (scale_glue.cu) sum with it; every lane of the warp must call it.
+template <int K, int G>
+__device__ __forceinline__ float dis_group_sum(const float (&v)[K]) {
+  float t[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) t[k] = v[k];
+#pragma unroll
+  for (int width = K; width > 1; width >>= 1) {
+#pragma unroll
+    for (int k = 0; k < width / 2; ++k) t[k] = t[2 * k] + t[2 * k + 1];
+  }
+  float s = t[0];
+#pragma unroll
+  for (int off = 1; off < G; off <<= 1) s = s + __shfl_xor_sync(0xffffffffu, s, off);
+  return s;
+}

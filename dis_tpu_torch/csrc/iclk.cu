@@ -84,24 +84,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 
-// Sum of the group's taps: in-lane pair tree, then the xor butterfly over
-// the G lanes of the group (offsets below G stay inside the group).
-template <int K, int G>
-__device__ __forceinline__ float group_sum(const float (&v)[K]) {
-  float t[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) t[k] = v[k];
-#pragma unroll
-  for (int width = K; width > 1; width >>= 1) {
-#pragma unroll
-    for (int k = 0; k < width / 2; ++k) t[k] = t[2 * k] + t[2 * k + 1];
-  }
-  float s = t[0];
-#pragma unroll
-  for (int off = 1; off < G; off <<= 1) s = s + __shfl_xor_sync(FULL, s, off);
-  return s;
-}
-
 // The lane's K taps [t0, t0 + K) of one patch row of a [.., np] array;
 // taps past np read as zero.  vec: the row is 16-byte aligned and np is a
 // multiple of 4, so every 4-tap chunk is wholly in or out.
@@ -195,7 +177,7 @@ __device__ __forceinline__ void sample(const Patch& P, int ps_rt, float px, floa
     }
   }
   if (normalize) {
-    const float m = group_sum<K, G>(q) * inv_ps2;
+    const float m = dis_group_sum<K, G>(q) * inv_ps2;
 #pragma unroll
     for (int k = 0; k < K; ++k)
       if (t0 + k < np) q[k] = q[k] - m;
@@ -278,8 +260,8 @@ iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
       px_[k] = tdx[k] * r;
       py_[k] = tdy[k] * r;
     }
-    const float rx = group_sum<K, G>(px_);
-    const float ry = group_sum<K, G>(py_);
+    const float rx = dis_group_sum<K, G>(px_);
+    const float ry = dis_group_sum<K, G>(py_);
     const float dx = h00 * rx + h01 * ry;
     const float dy = h10 * rx + h11 * ry;
     const float uxn = ux - dx, uyn = uy - dy;

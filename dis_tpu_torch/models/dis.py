@@ -4,9 +4,10 @@ of ``dis_tpu/models/dis.py``.
 ``flow = dis_flow(img1, img2, cfg)`` runs on the device of its inputs:
 on CUDA tensors each pyramid, region extraction and search goes
 through the hand-written kernels K3, K2 (K2c where the extraction route
-says so: the 4K finest scale) and K1; on CPU tensors through their plain
-PyTorch versions.  Scale shapes are static and the scale loop is a Python
-loop.
+says so: the 4K finest scale) and K1, and each scale's templates, start,
+fixed-mode weights and densification through S1-S4; on CPU tensors
+through their plain PyTorch versions.  Scale shapes are static and the
+scale loop is a Python loop.
 
 A batch of same-shape pairs ``[B, H, W]`` runs the same loop once, with
 the pair axis leading every tensor: one K3 launch per image (four
@@ -52,26 +53,21 @@ from torch.profiler import record_function
 from ..config import DISConfig
 from ..ops import iclk
 from ..ops import image as im
-from ..ops.densify import densify
-from ..ops.grid import ScalePlan, init_from_coarser_flow, make_grid, scale_plan
+from ..ops.densify import densify, fixed_weights
+from ..ops.grid import ScalePlan, make_grid, scale_plan
 from ..ops.pyramid import construct_pyramid, intensity_pyramid
 from ..ops.variational import variational_refinement
 from ..utils import checks
 
 
 def _fixed_weights(res: iclk.SearchResult, tpl: iclk.PatchTemplates,
-                   cfg: DISConfig) -> torch.Tensor:
+                   cfg: DISConfig, plain: bool = False) -> torch.Tensor:
     """Residual-adaptive densification weights (DIS paper eq. 4):
-    ``1 / max(1, ||Q - Tn||^2)`` with the mean-normalized template.
-    Patches frozen at start never resampled (their ``Q`` is the raw
-    template) and get the constant weight 1.0."""
-    ps2 = cfg.num_points_patch
-    Tn = tpl.T
-    if cfg.patch_normalization:
-        Tn = Tn - iclk.pairwise_sum(Tn)[..., None] / ps2
-    r2 = iclk.pairwise_sum((res.Q - Tn) ** 2)
-    return torch.where(res.start_oob, torch.ones_like(r2),
-                       1.0 / torch.clamp(r2, min=1.0))
+    ``1 / max(1, ||Q - Tn||^2)`` with the mean-normalized template, 1.0
+    for patches frozen at the start (``ops/densify.py::fixed_weights``,
+    kernel S3)."""
+    return fixed_weights(res.Q, tpl.T, res.start_oob, cfg.patch_size,
+                         cfg.patch_normalization, plain)
 
 
 def motion_bound(cfg: DISConfig, scale: int) -> float:
@@ -119,20 +115,27 @@ def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
     ``window`` of a level of global height ``gh_s``, whose planes start at
     global row ``row0``: templates, the NN init from the coarser flow
     (None at the coarsest scale; its first row is global row
-    ``coarse_row_offset``), the IC-LK search and densification."""
+    ``coarse_row_offset``), the IC-LK search and densification.  On CUDA
+    tensors each step is one kernel launch: S1 (templates, inverse
+    Hessians and fixed mode's ``Tn``), S2 (the start), K2 or K2c, K1, S3
+    (fixed mode's weights) and S4 (densification)."""
     sw = l1.width
     ps, pad = cfg.patch_size, cfg.img_padding
+    fixed = cfg.mode == "fixed"
     plan = scale_plan(sw, gh_s, cfg.steps, ps, l1.img.device, iy_range, window)
-    tpl = iclk.extract_templates_grid(l1.img, l1.dx, l1.dy, plan.geom, ps, pad, row0)
-    if flow_coarse is None:
-        init_u = plan.centers.new_zeros(tpl.T.shape[:-1] + (2,))
-    else:
-        init_u = init_from_coarser_flow(plan, flow_coarse, coarse_row_offset)
+    tpl, Tn = iclk.scale_templates(l1.img, l1.dx, l1.dy, plan.geom, ps, pad, row0,
+                                   fixed and cfg.patch_normalization, plain)
+    if fixed and Tn is None:
+        Tn = tpl.T
+    nb = l1.img.shape[0] if l1.img.ndim == 3 else 0
+    init_u, pos0, conv0 = iclk.search_start(plan, flow_coarse, coarse_row_offset, ps, sw,
+                                            gh_s, nb, plain)
     res = iclk.inverse_search(l2.img, tpl, plan.centers, init_u, cfg, sw, gh_s,
                               row0=row0, geom=plan.geom,
-                              init_bound=init_bound(cfg, scale), plain=plain)
-    wts = _fixed_weights(res, tpl, cfg) if cfg.mode == "fixed" else None
-    return densify(res.u, plan, wts), plan.geom, res
+                              init_bound=init_bound(cfg, scale), plain=plain, Tn=Tn,
+                              start=(pos0, conv0))
+    wts = _fixed_weights(res, tpl, cfg, plain) if fixed else None
+    return densify(res.u, plan, wts, plain=plain), plan.geom, res
 
 
 def dis_scale_window(l1, l2, flow_coarse, cfg: DISConfig, scale: int,

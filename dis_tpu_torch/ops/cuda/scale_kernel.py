@@ -1,0 +1,279 @@
+"""S1-S4: each scale's device work around the search (``csrc/scale_glue.cu``).
+
+No Pallas kernel backs them: the JAX package writes this work as ``jnp``
+code that XLA fuses into a few loops per scale.  They replace those
+fusions, and about 75 torch ops per scale, with one launch each per scale
+of ``models/dis.py::_scale``:
+
+- S1 :func:`scale_templates`, the templates, their Hessians' inverses and
+  fixed mode's mean-normalized template (``dis_tpu/ops/iclk.py:155``,
+  ``:346``, ``:355``, ``:635-637``); plain version
+  ``ops/iclk.py::templates_plain``;
+- S2 :func:`search_start`, the x2 nearest-neighbour init from the coarser
+  flow and the start test (``dis_tpu/ops/grid.py:52``,
+  ``dis_tpu/ops/iclk.py:639-646``); plain version
+  ``ops/iclk.py::search_start_plain``;
+- S3 :func:`fixed_weights`, fixed mode's densification weights
+  (``dis_tpu/models/dis.py:27``); plain version
+  ``ops/densify.py::fixed_weights_plain``;
+- S4 :func:`densify`, densification (``dis_tpu/ops/densify.py:58-108``);
+  plain version ``ops/densify.py::densify_plain``.
+
+Each is bound by bytes on the H100 (S2 by its launch): S1 and S3 take
+K1's lane layout (a group of lanes a patch, the pair-tree sums as an
+in-lane tree and a butterfly), S2 a thread a patch, S4 a block an output
+row (its row pass into shared memory, then a thread a pixel).  Each keeps its plain version's operations and rounding, so it
+equals it bitwise.  No single PyTorch call computes any of them (a
+gather, a pair-tree sum, a 2x2 inverse and a stencil each), so they have
+no library yardstick.
+
+A batch of pairs adds a leading axis to the planes, the per-patch tensors
+and the flows; the plan's tensors (centers, picks, cover indices, the
+uniform weight plane) are shared by the pairs.  The ops return new
+tensors, so ``torch.export`` and CUDA graphs need no handling of mutation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ... import _build
+from ..densify import densify_plain, fixed_weights_plain
+from ..iclk import PatchTemplates, inv_taps, search_start_plain, templates_plain
+from . import all_on_cpu, check_input, dispatch, register
+from .iclk_kernel import lane_layout
+
+T = torch.Tensor             # the ops' schemas come from these annotations
+I64 = torch.int64
+
+
+def _pairs(lead) -> int:
+    return lead[0] if lead else 1
+
+
+# -- S1: templates and inverse Hessians -------------------------------------------
+
+def scale_templates(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, num_w: int,
+                    num_h: int, steps: int, y0: int, x0: int, ps: int, residual: bool
+                    ) -> Tuple[PatchTemplates, Optional[torch.Tensor]]:
+    """(templates [(B,) N, ...], Tn [(B,) N, ps^2] or None) of the
+    ``num_w`` x ``num_h`` patch grid over the planes [(B,) th, tw], the
+    first tap at plane row ``y0`` and column ``x0``
+    (``ops/iclk.py::templates_plain``).  One launch of S1."""
+    if all_on_cpu(img, dx, dy):
+        return templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
+    lane_layout(ps)   # raises for a size the kernel does not take
+    if img.ndim not in (2, 3):
+        raise ValueError(f"img must be [th, tw] or [B, th, tw], got {tuple(img.shape)}")
+    dev = img.device
+    for t, name in ((img, "img"), (dx, "dx"), (dy, "dy")):
+        check_input(t, name, dev, torch.float32, img.shape)
+    th, tw = img.shape[-2:]
+    if num_w < 0 or num_h < 0 or steps < 1:
+        raise ValueError(f"grid {num_w} x {num_h} with steps {steps}")
+    if num_w * num_h and (y0 < 0 or x0 < 0 or y0 + (num_h - 1) * steps + ps > th
+                          or x0 + (num_w - 1) * steps + ps > tw):
+        raise ValueError(f"a {num_w} x {num_h} grid of patches {ps} wide, {steps} apart "
+                         f"from ({y0}, {x0}), leaves the [{th}, {tw}] planes")
+    T_, Tdx, Tdy, Hinv, Tn = dispatch(scale_templates_op, _templates_cuda, dev, img, dx, dy,
+                                      num_w, num_h, steps, y0, x0, ps, residual)
+    return PatchTemplates(T_, Tdx, Tdy, Hinv), (Tn if residual else None)
+
+
+def _templates_empty(img: T, dx: T, dy: T, num_w: int, num_h: int, steps: int, y0: int,
+                     x0: int, ps: int, residual: bool):
+    lead = tuple(img.shape[:-2]) + (num_w * num_h,)
+    taps = lead + (ps * ps,)
+    return (img.new_empty(taps), img.new_empty(taps), img.new_empty(taps),
+            img.new_empty(lead + (2, 2)), img.new_empty(taps if residual else (0,)))
+
+
+def _templates_cuda(img: T, dx: T, dy: T, num_w: int, num_h: int, steps: int, y0: int,
+                    x0: int, ps: int, residual: bool) -> Tuple[T, T, T, T, T]:
+    """S1 on checked inputs: T, Tdx, Tdy, Hinv and Tn (empty [0] unless
+    ``residual``)."""
+    out = _templates_empty(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
+    nb = _pairs(img.shape[:-2])
+    n = num_w * num_h
+    if nb * n == 0:
+        return out
+    _build.launch("dis_scale_templates", img.device, img.data_ptr(), dx.data_ptr(),
+                  dy.data_ptr(), nb, *img.shape[-2:], n, num_h, steps, y0, x0, ps,
+                  int(residual), inv_taps(ps), *(t.data_ptr() for t in out[:4]),
+                  out[4].data_ptr() if residual else None)
+    scale_templates.launches += 1
+    return out
+
+
+def _templates_cpu(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual):
+    tpl, Tn = templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
+    return (*tpl, Tn if residual else img.new_empty((0,)))
+
+
+# -- S2: the search start -----------------------------------------------------------
+
+def search_start(flow_coarse: Optional[torch.Tensor], nn_rows: torch.Tensor,
+                 nn_cols: torch.Tensor, coarse_row_offset: int, centers: torch.Tensor,
+                 ps: int, width: int, height: int, nb: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(init_u, pos0 [(B,) N, 2], conv0 [(B,) N] bool) of a scale of
+    global size [height, width] (``ops/iclk.py::search_start_plain``).
+    One launch of S2."""
+    given = [] if flow_coarse is None else [flow_coarse]
+    if all_on_cpu(nn_rows, nn_cols, centers, *given):
+        return search_start_plain(flow_coarse, nn_rows, nn_cols, coarse_row_offset, centers,
+                                  ps, width, height, nb)
+    dev = centers.device
+    nh, nw = nn_rows.shape[0], nn_cols.shape[0]
+    check_input(nn_rows, "nn_rows", dev, I64, (nh,))
+    check_input(nn_cols, "nn_cols", dev, I64, (nw,))
+    check_input(centers, "centers", dev, torch.float32, (nw * nh, 2))
+    if flow_coarse is not None:
+        if flow_coarse.ndim not in (3, 4) or flow_coarse.shape[-1] != 2:
+            raise ValueError("flow_coarse must be [hc, wc, 2] or [B, hc, wc, 2], got "
+                             f"{tuple(flow_coarse.shape)}")
+        check_input(flow_coarse, "flow_coarse", dev, torch.float32, flow_coarse.shape)
+    elif nb < 0:
+        raise ValueError(f"nb must be >= 0 (0: no pair axis), got {nb}")
+    return dispatch(search_start_op, _start_cuda, dev, flow_coarse, nn_rows, nn_cols,
+                    coarse_row_offset, centers, ps, width, height, nb)
+
+
+def _start_empty(flow_coarse: Optional[T], nn_rows: T, nn_cols: T, coarse_row_offset: int,
+                 centers: T, ps: int, width: int, height: int, nb: int):
+    if flow_coarse is not None:
+        lead = tuple(flow_coarse.shape[:-3])
+    else:
+        lead = (nb,) if nb else ()
+    lead += (centers.shape[0],)
+    return (centers.new_empty(lead + (2,)), centers.new_empty(lead + (2,)),
+            torch.empty(lead, dtype=torch.bool, device=centers.device))
+
+
+def _start_cuda(flow_coarse: Optional[T], nn_rows: T, nn_cols: T, coarse_row_offset: int,
+                centers: T, ps: int, width: int, height: int, nb: int) -> Tuple[T, T, T]:
+    """S2 on checked inputs; the valid region is ``out_of_bounds``'s."""
+    out = _start_empty(flow_coarse, nn_rows, nn_cols, coarse_row_offset, centers, ps, width,
+                       height, nb)
+    pairs = _pairs(out[2].shape[:-1])
+    n = centers.shape[0]
+    if pairs * n == 0:
+        return out
+    hc, wc = (0, 0) if flow_coarse is None else flow_coarse.shape[-3:-1]
+    _build.launch("dis_search_start", centers.device,
+                  None if flow_coarse is None else flow_coarse.data_ptr(),
+                  nn_rows.data_ptr(), nn_cols.data_ptr(), pairs, hc, wc, coarse_row_offset,
+                  centers.data_ptr(), n, nn_rows.shape[0], -float(ps) / 2.0,
+                  float(width + ps // 2 - 2), float(height + ps // 2 - 2),
+                  *(t.data_ptr() for t in out))
+    search_start.launches += 1
+    return out
+
+
+# -- S3: fixed mode's weights --------------------------------------------------------
+
+def fixed_weights(Q: torch.Tensor, T: torch.Tensor, start_oob: torch.Tensor, ps: int,
+                  normalize: bool) -> torch.Tensor:
+    """Densification weights [(B,) N] from the final patches ``Q`` and the
+    raw templates ``T`` [(B,) N, ps^2] (``ops/densify.py::
+    fixed_weights_plain``).  One launch of S3."""
+    if all_on_cpu(Q, T, start_oob):
+        return fixed_weights_plain(Q, T, start_oob, ps, normalize)
+    lane_layout(ps)
+    if Q.ndim not in (2, 3):
+        raise ValueError(f"Q must be [N, ps^2] or [B, N, ps^2], got {tuple(Q.shape)}")
+    dev = Q.device
+    lead = tuple(Q.shape[:-1])
+    check_input(Q, "Q", dev, torch.float32, lead + (ps * ps,))
+    check_input(T, "T", dev, torch.float32, lead + (ps * ps,))
+    check_input(start_oob, "start_oob", dev, torch.bool, lead)
+    return dispatch(fixed_weights_op, _weights_cuda, dev, Q, T, start_oob, ps, normalize)
+
+
+def _weights_empty(Q: torch.Tensor, T: torch.Tensor, start_oob: torch.Tensor, ps: int,
+                   normalize: bool):
+    return Q.new_empty(tuple(Q.shape[:-1]))
+
+
+def _weights_cuda(Q: torch.Tensor, T: torch.Tensor, start_oob: torch.Tensor, ps: int,
+                  normalize: bool) -> torch.Tensor:
+    """S3 on checked inputs: the mean divides by ``ps^2`` (a float) and the
+    weight is the reciprocal of ``max(1, r2)``."""
+    out = _weights_empty(Q, T, start_oob, ps, normalize)
+    if out.numel() == 0:
+        return out
+    nb, n = (Q.shape[0], Q.shape[1]) if Q.ndim == 3 else (1, Q.shape[0])
+    _build.launch("dis_fixed_weights", Q.device, Q.data_ptr(), T.data_ptr(),
+                  start_oob.data_ptr(), nb, n, ps, int(normalize), float(ps * ps),
+                  out.data_ptr())
+    fixed_weights.launches += 1
+    return out
+
+
+# -- S4: densification ------------------------------------------------------------------
+
+def densify(u: torch.Tensor, weights: Optional[torch.Tensor], cover_rows: torch.Tensor,
+            cover_cols: torch.Tensor, uniform_wsum: Optional[torch.Tensor], num_w: int,
+            num_h: int) -> torch.Tensor:
+    """Dense flow [(B,) out_h, width, 2] from per-patch ``u`` [(B,) N, 2]
+    and ``weights`` [(B,) N] or, for the uniform weight, the plan's weight
+    plane ``uniform_wsum``, with the plan's cover indices
+    (``ops/densify.py::densify_plain``).  One launch of S4 (none for an
+    empty output)."""
+    given = [t for t in (weights, uniform_wsum) if t is not None]
+    if all_on_cpu(u, cover_rows, cover_cols, *given):
+        return densify_plain(u, weights, cover_rows, cover_cols, uniform_wsum, num_w, num_h)
+    if u.ndim not in (2, 3):
+        raise ValueError(f"u must be [N, 2] or [B, N, 2], got {tuple(u.shape)}")
+    if cover_rows.ndim != 2 or cover_cols.ndim != 2 or min(cover_rows.shape[1],
+                                                            cover_cols.shape[1]) < 1:
+        raise ValueError(f"cover indices {tuple(cover_rows.shape)} and "
+                         f"{tuple(cover_cols.shape)} must be [out_h, K] and [width, K]")
+    dev = u.device
+    lead = tuple(u.shape[:-2])
+    out_h, width = cover_rows.shape[0], cover_cols.shape[0]
+    check_input(u, "u", dev, torch.float32, lead + (num_w * num_h, 2))
+    if weights is not None:
+        check_input(weights, "weights", dev, torch.float32, lead + (num_w * num_h,))
+    check_input(cover_rows, "cover_rows", dev, I64, cover_rows.shape)
+    check_input(cover_cols, "cover_cols", dev, I64, cover_cols.shape)
+    if weights is None:
+        if uniform_wsum is None:
+            raise ValueError("densify needs the weights or the uniform weight plane")
+        check_input(uniform_wsum, "uniform_wsum", dev, torch.float32, (out_h, width, 1))
+    return dispatch(densify_op, _densify_cuda, dev, u, weights, cover_rows, cover_cols,
+                    uniform_wsum, num_w, num_h)
+
+
+def _densify_empty(u: T, weights: Optional[T], cover_rows: T, cover_cols: T,
+                   uniform_wsum: Optional[T], num_w: int, num_h: int):
+    return u.new_empty(tuple(u.shape[:-2]) + (cover_rows.shape[0], cover_cols.shape[0], 2))
+
+
+def _densify_cuda(u: T, weights: Optional[T], cover_rows: T, cover_cols: T,
+                  uniform_wsum: Optional[T], num_w: int, num_h: int) -> T:
+    """S4 on checked inputs: the weight plane is read only without weights."""
+    out = _densify_empty(u, weights, cover_rows, cover_cols, uniform_wsum, num_w, num_h)
+    if out.numel() == 0:
+        return out
+    _build.launch("dis_densify", u.device, u.data_ptr(),
+                  None if weights is None else weights.data_ptr(), cover_rows.data_ptr(),
+                  cover_cols.data_ptr(), uniform_wsum.data_ptr() if weights is None else None,
+                  int(weights is not None), _pairs(u.shape[:-2]), cover_rows.shape[0], cover_cols.shape[0],
+                  cover_rows.shape[1], cover_cols.shape[1], num_w, num_h, out.data_ptr())
+    densify.launches += 1
+    return out
+
+
+scale_templates.launches = 0
+search_start.launches = 0
+fixed_weights.launches = 0
+densify.launches = 0
+scale_templates_op = register("scale_templates", _templates_cuda, _templates_empty,
+                              _templates_cpu)
+search_start_op = register("search_start", _start_cuda, _start_empty, search_start_plain)
+fixed_weights_op = register("fixed_weights", _weights_cuda, _weights_empty,
+                            fixed_weights_plain)
+densify_op = register("densify", _densify_cuda, _densify_empty, densify_plain)

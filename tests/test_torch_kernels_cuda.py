@@ -20,7 +20,11 @@ with the refinement presets too; the refinement's kernels R1 (warp), R2
 (weight update) and R3 (half-sweep) bitwise equal to their plain
 versions at 1, 2 and odd rows and columns, B = 8 and the 1080p finest
 level; the refinement through them on the card bitwise equal to the same
-call on the CPU, and ``plain=True`` launching none of them.
+call on the CPU, and ``plain=True`` launching none of them; each scale's
+S1 (templates and inverse Hessians), S2 (the start), S3 (fixed mode's
+weights) and S4 (densification) bitwise equal to their plain versions at
+ps 8-16, on a pair axis, a row-ranged grid with ``row0`` and a window
+plan, empty grids launching nothing where the output is empty.
 """
 
 import numpy as np
@@ -33,11 +37,14 @@ from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
 from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, lane_layout
 from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS, pyramid_level, pyramid_levels
+from dis_tpu_torch.ops.cuda import scale_kernel as sk
 from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
 from dis_tpu_torch.ops.grid import make_grid
 from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
 
 pytestmark = pytest.mark.cuda
+
+SCALE_WRAPPERS = (sk.scale_templates, sk.search_start, sk.fixed_weights, sk.densify)
 
 
 @pytest.fixture(autouse=True)
@@ -136,12 +143,16 @@ def test_dis_flow_kernels_vs_plain(mode):
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = dis_tpu_torch.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
                                   patch_overlap=0.3, mode=mode)
-    wrappers = (pyramid_levels, extract_regions, iclk_search)
+    wrappers = (pyramid_levels, extract_regions, iclk_search) + SCALE_WRAPPERS
     for w in wrappers:
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
-    assert all(w.launches > 0 for w in wrappers)
+    assert [w.launches for w in SCALE_WRAPPERS] == [4, 4, 4 if mode == "fixed" else 0, 4]
+    assert all(w.launches > 0 for w in wrappers[:3])
+    for w in wrappers:
+        w.launches = 0
     plain = dis_tpu_torch.dis_flow(x, y, cfg, plain=True)
+    assert [w.launches for w in wrappers] == [0] * len(wrappers)
     d = torch.linalg.vector_norm(flow - plain, dim=-1)
     assert flow.device.type == "cuda" and bool(torch.isfinite(flow).all())
     assert float(d.mean()) <= 1e-3 and float((d > 1e-2).float().mean()) <= 0.01
@@ -549,7 +560,7 @@ def test_refined_dis_flow_kernels_vs_plain(preset):
     a, b = _smooth(96, 160, 5)
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = getattr(dis_tpu_torch, preset)
-    wrappers = (pyramid_levels, extract_regions, iclk_search) + REFINE_WRAPPERS
+    wrappers = (pyramid_levels, extract_regions, iclk_search) + REFINE_WRAPPERS + SCALE_WRAPPERS
     for w in wrappers:
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
@@ -579,7 +590,8 @@ def test_refined_graph_batch_and_tiles():
     eager = dis_tpu_torch.dis_flow(x, y, cfg)
     compiled = aot_compile(cfg, 96, 128, batch=2)
     assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R1": 4,
-                                       "R2": 20, "R3": 200}
+                                       "R2": 20, "R3": 200, "S1": 4, "S2": 4, "S3": 4,
+                                       "S4": 4}
     for _ in range(2):
         assert torch.equal(compiled(x, y), eager)
     for i in range(2):
@@ -740,7 +752,8 @@ def test_cuda_artifact_replays_as_aot_compile(batch):
         x, y = x[0], y[0]
     cfg = dis_tpu_torch.DIS_FAST
     run, program = load_exported(export_flow(cfg, 75, 118, batch=batch))
-    assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4}
+    assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "S1": 4, "S2": 4,
+                                   "S3": 4, "S4": 4}
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     compiled = aot_compile(cfg, 75, 118, batch=batch)
     for _ in range(2):
@@ -765,7 +778,8 @@ def test_cuda_artifact_4k_holds_k2c():
                                   finest_scale=0, patch_overlap=0.3, mode="compat",
                                   early_exit=False)
     _, program = load_exported(export_flow(cfg, 2160, 3840))
-    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4}
+    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, "S1": 4, "S2": 4,
+                                   "S4": 4}
 
 
 def test_two_gloo_ranks_on_one_card():
@@ -786,3 +800,124 @@ def test_two_gloo_ranks_on_one_card():
     for label in ("stripes", "grid"):
         assert torch.equal(torch.cat([out[r][label] for r in range(2)]), want), label
     assert all(r["staged_bytes"] > 0 for r in out)
+
+
+# -- S1-S4: each scale's glue ------------------------------------------------------
+
+def _scale_level(h, w, ps, batch, seed):
+    """The finest level (padding ps) of a smooth image, or of a batch of
+    shifted copies."""
+    a, _ = _smooth(h, w, seed)
+    x = torch.from_numpy(np.ascontiguousarray(a)).cuda()
+    if batch:
+        x = torch.stack([x.roll(3 * i, 1) for i in range(batch)])
+    return construct_pyramid(x, 1, ps)[0]
+
+
+def _count(wrapper, fn, *args):
+    before = wrapper.launches
+    out = fn(*args)
+    return out, wrapper.launches - before
+
+
+def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed):
+    """S1-S4 bitwise equal to their plain versions on one plan."""
+    from dis_tpu_torch.ops.densify import densify_plain, fixed_weights_plain
+    from dis_tpu_torch.ops.grid import scale_plan
+    from dis_tpu_torch.ops.iclk import search_start_plain, template_origin, templates_plain
+
+    rng = np.random.default_rng(seed)
+    lv = _scale_level(h, w, ps, batch, seed)
+    plan = scale_plan(w, h, steps, ps, torch.device("cuda"), iy_range, window)
+    g = plan.geom
+    n = g.num_w * g.num_h
+    lead = (batch,) if batch else ()
+    planes = [p[..., row0:, :].contiguous() for p in (lv.img, lv.dx, lv.dy)]
+    for residual in (False, True):
+        args = (*planes, g.num_w, g.num_h, g.steps, *template_origin(g, ps, ps, row0), ps,
+                residual)
+        (tpl, tn), launched = _count(sk.scale_templates, sk.scale_templates, *args)
+        assert launched == (1 if n else 0)
+        if not n:      # the plain version's window cuts need a patch row
+            assert tpl.T.shape == lead + (0, ps * ps) and tpl.Hinv.shape == lead + (0, 2, 2)
+            want_tn = tpl.T
+            continue
+        want, want_tn = templates_plain(*args)
+        for x, y in zip(tpl, want):
+            assert torch.equal(x, y)
+        assert (tn is None) == (not residual) and (tn is None or torch.equal(tn, want_tn))
+    # S2: the coarsest scale, and a window of the coarser flow with its offset.
+    cols = plan.nn_cols.max().item() + 2 if n else 2
+    row_off = plan.nn_rows.min().item() if n else 0
+    rows = (plan.nn_rows.max().item() + 2 - row_off) if n else 2
+    coarse = torch.from_numpy((rng.random(lead + (rows, cols, 2)) - 0.5).astype(np.float32)
+                              * 4 * ps).cuda()
+    for flow, off in ((None, 0), (coarse, row_off)):
+        args = (flow, plan.nn_rows, plan.nn_cols, off, plan.centers, ps, w, h, batch or 0)
+        got, launched = _count(sk.search_start, sk.search_start, *args)
+        assert launched == (1 if n else 0)
+        for x, y in zip(got, search_start_plain(*args)):
+            assert torch.equal(x, y)
+    conv0 = got[2]
+    if n:
+        assert bool(conv0.any()) and not bool(conv0.all())
+    # S3: Q near the normalized template for half the patches (r2 < 1 there).
+    T = tpl.T
+    Q = torch.where(torch.from_numpy(rng.random(lead + (n, 1)) < 0.5).cuda(),
+                    want_tn + torch.from_numpy(((rng.random(T.shape) - 0.5) * 0.05)
+                                               .astype(np.float32)).cuda(),
+                    torch.from_numpy((rng.random(T.shape) * 255).astype(np.float32)).cuda())
+    for normalize in (False, True):
+        args = (Q, T, conv0, ps, normalize)
+        got, launched = _count(sk.fixed_weights, sk.fixed_weights, *args)
+        assert launched == (1 if n else 0)
+        assert torch.equal(got, fixed_weights_plain(*args))
+    # S4: uniform and weighted (some weights 0), full plan or window.
+    u = torch.from_numpy(((rng.random(lead + (n, 2)) - 0.5) * 20).astype(np.float32)).cuda()
+    wts = torch.from_numpy((rng.random(lead + (n,)) * (rng.random(lead + (n,)) > 0.2))
+                           .astype(np.float32)).cuda()
+    for weights in (None, wts):
+        args = (u, weights, plan.cover_rows, plan.cover_cols, plan.uniform_wsum, g.num_w,
+                g.num_h)
+        got, launched = _count(sk.densify, sk.densify, *args)
+        assert launched == (1 if got.numel() else 0)
+        assert torch.equal(got, densify_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("ps", [8, 10, 12, 16])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_scale_kernels_bitwise(ps, batch):
+    """S1-S4 against their plain versions on the full grid of a level, and
+    on a row-ranged grid read from a stripe of the planes (``row0``) with
+    a window plan of output rows."""
+    steps = max(1, int(ps * 0.7)) if ps < 12 else 3
+    _check_scale_kernels(72, 104, ps, steps, batch, None, None, 0, ps)
+    _check_scale_kernels(72, 104, ps, steps, batch, (4, 9), (20, 41), 12, ps + 1)
+
+
+def test_scale_kernels_empty_grid():
+    """An empty row range: S1-S3 launch nothing; S4 still fills its
+    window (all zeros), bitwise the plain version."""
+    _check_scale_kernels(72, 104, 8, 5, None, (5, 5), (30, 31), 0, 3)
+
+
+def test_scale_kernels_bitwise_1080p():
+    """At the 1080p finest shapes (ps 8 stride 5 and ps 12 stride 3)."""
+    _check_scale_kernels(1080, 1920, 8, 5, None, None, None, 0, 7)
+    _check_scale_kernels(1088, 1920, 12, 3, None, None, None, 0, 8)
+
+
+def test_scale_wrappers_check_their_inputs():
+    """A CUDA call with a wrong dtype, a strided tensor or a grid outside
+    the planes raises before any launch."""
+    lv = _scale_level(40, 56, 8, None, 1)
+    with pytest.raises(ValueError, match="leaves"):
+        sk.scale_templates(lv.img, lv.dx, lv.dy, 20, 20, 5, 0, 0, 8, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.scale_templates(lv.img.t(), lv.dx.t(), lv.dy.t(), 2, 2, 5, 0, 0, 8, False)
+    u = torch.zeros(6, 2, device="cuda")
+    rows = torch.zeros(4, 3, dtype=torch.int32, device="cuda")
+    cols = torch.zeros(5, 3, dtype=torch.int64, device="cuda")
+    with pytest.raises(TypeError, match="int64"):
+        sk.densify(u, None, rows, cols, torch.zeros(4, 5, 1, device="cuda"), 2, 3)
