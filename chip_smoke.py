@@ -110,7 +110,13 @@ refinement code):
     KITTI B = 8 config 3 batch, stripe 1 of 3 of the 4K compat frame (row0
     544, a row-ranged grid and an output window) and the 1080p ``DIS_FULL``
     frame (ps 12), recorded from a run (``scale_step_inputs``), each
-    bitwise equal to its plain version and timed beside it with its bound;
+    bitwise equal to its plain version and timed beside it with its bound
+    and its share of that bound;
+    at the 1080p compat and ``DIS_FULL`` finest scales also S4 beside a
+    fill of its flow's bytes, and at the ``DIS_FULL`` one S4's sweep of
+    cover widths (``S4_SWEEP_PS``: the ``DIS_FULL`` grid, u and weights
+    with the covers of ps 6, 8 and 12 at its stride 3, weighted and
+    uniform, each bitwise equal to its plain version, with its bound);
     every path through ``models/dis.py::_scale`` launches S1, S2 and S4
     once per scale (and S3 in fixed mode), which every launch count below
     includes (``glue_counts``);
@@ -262,7 +268,8 @@ an entry point.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
 kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
-B = 8; K2c and K2 on the same 4K finest inputs, and K1 there), the
+B = 8; K2c and K2 on the same 4K finest inputs, and K1 there; S1 and S4
+at the 1080p compat finest scale, S4 at the 1080p ``DIS_FULL`` one), the
 replayed 1080p and 4K compat frames, and the refinement of the finest
 level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames (with R1-R3
 where the tree has them), those frames and the 1080p ``DIS_MEDIUM``
@@ -294,6 +301,9 @@ import torch
 
 W, H = 1920, 1080
 SHIFT = (3.0, 2.0)
+# Phase 1f's patch sizes for S4's covers on the DIS_FULL finest grid (stride
+# 3): 3, 4 and 5 grid rows and columns a pixel, DIS_FULL's own last.
+S4_SWEEP_PS = (6, 8, 12)
 # The kernels line's rows, each with its launches summed over the main-path
 # phases (K2 and K1 with a pair axis count as K2b and K1b).
 LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3", "S1", "S2", "S3", "S4")
@@ -1941,8 +1951,43 @@ def main() -> int:
                 stimes[k], scosts[k] = (km, pm), (nbytes, ops)
             print(f"phase1f {label} {k} {tuple(args[0].shape) if args[0] is not None else ''}"
                   f" -> {tuple(got[0].shape)}: bitwise equal to the plain version; kernel "
-                  f"{km:.4f} ms replayed, plain {pm:.4f} ms ({prm:.4f} ms replayed), bound "
-                  f"{bms:.4f} ms by {by} [{card}]", flush=True)
+                  f"{km:.4f} ms replayed ({100.0 * bms / km:.0f}% of its bound), plain "
+                  f"{pm:.4f} ms ({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} [{card}]",
+                  flush=True)
+        if label in ("1080p compat", "1080p full"):
+            # S4 beside a fill of its flow's bytes: the card's stores alone.
+            flow = sk.densify(*steps["S4"])
+            print(f"phase1f {label} S4 beside a fill of its flow's bytes (zero_) "
+                  f"{replay_ms(flow.zero_):.4f} ms [{card}]", flush=True)
+        if label == "1080p full":
+            # S4 on the same grid, u and weights with wider covers: its bytes
+            # barely move while each pixel's staged sums grow with kr * kc
+            # (4 x 4 takes the kernel's generic instance, 3 x 3 and 5 x 5
+            # its unrolled ones).
+            from dis_tpu_torch.ops.grid import scale_plan
+
+            u, wts, crows, ccols, _, num_w, num_h = steps["S4"]
+            sweep = []
+            for ps in S4_SWEEP_PS:
+                plan = scale_plan(ccols.shape[0], crows.shape[0], cfg.steps, ps, u.device)
+                check((plan.geom.num_w, plan.geom.num_h) == (num_w, num_h)
+                      and (ps != cfg.patch_size or (torch.equal(plan.cover_rows, crows)
+                                                    and torch.equal(plan.cover_cols, ccols))),
+                      f"S4 sweep {label} ps {ps}: not the recorded grid")
+                kr, kc = plan.cover_rows.shape[1], plan.cover_cols.shape[1]
+                for weights in (wts, None):
+                    args = (u, weights, plan.cover_rows, plan.cover_cols, plan.uniform_wsum,
+                            num_w, num_h)
+                    weighting = "uniform" if weights is None else "weighted"
+                    check(torch.equal(sk.densify(*args), densify_plain(*args)),
+                          f"S4 {label} {kr} x {kc} {weighting}: differs from its plain version")
+                    km = replay_ms(lambda: sk.densify(*args))
+                    bms, by = bound(*cost.op_cost("densify", args))
+                    sweep.append(f"{kr} x {kc} {weighting} {km:.4f} ({100.0 * bms / km:.0f}% of "
+                                 f"{bms:.4f} by {by})")
+            print(f"phase1f {label} S4 by covers (grid rows x columns a pixel, ms replayed, "
+                  f"each bitwise equal to its plain version): {'; '.join(sweep)} [{card}]",
+                  flush=True)
         del steps
 
     # -- phase 2: the main path ---------------------------------------------
@@ -2576,7 +2621,9 @@ def kernel_times(root: str) -> int:
     JSON line: K3 on the 1080p pyramid of one image and of both; K2 and K1
     at the 1080p finest scale (compat bench config; K1 also ``DIS_FAST``);
     K2b and K1b on the KITTI B = 8 batch (config 3); K3 on the two 4K
-    pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; the
+    pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; S1
+    and S4 on the 1080p compat finest scale's inputs and S4 on the 1080p
+    ``DIS_FULL`` one's; the
     replayed 1080p and 4K compat frames (``aot_compile``), the eager 1080p
     compat frame and the KITTI B = 8 batch, eager and replayed; the refinement
     of the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames
@@ -2654,6 +2701,18 @@ def kernel_times(root: str) -> int:
     bound0 = init_bound(bench_cfg, 0)
     both("K2c_4k_finest", lambda: extract_regions_banded(img4, pos4, 8, p, geom4, bound0),
          calls=5)
+    # S1 and S4 on the finest scale's inputs of the 1080p compat frame (S4
+    # also of the DIS_FULL frame), through the wrappers of every tree since
+    # S1-S4 (scale_step_inputs records them).
+    from dis_tpu_torch.ops.cuda import scale_kernel as sk
+
+    for key, cfg, names in (("1080p_compat", bench_cfg, ("S1", "S4")),
+                            ("1080p_full", dt.DIS_FULL, ("S4",))):
+        steps = scale_step_inputs(lambda: dt.dis_flow(a, b, cfg))
+        for k in names:
+            fn = {"S1": sk.scale_templates, "S4": sk.densify}[k]
+            out[f"{k}_{key}_finest_replayed_ms"] = replay_ms(lambda: fn(*steps[k]))
+        del steps
     # Whole frames, replayed from the serving path's CUDA graph: whether a
     # kernel's gain shows end to end.
     for key, (x, y) in (("frame_1080p_compat", (a, b)), ("frame_4k_compat", (a4, b4))):

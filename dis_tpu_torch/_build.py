@@ -47,10 +47,10 @@ SIGNATURES = {
     "dis_refine_weights": [_P, _I, _I, _I, _F, _F, _F, _P, _P],
     "dis_refine_sor": [_P, _I, _I, _I, _I, _F, _I, _P, _P],
     "dis_scale_templates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                            _P, _P, _P, _P, _P, _P],
+                            _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "dis_search_start": [_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P],
     "dis_fixed_weights": [_P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
-    "dis_densify": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "dis_densify": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 

@@ -24,37 +24,69 @@
 // (__frcp_rn: Tensor.__rtruediv__ is reciprocal then * 1.0) and a tensor
 // division __fdiv_rn.  So each kernel equals its plain version bitwise.
 //
-// Layouts.  S1 and S3 work on patches [nb, n, ps^2] with K1's lane layout
-// (dis_iclk_layout in iclk.cu: a group of G lanes a patch, K consecutive
-// taps a lane, G K the power of two >= ps^2, taps past ps^2 zero), so a
-// group's pair-tree sums are dis_group_sum's; a warp holds 32 / G patches
-// (four at ps 8).  Patches are x-outer (patch = ix * num_h + iy) and a
-// template's taps row-major (tap = j * ps + i reads the plane at row
-// y0 + iy * steps + j, column x0 + ix * steps + i; a stripe's row0 is
-// already in y0).  S2 takes a thread per patch, S4 a block per output row
-// and a thread per output pixel: out[b, y, x] sums, for each covering grid
-// column in cover_cols order, that column's covering grid rows in
-// cover_rows order, the zero row and column (index num_h, num_w) included
-// as the zero they are, as densify_plain's row pass then column pass add
-// them.
-//
 // Bound on the H100: memory.  At the 1080p finest scale (82,944 patches of
 // ps 8 on level planes of 1104 x 1936): S1 reads the three planes (25.6 MB)
 // and writes three templates of 64 taps a patch and the inverses (65 MB);
 // S3 reads Q and T (42.5 MB); S4 writes the 1080p flow (16.6 MB) and reads
 // the uniform weight plane (8.3 MB); S2 moves about 2 MB and is bound by
 // its launch.  The arithmetic is a few operations per byte at most, far
-// under the card's 67 TFLOP/s.  The planes' overlapping windows (stride 5
-// under ps 8) come from L1 and L2, so device memory sees each about once;
-// templates are written as 16-byte vectors.  S4's block sums each output
-// row's covering grid rows once into shared memory and writes the row's
-// flow as 8-byte pairs.  Measured there (H100 80GB HBM3 at 700 W,
-// chip_smoke.py phase 1f): S1 0.057, S2 0.003, S3 0.014, S4 0.018 ms, 48%,
-// 28%, 90% and 43% of those bounds; S1's lanes read 8-tap rows of patches
-// 5 rows apart, so a load instruction touches about 17 sectors.
+// under the card's 67 TFLOP/s.
+//
+// S1 (templates_kernel).  A block a tile of the patch grid, `rows`
+// consecutive patch rows in `cols` consecutive patch columns of one pair
+// (8 x 8 where it fits; ops/cuda/scale_kernel.py::template_tiles): it
+// copies the tile's window of the level, dx and dy planes, (rows - 1) *
+// steps + ps rows by (cols - 1) * steps + ps columns, into shared memory
+// with cp.async (neighbouring threads on neighbouring addresses, 4 bytes
+// each: a plane row need not be 16-byte aligned), and its lanes read their
+// taps from there.  The row pitch is padded so that a warp's reads spread
+// over the banks (an odd pitch at ps 8: the up to 23 rows of a warp's four
+// patches fall in distinct banks).  The lanes keep K1's layout
+// (dis_iclk_layout in iclk.cu: a group of G lanes a patch, K consecutive
+// taps a lane, G K the power of two >= ps^2, taps past ps^2 zero), so a
+// group's pair-tree sums are dis_group_sum's; a warp's 32 / G patches are
+// consecutive patch rows of one column, so they are consecutive in the
+// outputs (patches x-outer: patch = ix * num_h + iy; taps row-major, tap =
+// j * ps + i at plane row y0 + iy * steps + j, column x0 + ix * steps + i;
+// a stripe's row0 is already in y0), and the two lanes of a pair swap a
+// chunk so that each 16-byte store instruction writes whole 32-byte
+// sectors.  What bounds it: the stores, 65 of the 91 MB at 1080p.
+//
+// S4 (densify_kernel).  A block a tile of 32 output rows by 128 output
+// columns of one pair.  It stages the tile's slices of cover_rows and
+// cover_cols as 32-bit indices in shared memory, reduces the range of grid
+// rows and columns they reach, loads that sub-block of u (times the
+// weights, and the weights, where weighted) once (a grid column's rows are
+// contiguous: u is x-outer), then sums each (output row, grid column)
+// pair's covering grid rows once (the row pass) and each pixel's covering
+// columns of those sums (the column pass), a term a vector ({u0, u1}, or
+// {u0 w, u1 w, w} where weighted), the zero row and column (index num_h,
+// num_w) added as the zeros they are, each loop unrolled for kr = kc = 3
+// and 5.  The uniform weight plane's values are copied in first
+// (cp.async), so that they arrive while the covers are reduced.  A range
+// larger than the staged sub-block (cover tables that no plan makes) is
+// summed straight from device memory in the same order.  At most 64
+// registers a thread: four blocks an SM, so the 1080p finest scale's 510
+// tiles run in one wave.  What bounds it: at 3 x 3 uniform covers the
+// flow's stores and the weight plane's loads; at DIS_FULL's 5 x 5
+// weighted covers the terms each pixel sums (below).
+//
+// S2 (start_kernel) takes a thread a patch; S3 (weights_kernel) reads its
+// patches [nb, n, ps^2] in K1's lane layout.
+//
+// Measured (H100 80GB HBM3, 700.00 W; chip_smoke.py phase 1f) at the 1080p
+// compat finest scale: S1 0.0374 ms (72% of its 0.0270 ms bound), S2
+// 0.0031, S3 0.0141 (DIS_FAST; 91%), S4 0.0106 (72% of 0.0076); S4 0.0163
+// ms (36% of 0.0059) at the DIS_FULL finest scale.  Phase 1f's sweep of
+// cover widths on that grid, whose bytes barely change with them, takes
+// 0.0109, 0.0161 and 0.0165 ms weighted at 3 x 3, 4 x 4 (the generic
+// instance) and 5 x 5 covers, and 0.0113, 0.0158 and 0.0140 uniform: the
+// terms a pixel sums ({u0 w, u1 w, w} vectors where weighted), not its
+// bytes, set S4's pace there.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "dis_common.cuh"
@@ -121,68 +153,177 @@ __device__ __forceinline__ void store_taps(float* __restrict__ row, int t0, int 
   }
 }
 
+// S1's stores of the lane's taps below np of a fresh output row, 16 bytes
+// an instruction: the two lanes of a pair (g, g ^ 1: one patch, G even)
+// swap one 4-tap chunk a sector, so that each instruction writes whole
+// 32-byte sectors (the even lane's 8 taps, then the odd lane's) instead of
+// half of each of twice as many.  Every lane of the warp must call it;
+// only valid lanes store.  K = 4 (G = 1: a lane's taps are its patch, and
+// a warp's lanes already write whole sectors) stores as store_taps.
+template <int K>
+__device__ __forceinline__ void store_taps_paired(float* __restrict__ row, int t0, int np,
+                                                  const float (&v)[K], bool valid) {
+  if (K < 8) {
+    if (valid) store_taps<K>(row, t0, np, v);
+    return;
+  }
+  const bool odd = threadIdx.x & 1;
+  const int mine = t0, theirs = odd ? t0 - K : t0 + K;
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    const int c0 = 8 * j, c1 = 8 * j + 4;   // the sector's chunks in a lane
+    float send[4], recv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      send[q] = odd ? v[c0 + q] : v[c1 + q];
+      recv[q] = __shfl_xor_sync(0xffffffffu, send[q], 1);
+    }
+    if (!valid) continue;
+    // The even lane's sector, then the odd lane's.
+    const int ta = odd ? theirs + c1 : mine + c0, tb = odd ? mine + c1 : theirs + c0;
+    const float4 fa = odd ? make_float4(recv[0], recv[1], recv[2], recv[3])
+                          : make_float4(v[c0], v[c0 + 1], v[c0 + 2], v[c0 + 3]);
+    const float4 fb = odd ? make_float4(v[c1], v[c1 + 1], v[c1 + 2], v[c1 + 3])
+                          : make_float4(recv[0], recv[1], recv[2], recv[3]);
+    if (ta < np) *reinterpret_cast<float4*>(row + ta) = fa;
+    if (tb < np) *reinterpret_cast<float4*>(row + tb) = fb;
+  }
+}
+
+// An asynchronous 4-byte copy from device to shared memory, and the waits.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // S1: planes img, dx, dy [nb, th, tw]; writes T, Tdx, Tdy [nb, n, ps^2],
 // hinv [nb, n, 2, 2] and, where residual, tn [nb, n, ps^2].
+struct TemplateGrid {
+  const float* img;
+  const float* dx;
+  const float* dy;
+  int th, tw, num_w, num_h, steps, y0, x0, ps;
+  int rows, cols;        // patch rows and columns a tile
+  int tiles_h, tiles_w;  // tiles a pair, along a column and a row of the grid
+  int pitch;             // a staged window row, in floats
+  int plane;             // a staged plane: ((rows - 1) * steps + ps) * pitch floats
+  int n, residual;       // patches a pair; whether tn is written
+  float inv_ps2;
+  float* T;
+  float* Tdx;
+  float* Tdy;
+  float* hinv;
+  float* tn;
+};
+
+// A tile: its pair, its first patch row and column, and how many of its
+// patch rows and columns lie in the grid (fewer at the grid's far edges).
+struct TemplateTile {
+  long long pair;
+  int iy0, ix0, pv, cv;
+  __device__ __forceinline__ TemplateTile(const TemplateGrid& g, long long t) {
+    const int per_pair = g.tiles_h * g.tiles_w;
+    pair = t / per_pair;
+    const int rem = (int)(t - pair * per_pair);
+    const int tx = rem / g.tiles_h, ty = rem - tx * g.tiles_h;
+    iy0 = ty * g.rows;
+    ix0 = tx * g.cols;
+    pv = min(g.rows, g.num_h - iy0);
+    cv = min(g.cols, g.num_w - ix0);
+  }
+};
+
+// Starts the copies of tile tl's window of the three planes into buf
+// ([3][window rows][pitch]); rows past the tile's last patch are not read.
+__device__ __forceinline__ void stage_window(const TemplateGrid& g, const TemplateTile& tl,
+                                             float* buf) {
+  const int wr = (tl.pv - 1) * g.steps + g.ps, wc = (tl.cv - 1) * g.steps + g.ps;
+  const long long src = tl.pair * g.th * g.tw + (long long)(g.y0 + tl.iy0 * g.steps) * g.tw +
+                        g.x0 + tl.ix0 * g.steps;
+  for (int e = threadIdx.x; e < wr * wc; e += THREADS) {
+    const int r = e / wc, c = e - r * wc;
+    const long long off = src + (long long)r * g.tw + c;
+    float* d = buf + r * g.pitch + c;
+    cp_async4(d, g.img + off);
+    cp_async4(d + g.plane, g.dx + off);
+    cp_async4(d + 2 * g.plane, g.dy + off);
+  }
+}
+
+// At most 85 registers a thread, so that three blocks fit an SM.
 template <int K, int G>
-__global__ void __launch_bounds__(THREADS)
-templates_kernel(const float* __restrict__ img, const float* __restrict__ dx,
-                 const float* __restrict__ dy, int th, int tw, long long total, int n,
-                 int num_h, int steps, int y0, int x0, int ps, int residual, float inv_ps2,
-                 float* __restrict__ T, float* __restrict__ Tdx, float* __restrict__ Tdy,
-                 float* __restrict__ hinv, float* __restrict__ tn) {
-  const Lane<G> lane;
-  const bool valid = lane.slot < total;
-  const long long i = valid ? lane.slot : 0;
-  const long long pair = i / n;
-  const int patch = (int)(i - pair * n);
-  const int ix = patch / num_h, iy = patch - ix * num_h;
-  const float* src_img = img + pair * th * tw;
-  const float* src_dx = dx + pair * th * tw;
-  const float* src_dy = dy + pair * th * tw;
-  const int ry = y0 + iy * steps, rx = x0 + ix * steps;
-  const int np = ps * ps;
-  const int t0 = lane.g * K;
-  float t[K], gx[K], gy[K], xx[K], xy[K], yy[K];
+__global__ void __launch_bounds__(THREADS, 3)
+templates_kernel(const TemplateGrid g) {
+  extern __shared__ float win[];   // [3][window rows][pitch]
+  constexpr int GROUPS = THREADS / G;
+  const int np = g.ps * g.ps;
+  const int lane_g = threadIdx.x % G, group = threadIdx.x / G;
+  const int t0 = lane_g * K;
+  const TemplateTile tl(g, blockIdx.x);
+  stage_window(g, tl, win);
+  cp_async_commit();
+  int off[K];   // the lane's taps in the staged window, -1 past ps^2
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int tap = t0 + k;
-    t[k] = gx[k] = gy[k] = 0.0f;
-    if (tap < np) {
-      const int j = tap / ps;
-      const long long off = (long long)(ry + j) * tw + rx + (tap - j * ps);
-      t[k] = __ldg(src_img + off);
-      gx[k] = __ldg(src_dx + off);
-      gy[k] = __ldg(src_dy + off);
-    }
-    xx[k] = gx[k] * gx[k];
-    xy[k] = gx[k] * gy[k];
-    yy[k] = gy[k] * gy[k];
+    const int tap = t0 + k, j = tap / g.ps;
+    off[k] = tap < np ? j * g.pitch + tap - j * g.ps : -1;
   }
-  float a = dis_group_sum<K, G>(xx);
-  const float b = dis_group_sum<K, G>(xy);
-  float c = dis_group_sum<K, G>(yy);
-  if (valid) {
-    store_taps<K>(T + i * np, t0, np, t);
-    store_taps<K>(Tdx + i * np, t0, np, gx);
-    store_taps<K>(Tdy + i * np, t0, np, gy);
-  }
-  if (residual) {  // uniform across the launch: every lane joins the sum
-    const float m = dis_group_sum<K, G>(t) * inv_ps2;
+  const int slots = g.rows * g.cols;
+  cp_async_wait_all();
+  __syncthreads();
+  // Slot s of the tile is its patch (column s / rows, row s % rows); a
+  // warp's groups take consecutive slots, rows a multiple of 32 / G.
+  for (int s0 = 0; s0 < slots; s0 += GROUPS) {
+    const int slot = s0 + group;
+    const int cl = slot / g.rows, rl = slot - cl * g.rows;
+    const bool valid = slot < slots && rl < tl.pv && cl < tl.cv;
+    // An invalid lane computes on the tile's first patch and stores nothing.
+    const float* base = win + (valid ? rl * g.steps * g.pitch + cl * g.steps : 0);
+    float tv[K], gx[K], gy[K], xx[K], xy[K], yy[K];
 #pragma unroll
-    for (int k = 0; k < K; ++k) t[k] = t[k] - m;
-    if (valid) store_taps<K>(tn + i * np, t0, np, t);
-  }
-  if (valid && lane.g == 0) {
-    // templates_from_hessian: the det == 0 guard adds 1e-10 to a and c,
-    // +0.0 elsewhere; then the inverse from the recomputed determinant.
-    const float det0 = a * c - b * b;
-    const float guard = det0 == 0.0f ? 1e-10f : 0.0f;
-    a = a + guard;
-    c = c + guard;
-    const float inv_det = __frcp_rn(a * c - b * b);
-    const float nb_ = -b * inv_det;
-    *reinterpret_cast<float4*>(hinv + 4 * i) = make_float4(c * inv_det, nb_, nb_, a * inv_det);
+    for (int k = 0; k < K; ++k) {
+      tv[k] = gx[k] = gy[k] = 0.0f;
+      if (off[k] >= 0) {
+        tv[k] = base[off[k]];
+        gx[k] = base[g.plane + off[k]];
+        gy[k] = base[2 * g.plane + off[k]];
+      }
+      xx[k] = gx[k] * gx[k];
+      xy[k] = gx[k] * gy[k];
+      yy[k] = gy[k] * gy[k];
+    }
+    float a = dis_group_sum<K, G>(xx);
+    const float b = dis_group_sum<K, G>(xy);
+    float c = dis_group_sum<K, G>(yy);
+    const long long i = tl.pair * g.n + (long long)(tl.ix0 + cl) * g.num_h + tl.iy0 + rl;
+    store_taps_paired<K>(g.T + i * np, t0, np, tv, valid);
+    store_taps_paired<K>(g.Tdx + i * np, t0, np, gx, valid);
+    store_taps_paired<K>(g.Tdy + i * np, t0, np, gy, valid);
+    if (g.residual) {  // uniform across the launch: every lane joins the sum
+      const float m = dis_group_sum<K, G>(tv) * g.inv_ps2;
+#pragma unroll
+      for (int k = 0; k < K; ++k) tv[k] = tv[k] - m;
+      store_taps_paired<K>(g.tn + i * np, t0, np, tv, valid);
+    }
+    if (valid && lane_g == 0) {
+      // templates_from_hessian: the det == 0 guard adds 1e-10 to a and c,
+      // +0.0 elsewhere; then the inverse from the recomputed determinant.
+      const float det0 = a * c - b * b;
+      const float guard = det0 == 0.0f ? 1e-10f : 0.0f;
+      a = a + guard;
+      c = c + guard;
+      const float inv_det = __frcp_rn(a * c - b * b);
+      const float nb_ = -b * inv_det;
+      *reinterpret_cast<float4*>(g.hinv + 4 * i) =
+          make_float4(c * inv_det, nb_, nb_, a * inv_det);
+    }
   }
 }
 
@@ -251,102 +392,263 @@ weights_kernel(const float* __restrict__ q, const float* __restrict__ t,
 // S4: u [nb, n, 2] and, where weighted, weights [nb, n], else the uniform
 // weight, whose sum is uwsum [out_h, W] (an empty grid's pointers may be
 // null, so a flag, not the pointer, says which); cover_rows [out_h, kr] and
-// cover_cols [W, kc] int64
-// (num_h and num_w the zero row and column); writes out [nb, out_h, W, 2].
-// A block per output row of a pair, in densify_plain's two passes: the row
-// pass sums each grid column's covering grid rows into shared memory
-// (acc[c][col] for the two flow channels and the weight, col = num_w the
-// zero column), then each output pixel sums its covering columns of acc.
-// So a grid value is read kr times a row instead of kr * kc times a pixel.
-__global__ void __launch_bounds__(THREADS)
-densify_kernel(const float* __restrict__ u, const float* __restrict__ wts,
-               const long long* __restrict__ cover_rows, const long long* __restrict__ cover_cols,
-               const float* __restrict__ uwsum, int weighted, int out_h, int W, int kr,
-               int kc, int num_w, int num_h, float* __restrict__ out) {
-  extern __shared__ float acc[];   // [3][num_w + 1]
-  const int stride = num_w + 1;
-  const long long row = blockIdx.x;                   // pair * out_h + y
-  const long long pair = row / out_h;
-  const int y = (int)(row - pair * out_h);
+// cover_cols [W, kc] int64 (num_h and num_w the zero row and column);
+// writes out [nb, out_h, W, 2].  A block a tile of DENSIFY_ROWS output rows
+// by DENSIFY_COLS output columns of a pair, tile = (pair * tiles_h + ty) *
+// tiles_w + tx; kr and kc are KR and KC where those are not 0.  Shared
+// memory (densify_bytes), as Vec (float4 {u0 w, u1 w, w, 0} where
+// WEIGHTED, else float2 {u0, u1}): the staged sub-block su [cap_r + 1]
+// [cap_c] (row cap_r the zero row) and the row pass's sums acc
+// [DENSIFY_ROWS][cap_c + 1] (column cap_c the zero column); then as floats
+// the uniform weights [DENSIFY_ROWS][DENSIFY_COLS] where not WEIGHTED, and
+// the covers as 32-bit indices rows [DENSIFY_ROWS][kr] and cols
+// [DENSIFY_COLS][kc].
+constexpr int DENSIFY_ROWS = 32, DENSIFY_COLS = 128;
+
+long long densify_bytes(int kr, int kc, int cap_r, int cap_c, int weighted) {
+  const long long vec = weighted ? sizeof(float4) : sizeof(float2);
+  return vec * ((cap_r + 1LL) * cap_c + DENSIFY_ROWS * (cap_c + 1LL)) +
+         (long long)sizeof(float) * ((weighted ? 0 : DENSIFY_ROWS * DENSIFY_COLS) +
+                                     DENSIFY_ROWS * kr + DENSIFY_COLS * kc);
+}
+
+struct DensifyArgs {
+  const float* u;
+  const float* wts;
+  const long long* cover_rows;
+  const long long* cover_cols;
+  const float* uwsum;
+  float* out;
+  int out_h, W, kr, kc, num_w, num_h, tiles_w, tiles_h, cap_r, cap_c;
+};
+
+// The sum terms of S4: {u0, u1} where uniform, {u0 w, u1 w, w, 0} where
+// weighted; zero() is the zero row's and column's, plus() adds each
+// channel, and flow() the normalized flow (ws = the weight plane's value
+// where uniform).
+template <bool WEIGHTED>
+struct Terms;
+template <>
+struct Terms<false> {
+  using Vec = float2;
+  static __device__ __forceinline__ Vec zero() { return make_float2(0.0f, 0.0f); }
+  static __device__ __forceinline__ Vec load(const float* up, const float*, long long p) {
+    return *reinterpret_cast<const float2*>(up + 2 * p);
+  }
+  static __device__ __forceinline__ Vec plus(Vec a, Vec b) {
+    return make_float2(a.x + b.x, a.y + b.y);
+  }
+  static __device__ __forceinline__ float weight(Vec, float ws) { return ws; }
+};
+template <>
+struct Terms<true> {
+  using Vec = float4;
+  static __device__ __forceinline__ Vec zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  static __device__ __forceinline__ Vec load(const float* up, const float* wp, long long p) {
+    const float2 uv = *reinterpret_cast<const float2*>(up + 2 * p);
+    const float w = wp[p];
+    return make_float4(uv.x * w, uv.y * w, w, 0.0f);   // rounded as densify_plain's u * w
+  }
+  static __device__ __forceinline__ Vec plus(Vec a, Vec b) {
+    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, 0.0f);
+  }
+  static __device__ __forceinline__ float weight(Vec f, float) { return f.z; }
+};
+
+template <bool WEIGHTED>
+__device__ __forceinline__ void put_flow(float* __restrict__ out, long long at,
+                                         typename Terms<WEIGHTED>::Vec f, float uw) {
+  const float ws = Terms<WEIGHTED>::weight(f, uw);
+  const bool pos = ws > 0.0f;
+  *reinterpret_cast<float2*>(out + 2 * at) =
+      make_float2(pos ? __fdiv_rn(f.x, ws) : 0.0f, pos ? __fdiv_rn(f.y, ws) : 0.0f);
+}
+
+// At most 64 registers a thread, so that four blocks fit an SM.
+template <int KR, int KC, bool WEIGHTED>
+__global__ void __launch_bounds__(THREADS, 4)
+densify_kernel(const DensifyArgs a) {
+  using T = Terms<WEIGHTED>;
+  using Vec = typename T::Vec;
+  constexpr int TY = DENSIFY_ROWS, TX = DENSIFY_COLS, LINES = THREADS / TX, PX = TY / LINES;
+  constexpr int WARPS = THREADS / 32;
+  const int kr = KR ? KR : a.kr, kc = KC ? KC : a.kc;
+  const int cap_r = a.cap_r, cap_c = a.cap_c, num_h = a.num_h, num_w = a.num_w;
+  extern __shared__ float4 dsm[];
+  __shared__ int red[WARPS][4];
+  Vec* su = reinterpret_cast<Vec*>(dsm);
+  Vec* acc = su + (cap_r + 1) * cap_c;
+  const int acc_pitch = cap_c + 1;
+  float* uwb = reinterpret_cast<float*>(acc + TY * acc_pitch);
+  int* rows = reinterpret_cast<int*>(uwb + (WEIGHTED ? 0 : TY * TX));
+  int* cols = rows + TY * kr;
+
+  const long long per_pair = (long long)a.tiles_h * a.tiles_w;
+  const long long pair = blockIdx.x / per_pair;
+  const int rem = (int)(blockIdx.x - pair * per_pair);
+  const int ty = rem / a.tiles_w;
+  const int y0 = ty * TY, x0 = (rem - ty * a.tiles_w) * TX;
+  const int xl = threadIdx.x % TX, line = threadIdx.x / TX, x = x0 + xl;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long n = (long long)num_w * num_h;
-  const float* up = u + pair * n * 2;
-  const float* wp = weighted ? wts + pair * n : nullptr;
-  const long long* rows = cover_rows + (long long)y * kr;
-  for (int col = threadIdx.x; col <= num_w; col += THREADS) {
-    float a0 = 0.0f, a1 = 0.0f, aw = 0.0f;   // the zero column's values
-    if (col < num_w) {
-      for (int ky = 0; ky < kr; ++ky) {
-        const long long g = rows[ky];
-        float v0 = 0.0f, v1 = 0.0f, vw = 0.0f;   // the zero row's values
-        if (g != num_h) {
-          const long long p = (long long)col * num_h + g;
-          const float2 uv = *reinterpret_cast<const float2*>(up + 2 * p);
-          v0 = uv.x;
-          v1 = uv.y;
-          if (weighted) {
-            vw = wp[p];
-            v0 = v0 * vw;
-            v1 = v1 * vw;
-          }
-        }
-        if (ky == 0) {
-          a0 = v0;
-          a1 = v1;
-          aw = vw;
-        } else {
-          a0 = a0 + v0;
-          a1 = a1 + v1;
-          aw = aw + vw;
-        }
-      }
+  const float* up = a.u + pair * n * 2;
+  const float* wp = WEIGHTED ? a.wts + pair * n : nullptr;
+  const long long out0 = pair * a.out_h;
+
+  // The uniform weights of the thread's own pixels start first, so that
+  // they arrive while the covers are reduced (only this thread reads them).
+  if (!WEIGHTED) {
+    for (int j = 0; j < PX; ++j) {
+      const int yl = line + LINES * j, y = y0 + yl;
+      if (y < a.out_h && x < a.W)
+        cp_async4(uwb + yl * TX + xl, a.uwsum + (long long)y * a.W + x);
+      else
+        uwb[yl * TX + xl] = 0.0f;
     }
-    acc[col] = a0;
-    acc[stride + col] = a1;
-    acc[2 * stride + col] = aw;
+  }
+  cp_async_commit();
+  // The covers as 32-bit indices, and the range of grid rows and columns
+  // they reach.
+  int rlo = INT_MAX, rhi = -1, clo = INT_MAX, chi = -1;
+  for (int e = threadIdx.x; e < TY * kr; e += THREADS) {
+    const int gi = y0 + e / kr < a.out_h ? (int)a.cover_rows[(long long)y0 * kr + e] : num_h;
+    rows[e] = gi;
+    if (gi != num_h) {
+      rlo = min(rlo, gi);
+      rhi = max(rhi, gi);
+    }
+  }
+  for (int e = threadIdx.x; e < TX * kc; e += THREADS) {
+    const int ci = x0 + e / kc < a.W ? (int)a.cover_cols[(long long)x0 * kc + e] : num_w;
+    cols[e] = ci;
+    if (ci != num_w) {
+      clo = min(clo, ci);
+      chi = max(chi, ci);
+    }
+  }
+  rlo = __reduce_min_sync(0xffffffffu, rlo);
+  rhi = __reduce_max_sync(0xffffffffu, rhi);
+  clo = __reduce_min_sync(0xffffffffu, clo);
+  chi = __reduce_max_sync(0xffffffffu, chi);
+  if (lane == 0) {
+    red[warp][0] = rlo;
+    red[warp][1] = rhi;
+    red[warp][2] = clo;
+    red[warp][3] = chi;
   }
   __syncthreads();
-  const float* uw = uwsum + (long long)y * W;
-  float* dst = out + row * W * 2;
-  for (int x = threadIdx.x; x < W; x += THREADS) {
-    const long long* cols = cover_cols + (long long)x * kc;
-    float f0 = 0.0f, f1 = 0.0f, fw = 0.0f;
-    for (int kx = 0; kx < kc; ++kx) {
-      const int c = (int)cols[kx];
-      if (kx == 0) {
-        f0 = acc[c];
-        f1 = acc[stride + c];
-        fw = acc[2 * stride + c];
-      } else {
-        f0 = f0 + acc[c];
-        f1 = f1 + acc[stride + c];
-        fw = fw + acc[2 * stride + c];
-      }
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    rlo = min(rlo, red[w][0]);
+    rhi = max(rhi, red[w][1]);
+    clo = min(clo, red[w][2]);
+    chi = max(chi, red[w][3]);
+  }
+  const int nr = rhi >= rlo ? rhi - rlo + 1 : 0, nc = chi >= clo ? chi - clo + 1 : 0;
+  const int* cc = cols + xl * kc;
+
+  if (nr <= cap_r && nc <= cap_c) {   // uniform across the block
+    // Local indices (each thread rewrites the entries it wrote).
+    for (int e = threadIdx.x; e < TY * kr; e += THREADS)
+      rows[e] = rows[e] == num_h ? cap_r : rows[e] - rlo;
+    for (int e = threadIdx.x; e < TX * kc; e += THREADS)
+      cols[e] = cols[e] == num_w ? cap_c : cols[e] - clo;
+    // The sub-block, a grid column's rows contiguous (u is x-outer), and
+    // the zero row.
+    for (int e = threadIdx.x; e < nr * nc; e += THREADS) {
+      const int c = e / nr, r = e - c * nr;
+      su[r * cap_c + c] = T::load(up, wp, (long long)(clo + c) * num_h + rlo + r);
     }
-    const float ws = weighted ? fw : uw[x];
-    const bool pos = ws > 0.0f;
-    *reinterpret_cast<float2*>(dst + 2 * x) =
-        make_float2(pos ? __fdiv_rn(f0, ws) : 0.0f, pos ? __fdiv_rn(f1, ws) : 0.0f);
+    for (int c = threadIdx.x; c < nc; c += THREADS) su[cap_r * cap_c + c] = T::zero();
+    __syncthreads();
+    // The row pass: each (output row, grid column) once, a warp a row.
+    for (int yl = warp; yl < TY; yl += WARPS) {
+      const int* rr = rows + yl * kr;
+      for (int c = lane; c < nc; c += 32) {
+        Vec s = su[rr[0] * cap_c + c];
+#pragma unroll
+        for (int k = 1; k < kr; ++k) s = T::plus(s, su[rr[k] * cap_c + c]);
+        acc[yl * acc_pitch + c] = s;
+      }
+      if (lane == 0) acc[yl * acc_pitch + cap_c] = T::zero();
+    }
+    cp_async_wait_all();   // this thread's uniform weights
+    __syncthreads();
+    // The column pass.
+#pragma unroll 4
+    for (int j = 0; j < PX; ++j) {
+      const int yl = line + LINES * j, y = y0 + yl;
+      const Vec* ar = acc + yl * acc_pitch;
+      Vec f = ar[cc[0]];
+#pragma unroll
+      for (int k = 1; k < kc; ++k) f = T::plus(f, ar[cc[k]]);
+      if (y < a.out_h && x < a.W)
+        put_flow<WEIGHTED>(a.out, (out0 + y) * a.W + x, f, WEIGHTED ? 0.0f : uwb[yl * TX + xl]);
+    }
+  } else {
+    // Covers that reach past the staged sub-block: each pixel sums straight
+    // from device memory, row sums inside column sums, in the same order.
+    cp_async_wait_all();
+    for (int j = 0; j < PX; ++j) {
+      const int yl = line + LINES * j, y = y0 + yl;
+      const int* rr = rows + yl * kr;
+      Vec f = T::zero();
+      for (int kx = 0; kx < kc; ++kx) {
+        const int c = cc[kx];
+        Vec s = T::zero();   // the zero column's sums
+        if (c != num_w) {
+          for (int ky = 0; ky < kr; ++ky) {
+            const int gi = rr[ky];
+            const Vec v = gi != num_h ? T::load(up, wp, (long long)c * num_h + gi) : T::zero();
+            s = ky == 0 ? v : T::plus(s, v);
+          }
+        }
+        f = kx == 0 ? s : T::plus(f, s);
+      }
+      if (y < a.out_h && x < a.W)
+        put_flow<WEIGHTED>(a.out, (out0 + y) * a.W + x, f, WEIGHTED ? 0.0f : uwb[yl * TX + xl]);
+    }
   }
 }
 
-// The dynamic shared memory S4 may take on this device: the opt-in maximum,
-// granted to the kernel once per device (never per shape, so a later
-// launch never lowers it).  0 on an error.
-int densify_shared_limit() {
-  static int limit[64] = {0};
+// The dynamic shared memory a family of kernels may take on this device:
+// the opt-in maximum less a kernel's static shared memory, granted to each
+// of fns once per device (never per shape, so that a later launch never
+// lowers it).  The least of them; 0 on an error.
+template <int N>
+int shared_limit(int (&granted)[64], const void* const (&fns)[N]) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (limit[dev] == 0) {
+  if (granted[dev] == 0) {
     int optin = 0;
     if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-            cudaSuccess ||
-        cudaFuncSetAttribute(densify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin) != cudaSuccess)
+        cudaSuccess)
       return 0;
-    limit[dev] = optin;
+    int least = optin;
+    for (const void* fn : fns) {
+      cudaFuncAttributes attr;
+      if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return 0;
+      const int dynamic = optin - (int)attr.sharedSizeBytes;
+      if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic) !=
+          cudaSuccess)
+        return 0;
+      least = dynamic < least ? dynamic : least;
+    }
+    granted[dev] = least;
   }
-  return limit[dev];
+  return granted[dev];
 }
+
+const void* const TEMPLATE_KERNELS[] = {
+    (const void*)templates_kernel<8, 8>, (const void*)templates_kernel<8, 16>,
+    (const void*)templates_kernel<8, 32>, (const void*)templates_kernel<16, 32>,
+    (const void*)templates_kernel<8, 2>, (const void*)templates_kernel<4, 1>};
+const void* const DENSIFY_KERNELS[] = {
+    (const void*)densify_kernel<3, 3, false>, (const void*)densify_kernel<5, 5, false>,
+    (const void*)densify_kernel<0, 0, false>, (const void*)densify_kernel<3, 3, true>,
+    (const void*)densify_kernel<5, 5, true>, (const void*)densify_kernel<0, 0, true>};
+int templates_granted[64] = {0};
+int densify_granted[64] = {0};
 
 // Launches a K, G instance of a patch kernel over total patches.
 template <int K, int G>
@@ -359,24 +661,62 @@ unsigned patch_blocks(long long total) {
 
 // S1.  nb pairs of planes [th, tw]; a grid of n = num_w * num_h patches
 // (num_h the column length), steps apart, the first tap at (y0, x0), taps
-// inside the planes (the wrapper checks).  ps even, ps^2 <= 512.  Returns
+// inside the planes (the wrapper checks).  ps even, ps^2 <= 512.  A block a
+// tile of tile_rows patch rows (a multiple of 32 / G) by tile_cols patch
+// columns, staged with a row pitch of pitch floats (at least (tile_cols -
+// 1) * steps + ps) in shared bytes (3 planes of (tile_rows - 1) * steps +
+// ps rows); ops/cuda/scale_kernel.py::template_tiles gives them.  Returns
 // cudaGetLastError() after the launch (nb * n = 0 launches nothing).
 extern "C" int dis_scale_templates(const float* img, const float* dx, const float* dy, int nb,
                                    int th, int tw, int n, int num_h, int steps, int y0, int x0,
-                                   int ps, int residual, float inv_ps2, float* T, float* Tdx,
+                                   int ps, int residual, float inv_ps2, int tile_rows,
+                                   int tile_cols, int pitch, int shared, float* T, float* Tdx,
                                    float* Tdy, float* hinv, float* tn, cudaStream_t stream) {
   int k = 0, g = 0;
   if (dis_iclk_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)nb * n;
   if (total <= 0) return (int)cudaGetLastError();
-  if (num_h <= 0) return (int)cudaErrorInvalidValue;
+  if (num_h <= 0 || n % num_h != 0 || steps < 1 || tile_rows < 1 || tile_cols < 1 ||
+      tile_rows % (32 / g) != 0 || pitch < (tile_cols - 1) * steps + ps)
+    return (int)cudaErrorInvalidValue;
+  const long long plane = (long long)((tile_rows - 1) * steps + ps) * pitch;
+  if ((long long)shared != 3 * plane * (long long)sizeof(float))
+    return (int)cudaErrorInvalidValue;
   if (!aligned16(T) || !aligned16(Tdx) || !aligned16(Tdy) || !aligned16(hinv) ||
       (residual && !aligned16(tn)))
     return (int)cudaErrorMisalignedAddress;
-#define DIS_S1_LAUNCH(KK, GG)                                                              \
-  templates_kernel<KK, GG><<<patch_blocks<KK, GG>(total), THREADS, 0, stream>>>(           \
-      img, dx, dy, th, tw, total, n, num_h, steps, y0, x0, ps, residual, inv_ps2, T, Tdx,  \
-      Tdy, hinv, tn);                                                                      \
+  const int limit = shared_limit(templates_granted, TEMPLATE_KERNELS);
+  if (limit == 0) return (int)cudaGetLastError();
+  TemplateGrid grid;
+  grid.img = img;
+  grid.dx = dx;
+  grid.dy = dy;
+  grid.th = th;
+  grid.tw = tw;
+  grid.num_w = n / num_h;
+  grid.num_h = num_h;
+  grid.steps = steps;
+  grid.y0 = y0;
+  grid.x0 = x0;
+  grid.ps = ps;
+  grid.rows = tile_rows;
+  grid.cols = tile_cols;
+  grid.tiles_h = (num_h + tile_rows - 1) / tile_rows;
+  grid.tiles_w = (grid.num_w + tile_cols - 1) / tile_cols;
+  grid.pitch = pitch;
+  grid.plane = (int)plane;
+  grid.n = n;
+  grid.residual = residual;
+  grid.inv_ps2 = inv_ps2;
+  grid.T = T;
+  grid.Tdx = Tdx;
+  grid.Tdy = Tdy;
+  grid.hinv = hinv;
+  grid.tn = tn;
+  const long long blocks = (long long)nb * grid.tiles_h * grid.tiles_w;
+  if (shared > limit || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+#define DIS_S1_LAUNCH(KK, GG)                                                          \
+  templates_kernel<KK, GG><<<(unsigned)blocks, THREADS, shared, stream>>>(grid); \
   return (int)cudaGetLastError()
   if (k == 8 && g == 8) { DIS_S1_LAUNCH(8, 8); }
   if (k == 8 && g == 16) { DIS_S1_LAUNCH(8, 16); }
@@ -435,20 +775,51 @@ extern "C" int dis_fixed_weights(const float* q, const float* t, const unsigned 
 
 // S4.  nb pairs of a num_w x num_h grid; out [nb, out_h, W, 2]; weighted:
 // the weights wts, else the uniform weight (uwsum [out_h, W] gives its sum).
-// An empty output launches nothing.
+// A block a tile of 32 output rows by 128 columns, staging up to cap_r grid
+// rows by cap_c grid columns in shared bytes (densify_bytes);
+// ops/cuda/scale_kernel.py::densify_tiles gives them.  An empty output
+// launches nothing.
 extern "C" int dis_densify(const float* u, const float* wts, const long long* cover_rows,
                            const long long* cover_cols, const float* uwsum, int weighted,
                            int nb, int out_h, int W, int kr, int kc, int num_w, int num_h,
-                           float* out, cudaStream_t stream) {
-  if (kr <= 0 || kc <= 0 || num_w < 0 || num_h < 0) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)nb * out_h;
-  if (rows <= 0 || W <= 0) return (int)cudaGetLastError();
+                           int cap_r, int cap_c, int shared, float* out, cudaStream_t stream) {
+  if (kr <= 0 || kc <= 0 || num_w < 0 || num_h < 0 || cap_r < 0 || cap_c < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)nb * out_h <= 0 || W <= 0) return (int)cudaGetLastError();
   if (!aligned8(u) || !aligned8(out)) return (int)cudaErrorMisalignedAddress;
-  const size_t shared = 3 * sizeof(float) * ((size_t)num_w + 1);
-  const int limit = densify_shared_limit();
+  if ((long long)shared != densify_bytes(kr, kc, cap_r, cap_c, weighted))
+    return (int)cudaErrorInvalidValue;
+  const int limit = shared_limit(densify_granted, DENSIFY_KERNELS);
   if (limit == 0) return (int)cudaGetLastError();
-  if (shared > (size_t)limit || rows > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  densify_kernel<<<(unsigned)rows, THREADS, shared, stream>>>(
-      u, wts, cover_rows, cover_cols, uwsum, weighted, out_h, W, kr, kc, num_w, num_h, out);
-  return (int)cudaGetLastError();
+  DensifyArgs a;
+  a.u = u;
+  a.wts = wts;
+  a.cover_rows = cover_rows;
+  a.cover_cols = cover_cols;
+  a.uwsum = uwsum;
+  a.out = out;
+  a.out_h = out_h;
+  a.W = W;
+  a.kr = kr;
+  a.kc = kc;
+  a.num_w = num_w;
+  a.num_h = num_h;
+  a.tiles_w = (W + DENSIFY_COLS - 1) / DENSIFY_COLS;
+  a.tiles_h = (out_h + DENSIFY_ROWS - 1) / DENSIFY_ROWS;
+  a.cap_r = cap_r;
+  a.cap_c = cap_c;
+  const long long blocks = (long long)nb * a.tiles_h * a.tiles_w;
+  if (shared > limit || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int kk = kr == kc && (kr == 3 || kr == 5) ? kr : 0;
+#define DIS_S4_LAUNCH(KK, WW)                                                       \
+  densify_kernel<KK, KK, WW><<<(unsigned)blocks, THREADS, shared, stream>>>(a); \
+  return (int)cudaGetLastError()
+#define DIS_S4_COVERS(WW)                 \
+  if (kk == 3) { DIS_S4_LAUNCH(3, WW); } \
+  if (kk == 5) { DIS_S4_LAUNCH(5, WW); } \
+  DIS_S4_LAUNCH(0, WW)
+  if (weighted) { DIS_S4_COVERS(true); }
+  DIS_S4_COVERS(false);
+#undef DIS_S4_COVERS
+#undef DIS_S4_LAUNCH
 }

@@ -19,13 +19,16 @@ of ``models/dis.py::_scale``:
 - S4 :func:`densify`, densification (``dis_tpu/ops/densify.py:58-108``);
   plain version ``ops/densify.py::densify_plain``.
 
-Each is bound by bytes on the H100 (S2 by its launch): S1 and S3 take
-K1's lane layout (a group of lanes a patch, the pair-tree sums as an
-in-lane tree and a butterfly), S2 a thread a patch, S4 a block an output
-row (its row pass into shared memory, then a thread a pixel).  Each keeps its plain version's operations and rounding, so it
-equals it bitwise.  No single PyTorch call computes any of them (a
-gather, a pair-tree sum, a 2x2 inverse and a stencil each), so they have
-no library yardstick.
+Each is bound by bytes on the H100 (S2 by its launch): S1 stages each
+tile of the patch grid's plane windows in shared memory
+(:func:`template_tiles`) and reads its taps there in K1's lane layout (a
+group of lanes a patch, the pair-tree sums as an in-lane tree and a
+butterfly), as S3 reads its patches; S2 takes a thread a patch; S4 a
+block a tile of output pixels, its covers' sub-block of the grid staged
+once (:func:`densify_tiles`).  Each keeps its plain version's operations
+and rounding, so it equals it bitwise.  No single PyTorch call computes
+any of them (a gather, a pair-tree sum, a 2x2 inverse and a stencil
+each), so they have no library yardstick.
 
 A batch of pairs adds a leading axis to the planes, the per-patch tensors
 and the flows; the plan's tensors (centers, picks, cover indices, the
@@ -35,7 +38,8 @@ tensors, so ``torch.export`` and CUDA graphs need no handling of mutation.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -51,6 +55,90 @@ I64 = torch.int64
 
 def _pairs(lead) -> int:
     return lead[0] if lead else 1
+
+
+# -- S1's and S4's tiles (the kernels take them as given) ----------------------------
+
+S1_TILE = (8, 8)               # the patch rows and columns an S1 tile takes first
+S1_SHARED_TARGET = 48 * 1024   # the shared bytes S1 keeps under where a smaller tile can
+DENSIFY_ROWS, DENSIFY_COLS = 32, 128   # output rows and columns an S4 tile (csrc/scale_glue.cu)
+F32 = 4
+
+
+class TemplateTiles(NamedTuple):
+    """S1's tiles of a patch grid (:func:`template_tiles`)."""
+    rows: int          # patch rows a tile, a multiple of the patches a warp holds
+    cols: int          # patch columns a tile
+    tiles_h: int       # tiles down a pair's grid
+    tiles_w: int       # tiles across it
+    win_rows: int      # plane rows a tile stages: (rows - 1) * steps + ps
+    win_cols: int      # plane columns: (cols - 1) * steps + ps
+    pitch: int         # the staged row pitch in floats: win_cols rounded up to odd
+    shared_bytes: int  # 3 planes * win_rows * pitch * 4
+    blocks: int        # a block a tile of each pair
+
+
+@functools.lru_cache(maxsize=None)
+def template_tiles(ps: int, steps: int, num_w: int, num_h: int, nb: int) -> TemplateTiles:
+    """S1's tiles of a ``num_w`` x ``num_h`` patch grid of ``nb`` pairs, a
+    block each: :data:`S1_TILE` halved, columns first, while the staged
+    window would take more than :data:`S1_SHARED_TARGET` bytes and the
+    tile can shrink (rows stay a multiple of the 32 / G patches a warp
+    holds, so that a warp's patches are consecutive in the x-outer
+    outputs).  The staged rows' pitch is odd, so that the up to 32
+    distinct rows a warp reads at one tap fall in distinct banks."""
+    per_warp = 32 // lane_layout(ps)[1]
+
+    def layout(r, c):
+        wr, wc = (r - 1) * steps + ps, (c - 1) * steps + ps
+        return wr, wc, wc | 1, 3 * wr * (wc | 1) * F32
+
+    r, c = max(S1_TILE[0], per_warp), S1_TILE[1]
+    while layout(r, c)[3] > S1_SHARED_TARGET and (c > 1 or r > per_warp):
+        if c > 1:
+            c //= 2
+        else:
+            r = max(per_warp, r // 2 // per_warp * per_warp)
+    wr, wc, pitch, shared = layout(r, c)
+    th, tw = -(-num_h // r), -(-num_w // c)
+    return TemplateTiles(r, c, th, tw, wr, wc, pitch, shared, nb * th * tw)
+
+
+class DensifyTiles(NamedTuple):
+    """S4's tiles of an output window (:func:`densify_tiles`)."""
+    tiles_h: int       # tiles of DENSIFY_ROWS output rows down the window
+    tiles_w: int       # tiles of DENSIFY_COLS output columns across it
+    grid_rows: int     # grid rows a tile stages at most
+    grid_cols: int     # grid columns a tile stages at most
+    shared_bytes: int
+    blocks: int        # a block a tile of each pair
+
+
+@functools.lru_cache(maxsize=None)
+def densify_tiles(nb: int, out_h: int, width: int, kr: int, kc: int, num_w: int,
+                  weighted: bool) -> DensifyTiles:
+    """S4's tiles of ``nb`` pairs' [out_h, width] output from a grid
+    ``num_w`` columns wide whose cover tables are ``kr`` and ``kc`` wide.
+    The plan's covers (``ops/grid.py::_cover``) of ``DENSIFY_ROWS``
+    consecutive output rows reach at most ``ceil((DENSIFY_ROWS - 1) /
+    steps) + kr`` grid rows, and likewise for columns, where the grid's
+    stride ``steps`` is at least ``ceil(width / num_w)`` (``num_w =
+    ceil(width / steps)``); a tile stages that many.  Covers that reach
+    further are summed from device memory instead, with the same bits.  A
+    tile's shared memory (``densify_bytes`` in ``csrc/scale_glue.cu``)
+    holds its sub-block with a zero row and its row sums with a zero
+    column, each term 16 bytes where weighted ({u0 w, u1 w, w, 0}), else 8
+    ({u0, u1}); its uniform weights (4 bytes a pixel) where not weighted;
+    and its covers as 32-bit indices."""
+    steps_lo = -(-width // num_w) if num_w else 1
+    grid_rows = -(-(DENSIFY_ROWS - 1) // steps_lo) + kr
+    grid_cols = -(-(DENSIFY_COLS - 1) // steps_lo) + kc
+    term = 16 if weighted else 8
+    shared = (term * ((grid_rows + 1) * grid_cols + DENSIFY_ROWS * (grid_cols + 1))
+              + F32 * ((0 if weighted else DENSIFY_ROWS * DENSIFY_COLS)
+                       + DENSIFY_ROWS * kr + DENSIFY_COLS * kc))
+    th, tw = -(-out_h // DENSIFY_ROWS), -(-width // DENSIFY_COLS)
+    return DensifyTiles(th, tw, grid_rows, grid_cols, shared, nb * th * tw)
 
 
 # -- S1: templates and inverse Hessians -------------------------------------------
@@ -99,9 +187,11 @@ def _templates_cuda(img: T, dx: T, dy: T, num_w: int, num_h: int, steps: int, y0
     n = num_w * num_h
     if nb * n == 0:
         return out
+    tiles = template_tiles(ps, steps, num_w, num_h, nb)
     _build.launch("dis_scale_templates", img.device, img.data_ptr(), dx.data_ptr(),
                   dy.data_ptr(), nb, *img.shape[-2:], n, num_h, steps, y0, x0, ps,
-                  int(residual), inv_taps(ps), *(t.data_ptr() for t in out[:4]),
+                  int(residual), inv_taps(ps), tiles.rows, tiles.cols, tiles.pitch,
+                  tiles.shared_bytes, *(t.data_ptr() for t in out[:4]),
                   out[4].data_ptr() if residual else None)
     scale_templates.launches += 1
     return out
@@ -258,11 +348,13 @@ def _densify_cuda(u: T, weights: Optional[T], cover_rows: T, cover_cols: T,
     out = _densify_empty(u, weights, cover_rows, cover_cols, uniform_wsum, num_w, num_h)
     if out.numel() == 0:
         return out
+    nb, (out_h, kr), (width, kc) = _pairs(u.shape[:-2]), cover_rows.shape, cover_cols.shape
+    tiles = densify_tiles(nb, out_h, width, kr, kc, num_w, weights is not None)
     _build.launch("dis_densify", u.device, u.data_ptr(),
                   None if weights is None else weights.data_ptr(), cover_rows.data_ptr(),
                   cover_cols.data_ptr(), uniform_wsum.data_ptr() if weights is None else None,
-                  int(weights is not None), _pairs(u.shape[:-2]), cover_rows.shape[0], cover_cols.shape[0],
-                  cover_rows.shape[1], cover_cols.shape[1], num_w, num_h, out.data_ptr())
+                  int(weights is not None), nb, out_h, width, kr, kc, num_w, num_h,
+                  tiles.grid_rows, tiles.grid_cols, tiles.shared_bytes, out.data_ptr())
     densify.launches += 1
     return out
 

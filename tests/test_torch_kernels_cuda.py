@@ -23,8 +23,11 @@ level; the refinement through them on the card bitwise equal to the same
 call on the CPU, and ``plain=True`` launching none of them; each scale's
 S1 (templates and inverse Hessians), S2 (the start), S3 (fixed mode's
 weights) and S4 (densification) bitwise equal to their plain versions at
-ps 8-16, on a pair axis, a row-ranged grid with ``row0`` and a window
-plan, empty grids launching nothing where the output is empty.
+ps 6-16, on a pair axis, a row-ranged grid with ``row0`` and a window
+plan, empty grids launching nothing where the output is empty; S1's and
+S4's tiles cut by the grid's, the planes' and the output's edges, S1 at
+each tile shape its plan picks (ps 2-20, strides 1-64), S4 on cover
+tables in another order or reaching past its staged sub-block.
 """
 
 import numpy as np
@@ -820,8 +823,10 @@ def _count(wrapper, fn, *args):
     return out, wrapper.launches - before
 
 
-def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed):
-    """S1-S4 bitwise equal to their plain versions on one plan."""
+def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed,
+                         cut_last=False):
+    """S1-S4 bitwise equal to their plain versions on one plan; with
+    ``cut_last`` the planes end at the grid's last tap row."""
     from dis_tpu_torch.ops.densify import densify_plain, fixed_weights_plain
     from dis_tpu_torch.ops.grid import scale_plan
     from dis_tpu_torch.ops.iclk import search_start_plain, template_origin, templates_plain
@@ -832,7 +837,10 @@ def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed):
     g = plan.geom
     n = g.num_w * g.num_h
     lead = (batch,) if batch else ()
-    planes = [p[..., row0:, :].contiguous() for p in (lv.img, lv.dx, lv.dy)]
+    end = None
+    if cut_last and n:
+        end = row0 + template_origin(g, ps, ps, row0)[0] + (g.num_h - 1) * g.steps + ps
+    planes = [p[..., row0:end, :].contiguous() for p in (lv.img, lv.dx, lv.dy)]
     for residual in (False, True):
         args = (*planes, g.num_w, g.num_h, g.steps, *template_origin(g, ps, ps, row0), ps,
                 residual)
@@ -894,6 +902,75 @@ def test_scale_kernels_bitwise(ps, batch):
     steps = max(1, int(ps * 0.7)) if ps < 12 else 3
     _check_scale_kernels(72, 104, ps, steps, batch, None, None, 0, ps)
     _check_scale_kernels(72, 104, ps, steps, batch, (4, 9), (20, 41), 12, ps + 1)
+
+
+# The edges of S1's and S4's tiles: (h, w, ps, steps, batch, iy_range, window,
+# row0, cut_last).  Grid sides that no tile divides (every case), a tile cut
+# by the planes' last row, ps 6 and 16, three pairs, a stripe's row0 with a
+# window of output rows, DIS_FULL's ps 12 at stride 3 (5 x 5 covers), an
+# empty grid with three pairs; and each tile that template_tiles picks
+# (8 x 8 patches where the staged window fits, else fewer columns, then
+# fewer rows) in every lane layout of lane_layout: 32 x 8 at ps 2 (K, G =
+# 4, 1), 16 x 8 at ps 4 (8, 2), 8 x 4 at ps 16 stride 8 (8, 32), 8 x 2 at
+# ps 8 stride 12, 8 x 1 at ps 16 stride 16, 4 x 1 at ps 16 stride 40, 2 x 1
+# at ps 20 stride 64 (16, 32); and S4's covers 2 (ps 8 stride 12), 3, 4
+# (ps 8 stride 3: the kernel's generic instance) and 5 grid rows wide.
+TILE_EDGES = {
+    "ps6": (58, 84, 6, 4, None, None, None, 0, False),
+    "ps16_b3": (76, 134, 16, 8, 3, None, None, 0, False),
+    "ps2_steps1": (38, 76, 2, 1, None, None, None, 0, True),
+    "ps4_steps2_b2": (62, 172, 4, 2, 2, None, None, 0, False),
+    "ps8_steps12": (62, 172, 8, 12, None, None, None, 0, True),
+    "ps16_steps16_stripe": (150, 200, 16, 16, None, (2, 9), (30, 121), 18, True),
+    "ps16_steps40_b2": (170, 300, 16, 40, 2, None, None, 0, False),
+    "ps20_steps64": (300, 430, 20, 64, None, None, None, 0, True),
+    "ps8_steps3_b2": (66, 130, 8, 3, 2, None, None, 0, False),
+    "last_row_b3": (72, 150, 8, 5, 3, None, None, 0, True),
+    "stripe_window": (90, 290, 8, 5, None, (5, 13), (31, 58), 20, True),
+    "ps12_steps3": (70, 150, 12, 3, None, None, None, 0, False),
+    "ps12_steps3_stripe_b3": (70, 150, 12, 3, 3, (6, 17), (25, 44), 14, True),
+    "empty_b3": (72, 150, 12, 3, 3, (9, 9), (30, 47), 0, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_EDGES))
+def test_scale_kernels_tile_edges(case):
+    """S1-S4 bitwise equal to their plain versions where S1's and S4's
+    tiles meet the edges of the grid, the planes and the output."""
+    *args, cut_last = TILE_EDGES[case]
+    _check_scale_kernels(*args, seed=len(case), cut_last=cut_last)
+
+
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("ps,steps", [(12, 3), (8, 5)])
+def test_densify_any_covers(batch, ps, steps):
+    """S4 bitwise equal to its plain version on cover tables no plan makes:
+    each row's and column's covers in another order (the sums follow the
+    table's order) and covers that reach past the staged sub-block (summed
+    from device memory); uniform and weighted; 5 x 5 and 3 x 3 covers."""
+    from dis_tpu_torch.ops.densify import densify_plain
+    from dis_tpu_torch.ops.grid import scale_plan
+
+    rng = np.random.default_rng(ps + (batch or 0))
+    h, w = 53, 270
+    plan = scale_plan(w, h, steps, ps, torch.device("cuda"))
+    g = plan.geom
+    n = g.num_w * g.num_h
+    lead = (batch,) if batch else ()
+    u = torch.from_numpy(((rng.random(lead + (n, 2)) - 0.5) * 20).astype(np.float32)).cuda()
+    wts = torch.from_numpy((rng.random(lead + (n,)) * (rng.random(lead + (n,)) > 0.2))
+                           .astype(np.float32)).cuda()
+    shuffled = [torch.from_numpy(np.take_along_axis(
+        t.cpu().numpy(), rng.permuted(np.tile(np.arange(t.shape[1]), (t.shape[0], 1)), axis=1),
+        1)).cuda() for t in (plan.cover_rows, plan.cover_cols)]
+    far = [torch.from_numpy(rng.integers(0, m + 1, t.shape)).cuda()
+           for t, m in ((plan.cover_rows, g.num_h), (plan.cover_cols, g.num_w))]
+    for cover_rows, cover_cols in (shuffled, far):
+        for weights in (None, wts):
+            args = (u, weights, cover_rows, cover_cols, plan.uniform_wsum, g.num_w, g.num_h)
+            got, launched = _count(sk.densify, sk.densify, *args)
+            assert launched == 1 and torch.equal(got, densify_plain(*args))
+    torch.cuda.synchronize()
 
 
 def test_scale_kernels_empty_grid():

@@ -445,6 +445,220 @@ def test_densify_plain_vs_jax(ps, steps, weighted):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
 
 
+# -- S1's and S4's tiles: the host-side plans and the kernels' decompositions ---------------
+# Each test emulates its kernel's blocks on the CPU from the helper's plan
+# (csrc/scale_glue.cu: a tile's pair and position from its index, the staged
+# window or sub-block, the lanes' reads) and holds the result bitwise to the
+# plain version; the kernels themselves run in tests/test_torch_kernels_cuda.py.
+
+def _random_planes(lead, th, tw, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.random(lead + (th, tw)) * 255).astype(np.float32))
+            for _ in range(3)]
+
+
+# Strides at which template_tiles picks smaller tiles than PS_STEPS' 8 x 8
+# patches: 16 x 8 at ps 4 (a warp holds 16 patches), 8 x 2 and 8 x 1.
+SMALL_TILES = [(4, 2), (8, 12), (16, 16)]
+
+
+@pytest.mark.parametrize("ps,steps", PS_STEPS + SMALL_TILES)
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("ranged", [False, True])
+def test_template_tiles_stage_every_patch(ps, steps, batch, ranged):
+    """``template_tiles``: rows a multiple of a warp's patches and shared
+    bytes as the kernel checks them, under the target unless the tile is
+    minimal; the tiles of every pair cover each patch once, each tile's
+    window (cut at the grid's edges) lies in the planes and in its staged
+    buffer; a warp's patches are consecutive outputs; the taps read from
+    the staged windows at the lanes' offsets are ``templates_plain``'s
+    T, Tdx and Tdy bitwise."""
+    h, w = 48, 72
+    plan = _plan(w, h, steps, ps, ranged)
+    g = plan.geom
+    row0 = 2 if ranged else 0
+    th, tw = h + 2 * ps - row0, w + 2 * ps
+    lead = () if batch is None else (batch,)
+    planes = _random_planes(lead, th, tw, ps + row0)
+    y0, x0 = ticlk.template_origin(g, ps, ps, row0)
+    nb = batch or 1
+    t = sk.template_tiles(ps, steps, g.num_w, g.num_h, nb)
+    k, lanes = sk.lane_layout(ps)
+    per_warp = 32 // lanes
+    assert t.rows % per_warp == 0
+    assert (t.win_rows, t.win_cols) == ((t.rows - 1) * steps + ps, (t.cols - 1) * steps + ps)
+    assert t.pitch == t.win_cols | 1
+    assert t.shared_bytes == 3 * t.win_rows * t.pitch * 4
+    assert t.shared_bytes <= sk.S1_SHARED_TARGET or (t.rows, t.cols) == (per_warp, 1)
+    assert (t.tiles_h, t.tiles_w) == (-(-g.num_h // t.rows), -(-g.num_w // t.cols))
+    assert t.blocks == nb * t.tiles_h * t.tiles_w
+    n = g.num_w * g.num_h
+    got = torch.full((3, nb, n, ps * ps), float("nan"))
+    written = np.zeros((nb, n), np.int64)
+    taps = np.arange(ps * ps)
+    off = taps // ps * t.pitch + taps % ps          # the lanes' offsets, in tap order
+    flat = [p.reshape(nb, th, tw) for p in planes]
+    for tile in range(t.blocks):
+        pair, rem = divmod(tile, t.tiles_h * t.tiles_w)
+        tx, ty = divmod(rem, t.tiles_h)
+        iy0, ix0 = ty * t.rows, tx * t.cols
+        pv, cv = min(t.rows, g.num_h - iy0), min(t.cols, g.num_w - ix0)
+        wr, wc = (pv - 1) * steps + ps, (cv - 1) * steps + ps
+        r0, c0 = y0 + iy0 * steps, x0 + ix0 * steps
+        assert 0 <= r0 and r0 + wr <= th and 0 <= c0 and c0 + wc <= tw
+        assert wr <= t.win_rows and wc <= t.win_cols
+        buf = torch.zeros(3, t.win_rows, t.pitch)
+        for i in range(3):
+            buf[i, :wr, :wc] = flat[i][pair, r0:r0 + wr, c0:c0 + wc]
+        buf = buf.reshape(3, -1)
+        slots = [(s // t.rows, s % t.rows) for s in range(t.rows * t.cols)]
+        for w0 in range(0, len(slots), per_warp):   # a warp's patches, in order
+            warp = [(cl, rl) for cl, rl in slots[w0:w0 + per_warp] if rl < pv and cl < cv]
+            ids = [(ix0 + cl) * g.num_h + iy0 + rl for cl, rl in warp]
+            assert ids == list(range(ids[0], ids[0] + len(ids))) if ids else True
+            for (cl, rl), i in zip(warp, ids):
+                base = rl * steps * t.pitch + cl * steps
+                got[:, pair, i] = buf[:, base + off]
+                written[pair, i] += 1
+    assert (written == 1).all()
+    want = ticlk.templates_plain(*planes, g.num_w, g.num_h, steps, y0, x0, ps, False)[0]
+    for i, name in enumerate(("T", "Tdx", "Tdy")):
+        assert torch.equal(got[i].reshape(getattr(want, name).shape), getattr(want, name))
+
+
+def _read_wavefronts(ps, steps, pitch):
+    """Shared-memory wavefronts of one warp's tap reads in S1 with row
+    pitch ``pitch``: for each of a lane's K taps, the most distinct
+    addresses that the warp's lanes (32 / G patches on consecutive patch
+    rows, G lanes each) read in one bank, summed over the K reads."""
+    k, g = sk.lane_layout(ps)
+    total = 0
+    for step in range(k):
+        banks = {}
+        for lane in range(32):
+            patch, lg = divmod(lane, g)
+            tap = lg * k + step
+            if tap < ps * ps:
+                addr = (patch * steps + tap // ps) * pitch + tap % ps
+                banks.setdefault(addr % 32, set()).add(addr)
+        total += max(len(a) for a in banks.values())
+    return total
+
+
+@pytest.mark.parametrize("ps,steps", PS_STEPS + SMALL_TILES + [(8, 4), (8, 2)])
+def test_template_pitch_spreads_the_banks(ps, steps):
+    """The staged pitch is the window's width rounded up to odd; at the
+    presets' patch sizes and strides (ps 8 at 2, 4 and 5, ps 12 at 3) no
+    pitch of the 32 from the window's width takes fewer shared-memory
+    wavefronts for a warp's reads, and at ps 8 each of a lane's 8 reads is
+    one wavefront; a tile that no target fits shrinks to one warp's patch
+    rows in one column."""
+    per_warp = 32 // sk.lane_layout(ps)[1]
+    t = sk.template_tiles(ps, steps, 40, 40, 1)
+    assert t.pitch % 2 == 1 and t.win_cols <= t.pitch <= t.win_cols + 1
+    if (ps, steps) in ((8, 2), (8, 4), (8, 5), (12, 3)):
+        best = min(_read_wavefronts(ps, steps, p) for p in range(t.win_cols, t.win_cols + 32))
+        assert _read_wavefronts(ps, steps, t.pitch) == best
+        assert ps != 8 or best == 8
+    big = sk.template_tiles(ps, 40 * ps, 3, 3, 1)
+    assert (big.rows, big.cols) == (per_warp, 1)
+
+
+def _densify_emulated(u, weights, cover_rows, cover_cols, uniform_wsum, num_w, num_h, t):
+    """S4's staged path, tile by tile, on the CPU: the tile's covers as
+    32-bit local indices (the zero row and column the slots past the
+    sub-block), the sub-block of the grid, the row pass once per (output
+    row, grid column), then the column pass; each product u * w rounded
+    once, before it is summed.  Asserts that every tile's covers reach no
+    further than the plan stages."""
+    lead = u.shape[:-2]
+    nb = lead[0] if lead else 1
+    out_h, kr = cover_rows.shape
+    width, kc = cover_cols.shape
+    uu = u.reshape(nb, num_w, num_h, 2)
+    ww = None if weights is None else weights.reshape(nb, num_w, num_h)
+    out = torch.full((nb, out_h, width, 2), float("nan"))
+    th, tw = sk.DENSIFY_ROWS, sk.DENSIFY_COLS
+    for tile in range(t.blocks):
+        pair, rem = divmod(tile, t.tiles_h * t.tiles_w)
+        ty, tx = divmod(rem, t.tiles_w)
+        y0, x0 = ty * th, tx * tw
+        rows = torch.full((th, kr), num_h, dtype=torch.int64)
+        cols = torch.full((tw, kc), num_w, dtype=torch.int64)
+        rows[:min(th, out_h - y0)] = cover_rows[y0:y0 + th]
+        cols[:min(tw, width - x0)] = cover_cols[x0:x0 + tw]
+        rv, cv = rows[rows != num_h], cols[cols != num_w]
+        rlo = int(rv.min()) if rv.numel() else 0
+        clo = int(cv.min()) if cv.numel() else 0
+        nr = int(rv.max()) - rlo + 1 if rv.numel() else 0
+        nc = int(cv.max()) - clo + 1 if cv.numel() else 0
+        assert nr <= t.grid_rows and nc <= t.grid_cols
+        rl = torch.where(rows == num_h, t.grid_rows, rows - rlo).to(torch.int32)
+        cl = torch.where(cols == num_w, t.grid_cols, cols - clo).to(torch.int32)
+        # the 32-bit copy of the covers is the int64 plan's
+        assert torch.equal(torch.where(rl == t.grid_rows, num_h, rl.long() + rlo), rows)
+        assert torch.equal(torch.where(cl == t.grid_cols, num_w, cl.long() + clo), cols)
+        sub = uu[pair, clo:clo + nc, rlo:rlo + nr].permute(2, 1, 0)    # [2, r, c]
+        if ww is not None:
+            wsub = ww[pair, clo:clo + nc, rlo:rlo + nr].T[None]
+            sub = torch.cat([sub * wsub, wsub])
+        su = torch.zeros(sub.shape[0], t.grid_rows + 1, t.grid_cols)
+        su[:, :nr, :nc] = sub
+        acc = torch.zeros(sub.shape[0], th, t.grid_cols + 1)
+        for k in range(kr):
+            v = su[:, rl[:, k].long(), :nc]
+            acc[:, :, :nc] = v if k == 0 else acc[:, :, :nc] + v
+        f = None
+        for k in range(kc):
+            v = acc[:, :, cl[:, k].long()]
+            f = v if f is None else f + v
+        ws = f[2] if ww is not None else torch.zeros(th, tw)
+        if ww is None:
+            plane = uniform_wsum[y0:y0 + th, x0:x0 + tw, 0]
+            ws[:plane.shape[0], :plane.shape[1]] = plane
+        flow = torch.where(ws > 0, f[:2] / torch.where(ws > 0, ws, torch.ones_like(ws)),
+                           torch.zeros_like(f[:2]))
+        hh, wd = min(th, out_h - y0), min(tw, width - x0)
+        out[pair, y0:y0 + hh, x0:x0 + wd] = flow[:, :hh, :wd].permute(1, 2, 0)
+    return out.reshape(*lead, out_h, width, 2)
+
+
+@pytest.mark.parametrize("ps,steps", PS_STEPS)
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("ranged", [False, True])
+def test_densify_tiles_stage_every_cover(ps, steps, batch, ranged):
+    """``densify_tiles``: tile counts and shared bytes as the kernel checks
+    them; on full and window plans 300 pixels wide (three tile columns, the
+    last cut), every tile's covers reach no further than it stages, their
+    32-bit local copy is the int64 plan's, and the staged passes emulated
+    tile by tile give ``densify_plain``'s flow bitwise, uniform and
+    weighted."""
+    h, w = 48, 300
+    plan = _plan(w, h, steps, ps, ranged)
+    g = plan.geom
+    n = g.num_w * g.num_h
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(ps + (batch or 0))
+    u = torch.from_numpy((rng.normal(size=lead + (n, 2)) * 3).astype(np.float32))
+    wts = torch.from_numpy((rng.random(lead + (n,)) * (rng.random(lead + (n,)) > 0.3))
+                           .astype(np.float32))
+    out_h, kr = plan.cover_rows.shape
+    kc = plan.cover_cols.shape[1]
+    rows, cols = sk.DENSIFY_ROWS, sk.DENSIFY_COLS
+    for weights in (None, wts):
+        t = sk.densify_tiles(batch or 1, out_h, w, kr, kc, g.num_w, weights is not None)
+        term = 8 if weights is None else 16       # {u0, u1} or {u0 w, u1 w, w, 0}
+        assert (t.tiles_h, t.tiles_w) == (-(-out_h // rows), 3)
+        assert t.blocks == (batch or 1) * t.tiles_h * 3
+        assert t.shared_bytes == (term * ((t.grid_rows + 1) * t.grid_cols    # sub-block
+                                          + rows * (t.grid_cols + 1))        # row sums
+                                  + 4 * ((rows * cols if weights is None else 0)
+                                         + rows * kr + cols * kc))           # 32-bit covers
+        args = (u, weights, plan.cover_rows, plan.cover_cols, plan.uniform_wsum, g.num_w,
+                g.num_h)
+        assert torch.equal(_densify_emulated(*args, t), tden.densify_plain(*args))
+
+
 # -- the ops -------------------------------------------------------------------------------
 
 def _op_args(name, batch):
