@@ -103,23 +103,28 @@ refinement code):
     plain eager and replayed) with its bound; R1 also beside
     ``grid_sample`` (bilinear, border padding), the yardstick of its
     ``library_ms``;
-1f. (each scale's glue) S1 (templates, inverse Hessians and fixed mode's
-    ``Tn``), S2 (the NN init and the start test), S3 (fixed mode's
+1f. (each scale's glue) S1 (templates, inverse Hessians, fixed mode's
+    ``Tn`` and the search start: the NN init and the start test, which
+    were once a kernel of their own, S2), S3 (fixed mode's
     weights) and S4 (densification) on the inputs the main path gives them
     at the finest scale of the 1080p compat and ``DIS_FAST`` frames, the
     KITTI B = 8 config 3 batch, stripe 1 of 3 of the 4K compat frame (row0
-    544, a row-ranged grid and an output window) and the 1080p ``DIS_FULL``
-    frame (ps 12), recorded from a run (``scale_step_inputs``), each
-    bitwise equal to its plain version and timed beside it with its bound
-    and its share of that bound;
+    544, a row-ranged grid, an output window and a coarser flow with its
+    row offset) and the 1080p ``DIS_FULL`` frame (ps 12), and S1 also at
+    the 1080p compat coarsest scale (no coarser flow), recorded from a run
+    (``scale_step_inputs``), each bitwise equal to its plain version (S1:
+    ``templates_plain`` then ``search_start_plain``) and timed beside it
+    with its bound and its share of that bound, S1 also without the start
+    (the start's added time inside S1, the ``search_start`` row of the
+    ``kernels`` line) and the start's plain version alone;
     at the 1080p compat and ``DIS_FULL`` finest scales also S4 beside a
     fill of its flow's bytes, and at the ``DIS_FULL`` one S4's sweep of
     cover widths (``S4_SWEEP_PS``: the ``DIS_FULL`` grid, u and weights
     with the covers of ps 6, 8 and 12 at its stride 3, weighted and
     uniform, each bitwise equal to its plain version, with its bound);
-    every path through ``models/dis.py::_scale`` launches S1, S2 and S4
-    once per scale (and S3 in fixed mode), which every launch count below
-    includes (``glue_counts``);
+    every path through ``models/dis.py::_scale`` launches S1 and S4 once
+    per scale (and S3 in fixed mode), and no separate start kernel, which
+    every launch count below includes (``glue_counts``);
 2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R1 4,
     R2 20, R3 200 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R1 5, R2 50, R3
     500 (``DIS_FULL``, whose five levels take two K3 launches per image),
@@ -257,8 +262,8 @@ every level's planes, K1 its inputs with the raw template only for the
 patches frozen at the start) over 3.35 TB/s and its operations (K1's for
 the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
-No single PyTorch call computes K1-K3, R2, R3 or S1-S4, so their
-``library_ms`` is null; R1's is ``grid_sample``'s (phase 1e).  Phase 6b
+No single PyTorch call computes K1-K3, R2, R3, S1, S3, S4 or the start,
+so their ``library_ms`` is null; R1's is ``grid_sample``'s (phase 1e).  Phase 6b
 also prints a replayed frame's kernels and splits its ops' time into the
 port's kernels and torch's (the glue, copies and fills); 6a says for how
 many families the card flow is bitwise the CPU flow.
@@ -269,7 +274,10 @@ an entry point.
 ``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
 kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
 B = 8; K2c and K2 on the same 4K finest inputs, and K1 there; S1 and S4
-at the 1080p compat finest scale, S4 at the 1080p ``DIS_FULL`` one), the
+at the 1080p compat finest scale, S4 at the 1080p ``DIS_FULL`` one; the
+search start with its templates, as one S1 or S1 then S2 where the tree
+still has S2, at the 1080p compat finest and coarsest scales and the
+KITTI B = 8 finest one), the
 replayed 1080p and 4K compat frames, and the refinement of the finest
 level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames (with R1-R3
 where the tree has them), those frames and the 1080p ``DIS_MEDIUM``
@@ -305,8 +313,10 @@ SHIFT = (3.0, 2.0)
 # 3): 3, 4 and 5 grid rows and columns a pixel, DIS_FULL's own last.
 S4_SWEEP_PS = (6, 8, 12)
 # The kernels line's rows, each with its launches summed over the main-path
-# phases (K2 and K1 with a pair axis count as K2b and K1b).
-LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3", "S1", "S2", "S3", "S4")
+# phases (K2 and K1 with a pair axis count as K2b and K1b).  The search
+# start (once a kernel of its own, S2) runs inside every S1 launch: its row follows
+# LAUNCH_KEYS' and takes S1's launches.
+LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3", "S1", "S3", "S4")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
 # and configs; the port must land within EPE_TOL of it.  DIS_MEDIUM and
 # DIS_FULL: tools/jax_epe_readings.py (64 s and 302 s on the CPU).
@@ -565,14 +575,14 @@ def refine_counts(cfg):
 
 
 def glue_counts(cfg, n: int):
-    """Launches of each scale's S1-S4 over ``n`` scales: S1, S2 and S4 once
-    per scale, S3 once per scale in fixed mode."""
-    return {"S1": n, "S2": n, **({"S3": n} if cfg.mode == "fixed" else {}), "S4": n}
+    """Launches of each scale's glue over ``n`` scales: S1 (the start
+    included) and S4 once per scale, S3 once per scale in fixed mode."""
+    return {"S1": n, **({"S3": n} if cfg.mode == "fixed" else {}), "S4": n}
 
 
 def scale_counts(cfg):
-    """Launches one call must make, whatever B is: K2, K1 and S1-S4 once
-    per scale (``glue_counts``); K3 once per image (or stack of images) for
+    """Launches one call must make, whatever B is: K2, K1, S1, S4 (and S3)
+    once per scale (``glue_counts``); K3 once per image (or stack of images) for
     up to four levels; R1-R3 as ``refine_counts`` says."""
     from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS
 
@@ -593,17 +603,16 @@ def kernel_wrappers():
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
     from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
-    from dis_tpu_torch.ops.cuda.scale_kernel import (densify, fixed_weights, scale_templates,
-                                                     search_start)
+    from dis_tpu_torch.ops.cuda.scale_kernel import densify, fixed_weights, scale_templates
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
             "K1": iclk_search, "R1": refine_warp, "R2": refine_weights, "R3": refine_sor,
-            "S1": scale_templates, "S2": search_start, "S3": fixed_weights, "S4": densify}
+            "S1": scale_templates, "S3": fixed_weights, "S4": densify}
 
 
 def read_counts(wrappers):
     """Each wrapper's launches since its count was set to 0: K3, K2, K2c
-    and K1 always, R1-R3 and S1-S4 where they ran (as
+    and K1 always, R1-R3, S1, S3 and S4 where they ran (as
     ``CompiledFlow.graph_launches`` and ``cost.kernel_ops`` give them)."""
     return {k: w.launches for k, w in wrappers.items() if k[0] == "K" or w.launches}
 
@@ -660,20 +669,22 @@ def refine_step_inputs(args, picks):
 
 
 def scale_step_inputs(run):
-    """Runs ``run()`` and returns, by kernel, the inputs that the last call
-    of S1, S2, S3 and S4 gave their kernel (the checked arguments of the
-    ops' CUDA functions): the finest scale's, the main path's own inputs.
-    S3 is missing where the config is not in fixed mode."""
+    """Runs ``run()`` and returns, by kernel, the inputs that each call of
+    S1, S3 and S4 (and S2, in a tree that still has it) gave its kernel
+    (the checked arguments of the ops' CUDA functions), coarsest scale
+    first: the main path's own inputs.  S3 is missing where the config is
+    not in fixed mode."""
     from dis_tpu_torch.ops.cuda import scale_kernel as sk
 
-    names = {"S1": "_templates_cuda", "S2": "_start_cuda", "S3": "_weights_cuda",
-             "S4": "_densify_cuda"}
+    names = {k: fn for k, fn in (("S1", "_templates_cuda"), ("S2", "_start_cuda"),
+                                 ("S3", "_weights_cuda"), ("S4", "_densify_cuda"))
+             if hasattr(sk, fn)}
     seen = {}
     originals = {k: getattr(sk, fn) for k, fn in names.items()}
 
     def recorder(k):
         def call(*a):
-            seen[k] = a
+            seen.setdefault(k, []).append(a)
             return originals[k](*a)
         return call
 
@@ -699,7 +710,7 @@ def flat_tensors(x):
 
 # The port's own kernels (csrc/) by their names in a trace; every other
 # kernel there is torch's: the glue, copies and fills.
-PORT_KERNEL = re.compile(r"(?:^|[\s:])(?:templates|start|weights|densify|iclk|extract|banded|"
+PORT_KERNEL = re.compile(r"(?:^|[\s:])(?:templates|weights|densify|iclk|extract|banded|"
                          r"pyramid|warp|sor)_kernel\b")
 
 
@@ -1902,22 +1913,24 @@ def main() -> int:
         del steps
     del kmed_levels, kmed_planes
 
-    # -- phase 1f: each scale's glue, S1-S4 ---------------------------------------
+    # -- phase 1f: each scale's glue, S1, S3 and S4 ------------------------------
     # Each on the inputs the main path gives it at the finest scale (its last
     # call in a run, recorded by scale_step_inputs) of the 1080p compat and
     # DIS_FAST frames, the KITTI B = 8 config 3 batch, stripe 1 of 3 of the
-    # 4K compat frame (row0 544: its patch rows and output window) and the
-    # 1080p DIS_FULL frame (ps 12, stride 3), bitwise equal to its plain
-    # version; then timed beside it (kernel replayed, plain eager and
-    # replayed) with its bound.
+    # 4K compat frame (row0 544: its patch rows, output window and coarser
+    # flow's row offset) and the 1080p DIS_FULL frame (ps 12, stride 3), and
+    # S1 also at the 1080p compat coarsest scale (its first call: no coarser
+    # flow), bitwise equal to its plain version (S1: templates_plain, then
+    # search_start_plain for the start it writes); then timed beside it
+    # (kernel replayed, plain eager and replayed) with its bound, and S1 also
+    # without the start and the start's plain version alone.
     from dis_tpu_torch.ops.cuda import scale_kernel as sk
     from dis_tpu_torch.ops.densify import densify_plain, fixed_weights_plain
 
-    s_fns = {"S1": (sk.scale_templates, iclk.templates_plain, "scale_templates"),
-             "S2": (sk.search_start, iclk.search_start_plain, "search_start"),
+    s_fns = {"S1": (sk.scale_templates, iclk.scale_templates_plain, "scale_templates"),
              "S3": (sk.fixed_weights, fixed_weights_plain, "fixed_weights"),
              "S4": (sk.densify, densify_plain, "densify")}
-    s_err = dict.fromkeys(s_fns, 0.0)
+    s_err = dict.fromkeys(("S1", "S2", "S3", "S4"), 0.0)
     stimes, scosts = {}, {}
     srow0, sext, sown0, sownh = stripe_bounds(bench_cfg, H4K, N_STRIPES, 1, halo)
     for label, cfg, run in (
@@ -1929,34 +1942,67 @@ def main() -> int:
                                      srow0, sown0, sownh, H4K)),
             ("1080p full", dt.DIS_FULL, lambda: dt.dis_flow(a, b, dt.DIS_FULL))):
         steps = scale_step_inputs(run)
-        check(sorted(steps) == sorted(glue_counts(cfg, 1)),
-              f"1f {label}: calls {sorted(steps)}")
-        for k, args in sorted(steps.items()):
+        levels = cfg.coarsest_scale - cfg.finest_scale + 1
+        check(sorted(steps) == sorted(glue_counts(cfg, 1))
+              and all(len(v) == levels for v in steps.values()),
+              f"1f {label}: calls {({k: len(v) for k, v in steps.items()})}")
+        cases = [(k, label, v[-1]) for k, v in sorted(steps.items())]
+        if label == "1080p compat":
+            cases.insert(0, ("S1", f"{label} coarsest", steps["S1"][0]))
+        for k, case, args in cases:
             kern, plain, op = s_fns[k]
+            if k == "S1":   # the start: from the coarser flow (none at the coarsest scale)
+                coarsest = case.endswith("coarsest")
+                check(args[14] is not None and (args[10] is None) == coarsest
+                      and (args[13] > 0) == ("stripe" in case),
+                      f"S1 {case}: start inputs flow {args[10] is not None}, row offset "
+                      f"{args[13]}")
             before = kern.launches
-            got, want = flat_tensors(kern(*args)), flat_tensors(plain(*args))
+            got, want = kern(*args), plain(*args)
             torch.cuda.synchronize()
-            check(kern.launches == before + 1, f"{k} {label}: not one launch")
-            check(len(got) == len(want), f"{k} {label}: {len(got)} outputs, plain {len(want)}")
-            for g, v in zip(got, want):
-                s_err[k] = max(s_err[k], float((g.float() - v.float()).abs().max())
-                               if g.numel() else 0.0)
-                check(g.shape == v.shape and torch.equal(g, v),
-                      f"{k} {label}: differs from its plain version")
+            check(kern.launches == before + 1, f"{k} {case}: not one launch")
+            parts = [(k, got, want)]
+            if k == "S1":
+                parts = [("S1", got[:2], want[:2]), ("S2", got[2], want[2])]
+            for part, g_, w_ in parts:
+                g_, w_ = flat_tensors(g_), flat_tensors(w_)
+                check(len(g_) == len(w_), f"{part} {case}: {len(g_)} outputs, plain {len(w_)}")
+                for g, v in zip(g_, w_):
+                    s_err[part] = max(s_err[part], float((g.float() - v.float()).abs().max())
+                                      if g.numel() else 0.0)
+                    check(g.shape == v.shape and torch.equal(g, v),
+                          f"{part} {case}: differs from its plain version")
             km = replay_ms(lambda: kern(*args))
             pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
             nbytes, ops = cost.op_cost(op, args)
             bms, by = bound(nbytes, ops)
-            if label == ("1080p fast" if k == "S3" else "1080p compat"):
+            if case == ("1080p fast" if k == "S3" else "1080p compat"):
                 stimes[k], scosts[k] = (km, pm), (nbytes, ops)
-            print(f"phase1f {label} {k} {tuple(args[0].shape) if args[0] is not None else ''}"
-                  f" -> {tuple(got[0].shape)}: bitwise equal to the plain version; kernel "
-                  f"{km:.4f} ms replayed ({100.0 * bms / km:.0f}% of its bound), plain "
-                  f"{pm:.4f} ms ({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} [{card}]",
-                  flush=True)
+            shape = tuple(args[0].shape) if args[0] is not None else ''
+            print(f"phase1f {case} {k} {shape} -> {tuple(flat_tensors(got)[0].shape)}: bitwise "
+                  f"equal to the plain version; kernel {km:.4f} ms replayed "
+                  f"({100.0 * bms / km:.0f}% of its bound), plain {pm:.4f} ms ({prm:.4f} ms "
+                  f"replayed), bound {bms:.4f} ms by {by} [{card}]", flush=True)
+            if k == "S1":
+                # The start's share of S1: S1 on the same inputs without it,
+                # and the start's plain version alone.
+                bare_args = args[:10] + (None, None, None, 0, None, 0, 0)
+                bare = replay_ms(lambda: kern(*bare_args))
+                nb = args[0].shape[0] if args[0].ndim == 3 else 0
+                start_args = args[10:15] + (args[8], args[15], args[16], nb)
+                spm = time_ms(lambda: iclk.search_start_plain(*start_args))
+                sbytes, sops = cost.start_cost(max(nb, 1), args[3], args[4],
+                                               args[10] is not None)
+                sbms, sby = bound(sbytes, sops)
+                if case == "1080p compat":
+                    stimes["S2"], scosts["S2"] = (km - bare, spm), (sbytes, sops)
+                print(f"phase1f {case} S1 without the start {bare:.4f} ms replayed, so the "
+                      f"start adds {km - bare:.4f} ms inside S1 (its own bound {sbms:.4f} ms "
+                      f"by {sby}); the start's plain version {spm:.4f} ms [{card}]",
+                      flush=True)
         if label in ("1080p compat", "1080p full"):
             # S4 beside a fill of its flow's bytes: the card's stores alone.
-            flow = sk.densify(*steps["S4"])
+            flow = sk.densify(*steps["S4"][-1])
             print(f"phase1f {label} S4 beside a fill of its flow's bytes (zero_) "
                   f"{replay_ms(flow.zero_):.4f} ms [{card}]", flush=True)
         if label == "1080p full":
@@ -1966,7 +2012,7 @@ def main() -> int:
             # its unrolled ones).
             from dis_tpu_torch.ops.grid import scale_plan
 
-            u, wts, crows, ccols, _, num_w, num_h = steps["S4"]
+            u, wts, crows, ccols, _, num_w, num_h = steps["S4"][-1]
             sweep = []
             for ps in S4_SWEEP_PS:
                 plan = scale_plan(ccols.shape[0], crows.shape[0], cfg.steps, ps, u.device)
@@ -2177,10 +2223,10 @@ def main() -> int:
     refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL}
     want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
                                "R1": 4, "R2": 20, "R3": 200,
-                               "S1": 4, "S2": 4, "S3": 4, "S4": 4},
+                               "S1": 4, "S3": 4, "S4": 4},
                     "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
                              "R1": 5, "R2": 50, "R3": 500,
-                             "S1": 5, "S2": 5, "S3": 5, "S4": 5}}
+                             "S1": 5, "S3": 5, "S4": 5}}
     rflows = {}
     for name, cfg in refined.items():
         for w in wrappers.values():
@@ -2570,7 +2616,8 @@ def main() -> int:
                r_err["R2"]),
         "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
                r_err["R3"]),
-        # Nor S1-S4: they replace XLA's fusions of each scale's jnp code.
+        # Nor S1, S3, S4 and the start: they replace XLA's fusions of each
+        # scale's jnp code.  The start (once S2) runs inside S1.
         "S1": ("scale_templates", src + "scale_glue.cu", "dis_tpu/ops/iclk.py:155",
                s_err["S1"]),
         "S2": ("search_start", src + "scale_glue.cu", "dis_tpu/ops/grid.py:52", s_err["S2"]),
@@ -2592,8 +2639,7 @@ def main() -> int:
     for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
                           ("K1", kc["K1"][-1], 1e-3), ("R1", kcm["R1"][-1], 0.0),
                           ("R2", kcm["R2"][-1], 0.0), ("R3", kcm["R3"][-2], 0.0),
-                          ("S1", kc["S1"][-1], 0.0), ("S2", kc["S2"][-1], 0.0),
-                          ("S4", kc["S4"][-1], 0.0)):
+                          ("S1", kc["S1"][-1], 0.0), ("S4", kc["S4"][-1], 0.0)):
         static = bound(entry["bytes accessed"], entry["flops"])
         run_bound = bound(*costs[k])
         print(f"cost_analysis {k}: bound {static[0]:.6f} ms by {static[1]}; kernels line "
@@ -2601,13 +2647,16 @@ def main() -> int:
         check(static[1] == run_bound[1] and abs(static[0] - run_bound[0]) <= tol * run_bound[0],
               f"cost_analysis {k} bound {static} vs the kernels line {run_bound}")
     rows = []
-    for k in LAUNCH_KEYS:
+    for k in (*LAUNCH_KEYS, "S2"):
         bound_ms, bound_by = bound(*costs[k])
         rows.append({"name": meta[k][0], "route": "cuda", "source": meta[k][1],
-                     "replaces": meta[k][2], "launches": launches[k],
+                     "replaces": meta[k][2], "launches": launches["S1" if k == "S2" else k],
                      "max_abs_err": meta[k][3], "ms": times[k][0], "plain_ms": times[k][1],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": r1_library if k == "R1" else None})
+    # The start's row: fused into S1 (scale_templates), it launches
+    # with S1, and its ms is what it adds inside S1 on the same inputs.
+    rows[-1]["fused_into"] = "scale_templates"
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2623,7 +2672,9 @@ def kernel_times(root: str) -> int:
     K2b and K1b on the KITTI B = 8 batch (config 3); K3 on the two 4K
     pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; S1
     and S4 on the 1080p compat finest scale's inputs and S4 on the 1080p
-    ``DIS_FULL`` one's; the
+    ``DIS_FULL`` one's; the search start with its templates, one S1 or S1
+    then S2 where the tree still has S2 (``s2_separate``), at the 1080p
+    compat finest and coarsest scales and the KITTI B = 8 finest one; the
     replayed 1080p and 4K compat frames (``aot_compile``), the eager 1080p
     compat frame and the KITTI B = 8 batch, eager and replayed; the refinement
     of the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames
@@ -2703,15 +2754,29 @@ def kernel_times(root: str) -> int:
          calls=5)
     # S1 and S4 on the finest scale's inputs of the 1080p compat frame (S4
     # also of the DIS_FULL frame), through the wrappers of every tree since
-    # S1-S4 (scale_step_inputs records them).
+    # S1-S4 (scale_step_inputs records them); and the search start with its
+    # templates, as the tree launches them: one S1, or S1 then S2 where the
+    # tree still has S2, at the 1080p compat finest and coarsest scales and
+    # the KITTI B = 8 finest one.
     from dis_tpu_torch.ops.cuda import scale_kernel as sk
 
-    for key, cfg, names in (("1080p_compat", bench_cfg, ("S1", "S4")),
-                            ("1080p_full", dt.DIS_FULL, ("S4",))):
-        steps = scale_step_inputs(lambda: dt.dis_flow(a, b, cfg))
+    start = getattr(sk, "search_start", None)
+    out["s2_separate"] = start is not None
+    for key, cfg, (x, y), names in (("1080p_compat", bench_cfg, (a, b), ("S1", "S4")),
+                                    ("kitti_b8_compat", bench_cfg, (ka, kb), ()),
+                                    ("1080p_full", dt.DIS_FULL, (a, b), ("S4",))):
+        steps = scale_step_inputs(lambda: dt.dis_flow(x, y, cfg))
         for k in names:
             fn = {"S1": sk.scale_templates, "S4": sk.densify}[k]
-            out[f"{k}_{key}_finest_replayed_ms"] = replay_ms(lambda: fn(*steps[k]))
+            out[f"{k}_{key}_finest_replayed_ms"] = replay_ms(lambda: fn(*steps[k][-1]))
+        for where, i in (("finest", -1), ("coarsest", 0)):
+            if key == "1080p_full" or (key == "kitti_b8_compat" and where == "coarsest"):
+                continue
+            calls = [(sk.scale_templates, steps["S1"][i])]
+            if start is not None:
+                calls.append((start, steps["S2"][i]))
+            out[f"S1_start_{key}_{where}_replayed_ms"] = replay_ms(
+                lambda: [fn(*args) for fn, args in calls])
         del steps
     # Whole frames, replayed from the serving path's CUDA graph: whether a
     # kernel's gain shows end to end.

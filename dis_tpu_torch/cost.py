@@ -3,8 +3,9 @@
 Each kernel's work is a formula of its launch's shapes
 (:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, the
 refinement's :func:`refine_warp_cost`, :func:`refine_weights_cost`,
-:func:`refine_sor_cost`, and each scale's :func:`templates_cost`,
-:func:`start_cost`, :func:`weights_cost`, :func:`densify_cost`): each
+:func:`refine_sor_cost`, and each scale's :func:`templates_cost` (plus
+:func:`start_cost` where S1 writes the start), :func:`weights_cost`,
+:func:`densify_cost`): each
 input read once, each output written once, and the operations its
 arithmetic does.  ``chip_smoke.py`` reads the same formulas for the
 bounds of its ``kernels`` line, with the trips that its run's data
@@ -36,11 +37,10 @@ from .ops.cuda.pyramid_kernel import first_level_dims
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
            "extract_regions_banded": "K2c", "iclk_search": "K1",
            "refine_warp": "R1", "refine_weights": "R2", "refine_sor": "R3",
-           "scale_templates": "S1", "search_start": "S2", "fixed_weights": "S3",
-           "densify": "S4"}
+           "scale_templates": "S1", "fixed_weights": "S3", "densify": "S4"}
 # The kernels every count names; the refinement's (R1-R3) appear only
-# where a program refines, each scale's (S1-S4) where they launch (S3 in
-# fixed mode only).
+# where a program refines, each scale's (S1, S3, S4) where they launch (S3
+# in fixed mode only).
 CORE_KERNELS = ("K3", "K2", "K2c", "K1")
 
 F32 = 4
@@ -140,8 +140,9 @@ def templates_cost(nb: int, th: int, tw: int, n: int, ps: int,
 
 
 def start_cost(nb: int, num_w: int, num_h: int, coarser: bool) -> Tuple[int, int]:
-    """(bytes, operations) of one S2 launch over ``nb`` pairs of a ``num_w``
-    x ``num_h`` grid: the picks (int64) and centers read once, each
+    """(bytes, operations) of the search start that an S1 launch writes
+    beside the templates (once a launch of its own, S2) over ``nb`` pairs
+    of a ``num_w`` x ``num_h`` grid: the picks (int64) and centers read once, each
     patch's picked flow value where there is a ``coarser`` flow, init_u
     and pos0 (two floats each) and the start flag (a byte) written once;
     about 8 operations a patch."""
@@ -204,12 +205,13 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         return refine_sor_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
     if name == "scale_templates":
         img, num_w, num_h, ps, residual = args[0], args[3], args[4], args[8], args[9]
+        flow, centers = args[10], args[14]
         nb = img.shape[0] if img.ndim == 3 else 1
-        return templates_cost(nb, *img.shape[-2:], num_w * num_h, ps, residual)
-    if name == "search_start":
-        flow, nn_rows, nn_cols, nb = args[0], args[1], args[2], args[8]
-        pairs = (flow.shape[0] if flow.ndim == 4 else 1) if flow is not None else max(nb, 1)
-        return start_cost(pairs, nn_cols.shape[0], nn_rows.shape[0], flow is not None)
+        nbytes, ops = templates_cost(nb, *img.shape[-2:], num_w * num_h, ps, residual)
+        if centers is None:
+            return nbytes, ops
+        sbytes, sops = start_cost(nb, num_w, num_h, flow is not None)
+        return nbytes + sbytes, ops + sops
     if name == "fixed_weights":
         Q, ps, normalize = args[0], args[3], args[4]
         nb = Q.shape[0] if Q.ndim == 3 else 1
@@ -240,8 +242,8 @@ def glue_bytes(func, args, kwargs, out) -> int:
 
 def kernel_ops(program) -> Dict[str, int]:
     """The kernel ops in an exported program's graph, by kernel: K3, K2,
-    K2c and K1 always, R1-R3 where the program refines, S1-S4 where they
-    launch."""
+    K2c and K1 always, R1-R3 where the program refines, S1, S3 and S4
+    where they launch."""
     ops = dict.fromkeys(CORE_KERNELS, 0)
     for node in program.graph.nodes:
         name = getattr(node.target, "name", lambda: "")()
@@ -257,7 +259,7 @@ def flow_cost(cfg: DISConfig, height: int, width: int,
     ``dis_flow`` call on a [(batch,) height, width] bucket: totals, each
     kernel launch's ``{"flops", "bytes accessed"}`` in launch order by
     kernel (K3, K2, K2c and K1 always, R1-R3 where the config refines,
-    S1-S4 where they launch), and the glue's op count and totals.  The CPU plans of the
+    S1, S3 and S4 where they launch), and the glue's op count and totals.  The CPU plans of the
     bucket are built (and cached) first: the trace reads them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._python_dispatch import TorchDispatchMode

@@ -1,36 +1,42 @@
-// S1-S4: each scale's device work around the search, one launch each per
-// scale.
+// S1, S3, S4: each scale's device work around the search, one launch each
+// per scale.
 //
 // No Pallas kernel backs these: on the TPU this work is jnp code that XLA
 // fuses into a few loops per scale.  They replace those fusions:
-//   S1 dis_scale_templates  the templates, their Hessians' inverses and
-//                           fixed mode's mean-normalized template
+//   S1 dis_scale_templates  the templates, their Hessians' inverses, fixed
+//                           mode's mean-normalized template
 //                           (dis_tpu/ops/iclk.py:155 extract_templates_grid,
 //                           :346 _templates_from_taps, :355
-//                           _templates_from_hessian, :635-637 Tn);
-//   S2 dis_search_start     the x2 nearest-neighbour init from the coarser
-//                           flow and the start test (dis_tpu/ops/grid.py:52
-//                           init_from_coarser_flow, dis_tpu/ops/iclk.py:639-646);
+//                           _templates_from_hessian, :635-637 Tn) and the
+//                           search start: the x2 nearest-neighbour init from
+//                           the coarser flow and the start test
+//                           (dis_tpu/ops/grid.py:52 init_from_coarser_flow,
+//                           dis_tpu/ops/iclk.py:639-646), once a kernel of its
+//                           own (S2, now fused into S1);
 //   S3 dis_fixed_weights    fixed mode's densification weights
 //                           (dis_tpu/models/dis.py:27 _fixed_weights);
 //   S4 dis_densify          densification (dis_tpu/ops/densify.py:58-108).
-// Their plain versions are templates_plain and search_start_plain in
-// dis_tpu_torch/ops/iclk.py, fixed_weights_plain and densify_plain in
-// dis_tpu_torch/ops/densify.py.  Each kernel keeps the plain version's
-// operations, one float32 rounding per operation and in its order (the
-// build passes -fmad=false, so a product is rounded before it is summed);
-// a sum over a patch's taps is dis_group_sum's pair tree (dis_common.cuh),
-// which is pairwise_sum's; 1 / x is the correctly rounded reciprocal
-// (__frcp_rn: Tensor.__rtruediv__ is reciprocal then * 1.0) and a tensor
-// division __fdiv_rn.  So each kernel equals its plain version bitwise.
+// Their plain versions are templates_plain and search_start_plain (S1's
+// start) in dis_tpu_torch/ops/iclk.py, fixed_weights_plain and
+// densify_plain in dis_tpu_torch/ops/densify.py.  Each kernel keeps the
+// plain version's operations, one float32 rounding per operation and in its
+// order (the build passes -fmad=false, so a product is rounded before it is
+// summed); a sum over a patch's taps is dis_group_sum's pair tree
+// (dis_common.cuh), which is pairwise_sum's; 1 / x is the correctly rounded
+// reciprocal (__frcp_rn: Tensor.__rtruediv__ is reciprocal then * 1.0) and a
+// tensor division __fdiv_rn.  So each kernel equals its plain version
+// bitwise.
 //
 // Bound on the H100: memory.  At the 1080p finest scale (82,944 patches of
 // ps 8 on level planes of 1104 x 1936): S1 reads the three planes (25.6 MB)
-// and writes three templates of 64 taps a patch and the inverses (65 MB);
-// S3 reads Q and T (42.5 MB); S4 writes the 1080p flow (16.6 MB) and reads
-// the uniform weight plane (8.3 MB); S2 moves about 2 MB and is bound by
-// its launch.  The arithmetic is a few operations per byte at most, far
-// under the card's 67 TFLOP/s.
+// and writes three templates of 64 taps a patch and the inverses (65 MB),
+// and for the start reads the picks, the picked flow values and the centers
+// and writes init_u, pos0 and conv0 (2.7 MB more); S3 reads Q and T
+// (42.5 MB); S4 writes the 1080p flow (16.6 MB) and reads the uniform weight
+// plane (8.3 MB).  The arithmetic is a few operations per byte at most, far
+// under the card's 67 TFLOP/s.  The start alone moved too few bytes to pay
+// for a launch of its own (0.0031 ms against a bound of 0.0008 ms), so it
+// rides on S1, which already visits every patch in the same x-outer order.
 //
 // S1 (templates_kernel).  A block a tile of the patch grid, `rows`
 // consecutive patch rows in `cols` consecutive patch columns of one pair
@@ -50,7 +56,15 @@
 // j * ps + i at plane row y0 + iy * steps + j, column x0 + ix * steps + i;
 // a stripe's row0 is already in y0), and the two lanes of a pair swap a
 // chunk so that each 16-byte store instruction writes whole 32-byte
-// sectors.  What bounds it: the stores, 65 of the 91 MB at 1080p.
+// sectors.  Lane 0 of a group writes the patch's inverse.  Where the
+// launch asks for the start (two flags, never a null pointer, say whether
+// to write the start and whether a coarser flow exists), a thread a patch
+// of the tile (at most THREADS patches a tile) writes its init_u, pos0 and
+// conv0: it loads the picks before the window's copies are issued, the
+// flow value they pick right after, and stores the start after the
+// block's templates, so that the start's dependent loads overlap the
+// block's work instead of lengthening it.  What bounds it: the stores, 66
+// of the 93 MB at 1080p.
 //
 // S4 (densify_kernel).  A block a tile of 32 output rows by 128 output
 // columns of one pair.  It stages the tile's slices of cover_rows and
@@ -71,18 +85,21 @@
 // flow's stores and the weight plane's loads; at DIS_FULL's 5 x 5
 // weighted covers the terms each pixel sums (below).
 //
-// S2 (start_kernel) takes a thread a patch; S3 (weights_kernel) reads its
-// patches [nb, n, ps^2] in K1's lane layout.
+// S3 (weights_kernel) reads its patches [nb, n, ps^2] in K1's lane layout.
 //
 // Measured (H100 80GB HBM3, 700.00 W; chip_smoke.py phase 1f) at the 1080p
-// compat finest scale: S1 0.0374 ms (72% of its 0.0270 ms bound), S2
-// 0.0031, S3 0.0141 (DIS_FAST; 91%), S4 0.0106 (72% of 0.0076); S4 0.0163
-// ms (36% of 0.0059) at the DIS_FULL finest scale.  Phase 1f's sweep of
-// cover widths on that grid, whose bytes barely change with them, takes
-// 0.0109, 0.0161 and 0.0165 ms weighted at 3 x 3, 4 x 4 (the generic
-// instance) and 5 x 5 covers, and 0.0113, 0.0158 and 0.0140 uniform: the
-// terms a pixel sums ({u0 w, u1 w, w} vectors where weighted), not its
-// bytes, set S4's pace there.
+// compat finest scale before the start was fused into S1: S1 0.0374 ms (72%
+// of its 0.0270 ms bound), S2 0.0031, S3 0.0141 (DIS_FAST; 91%), S4 0.0106
+// (72% of 0.0076); S4 0.0163 ms (36% of 0.0059) at the DIS_FULL finest
+// scale.  Phase 1f's sweep of cover widths on that grid, whose bytes barely
+// change with them, takes 0.0109, 0.0161 and 0.0165 ms weighted at 3 x 3,
+// 4 x 4 (the generic instance) and 5 x 5 covers, and 0.0113, 0.0158 and
+// 0.0140 uniform: the terms a pixel sums ({u0 w, u1 w, w} vectors where
+// weighted), not its bytes, set S4's pace there.  With the start fused
+// (H100 80GB HBM3, 700.00 W; chip_smoke.py --kernel-times, both trees timed
+// in turns on one card): S1 0.0389 ms against 0.0416 for S1 then S2 (1080p
+// compat finest), 0.0054 against 0.0063 (coarsest) and 0.0663 against
+// 0.0682 (KITTI B = 8 finest); the start adds about 0.002 ms to S1's 0.0367.
 
 #include <cuda_runtime.h>
 
@@ -204,7 +221,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // ---------------------------------------------------------------------------
 // S1: planes img, dx, dy [nb, th, tw]; writes T, Tdx, Tdy [nb, n, ps^2],
-// hinv [nb, n, 2, 2] and, where residual, tn [nb, n, ps^2].
+// hinv [nb, n, 2, 2] and, where residual, tn [nb, n, ps^2].  Where start,
+// also the search start from flow [nb, hc, wc, 2] (read only where
+// coarser), nn_rows [num_h] and nn_cols [num_w] int64 and centers [n, 2]:
+// init_u and pos0 [nb, n, 2] and conv0 [nb, n] (bool).
 struct TemplateGrid {
   const float* img;
   const float* dx;
@@ -221,6 +241,16 @@ struct TemplateGrid {
   float* Tdy;
   float* hinv;
   float* tn;
+  int start, coarser;    // whether to write the start; whether a coarser flow exists
+  const float* flow;
+  const long long* nn_rows;
+  const long long* nn_cols;
+  int hc, wc, row_off;   // the coarser flow's rows and columns; its first global row
+  const float* centers;
+  float lb, ub_w, ub_h;  // the valid region of ops/iclk.py::out_of_bounds
+  float* init_u;
+  float* pos0;
+  uint8_t* conv0;
 };
 
 // A tile: its pair, its first patch row and column, and how many of its
@@ -257,6 +287,59 @@ __device__ __forceinline__ void stage_window(const TemplateGrid& g, const Templa
   }
 }
 
+// S1's search start, a thread a patch of the tile (slot threadIdx.x:
+// patch column slot / rows, row slot % rows, the tile's consecutive patch
+// rows on consecutive threads, as consecutive outputs), in three steps
+// around the rest of the block's work, so that its dependent loads wait
+// on memory while the window's copies and the templates do.  start_pick
+// loads the patch's picks (row nn_rows[iy] - row_off and column
+// nn_cols[ix] of the coarser flow) and its center before the window's
+// copies are issued; start_flow loads the picked flow value right after
+// them; start_write, after the block's patches, writes init_u (x2 that
+// value, zeros where there is no coarser flow: the coarsest scale), pos0
+// = centers + init_u and conv0, the start test.
+struct StartPick {
+  long long row, col;
+  float2 center;
+  bool has;   // the thread's slot is a patch of the grid and the launch writes the start
+};
+
+__device__ __forceinline__ StartPick start_pick(const TemplateGrid& g, const TemplateTile& tl) {
+  StartPick p;
+  const int s = threadIdx.x, cl = s / g.rows, rl = s - cl * g.rows;
+  p.has = g.start && s < g.rows * g.cols && rl < tl.pv && cl < tl.cv;
+  p.row = p.col = 0;
+  p.center = make_float2(0.0f, 0.0f);
+  if (p.has) {
+    const int ix = tl.ix0 + cl, iy = tl.iy0 + rl;
+    if (g.coarser) {
+      p.row = g.nn_rows[iy] - g.row_off;
+      p.col = g.nn_cols[ix];
+    }
+    p.center = reinterpret_cast<const float2*>(g.centers)[(long long)ix * g.num_h + iy];
+  }
+  return p;
+}
+
+// The picked flow value (zeros where there is none).
+__device__ __forceinline__ float2 start_flow(const TemplateGrid& g, const TemplateTile& tl,
+                                             const StartPick& p) {
+  if (!p.has || !g.coarser) return make_float2(0.0f, 0.0f);
+  return *reinterpret_cast<const float2*>(g.flow + ((tl.pair * g.hc + p.row) * g.wc + p.col) * 2);
+}
+
+__device__ __forceinline__ void start_write(const TemplateGrid& g, const TemplateTile& tl,
+                                            const StartPick& p, float2 f) {
+  if (!p.has) return;
+  const int s = threadIdx.x, cl = s / g.rows, rl = s - cl * g.rows;
+  const long long i = tl.pair * g.n + (long long)(tl.ix0 + cl) * g.num_h + tl.iy0 + rl;
+  const float ux = f.x * 2.0f, uy = f.y * 2.0f;   // +0.0 where there is no coarser flow
+  const float px = p.center.x + ux, py = p.center.y + uy;
+  reinterpret_cast<float2*>(g.init_u)[i] = make_float2(ux, uy);
+  reinterpret_cast<float2*>(g.pos0)[i] = make_float2(px, py);
+  g.conv0[i] = (px < g.lb) | (py < g.lb) | (px > g.ub_w) | (py > g.ub_h);
+}
+
 // At most 85 registers a thread, so that three blocks fit an SM.
 template <int K, int G>
 __global__ void __launch_bounds__(THREADS, 3)
@@ -267,15 +350,19 @@ templates_kernel(const TemplateGrid g) {
   const int lane_g = threadIdx.x % G, group = threadIdx.x / G;
   const int t0 = lane_g * K;
   const TemplateTile tl(g, blockIdx.x);
+  // The start's loads (the picks, then the flow value they pick) wait on
+  // memory while the window's copies and the templates do.
+  const StartPick pick = start_pick(g, tl);
   stage_window(g, tl, win);
   cp_async_commit();
+  const float2 picked = start_flow(g, tl, pick);
+  const int slots = g.rows * g.cols;
   int off[K];   // the lane's taps in the staged window, -1 past ps^2
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int tap = t0 + k, j = tap / g.ps;
     off[k] = tap < np ? j * g.pitch + tap - j * g.ps : -1;
   }
-  const int slots = g.rows * g.cols;
   cp_async_wait_all();
   __syncthreads();
   // Slot s of the tile is its patch (column s / rows, row s % rows); a
@@ -325,36 +412,7 @@ templates_kernel(const TemplateGrid g) {
           make_float4(c * inv_det, nb_, nb_, a * inv_det);
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// S2: flow [nb, hc, wc, 2] (null at the coarsest scale), nn_rows [num_h] and
-// nn_cols [num_w] int64, centers [n, 2]; writes init_u and pos0 [nb, n, 2]
-// and conv0 [nb, n] (bool).
-__global__ void __launch_bounds__(THREADS)
-start_kernel(const float* __restrict__ flow, const long long* __restrict__ nn_rows,
-             const long long* __restrict__ nn_cols, int hc, int wc, int row_off,
-             const float* __restrict__ centers, long long total, int n, int num_h, float lb,
-             float ub_w, float ub_h, float* __restrict__ init_u, float* __restrict__ pos0,
-             uint8_t* __restrict__ conv0) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= total) return;
-  const long long pair = i / n;
-  const int patch = (int)(i - pair * n);
-  float ux = 0.0f, uy = 0.0f;
-  if (flow != nullptr) {
-    const int ix = patch / num_h, iy = patch - ix * num_h;
-    const long long r = nn_rows[iy] - row_off;
-    const float2 f = *reinterpret_cast<const float2*>(
-        flow + ((pair * hc + r) * wc + nn_cols[ix]) * 2);
-    ux = f.x * 2.0f;
-    uy = f.y * 2.0f;
-  }
-  const float2 c = *reinterpret_cast<const float2*>(centers + 2 * patch);
-  const float px = c.x + ux, py = c.y + uy;
-  *reinterpret_cast<float2*>(init_u + 2 * i) = make_float2(ux, uy);
-  *reinterpret_cast<float2*>(pos0 + 2 * i) = make_float2(px, py);
-  conv0[i] = (px < lb) | (py < lb) | (px > ub_w) | (py > ub_h);
+  start_write(g, tl, pick, picked);
 }
 
 // ---------------------------------------------------------------------------
@@ -665,25 +723,43 @@ unsigned patch_blocks(long long total) {
 // tile of tile_rows patch rows (a multiple of 32 / G) by tile_cols patch
 // columns, staged with a row pitch of pitch floats (at least (tile_cols -
 // 1) * steps + ps) in shared bytes (3 planes of (tile_rows - 1) * steps +
-// ps rows); ops/cuda/scale_kernel.py::template_tiles gives them.  Returns
+// ps rows), at most THREADS patches a tile;
+// ops/cuda/scale_kernel.py::template_tiles gives them.  Where
+// start, also the search start: init_u from flow [nb, hc, wc, 2] where
+// coarser (row_off, the coarser flow's first global row, subtracted from
+// nn_rows), else zeros (flow is then never read, whatever it points to);
+// lb, ub_w, ub_h the valid region of ops/iclk.py::out_of_bounds.  Returns
 // cudaGetLastError() after the launch (nb * n = 0 launches nothing).
 extern "C" int dis_scale_templates(const float* img, const float* dx, const float* dy, int nb,
                                    int th, int tw, int n, int num_h, int steps, int y0, int x0,
                                    int ps, int residual, float inv_ps2, int tile_rows,
                                    int tile_cols, int pitch, int shared, float* T, float* Tdx,
-                                   float* Tdy, float* hinv, float* tn, cudaStream_t stream) {
+                                   float* Tdy, float* hinv, float* tn, int start, int coarser,
+                                   const float* flow, const long long* nn_rows,
+                                   const long long* nn_cols, int hc, int wc, int row_off,
+                                   const float* centers, float lb, float ub_w, float ub_h,
+                                   float* init_u, float* pos0, unsigned char* conv0,
+                                   cudaStream_t stream) {
   int k = 0, g = 0;
   if (dis_iclk_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)nb * n;
   if (total <= 0) return (int)cudaGetLastError();
   if (num_h <= 0 || n % num_h != 0 || steps < 1 || tile_rows < 1 || tile_cols < 1 ||
-      tile_rows % (32 / g) != 0 || pitch < (tile_cols - 1) * steps + ps)
+      tile_rows * tile_cols > THREADS || tile_rows % (32 / g) != 0 ||
+      pitch < (tile_cols - 1) * steps + ps)
     return (int)cudaErrorInvalidValue;
   const long long plane = (long long)((tile_rows - 1) * steps + ps) * pitch;
   if ((long long)shared != 3 * plane * (long long)sizeof(float))
     return (int)cudaErrorInvalidValue;
   if (!aligned16(T) || !aligned16(Tdx) || !aligned16(Tdy) || !aligned16(hinv) ||
       (residual && !aligned16(tn)))
+    return (int)cudaErrorMisalignedAddress;
+  if (start && (centers == nullptr || init_u == nullptr || pos0 == nullptr ||
+                conv0 == nullptr || (coarser && (flow == nullptr || nn_rows == nullptr ||
+                                                 nn_cols == nullptr || hc < 1 || wc < 1))))
+    return (int)cudaErrorInvalidValue;
+  if (start && (!aligned8(centers) || !aligned8(init_u) || !aligned8(pos0) ||
+                (coarser && !aligned8(flow))))
     return (int)cudaErrorMisalignedAddress;
   const int limit = shared_limit(templates_granted, TEMPLATE_KERNELS);
   if (limit == 0) return (int)cudaGetLastError();
@@ -713,6 +789,21 @@ extern "C" int dis_scale_templates(const float* img, const float* dx, const floa
   grid.Tdy = Tdy;
   grid.hinv = hinv;
   grid.tn = tn;
+  grid.start = start != 0;
+  grid.coarser = start && coarser;
+  grid.flow = flow;
+  grid.nn_rows = nn_rows;
+  grid.nn_cols = nn_cols;
+  grid.hc = hc;
+  grid.wc = wc;
+  grid.row_off = row_off;
+  grid.centers = centers;
+  grid.lb = lb;
+  grid.ub_w = ub_w;
+  grid.ub_h = ub_h;
+  grid.init_u = init_u;
+  grid.pos0 = pos0;
+  grid.conv0 = conv0;
   const long long blocks = (long long)nb * grid.tiles_h * grid.tiles_w;
   if (shared > limit || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
 #define DIS_S1_LAUNCH(KK, GG)                                                          \
@@ -726,26 +817,6 @@ extern "C" int dis_scale_templates(const float* img, const float* dx, const floa
   if (k == 4 && g == 1) { DIS_S1_LAUNCH(4, 1); }
 #undef DIS_S1_LAUNCH
   return (int)cudaErrorInvalidValue;
-}
-
-// S2.  nb pairs of n patches; flow [nb, hc, wc, 2] or null (zeros: the
-// coarsest scale); row_off, the coarser flow's first global row, is
-// subtracted from nn_rows.  lb, ub_w, ub_h: the valid region of
-// ops/iclk.py::out_of_bounds.  nb * n = 0 launches nothing.
-extern "C" int dis_search_start(const float* flow, const long long* nn_rows,
-                                const long long* nn_cols, int nb, int hc, int wc, int row_off,
-                                const float* centers, int n, int num_h, float lb, float ub_w,
-                                float ub_h, float* init_u, float* pos0, unsigned char* conv0,
-                                cudaStream_t stream) {
-  const long long total = (long long)nb * n;
-  if (total <= 0) return (int)cudaGetLastError();
-  if (num_h <= 0) return (int)cudaErrorInvalidValue;
-  if (!aligned8(flow) || !aligned8(centers) || !aligned8(init_u) || !aligned8(pos0))
-    return (int)cudaErrorMisalignedAddress;
-  start_kernel<<<blocks_for(total), THREADS, 0, stream>>>(flow, nn_rows, nn_cols, hc, wc,
-                                                          row_off, centers, total, n, num_h,
-                                                          lb, ub_w, ub_h, init_u, pos0, conv0);
-  return (int)cudaGetLastError();
 }
 
 // S3.  nb * n patches of ps^2 taps; ps2 = ps^2 as a float (the divisor of

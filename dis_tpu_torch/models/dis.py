@@ -4,8 +4,9 @@ of ``dis_tpu/models/dis.py``.
 ``flow = dis_flow(img1, img2, cfg)`` runs on the device of its inputs:
 on CUDA tensors each pyramid, region extraction and search goes
 through the hand-written kernels K3, K2 (K2c where the extraction route
-says so: the 4K finest scale) and K1, and each scale's templates, start,
-fixed-mode weights and densification through S1-S4; on CPU tensors
+says so: the 4K finest scale) and K1, each scale's templates and start
+through S1 and its fixed-mode weights and densification through S3 and
+S4; on CPU tensors
 through their plain PyTorch versions.  Scale shapes are static and the
 scale loop is a Python loop.
 
@@ -117,19 +118,17 @@ def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
     (None at the coarsest scale; its first row is global row
     ``coarse_row_offset``), the IC-LK search and densification.  On CUDA
     tensors each step is one kernel launch: S1 (templates, inverse
-    Hessians and fixed mode's ``Tn``), S2 (the start), K2 or K2c, K1, S3
+    Hessians, fixed mode's ``Tn`` and the start), K2 or K2c, K1, S3
     (fixed mode's weights) and S4 (densification)."""
     sw = l1.width
     ps, pad = cfg.patch_size, cfg.img_padding
     fixed = cfg.mode == "fixed"
     plan = scale_plan(sw, gh_s, cfg.steps, ps, l1.img.device, iy_range, window)
-    tpl, Tn = iclk.scale_templates(l1.img, l1.dx, l1.dy, plan.geom, ps, pad, row0,
-                                   fixed and cfg.patch_normalization, plain)
+    tpl, Tn, (init_u, pos0, conv0) = iclk.scale_templates(
+        l1.img, l1.dx, l1.dy, plan.geom, ps, pad, row0, fixed and cfg.patch_normalization,
+        plain, plan, flow_coarse, coarse_row_offset, sw, gh_s)
     if fixed and Tn is None:
         Tn = tpl.T
-    nb = l1.img.shape[0] if l1.img.ndim == 3 else 0
-    init_u, pos0, conv0 = iclk.search_start(plan, flow_coarse, coarse_row_offset, ps, sw,
-                                            gh_s, nb, plain)
     res = iclk.inverse_search(l2.img, tpl, plan.centers, init_u, cfg, sw, gh_s,
                               row0=row0, geom=plan.geom,
                               init_bound=init_bound(cfg, scale), plain=plain, Tn=Tn,

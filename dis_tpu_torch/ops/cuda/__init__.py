@@ -1,15 +1,15 @@
 """Wrappers of the hand-written CUDA kernels K1-K3 (K2 and K1 with their
 batched forms K2b and K1b: a leading pair axis on their inputs), K2c,
 the column-banded form of K2, the refinement's R1-R3 and each scale's
-S1-S4, and the ops they launch through.
+S1, S3 and S4, and the ops they launch through.
 
 Each C entry point of ``csrc/`` is registered as an op of the
 ``dis_tpu_torch`` namespace (``torch.library.custom_op``) with a flat
 schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
 ``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c),
 ``iclk_search`` (K1, K1b), ``refine_warp``, ``refine_weights`` and
-``refine_sor`` (R1-R3), ``scale_templates``, ``search_start``,
-``fixed_weights`` and ``densify`` (S1-S4).  Each op has three
+``refine_sor`` (R1-R3), ``scale_templates`` (S1, the search start
+included), ``fixed_weights`` and ``densify`` (S3, S4).  Each op has three
 functions: for CUDA, which allocates the outputs with ``torch.empty``,
 launches the kernel on the current stream (``_build.launch``) and adds
 one to its wrapper's ``launches`` count; a fake one (``register_fake``), which gives the
@@ -97,6 +97,6 @@ def register(name: str, cuda_fn, fake_fn, cpu_fn, mutates_args=()):
 
 
 # The ops are registered when their modules are imported; importing this
-# package registers all eleven (a loaded artifact needs them).
+# package registers all ten (a loaded artifact needs them).
 from . import (extract_banded_kernel, extract_kernel, iclk_kernel,  # noqa: E402,F401
                pyramid_kernel, refine_kernel, scale_kernel)

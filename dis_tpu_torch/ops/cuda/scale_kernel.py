@@ -1,34 +1,35 @@
-"""S1-S4: each scale's device work around the search (``csrc/scale_glue.cu``).
+"""S1, S3, S4: each scale's device work around the search
+(``csrc/scale_glue.cu``).
 
 No Pallas kernel backs them: the JAX package writes this work as ``jnp``
 code that XLA fuses into a few loops per scale.  They replace those
 fusions, and about 75 torch ops per scale, with one launch each per scale
 of ``models/dis.py::_scale``:
 
-- S1 :func:`scale_templates`, the templates, their Hessians' inverses and
+- S1 :func:`scale_templates`, the templates, their Hessians' inverses,
   fixed mode's mean-normalized template (``dis_tpu/ops/iclk.py:155``,
-  ``:346``, ``:355``, ``:635-637``); plain version
-  ``ops/iclk.py::templates_plain``;
-- S2 :func:`search_start`, the x2 nearest-neighbour init from the coarser
-  flow and the start test (``dis_tpu/ops/grid.py:52``,
-  ``dis_tpu/ops/iclk.py:639-646``); plain version
-  ``ops/iclk.py::search_start_plain``;
+  ``:346``, ``:355``, ``:635-637``) and the search start: the x2
+  nearest-neighbour init from the coarser flow and the start test
+  (``dis_tpu/ops/grid.py:52``, ``dis_tpu/ops/iclk.py:639-646``), once a
+  kernel of its own (S2); plain version ``ops/iclk.py::
+  scale_templates_plain``, which is ``templates_plain`` then
+  ``search_start_plain``;
 - S3 :func:`fixed_weights`, fixed mode's densification weights
   (``dis_tpu/models/dis.py:27``); plain version
   ``ops/densify.py::fixed_weights_plain``;
 - S4 :func:`densify`, densification (``dis_tpu/ops/densify.py:58-108``);
   plain version ``ops/densify.py::densify_plain``.
 
-Each is bound by bytes on the H100 (S2 by its launch): S1 stages each
-tile of the patch grid's plane windows in shared memory
-(:func:`template_tiles`) and reads its taps there in K1's lane layout (a
-group of lanes a patch, the pair-tree sums as an in-lane tree and a
-butterfly), as S3 reads its patches; S2 takes a thread a patch; S4 a
-block a tile of output pixels, its covers' sub-block of the grid staged
-once (:func:`densify_tiles`).  Each keeps its plain version's operations
-and rounding, so it equals it bitwise.  No single PyTorch call computes
-any of them (a gather, a pair-tree sum, a 2x2 inverse and a stencil
-each), so they have no library yardstick.
+Each is bound by bytes on the H100: S1 stages each tile of the patch
+grid's plane windows in shared memory (:func:`template_tiles`) and reads
+its taps there in K1's lane layout (a group of lanes a patch, the
+pair-tree sums as an in-lane tree and a butterfly), as S3 reads its
+patches, and each group's first lane writes its patch's start beside its
+inverse; S4 takes a block a tile of output pixels, its covers' sub-block
+of the grid staged once (:func:`densify_tiles`).  Each keeps its plain
+version's operations and rounding, so it equals it bitwise.  No single
+PyTorch call computes any of them (a gather, a pair-tree sum, a 2x2
+inverse and a stencil each), so they have no library yardstick.
 
 A batch of pairs adds a leading axis to the planes, the per-patch tensors
 and the flows; the plan's tensors (centers, picks, cover indices, the
@@ -45,7 +46,7 @@ import torch
 
 from ... import _build
 from ..densify import densify_plain, fixed_weights_plain
-from ..iclk import PatchTemplates, inv_taps, search_start_plain, templates_plain
+from ..iclk import PatchTemplates, Start, inv_taps, scale_templates_plain
 from . import all_on_cpu, check_input, dispatch, register
 from .iclk_kernel import lane_layout
 
@@ -81,9 +82,10 @@ class TemplateTiles(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def template_tiles(ps: int, steps: int, num_w: int, num_h: int, nb: int) -> TemplateTiles:
     """S1's tiles of a ``num_w`` x ``num_h`` patch grid of ``nb`` pairs, a
-    block each: :data:`S1_TILE` halved, columns first, while the staged
-    window would take more than :data:`S1_SHARED_TARGET` bytes and the
-    tile can shrink (rows stay a multiple of the 32 / G patches a warp
+    block each, of at most a block's 256 threads of patches (a thread
+    writes a patch's start): :data:`S1_TILE` halved, columns first, while
+    the staged window would take more than :data:`S1_SHARED_TARGET` bytes
+    and the tile can shrink (rows stay a multiple of the 32 / G patches a warp
     holds, so that a warp's patches are consecutive in the x-outer
     outputs).  The staged rows' pitch is odd, so that the up to 32
     distinct rows a warp reads at one tap fall in distinct banks."""
@@ -141,17 +143,29 @@ def densify_tiles(nb: int, out_h: int, width: int, kr: int, kc: int, num_w: int,
     return DensifyTiles(th, tw, grid_rows, grid_cols, shared, nb * th * tw)
 
 
-# -- S1: templates and inverse Hessians -------------------------------------------
+# -- S1: templates, inverse Hessians and the search start ---------------------------
 
 def scale_templates(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, num_w: int,
-                    num_h: int, steps: int, y0: int, x0: int, ps: int, residual: bool
-                    ) -> Tuple[PatchTemplates, Optional[torch.Tensor]]:
-    """(templates [(B,) N, ...], Tn [(B,) N, ps^2] or None) of the
-    ``num_w`` x ``num_h`` patch grid over the planes [(B,) th, tw], the
-    first tap at plane row ``y0`` and column ``x0``
-    (``ops/iclk.py::templates_plain``).  One launch of S1."""
-    if all_on_cpu(img, dx, dy):
-        return templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
+                    num_h: int, steps: int, y0: int, x0: int, ps: int, residual: bool,
+                    flow_coarse: Optional[torch.Tensor] = None,
+                    nn_rows: Optional[torch.Tensor] = None,
+                    nn_cols: Optional[torch.Tensor] = None, coarse_row_offset: int = 0,
+                    centers: Optional[torch.Tensor] = None, width: int = 0, height: int = 0
+                    ) -> Tuple[PatchTemplates, Optional[torch.Tensor], Optional[Start]]:
+    """(templates [(B,) N, ...], Tn [(B,) N, ps^2] or None, start or None)
+    of the ``num_w`` x ``num_h`` patch grid over the planes [(B,) th, tw],
+    the first tap at plane row ``y0`` and column ``x0``
+    (``ops/iclk.py::scale_templates_plain``).  Given the plan's
+    ``centers`` [N, 2] and picks ``nn_rows`` [num_h] and ``nn_cols``
+    [num_w], also the search start (init_u, pos0 [(B,) N, 2], conv0 [(B,)
+    N] bool) of a scale of global size [height, width] from the coarser
+    flow [(B,) hc, wc, 2] (None at the coarsest scale; its first global row
+    ``coarse_row_offset``).  One launch of S1."""
+    given = [t for t in (flow_coarse, nn_rows, nn_cols, centers) if t is not None]
+    if all_on_cpu(img, dx, dy, *given):
+        return scale_templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual,
+                                     flow_coarse, nn_rows, nn_cols, coarse_row_offset,
+                                     centers, width, height)
     lane_layout(ps)   # raises for a size the kernel does not take
     if img.ndim not in (2, 3):
         raise ValueError(f"img must be [th, tw] or [B, th, tw], got {tuple(img.shape)}")
@@ -165,101 +179,84 @@ def scale_templates(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, num_w
                           or x0 + (num_w - 1) * steps + ps > tw):
         raise ValueError(f"a {num_w} x {num_h} grid of patches {ps} wide, {steps} apart "
                          f"from ({y0}, {x0}), leaves the [{th}, {tw}] planes")
-    T_, Tdx, Tdy, Hinv, Tn = dispatch(scale_templates_op, _templates_cuda, dev, img, dx, dy,
-                                      num_w, num_h, steps, y0, x0, ps, residual)
-    return PatchTemplates(T_, Tdx, Tdy, Hinv), (Tn if residual else None)
+    if centers is None:
+        if given:
+            raise ValueError("the search start needs the plan's centers")
+    else:
+        if nn_rows is None or nn_cols is None:
+            raise ValueError("the search start needs the plan's picks nn_rows and nn_cols")
+        check_input(nn_rows, "nn_rows", dev, I64, (num_h,))
+        check_input(nn_cols, "nn_cols", dev, I64, (num_w,))
+        check_input(centers, "centers", dev, torch.float32, (num_w * num_h, 2))
+        if flow_coarse is not None:
+            if (flow_coarse.ndim != img.ndim + 1 or flow_coarse.shape[-1] != 2
+                    or flow_coarse.shape[:-3] != img.shape[:-2]):
+                raise ValueError(f"flow_coarse must be [hc, wc, 2] with img's pair axis, got "
+                                 f"{tuple(flow_coarse.shape)} for img {tuple(img.shape)}")
+            check_input(flow_coarse, "flow_coarse", dev, torch.float32, flow_coarse.shape)
+    out = dispatch(scale_templates_op, _templates_cuda, dev, img, dx, dy, num_w, num_h, steps,
+                   y0, x0, ps, residual, flow_coarse, nn_rows, nn_cols, coarse_row_offset,
+                   centers, width, height)
+    return (PatchTemplates(*out[:4]), out[4] if residual else None,
+            None if centers is None else Start(*out[5:]))
 
 
 def _templates_empty(img: T, dx: T, dy: T, num_w: int, num_h: int, steps: int, y0: int,
-                     x0: int, ps: int, residual: bool):
+                     x0: int, ps: int, residual: bool, flow_coarse: Optional[T],
+                     nn_rows: Optional[T], nn_cols: Optional[T], coarse_row_offset: int,
+                     centers: Optional[T], width: int, height: int):
     lead = tuple(img.shape[:-2]) + (num_w * num_h,)
     taps = lead + (ps * ps,)
+    flags = (0,) if centers is None else lead          # the start's, empty without it
+    init = (0,) if centers is None else lead + (2,)
     return (img.new_empty(taps), img.new_empty(taps), img.new_empty(taps),
-            img.new_empty(lead + (2, 2)), img.new_empty(taps if residual else (0,)))
+            img.new_empty(lead + (2, 2)), img.new_empty(taps if residual else (0,)),
+            img.new_empty(init), img.new_empty(init),
+            torch.empty(flags, dtype=torch.bool, device=img.device))
 
 
 def _templates_cuda(img: T, dx: T, dy: T, num_w: int, num_h: int, steps: int, y0: int,
-                    x0: int, ps: int, residual: bool) -> Tuple[T, T, T, T, T]:
-    """S1 on checked inputs: T, Tdx, Tdy, Hinv and Tn (empty [0] unless
-    ``residual``)."""
-    out = _templates_empty(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
+                    x0: int, ps: int, residual: bool, flow_coarse: Optional[T],
+                    nn_rows: Optional[T], nn_cols: Optional[T], coarse_row_offset: int,
+                    centers: Optional[T], width: int, height: int
+                    ) -> Tuple[T, T, T, T, T, T, T, T]:
+    """S1 on checked inputs: T, Tdx, Tdy, Hinv, Tn (empty [0] unless
+    ``residual``) and init_u, pos0 and conv0 (each empty [0] without
+    ``centers``).  The kernel takes the start and the coarser flow as
+    flags; the valid region is ``out_of_bounds``'s."""
+    out = _templates_empty(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual,
+                           flow_coarse, nn_rows, nn_cols, coarse_row_offset, centers, width,
+                           height)
     nb = _pairs(img.shape[:-2])
     n = num_w * num_h
     if nb * n == 0:
         return out
     tiles = template_tiles(ps, steps, num_w, num_h, nb)
+    start = centers is not None
+    coarser = start and flow_coarse is not None
+    hc, wc = flow_coarse.shape[-3:-1] if coarser else (0, 0)
     _build.launch("dis_scale_templates", img.device, img.data_ptr(), dx.data_ptr(),
                   dy.data_ptr(), nb, *img.shape[-2:], n, num_h, steps, y0, x0, ps,
                   int(residual), inv_taps(ps), tiles.rows, tiles.cols, tiles.pitch,
                   tiles.shared_bytes, *(t.data_ptr() for t in out[:4]),
-                  out[4].data_ptr() if residual else None)
+                  out[4].data_ptr() if residual else None, int(start), int(coarser),
+                  flow_coarse.data_ptr() if coarser else None,
+                  *(t.data_ptr() if start else None for t in (nn_rows, nn_cols)), hc, wc,
+                  coarse_row_offset, centers.data_ptr() if start else None,
+                  -float(ps) / 2.0, float(width + ps // 2 - 2), float(height + ps // 2 - 2),
+                  *(t.data_ptr() if start else None for t in out[5:]))
     scale_templates.launches += 1
     return out
 
 
-def _templates_cpu(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual):
-    tpl, Tn = templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
-    return (*tpl, Tn if residual else img.new_empty((0,)))
-
-
-# -- S2: the search start -----------------------------------------------------------
-
-def search_start(flow_coarse: Optional[torch.Tensor], nn_rows: torch.Tensor,
-                 nn_cols: torch.Tensor, coarse_row_offset: int, centers: torch.Tensor,
-                 ps: int, width: int, height: int, nb: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(init_u, pos0 [(B,) N, 2], conv0 [(B,) N] bool) of a scale of
-    global size [height, width] (``ops/iclk.py::search_start_plain``).
-    One launch of S2."""
-    given = [] if flow_coarse is None else [flow_coarse]
-    if all_on_cpu(nn_rows, nn_cols, centers, *given):
-        return search_start_plain(flow_coarse, nn_rows, nn_cols, coarse_row_offset, centers,
-                                  ps, width, height, nb)
-    dev = centers.device
-    nh, nw = nn_rows.shape[0], nn_cols.shape[0]
-    check_input(nn_rows, "nn_rows", dev, I64, (nh,))
-    check_input(nn_cols, "nn_cols", dev, I64, (nw,))
-    check_input(centers, "centers", dev, torch.float32, (nw * nh, 2))
-    if flow_coarse is not None:
-        if flow_coarse.ndim not in (3, 4) or flow_coarse.shape[-1] != 2:
-            raise ValueError("flow_coarse must be [hc, wc, 2] or [B, hc, wc, 2], got "
-                             f"{tuple(flow_coarse.shape)}")
-        check_input(flow_coarse, "flow_coarse", dev, torch.float32, flow_coarse.shape)
-    elif nb < 0:
-        raise ValueError(f"nb must be >= 0 (0: no pair axis), got {nb}")
-    return dispatch(search_start_op, _start_cuda, dev, flow_coarse, nn_rows, nn_cols,
-                    coarse_row_offset, centers, ps, width, height, nb)
-
-
-def _start_empty(flow_coarse: Optional[T], nn_rows: T, nn_cols: T, coarse_row_offset: int,
-                 centers: T, ps: int, width: int, height: int, nb: int):
-    if flow_coarse is not None:
-        lead = tuple(flow_coarse.shape[:-3])
-    else:
-        lead = (nb,) if nb else ()
-    lead += (centers.shape[0],)
-    return (centers.new_empty(lead + (2,)), centers.new_empty(lead + (2,)),
-            torch.empty(lead, dtype=torch.bool, device=centers.device))
-
-
-def _start_cuda(flow_coarse: Optional[T], nn_rows: T, nn_cols: T, coarse_row_offset: int,
-                centers: T, ps: int, width: int, height: int, nb: int) -> Tuple[T, T, T]:
-    """S2 on checked inputs; the valid region is ``out_of_bounds``'s."""
-    out = _start_empty(flow_coarse, nn_rows, nn_cols, coarse_row_offset, centers, ps, width,
-                       height, nb)
-    pairs = _pairs(out[2].shape[:-1])
-    n = centers.shape[0]
-    if pairs * n == 0:
-        return out
-    hc, wc = (0, 0) if flow_coarse is None else flow_coarse.shape[-3:-1]
-    _build.launch("dis_search_start", centers.device,
-                  None if flow_coarse is None else flow_coarse.data_ptr(),
-                  nn_rows.data_ptr(), nn_cols.data_ptr(), pairs, hc, wc, coarse_row_offset,
-                  centers.data_ptr(), n, nn_rows.shape[0], -float(ps) / 2.0,
-                  float(width + ps // 2 - 2), float(height + ps // 2 - 2),
-                  *(t.data_ptr() for t in out))
-    search_start.launches += 1
-    return out
+def _templates_cpu(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual, flow_coarse,
+                   nn_rows, nn_cols, coarse_row_offset, centers, width, height):
+    tpl, Tn, start = scale_templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps,
+                                           residual, flow_coarse, nn_rows, nn_cols,
+                                           coarse_row_offset, centers, width, height)
+    if start is None:
+        start = (img.new_empty((0,)), img.new_empty((0,)), torch.empty(0, dtype=torch.bool))
+    return (*tpl, Tn if residual else img.new_empty((0,)), *start)
 
 
 # -- S3: fixed mode's weights --------------------------------------------------------
@@ -360,12 +357,10 @@ def _densify_cuda(u: T, weights: Optional[T], cover_rows: T, cover_cols: T,
 
 
 scale_templates.launches = 0
-search_start.launches = 0
 fixed_weights.launches = 0
 densify.launches = 0
 scale_templates_op = register("scale_templates", _templates_cuda, _templates_empty,
                               _templates_cpu)
-search_start_op = register("search_start", _start_cuda, _start_empty, search_start_plain)
 fixed_weights_op = register("fixed_weights", _weights_cuda, _weights_empty,
                             fixed_weights_plain)
 densify_op = register("densify", _densify_cuda, _densify_empty, densify_plain)

@@ -192,8 +192,9 @@ def init_from_coarser_flow(plan: ScalePlan, flow_coarse: torch.Tensor,
 
 def nn_init_plain(flow_coarse: torch.Tensor, nn_rows: torch.Tensor,
                   nn_cols: torch.Tensor, coarse_row_offset: int = 0) -> torch.Tensor:
-    """The NN init of the search start (kernel S2's plain version holds
-    it): one row pick ``nn_rows`` and one column pick ``nn_cols`` (the
+    """The NN init of the search start (``ops/iclk.py::
+    search_start_plain``, the plain version of S1's start, holds it): one
+    row pick ``nn_rows`` and one column pick ``nn_cols`` (the
     centers form a regular lattice), then the x-outer flatten to [..., N,
     2].  Pure copies and an exact x2; a leading pair axis passes through."""
     rows_idx = nn_rows if coarse_row_offset == 0 else nn_rows - coarse_row_offset

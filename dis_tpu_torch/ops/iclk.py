@@ -23,12 +23,12 @@ per scale (kernel K2, ``ops/cuda/extract_kernel.py``, or its column-
 banded form K2c, ``ops/cuda/extract_banded_kernel.py``, as
 :func:`extraction_route` picks); the iteration loop is kernel K1
 (``ops/cuda/iclk_kernel.py``).  Before the search, kernel S1 cuts the
-templates and inverts their Hessians, and kernel S2 picks each patch's
-start from the coarser flow (``ops/cuda/scale_kernel.py``).  This module
-holds the kernels' plain PyTorch versions (:func:`extract_regions_plain`,
-one function for K2, K2b and K2c, :func:`iclk_search_plain`,
-:func:`templates_plain` and :func:`search_start_plain`), which the
-wrappers take for CPU tensors.
+templates, inverts their Hessians and picks each patch's start from the
+coarser flow (``ops/cuda/scale_kernel.py``).  This module holds the
+kernels' plain PyTorch versions (:func:`extract_regions_plain`, one
+function for K2, K2b and K2c, :func:`iclk_search_plain`, and S1's
+:func:`scale_templates_plain`: :func:`templates_plain` then
+:func:`search_start_plain`), which the wrappers take for CPU tensors.
 
 Exact tiling passes ``row0``: the global row of the first row of the
 level planes, which then hold a stripe of the frame.  It moves only the
@@ -64,6 +64,12 @@ class PatchTemplates(NamedTuple):
     Tdx: torch.Tensor    # [(B,) N, ps*ps] template d/dx
     Tdy: torch.Tensor    # [(B,) N, ps*ps] template d/dy
     Hinv: torch.Tensor   # [(B,) N, 2, 2] inverse 2x2 Hessian
+
+
+class Start(NamedTuple):
+    init_u: torch.Tensor  # [(B,) N, 2] the init, x2 the coarser flow's NN pick
+    pos0: torch.Tensor    # [(B,) N, 2] the start, centers + init_u
+    conv0: torch.Tensor   # [(B,) N] bool: the start is out of bounds
 
 
 class SearchResult(NamedTuple):
@@ -155,21 +161,49 @@ def extract_templates_grid(img: torch.Tensor, dx: torch.Tensor,
                            pad: int, row0: int = 0, plain: bool = False) -> PatchTemplates:
     """Templates and inverse Hessians for the patch grid ``geom`` over
     padded level planes [(B,) th, tw] whose first row is global row
-    ``row0``: one launch of kernel S1 on CUDA tensors, its plain version
-    on CPU tensors or with ``plain=True``."""
+    ``row0``: one launch of kernel S1 (without the start) on CUDA tensors,
+    its plain version on CPU tensors or with ``plain=True``."""
     return scale_templates(img, dx, dy, geom, ps, pad, row0, False, plain)[0]
 
 
 def scale_templates(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor, geom,
                     ps: int, pad: int, row0: int = 0, residual: bool = False,
-                    plain: bool = False) -> Tuple[PatchTemplates, Optional[torch.Tensor]]:
-    """:func:`extract_templates_grid` and, with ``residual``, the
-    mean-normalized template of fixed mode (None without): one S1."""
+                    plain: bool = False, plan=None, flow_coarse: Optional[torch.Tensor] = None,
+                    coarse_row_offset: int = 0, width: int = 0, height: int = 0
+                    ) -> Tuple[PatchTemplates, Optional[torch.Tensor], Optional[Start]]:
+    """:func:`extract_templates_grid`; with ``residual`` also the
+    mean-normalized template of fixed mode (None without); and given the
+    scale's ``plan`` (``ops/grid.py::ScalePlan``, whose grid is ``geom``)
+    also the search start of a scale of global size [height, width] from
+    the coarser flow (None at the coarsest scale; its first row is global
+    row ``coarse_row_offset``), None without: one S1."""
     from .cuda.scale_kernel import scale_templates as kernel
 
-    fn = templates_plain if plain else kernel
+    fn = scale_templates_plain if plain else kernel
+    start = () if plan is None else (flow_coarse, plan.nn_rows, plan.nn_cols,
+                                     coarse_row_offset, plan.centers, width, height)
     return fn(img, dx, dy, geom.num_w, geom.num_h, geom.steps,
-              *template_origin(geom, ps, pad, row0), ps, residual)
+              *template_origin(geom, ps, pad, row0), ps, residual, *start)
+
+
+def scale_templates_plain(img: torch.Tensor, dx: torch.Tensor, dy: torch.Tensor,
+                          num_w: int, num_h: int, steps: int, y0: int, x0: int, ps: int,
+                          residual: bool, flow_coarse: Optional[torch.Tensor] = None,
+                          nn_rows: Optional[torch.Tensor] = None,
+                          nn_cols: Optional[torch.Tensor] = None, coarse_row_offset: int = 0,
+                          centers: Optional[torch.Tensor] = None, width: int = 0,
+                          height: int = 0
+                          ) -> Tuple[PatchTemplates, Optional[torch.Tensor], Optional[Start]]:
+    """Plain version of kernel S1: :func:`templates_plain` and, given the
+    plan's ``centers`` and picks, :func:`search_start_plain` for the pairs
+    of the planes (None without).  Returns (templates, Tn or None, start
+    or None)."""
+    tpl, Tn = templates_plain(img, dx, dy, num_w, num_h, steps, y0, x0, ps, residual)
+    if centers is None:
+        return tpl, Tn, None
+    nb = img.shape[0] if img.ndim == 3 else 0
+    return tpl, Tn, Start(*search_start_plain(flow_coarse, nn_rows, nn_cols, coarse_row_offset,
+                                              centers, ps, width, height, nb))
 
 
 def residual_template(tpl: PatchTemplates, cfg: DISConfig) -> torch.Tensor:
@@ -185,7 +219,7 @@ def search_start_plain(flow_coarse: Optional[torch.Tensor], nn_rows: torch.Tenso
                        nn_cols: torch.Tensor, coarse_row_offset: int,
                        centers: torch.Tensor, ps: int, width: int, height: int,
                        nb: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of kernel S2: a scale's search start.  ``init_u``
+    """Plain version of S1's search start (once kernel S2).  ``init_u``
     [(B,) N, 2] is the x2 nearest-neighbour pick from the coarser flow
     (``grid.nn_init_plain``), zeros at the coarsest scale (``flow_coarse``
     None; ``nb`` pairs, 0 for no pair axis); ``pos0 = centers + init_u``
@@ -201,20 +235,6 @@ def search_start_plain(flow_coarse: Optional[torch.Tensor], nn_rows: torch.Tenso
     pos0 = centers + init_u
     conv0 = out_of_bounds(pos0, ps, width, height)
     return init_u, pos0, conv0
-
-
-def search_start(plan, flow_coarse: Optional[torch.Tensor], coarse_row_offset: int,
-                 ps: int, width: int, height: int, nb: int,
-                 plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(init_u, pos0, conv0) of a scale of global size [height, width]
-    from its plan (``ops/grid.py::ScalePlan``) and the coarser flow (None
-    at the coarsest scale, with ``nb`` pairs, 0 for none): one launch of
-    kernel S2, its plain version on CPU tensors or with ``plain=True``."""
-    from .cuda.scale_kernel import search_start as kernel
-
-    fn = search_start_plain if plain else kernel
-    return fn(flow_coarse, plan.nn_rows, plan.nn_cols, coarse_row_offset, plan.centers,
-              ps, width, height, nb)
 
 
 def region_size(ps: int) -> int:
@@ -417,8 +437,8 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
     each); ``centers`` [N, 2] is shared.  ``width`` and ``height`` are the scale's global size;
     ``row0`` is the global row of the plane's first row.  ``plain=True``
     runs the plain versions on any device.  The pipeline passes fixed
-    mode's residual template ``Tn`` (S1's) and the start ``(pos0, conv0)``
-    (S2's); a caller that passes neither gets them from
+    mode's residual template ``Tn`` and the start ``(pos0, conv0)``, both
+    S1's; a caller that passes neither gets them from
     :func:`residual_template`, ``centers + init_u`` and
     :func:`out_of_bounds` as torch ops."""
     from .cuda.extract_banded_kernel import extract_regions_banded

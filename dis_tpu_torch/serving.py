@@ -151,8 +151,8 @@ class CompiledFlow:
                 static_out = self._run(*static_in)
             after = _launch_counts()
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
-        # K3, K2, K2c and K1 always; R1-R3 where the program refines; S1-S4
-        # where they launch (S3 in fixed mode).
+        # K3, K2, K2c and K1 always; R1-R3 where the program refines; S1, S3
+        # and S4 where they launch (S3 in fixed mode).
         self.graph_launches = {k: after[k] - before[k] for k in after
                                if k in CORE_KERNELS or after[k] != before[k]}
 
@@ -224,7 +224,6 @@ def _launch_counts() -> Dict[str, int]:
             "K2c": extract_regions_banded.launches, "K1": iclk_search.launches,
             "R1": refine_warp.launches, "R2": refine_weights.launches,
             "R3": refine_sor.launches, "S1": scale_kernel.scale_templates.launches,
-            "S2": scale_kernel.search_start.launches,
             "S3": scale_kernel.fixed_weights.launches, "S4": scale_kernel.densify.launches}
 
 

@@ -116,14 +116,14 @@ class _CountOps(TorchDispatchMode):
 def test_wrappers_route_cpu_tensors_inline_and_through_ops():
     """For CPU tensors every wrapper runs its plain version inline: a flow
     dispatches no kernel op.  Within ``ops_on_cpu`` the same flow calls
-    each kernel as one op (K3 once per image, K2, K1 and S1-S4 once per
-    scale, S3 in fixed mode) with the same bits, and launches nothing."""
+    each kernel as one op (K3 once per image, K2, K1, S1, S3 and S4 once
+    per scale, S3 in fixed mode; S1 writes the search start too) with the
+    same bits, and launches nothing."""
     cfg = dis_tpu_torch.DISConfig(iterations=4, patch_size=8, coarsest_scale=2,
                                   patch_overlap=0.3, mode="fixed")
     a, b = (torch.from_numpy(x) for x in synthetic_pair(40, 56))
     wrappers = (pk.pyramid_levels, ek.extract_regions, bk.extract_regions_banded,
-                ik.iclk_search, sk.scale_templates, sk.search_start, sk.fixed_weights,
-                sk.densify)
+                ik.iclk_search, sk.scale_templates, sk.fixed_weights, sk.densify)
     for w in wrappers:
         w.launches = 0
     with _CountOps() as inline:
@@ -132,10 +132,9 @@ def test_wrappers_route_cpu_tensors_inline_and_through_ops():
     with _CountOps() as routed, kops.ops_on_cpu():
         got = dis_tpu_torch.dis_flow(a, b, cfg)
     assert routed.calls == {"pyramid_levels": 2, "extract_regions": 3, "iclk_search": 3,
-                            "scale_templates": 3, "search_start": 3, "fixed_weights": 3,
-                            "densify": 3}
+                            "scale_templates": 3, "fixed_weights": 3, "densify": 3}
     assert torch.equal(got, want)
-    assert [w.launches for w in wrappers] == [0] * 8
+    assert [w.launches for w in wrappers] == [0] * 7
     assert kops.all_on_cpu(a)         # the routing ends with its context
 
 
@@ -202,8 +201,7 @@ def test_export_records_one_op_node_per_launch():
     flow_plans(cfg, 40, 56, a.device)
     with kops.ops_on_cpu():
         program = torch.export.export(_Flow(cfg), (torch.zeros(40, 56), torch.zeros(40, 56)))
-    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 0, "K1": 3, "S1": 3, "S2": 3,
-                                   "S4": 3}
+    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 0, "K1": 3, "S1": 3, "S4": 3}
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     buf = io.BytesIO()
     torch.export.save(program, buf)

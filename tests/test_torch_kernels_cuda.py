@@ -21,13 +21,17 @@ with the refinement presets too; the refinement's kernels R1 (warp), R2
 versions at 1, 2 and odd rows and columns, B = 8 and the 1080p finest
 level; the refinement through them on the card bitwise equal to the same
 call on the CPU, and ``plain=True`` launching none of them; each scale's
-S1 (templates and inverse Hessians), S2 (the start), S3 (fixed mode's
-weights) and S4 (densification) bitwise equal to their plain versions at
-ps 6-16, on a pair axis, a row-ranged grid with ``row0`` and a window
-plan, empty grids launching nothing where the output is empty; S1's and
-S4's tiles cut by the grid's, the planes' and the output's edges, S1 at
-each tile shape its plan picks (ps 2-20, strides 1-64), S4 on cover
-tables in another order or reaching past its staged sub-block.
+S1 (templates, inverse Hessians and the search start, once S2's), S3
+(fixed mode's weights) and S4 (densification) bitwise equal to their plain
+versions at ps 6-16, on a pair axis, a row-ranged grid with ``row0`` and a
+window plan, S1's start at the coarsest scale and from a window of the
+coarser flow with its row offset, empty grids launching nothing where the
+output is empty; S1's and S4's tiles cut by the grid's, the planes' and
+the output's edges, S1 at each tile shape its plan picks (ps 2-20,
+strides 1-64), S4 on cover tables in another order or reaching past its
+staged sub-block; S1's start read from no flow while its flag is off,
+whatever pointer stands in its place; one S1 a scale on the main path,
+and no start kernel left.
 """
 
 import numpy as np
@@ -47,7 +51,7 @@ from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
 
 pytestmark = pytest.mark.cuda
 
-SCALE_WRAPPERS = (sk.scale_templates, sk.search_start, sk.fixed_weights, sk.densify)
+SCALE_WRAPPERS = (sk.scale_templates, sk.fixed_weights, sk.densify)
 
 
 @pytest.fixture(autouse=True)
@@ -150,7 +154,7 @@ def test_dis_flow_kernels_vs_plain(mode):
     for w in wrappers:
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
-    assert [w.launches for w in SCALE_WRAPPERS] == [4, 4, 4 if mode == "fixed" else 0, 4]
+    assert [w.launches for w in SCALE_WRAPPERS] == [4, 4 if mode == "fixed" else 0, 4]
     assert all(w.launches > 0 for w in wrappers[:3])
     for w in wrappers:
         w.launches = 0
@@ -593,8 +597,7 @@ def test_refined_graph_batch_and_tiles():
     eager = dis_tpu_torch.dis_flow(x, y, cfg)
     compiled = aot_compile(cfg, 96, 128, batch=2)
     assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R1": 4,
-                                       "R2": 20, "R3": 200, "S1": 4, "S2": 4, "S3": 4,
-                                       "S4": 4}
+                                       "R2": 20, "R3": 200, "S1": 4, "S3": 4, "S4": 4}
     for _ in range(2):
         assert torch.equal(compiled(x, y), eager)
     for i in range(2):
@@ -755,8 +758,8 @@ def test_cuda_artifact_replays_as_aot_compile(batch):
         x, y = x[0], y[0]
     cfg = dis_tpu_torch.DIS_FAST
     run, program = load_exported(export_flow(cfg, 75, 118, batch=batch))
-    assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "S1": 4, "S2": 4,
-                                   "S3": 4, "S4": 4}
+    assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "S1": 4, "S3": 4,
+                                   "S4": 4}
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     compiled = aot_compile(cfg, 75, 118, batch=batch)
     for _ in range(2):
@@ -781,8 +784,7 @@ def test_cuda_artifact_4k_holds_k2c():
                                   finest_scale=0, patch_overlap=0.3, mode="compat",
                                   early_exit=False)
     _, program = load_exported(export_flow(cfg, 2160, 3840))
-    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, "S1": 4, "S2": 4,
-                                   "S4": 4}
+    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, "S1": 4, "S4": 4}
 
 
 def test_two_gloo_ranks_on_one_card():
@@ -805,7 +807,7 @@ def test_two_gloo_ranks_on_one_card():
     assert all(r["staged_bytes"] > 0 for r in out)
 
 
-# -- S1-S4: each scale's glue ------------------------------------------------------
+# -- S1, S3, S4: each scale's glue ------------------------------------------------------
 
 def _scale_level(h, w, ps, batch, seed):
     """The finest level (padding ps) of a smooth image, or of a batch of
@@ -825,8 +827,10 @@ def _count(wrapper, fn, *args):
 
 def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed,
                          cut_last=False):
-    """S1-S4 bitwise equal to their plain versions on one plan; with
-    ``cut_last`` the planes end at the grid's last tap row."""
+    """S1, S3 and S4 bitwise equal to their plain versions on one plan (S1
+    without the start, and with it at the coarsest scale and from a window
+    of the coarser flow with its row offset); with ``cut_last`` the planes
+    end at the grid's last tap row."""
     from dis_tpu_torch.ops.densify import densify_plain, fixed_weights_plain
     from dis_tpu_torch.ops.grid import scale_plan
     from dis_tpu_torch.ops.iclk import search_start_plain, template_origin, templates_plain
@@ -841,32 +845,35 @@ def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed,
     if cut_last and n:
         end = row0 + template_origin(g, ps, ps, row0)[0] + (g.num_h - 1) * g.steps + ps
     planes = [p[..., row0:end, :].contiguous() for p in (lv.img, lv.dx, lv.dy)]
-    for residual in (False, True):
-        args = (*planes, g.num_w, g.num_h, g.steps, *template_origin(g, ps, ps, row0), ps,
-                residual)
-        (tpl, tn), launched = _count(sk.scale_templates, sk.scale_templates, *args)
-        assert launched == (1 if n else 0)
-        if not n:      # the plain version's window cuts need a patch row
-            assert tpl.T.shape == lead + (0, ps * ps) and tpl.Hinv.shape == lead + (0, 2, 2)
-            want_tn = tpl.T
-            continue
-        want, want_tn = templates_plain(*args)
-        for x, y in zip(tpl, want):
-            assert torch.equal(x, y)
-        assert (tn is None) == (not residual) and (tn is None or torch.equal(tn, want_tn))
-    # S2: the coarsest scale, and a window of the coarser flow with its offset.
     cols = plan.nn_cols.max().item() + 2 if n else 2
     row_off = plan.nn_rows.min().item() if n else 0
     rows = (plan.nn_rows.max().item() + 2 - row_off) if n else 2
     coarse = torch.from_numpy((rng.random(lead + (rows, cols, 2)) - 0.5).astype(np.float32)
                               * 4 * ps).cuda()
-    for flow, off in ((None, 0), (coarse, row_off)):
-        args = (flow, plan.nn_rows, plan.nn_cols, off, plan.centers, ps, w, h, batch or 0)
-        got, launched = _count(sk.search_start, sk.search_start, *args)
-        assert launched == (1 if n else 0)
-        for x, y in zip(got, search_start_plain(*args)):
-            assert torch.equal(x, y)
-    conv0 = got[2]
+    picks = (plan.nn_rows, plan.nn_cols)
+    starts = ((None, None, None, 0, None), (None, *picks, 0, plan.centers),
+              (coarse, *picks, row_off, plan.centers))
+    for residual in (False, True):
+        for flow, nn_rows, nn_cols, off, centers in starts:
+            args = (*planes, g.num_w, g.num_h, g.steps, *template_origin(g, ps, ps, row0), ps,
+                    residual, flow, nn_rows, nn_cols, off, centers, w, h)
+            (tpl, tn, start), launched = _count(sk.scale_templates, sk.scale_templates, *args)
+            assert launched == (1 if n else 0)
+            assert (start is None) == (centers is None)
+            if start is not None:
+                want_start = search_start_plain(flow, nn_rows, nn_cols, off, centers, ps, w, h,
+                                                batch or 0)
+                for x, y in zip(start, want_start):
+                    assert torch.equal(x, y)
+                conv0 = start.conv0
+            if not n:      # the plain version's window cuts need a patch row
+                assert tpl.T.shape == lead + (0, ps * ps) and tpl.Hinv.shape == lead + (0, 2, 2)
+                want_tn = tpl.T
+                continue
+            want, want_tn = templates_plain(*args[:10])
+            for x, y in zip(tpl, want):
+                assert torch.equal(x, y)
+            assert (tn is None) == (not residual) and (tn is None or torch.equal(tn, want_tn))
     if n:
         assert bool(conv0.any()) and not bool(conv0.all())
     # S3: Q near the normalized template for half the patches (r2 < 1 there).
@@ -893,10 +900,69 @@ def _check_scale_kernels(h, w, ps, steps, batch, iy_range, window, row0, seed,
     torch.cuda.synchronize()
 
 
+def test_start_reads_no_flow_without_the_coarser_flag(monkeypatch):
+    """S1 takes the start's modes as flags, never as a null pointer: with
+    the coarser-flow flag off and a non-null pointer to a NaN-filled
+    scratch flow in the flow's place, init_u is all zeros and the start is
+    bitwise the coarsest scale's plain one."""
+    from dis_tpu_torch import _build
+    from dis_tpu_torch.ops.grid import scale_plan
+    from dis_tpu_torch.ops.iclk import search_start_plain, template_origin
+
+    ps, steps, h, w = 8, 5, 72, 104
+    lv = _scale_level(h, w, ps, 2, 9)
+    plan = scale_plan(w, h, steps, ps, torch.device("cuda"))
+    g = plan.geom
+    scratch = torch.full((2, h // 2, w // 2, 2), float("nan"), device="cuda")
+    launch = _build.launch
+    seen = []
+
+    def with_scratch(name, device, *args):
+        # args[23:26]: the start flag, the coarser flag, the flow pointer
+        assert name == "dis_scale_templates" and args[23:26] == (1, 0, None)
+        seen.append(name)
+        return launch(name, device, *args[:25], scratch.data_ptr(), *args[26:])
+
+    monkeypatch.setattr(sk._build, "launch", with_scratch)
+    _, _, start = sk.scale_templates(lv.img, lv.dx, lv.dy, g.num_w, g.num_h, steps,
+                                     *template_origin(g, ps, ps), ps, False, None,
+                                     plan.nn_rows, plan.nn_cols, 0, plan.centers, w, h)
+    torch.cuda.synchronize()
+    assert seen == ["dis_scale_templates"]
+    assert bool((start.init_u == 0).all())
+    want = search_start_plain(None, plan.nn_rows, plan.nn_cols, 0, plan.centers, ps, w, h, 2)
+    for x, y in zip(start, want):
+        assert torch.equal(x, y)
+
+
+def test_one_s1_a_scale_and_no_start_kernel():
+    """On the main path each scale launches S1 once, which writes the
+    start; no wrapper, op, entry point or library symbol of a separate
+    start kernel remains, and a captured graph holds no S2."""
+    from dis_tpu_torch import _build
+    from dis_tpu_torch.serving import aot_compile
+
+    assert not hasattr(sk, "search_start") and not hasattr(sk, "search_start_op")
+    assert "dis_search_start" not in _build.SIGNATURES
+    assert not hasattr(_build.library(), "dis_search_start")
+    x, y = _batch(2, 96, 128, 17)
+    for cfg in (dis_tpu_torch.DIS_FAST, dis_tpu_torch.DIS_MEDIUM):
+        levels = cfg.coarsest_scale - cfg.finest_scale + 1
+        for batch in (None, 2):
+            a, b = (x[0], y[0]) if batch is None else (x, y)
+            for wrapper in SCALE_WRAPPERS:
+                wrapper.launches = 0
+            dis_tpu_torch.dis_flow(a, b, cfg)
+            torch.cuda.synchronize()
+            assert sk.scale_templates.launches == levels
+        compiled = aot_compile(cfg, 96, 128)
+        assert compiled.graph_launches["S1"] == levels and "S2" not in compiled.graph_launches
+
+
 @pytest.mark.parametrize("ps", [8, 10, 12, 16])
 @pytest.mark.parametrize("batch", [None, 3])
 def test_scale_kernels_bitwise(ps, batch):
-    """S1-S4 against their plain versions on the full grid of a level, and
+    """S1, S3 and S4 against their plain versions on the full grid of a level, and
     on a row-ranged grid read from a stripe of the planes (``row0``) with
     a window plan of output rows."""
     steps = max(1, int(ps * 0.7)) if ps < 12 else 3
@@ -935,7 +1001,7 @@ TILE_EDGES = {
 
 @pytest.mark.parametrize("case", sorted(TILE_EDGES))
 def test_scale_kernels_tile_edges(case):
-    """S1-S4 bitwise equal to their plain versions where S1's and S4's
+    """S1, S3 and S4 bitwise equal to their plain versions where S1's and S4's
     tiles meet the edges of the grid, the planes and the output."""
     *args, cut_last = TILE_EDGES[case]
     _check_scale_kernels(*args, seed=len(case), cut_last=cut_last)

@@ -505,8 +505,7 @@ def test_cpu_export_records_the_refinement_ops():
         program = torch.export.export(_Flow(cfg), (torch.zeros(h, w), torch.zeros(h, w)))
     assert cost.kernel_ops(program) == {"K3": 2, "K2": levels, "K2c": 0, "K1": levels,
                                         "R1": levels, "R2": 5 * levels, "R3": 50 * levels,
-                                        "S1": levels, "S2": levels, "S3": levels,
-                                        "S4": levels}
+                                        "S1": levels, "S3": levels, "S4": levels}
     assert len(program.graph.nodes) < 34_478 // 10, len(program.graph.nodes)
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     from conftest import synthetic_pair

@@ -1,21 +1,25 @@
-"""Each scale's glue as four kernels (S1-S4) on the CPU.
+"""Each scale's glue as three kernels (S1, S3, S4) on the CPU.
 
 ``models/dis.py::_scale`` composes a scale from the plain versions of S1
-(``ops/iclk.py::templates_plain``: templates, inverse Hessians and fixed
-mode's ``Tn``), S2 (``search_start_plain``: the NN init and the start
-test), S3 (``ops/densify.py::fixed_weights_plain``) and S4
+(``ops/iclk.py::scale_templates_plain``: ``templates_plain``, the
+templates, inverse Hessians and fixed mode's ``Tn``, then
+``search_start_plain``, the NN init and the start test, once a kernel of
+its own, S2), S3 (``ops/densify.py::fixed_weights_plain``) and S4
 (``densify_plain``), which CPU tensors run inline and which the ops
-``dis_tpu_torch::scale_templates``, ``::search_start``,
-``::fixed_weights`` and ``::densify`` (``ops/cuda/scale_kernel.py``) run
-as their CPU functions.  On numpy-seeded inputs at ps 8, 10, 12 and 16,
-with and without a pair axis, on full and row-ranged grids:
+``dis_tpu_torch::scale_templates``, ``::fixed_weights`` and
+``::densify`` (``ops/cuda/scale_kernel.py``) run as their CPU functions.
+On numpy-seeded inputs at ps 8, 10, 12 and 16, with and without a pair
+axis, on full and row-ranged grids:
 
 - each plain version, inline and through its op (``ops_on_cpu``), is
   bitwise the parent's composition it replaced (verbatim copies below,
-  ``_parent_*``);
-- S1 and S2 are bitwise ``dis_tpu``'s functions (the templates from the
-  JAX extraction, the inverse from ``_templates_from_taps`` op by op; the
-  NN init from ``init_from_coarser_flow`` and the start test of
+  ``_parent_*``); S1 with the start is ``templates_plain`` then
+  ``search_start_plain``, at the coarsest scale, with a window of the
+  coarser flow and its row offset, and without the start;
+- S1's templates and its start are bitwise ``dis_tpu``'s functions (the
+  templates from the JAX extraction, the inverse from
+  ``_templates_from_taps`` op by op; the NN init from
+  ``init_from_coarser_flow`` and the start test of
   ``dis_tpu/ops/iclk.py::inverse_search`` evaluated as written there);
 - S3 is bitwise ``dis_tpu/models/dis.py::_fixed_weights`` run eagerly:
   both sum with the same forced pair tree and both divide the template's
@@ -24,7 +28,8 @@ with and without a pair axis, on full and row-ranged grids:
 - S4 is within atol 1e-5 of ``dis_tpu``'s ``densify`` (the tolerance of
   ``tests/test_torch_densify.py``: XLA may fuse the JAX stencil's adds
   differently);
-- the four ops pass ``torch.library.opcheck`` and have flat schemas; the
+- the three ops pass ``torch.library.opcheck`` and have flat schemas (S2's
+  op is gone); the
   wrappers refuse tensors neither on the CPU nor on a CUDA device; a CPU
   export within ``ops_on_cpu`` records one op node per launch and its
   cost analysis counts each by the package's formulas.
@@ -235,9 +240,11 @@ def test_templates_plain_is_the_parent_composition(ps, steps, batch, ranged):
     for normalize in (False, True):
         cfg = _cfg(ps, steps, normalize=normalize)
         want_tn = _parent_residual_template(want, cfg)
-        for tpl, tn in _both_routes(ticlk.scale_templates, *cut, g, ps, ps, row0, normalize):
+        for tpl, tn, start in _both_routes(ticlk.scale_templates, *cut, g, ps, ps, row0,
+                                           normalize):
             assert _equal(tuple(tpl), tuple(want))
             assert _equal(tn, want_tn if normalize else None)
+            assert start is None
         for plain in (False, True):
             assert _equal(tuple(ticlk.extract_templates_grid(*cut, g, ps, ps, row0,
                                                              plain=plain)), tuple(want))
@@ -254,7 +261,7 @@ def test_templates_plain_bitwise_vs_jax(ps, steps, batch):
     h, w = 40, 64
     jls, planes = _level(h, w, ps, 3 * ps, batch)
     jg = jgrid.make_grid(w, h, steps)
-    got, tn = ticlk.scale_templates(*planes, tgrid.make_grid(w, h, steps), ps, ps, 0, True)
+    got, tn, _ = ticlk.scale_templates(*planes, tgrid.make_grid(w, h, steps), ps, ps, 0, True)
     for i, jl in enumerate(jls):
         taps = jax.jit(lambda *p: jiclk.extract_templates_grid(*p, jg, ps, ps))(
             jl.img, jl.dx, jl.dy)
@@ -265,39 +272,52 @@ def test_templates_plain_bitwise_vs_jax(ps, steps, batch):
             np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=name)
 
 
-# -- S2 ----------------------------------------------------------------------------------
+# -- S1's start (once S2) ---------------------------------------------------------------
+
+def _coarse_flow(lead, plan, h, w, ps, ranged, seed):
+    """A coarser flow for ``plan``: the whole coarser level, or for a
+    row-ranged plan the window from its first picked row (returned as the
+    window's row offset)."""
+    rng = np.random.default_rng(seed)
+    off = int(plan.nn_rows.min()) if ranged else 0
+    flow = torch.from_numpy(((rng.random(lead + (h // 2 + 1 - off, w // 2 + 1, 2)) - 0.5)
+                             * 3 * ps).astype(np.float32))
+    return flow, off
+
 
 @pytest.mark.parametrize("ps,steps", PS_STEPS)
 @pytest.mark.parametrize("batch", [None, 2])
 @pytest.mark.parametrize("ranged", [False, True])
 def test_start_plain_is_the_parent_composition(ps, steps, batch, ranged):
-    """S2's plain version (and its op): the coarsest scale's zero init and
-    the init from a window of the coarser flow (its first global row
-    given), each with its start and start test, bitwise the parent's."""
+    """S1's start (``search_start_plain``, and S1 inline, through its op
+    and with ``plain=True``): the coarsest scale's zero init and the init
+    from a window of the coarser flow (its first global row given), each
+    with its start and start test, bitwise the parent's."""
     h, w = 48, 72
     plan = _plan(w, h, steps, ps, ranged)
     lead = () if batch is None else (batch,)
-    rng = np.random.default_rng(ps + 7 * (batch or 0))
-    off = int(plan.nn_rows.min()) if ranged else 0
-    flow = torch.from_numpy(((rng.random(lead + (h // 2 + 1 - off, w // 2 + 1, 2)) - 0.5)
-                             * 3 * ps).astype(np.float32))
+    flow, off = _coarse_flow(lead, plan, h, w, ps, ranged, ps + 7 * (batch or 0))
+    planes = _random_planes(lead, h + 2 * ps, w + 2 * ps, ps)
     tpl = ticlk.PatchTemplates(torch.zeros(lead + (plan.centers.shape[0], ps * ps)),
                                None, None, None)
     for coarse, o in ((None, 0), (flow, off)):
         want = _parent_start(plan, tpl, coarse, o, ps, w, h)
-        for got in _both_routes(ticlk.search_start, plan, coarse, o, ps, w, h, batch or 0):
-            assert _equal(got, want)
-        assert _equal(ticlk.search_start(plan, coarse, o, ps, w, h, batch or 0, plain=True),
-                      want)
+        assert _equal(ticlk.search_start_plain(coarse, plan.nn_rows, plan.nn_cols, o,
+                                               plan.centers, ps, w, h, batch or 0), want)
+        for plain in (False, True):
+            got = _both_routes(ticlk.scale_templates, *planes, plan.geom, ps, ps, 0, False,
+                               plain, plan, coarse, o, w, h)
+            for _, _, start in got:
+                assert _equal(tuple(start), want)
     assert bool(want[2].any()) and not bool(want[2].all())   # both sides of the test
 
 
 @pytest.mark.parametrize("ps,steps", PS_STEPS)
 @pytest.mark.parametrize("ranged", [False, True])
 def test_start_plain_bitwise_vs_jax(ps, steps, ranged):
-    """S2's plain version against ``dis_tpu``: ``init_from_coarser_flow``
-    (with the coarser flow's row offset), then ``pos0 = centers + init_u``
-    and the valid-region test of ``inverse_search`` (its float32 bounds),
+    """S1's start against ``dis_tpu``: ``init_from_coarser_flow`` (with the
+    coarser flow's row offset), then ``pos0 = centers + init_u`` and the
+    valid-region test of ``inverse_search`` (its float32 bounds),
     bitwise."""
     h, w = 48, 72
     plan = _plan(w, h, steps, ps, ranged)
@@ -312,9 +332,53 @@ def test_start_plain_bitwise_vs_jax(ps, steps, ranged):
     ub_w = jnp.float32(w + ps // 2 - 2)
     ub_h = jnp.float32(h + ps // 2 - 2)
     conv0 = ((pos0[:, 0] < lb) | (pos0[:, 1] < lb) | (pos0[:, 0] > ub_w) | (pos0[:, 1] > ub_h))
-    got = ticlk.search_start(plan, torch.from_numpy(flow), off, ps, w, h, 0)
+    planes = _random_planes((), h + 2 * ps, w + 2 * ps, ps)
+    got = ticlk.scale_templates(*planes, g, ps, ps, 0, False, False, plan,
+                                torch.from_numpy(flow), off, w, h)[2]
     for name, a, b in zip(("init_u", "pos0", "conv0"), got, (init_u, pos0, conv0)):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
+
+
+@pytest.mark.parametrize("ps,steps", PS_STEPS + [(14, 7)])
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("ranged", [False, True])
+@pytest.mark.parametrize("coarser", [False, True])
+def test_fused_start_is_templates_then_start(ps, steps, batch, ranged, coarser):
+    """S1 with the start, inline (``scale_templates_plain``), through the
+    op (its CPU function) and with ``plain=True``: bitwise
+    ``templates_plain`` then ``search_start_plain``, and the parent's
+    verbatim compositions, at ps 8 to 16, on planes cut to a stripe
+    (``row0``) for a window's patch rows with the coarser flow's row
+    offset, at the coarsest scale (no coarser flow) and with a pair axis;
+    the op's start-less call (``extract_templates_grid``'s) returns empty
+    starts."""
+    h, w = 48, 72
+    plan = _plan(w, h, steps, ps, ranged)
+    g = plan.geom
+    lead = () if batch is None else (batch,)
+    row0 = 2 if ranged else 0
+    planes = [p[..., row0:, :].contiguous()
+              for p in _random_planes(lead, h + 2 * ps, w + 2 * ps, 3 * ps + (batch or 0))]
+    flow, off = _coarse_flow(lead, plan, h, w, ps, ranged, 5 * ps)
+    coarse, off = (flow, off) if coarser else (None, 0)
+    y0, x0 = ticlk.template_origin(g, ps, ps, row0)
+    grid = (g.num_w, g.num_h, steps, y0, x0, ps)
+    start = (coarse, plan.nn_rows, plan.nn_cols, off, plan.centers, w, h)
+    tpl, tn = ticlk.templates_plain(*planes, *grid, True)
+    want = (tpl, tn, ticlk.search_start_plain(*start[:5], ps, w, h, batch or 0))
+    parent = _parent_extract_templates_grid(*planes, g, ps, ps, row0)
+    assert _equal(tuple(want[0]), tuple(parent))
+    assert _equal(want[1], _parent_residual_template(parent, _cfg(ps, steps)))
+    assert _equal(want[2], _parent_start(plan, parent, coarse, off, ps, w, h))
+    for got in (*_both_routes(sk.scale_templates, *planes, *grid, True, *start),
+                ticlk.scale_templates(*planes, g, ps, ps, row0, True, True, plan, coarse, off,
+                                      w, h)):
+        assert _equal((tuple(got[0]), got[1], tuple(got[2])), (tuple(want[0]), *want[1:]))
+    with kops.ops_on_cpu():
+        bare = sk.scale_templates_op(*planes, *grid, False, None, None, None, 0, None, 0, 0)
+        assert _equal(tuple(bare[:4]), tuple(tpl))
+        assert [tuple(t.shape) for t in bare[4:]] == [(0,)] * 4 and bare[7].dtype == torch.bool
+        assert _equal(tuple(ticlk.extract_templates_grid(*planes, g, ps, ps, row0)), tuple(tpl))
 
 
 # -- S3 ----------------------------------------------------------------------------------
@@ -485,7 +549,7 @@ def test_template_tiles_stage_every_patch(ps, steps, batch, ranged):
     t = sk.template_tiles(ps, steps, g.num_w, g.num_h, nb)
     k, lanes = sk.lane_layout(ps)
     per_warp = 32 // lanes
-    assert t.rows % per_warp == 0
+    assert t.rows % per_warp == 0 and t.rows * t.cols <= 256   # a thread a patch's start
     assert (t.win_rows, t.win_cols) == ((t.rows - 1) * steps + ps, (t.cols - 1) * steps + ps)
     assert t.pitch == t.win_cols | 1
     assert t.shared_bytes == 3 * t.win_rows * t.pitch * 4
@@ -672,13 +736,15 @@ def _op_args(name, batch):
     def t(*shape, scale=1.0):
         return torch.from_numpy((rng.random(lead + shape) * scale).astype(np.float32))
 
-    if name == "scale_templates":
+    if name in ("scale_templates", "search_start"):
+        # S1 without the start, and S1 with the start from a coarser flow.
         th, tw = h + 2 * ps, w + 2 * ps
-        return (t(th, tw, scale=255), t(th, tw), t(th, tw), g.num_w, g.num_h, steps,
-                *ticlk.template_origin(g, ps, ps), ps, True)
-    if name == "search_start":
-        return (t(h // 2 + 1, w // 2 + 1, 2, scale=9), plan.nn_rows, plan.nn_cols, 0,
-                plan.centers, ps, w, h, 0)
+        tpl = (t(th, tw, scale=255), t(th, tw), t(th, tw), g.num_w, g.num_h, steps,
+               *ticlk.template_origin(g, ps, ps), ps, True)
+        if name == "scale_templates":
+            return (*tpl, None, None, None, 0, None, 0, 0)
+        return (*tpl, t(h // 2 + 1, w // 2 + 1, 2, scale=9), plan.nn_rows, plan.nn_cols, 0,
+                plan.centers, w, h)
     if name == "fixed_weights":
         return (t(n, ps * ps, scale=9), t(n, ps * ps, scale=9),
                 torch.from_numpy(rng.random(lead + (n,)) < 0.3), ps, True)
@@ -689,16 +755,22 @@ def _op_args(name, batch):
                                   "densify"])
 @pytest.mark.parametrize("batch", [None, 2])
 def test_opcheck_scale_ops(name, batch):
-    torch.library.opcheck(getattr(sk, f"{name}_op"), _op_args(name, batch))
+    """Each op; ``search_start`` is S1's op with the start from a coarser
+    flow (once an op of its own)."""
+    op = sk.scale_templates_op if name == "search_start" else getattr(sk, f"{name}_op")
+    torch.library.opcheck(op, _op_args(name, batch))
 
 
 def test_opcheck_optional_inputs():
-    """S2 at the coarsest scale (no coarser flow, a pair count instead) and
-    S4 with the uniform weight (no weights; with weights, as in
-    ``_op_args``, no weight plane)."""
+    """S1's start at the coarsest scale (no coarser flow; three pairs, from
+    the planes) and S4 with the uniform weight (no weights; with weights,
+    as in ``_op_args``, no weight plane)."""
     plan = tgrid.scale_plan(32, 24, 5, 8, CPU)
-    torch.library.opcheck(sk.search_start_op, (None, plan.nn_rows, plan.nn_cols, 0,
-                                                plan.centers, 8, 32, 24, 3))
+    g = plan.geom
+    planes = _random_planes((3,), 24 + 16, 32 + 16, 1)
+    torch.library.opcheck(sk.scale_templates_op,
+                          (*planes, g.num_w, g.num_h, 5, *ticlk.template_origin(g, 8, 8), 8,
+                           False, None, plan.nn_rows, plan.nn_cols, 0, plan.centers, 32, 24))
     u = torch.rand(plan.centers.shape[0], 2)
     torch.library.opcheck(sk.densify_op, (u, None, plan.cover_rows, plan.cover_cols,
                                           plan.uniform_wsum, plan.geom.num_w,
@@ -707,11 +779,12 @@ def test_opcheck_optional_inputs():
 
 SCHEMAS = {
     "scale_templates": "(Tensor img, Tensor dx, Tensor dy, SymInt num_w, SymInt num_h, "
-                       "SymInt steps, SymInt y0, SymInt x0, SymInt ps, bool residual) -> "
-                       "(Tensor, Tensor, Tensor, Tensor, Tensor)",
-    "search_start": "(Tensor? flow_coarse, Tensor nn_rows, Tensor nn_cols, "
-                    "SymInt coarse_row_offset, Tensor centers, SymInt ps, SymInt width, "
-                    "SymInt height, SymInt nb) -> (Tensor, Tensor, Tensor)",
+                       "SymInt steps, SymInt y0, SymInt x0, SymInt ps, bool residual, "
+                       "Tensor? flow_coarse, Tensor? nn_rows, Tensor? nn_cols, "
+                       "SymInt coarse_row_offset, Tensor? centers, SymInt width, "
+                       "SymInt height) -> (Tensor, Tensor, Tensor, Tensor, Tensor, Tensor, "
+                       "Tensor, Tensor)",
+    "search_start": None,    # fused into scale_templates: no op of its own
     "fixed_weights": "(Tensor Q, Tensor T, Tensor start_oob, SymInt ps, bool normalize) -> "
                      "Tensor",
     "densify": "(Tensor u, Tensor? weights, Tensor cover_rows, Tensor cover_cols, "
@@ -722,36 +795,44 @@ SCHEMAS = {
 @pytest.mark.parametrize("name", sorted(SCHEMAS))
 def test_scale_ops_have_flat_schemas(name):
     """One op per C entry point, of tensors, ints and bools, writing
-    nothing in place; each named in the cost model's kernel table."""
+    nothing in place; each named in the cost model's kernel table.  The
+    search start has no op, no wrapper and no cost entry of its own: S1's
+    op takes its inputs."""
+    if SCHEMAS[name] is None:
+        assert not hasattr(sk, f"{name}_op") and not hasattr(sk, name)
+        assert not hasattr(torch.ops.dis_tpu_torch, name) and name not in cost.KERNELS
+        return
     op = getattr(sk, f"{name}_op")
     assert str(op._opoverload._schema) == f"dis_tpu_torch::{name}{SCHEMAS[name]}"
-    assert cost.KERNELS[name] == {"scale_templates": "S1", "search_start": "S2",
-                                  "fixed_weights": "S3", "densify": "S4"}[name]
+    assert cost.KERNELS[name] == {"scale_templates": "S1", "fixed_weights": "S3",
+                                  "densify": "S4"}[name]
 
 
 def test_scale_wrappers_refuse_non_cuda_non_cpu_tensors():
     """Off the CPU a wrapper launches its kernel or raises: a tensor on
     another device is refused before any build or launch."""
     z = lambda *s, dtype=torch.float32: torch.zeros(s, device="meta", dtype=dtype)
-    wrappers = (sk.scale_templates, sk.search_start, sk.fixed_weights, sk.densify)
+    wrappers = (sk.scale_templates, sk.fixed_weights, sk.densify)
     for w in wrappers:
         w.launches = 0
     with pytest.raises(ValueError, match="CUDA"):
         sk.scale_templates(z(40, 48), z(40, 48), z(40, 48), 4, 4, 5, 0, 0, 8, False)
     i64 = torch.int64
-    with pytest.raises(ValueError, match="CUDA"):
-        sk.search_start(None, z(4, dtype=i64), z(5, dtype=i64), 0, z(20, 2), 8, 32, 24, 0)
+    cpu = lambda *s, dtype=torch.float32: torch.zeros(s, dtype=dtype)
+    with pytest.raises(ValueError, match="CUDA"):   # the start's inputs on another device
+        sk.scale_templates(cpu(40, 48), cpu(40, 48), cpu(40, 48), 5, 4, 5, 0, 0, 8, False,
+                           None, z(4, dtype=i64), z(5, dtype=i64), 0, z(20, 2), 32, 24)
     with pytest.raises(ValueError, match="CUDA"):
         sk.fixed_weights(z(6, 64), z(6, 64), z(6, dtype=torch.bool), 8, True)
     with pytest.raises(ValueError, match="CUDA"):
         sk.densify(z(20, 2), None, z(24, 3, dtype=i64), z(32, 3, dtype=i64), z(24, 32, 1),
                    5, 4)
-    assert [w.launches for w in wrappers] == [0, 0, 0, 0]
+    assert [w.launches for w in wrappers] == [0, 0, 0]
 
 
 def test_cpu_export_records_the_scale_ops():
     """``DIS_FAST`` at 40x56 traced through the ops (within ``ops_on_cpu``,
-    as a CUDA export routes): S1-S4 once per scale, in a program with no
+    as a CUDA export routes): S1, S3 and S4 once per scale, in a program with no
     gather and no index_select of a plain version, which runs the ops' CPU
     functions with the eager bits; its cost analysis counts each launch by
     the package's formulas."""
@@ -764,8 +845,7 @@ def test_cpu_export_records_the_scale_ops():
     with kops.ops_on_cpu():
         program = torch.export.export(_Flow(cfg), (torch.zeros(h, w), torch.zeros(h, w)))
     assert cost.kernel_ops(program) == {"K3": 2, "K2": levels, "K2c": 0, "K1": levels,
-                                        "S1": levels, "S2": levels, "S3": levels,
-                                        "S4": levels}
+                                        "S1": levels, "S3": levels, "S4": levels}
     assert not any(n.target in (torch.ops.aten.gather.default,
                                 torch.ops.aten.index_select.default)
                    for n in program.graph.nodes)
@@ -779,9 +859,9 @@ def test_cpu_export_records_the_scale_ops():
         n = g.num_w * g.num_h
         k = -(-ps // cfg.steps) + 1
         entry = lambda name: (kernels[name][i]["bytes accessed"], kernels[name][i]["flops"])
-        assert entry("S1") == cost.templates_cost(1, (h >> s) + 2 * p, (w >> s) + 2 * p, n,
-                                                  ps, True)
-        assert entry("S2") == cost.start_cost(1, g.num_w, g.num_h, s != cfg.coarsest_scale)
+        tpl = cost.templates_cost(1, (h >> s) + 2 * p, (w >> s) + 2 * p, n, ps, True)
+        start = cost.start_cost(1, g.num_w, g.num_h, s != cfg.coarsest_scale)
+        assert entry("S1") == (tpl[0] + start[0], tpl[1] + start[1])
         assert entry("S3") == cost.weights_cost(1, n, ps, True)
         assert entry("S4") == cost.densify_cost(1, n, h >> s, w >> s, k, k, True)
 
