@@ -86,23 +86,27 @@ recipe, a (3, 2) px shift) under the compat bench config and
 The refinement presets (``DIS_MEDIUM``: ps 8, stride 4, scales 3..0;
 ``DIS_FULL``: ps 12, stride 3, scales 4..0; both refine every level on
 the intensity planes, 5 and 10 weight updates of 5 red-black SOR sweeps),
-whose variational refinement runs as the kernels R1 (the warp, once per
-level), R2 (a weight update) and R3 (a half-sweep), which no
-``pallas_call`` backs (they replace XLA's fusions of the JAX package's
-refinement code):
+whose variational refinement runs as the kernels R0 (the level's Sobel
+planes), R1 (the warp, once per level; in its setup mode it also writes
+the weight update's inputs), R2 (a weight update) and R3 (a half-sweep;
+the last of a level in its compose mode, which writes the flow), and
+whose intensity planes come from F2, which no ``pallas_call`` backs (they
+replace XLA's fusions of the JAX package's refinement code):
 
 1d. (also) K2c and K2 on ``DIS_FULL``'s 1080p finest grid (230,400
     patches, ps 12) from its own refined init, with the share of windows
     copied from device memory;
-1e. R1, R2 and R3 on the inputs the main path gives them at the finest
-    level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames and of the
-    KITTI B = 8 ``DIS_MEDIUM`` batch (R1's call, R2's second, R3's 11th
-    and 12th: a red and a black half-sweep with nonzero increments),
-    recorded from a refinement run (``refine_step_inputs``), each bitwise
-    equal to its plain version and timed beside it (kernel replayed,
-    plain eager and replayed) with its bound; R1 also beside
-    ``grid_sample`` (bilinear, border padding), the yardstick of its
-    ``library_ms``;
+1e. R0, R1's setup mode, R2, R3 and R3's compose mode on the inputs the
+    main path gives them at the finest level of the 1080p ``DIS_MEDIUM``
+    and ``DIS_FULL`` frames and of the KITTI B = 8 ``DIS_MEDIUM`` batch
+    (R0's and the setup mode's calls, R2's second, R3's 11th and 12th: a
+    red and a black half-sweep with nonzero increments, the compose
+    mode's call: the last black half-sweep), recorded from a refinement
+    run (``refine_step_inputs``), and R1 on the setup mode's planes and
+    flow, each bitwise equal to its plain version and timed beside it
+    (kernel replayed, plain eager and replayed) with its bound and its
+    share of it; R1 also beside ``grid_sample`` (bilinear, border
+    padding), the yardstick of its ``library_ms``;
 1f. (each scale's glue) S1 (templates, inverse Hessians, fixed mode's
     ``Tn`` and the search start: the NN init and the start test, which
     were once a kernel of their own, S2), S3 (fixed mode's
@@ -125,10 +129,20 @@ refinement code):
     every path through ``models/dis.py::_scale`` launches S1 and S4 once
     per scale (and S3 in fixed mode), and no separate start kernel, which
     every launch count below includes (``glue_counts``);
-2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R1 4,
-    R2 20, R3 200 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R1 5, R2 50, R3
-    500 (``DIS_FULL``, whose five levels take two K3 launches per image),
-    no K2c; the median within
+1g. (the frame's glue) F1 (the divisibility padding of both images),
+    F2 (the refinement's intensity levels of both) and F3 (the finest
+    flow's upsample and crop) on the inputs the main path gives them
+    (``frame_step_inputs``) in the ``dis_flow`` calls of the KITTI B = 8
+    batch under ``DIS_MEDIUM`` and ``DIS_ULTRAFAST``, the 1080p
+    ``DIS_FULL`` frame (1088 padded rows) and the 1080p ``DIS_MEDIUM``
+    frame, each bitwise equal to its plain version and timed beside it
+    with its bound, F1 and F3 also beside one ``F.pad`` and one
+    ``F.interpolate`` (their ``library_ms``);
+2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R0 4,
+    R1 4, R2 20, R3 200, F2 1 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R0 5,
+    R1 5, R2 50, R3 500, F1 1, F2 1 (``DIS_FULL``, whose five levels take
+    two K3 launches per image, and whose 1080 rows pad to 1088), R1 and R3
+    one a level in their modes (``mode_counts``), no K2c; the median within
     0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
     CPU reading (``tools/jax_epe_readings.py``), the kernel path against
     the plain path under the phase-2 gates; the refinement of each
@@ -157,8 +171,9 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
 2h. the compat bench config exported at 1080p (B = None), config 3 at
     KITTI size with B = 8, the compat 4K bucket and ``DIS_MEDIUM`` at
     1080p: each program holds the kernel ops in the counts of
-    ``scale_counts`` (at 4K one extraction is K2c; ``DIS_MEDIUM`` also R1
-    4, R2 20, R3 200) and no gather of a plain K2, K1 or R1; the KITTI,
+    ``scale_counts`` (at 4K one extraction is K2c; ``DIS_MEDIUM`` also R0
+    4, R1 4, R2 20, R3 200, F2 1; KITTI F1 1) and no gather of a plain
+    K2, K1 or R1; the KITTI,
     4K and ``DIS_MEDIUM`` artifacts, reloaded in this process
     (``load_exported``), replay bitwise equal to their eager kernel flows
     (``DIS_MEDIUM``'s also to ``aot_compile``'s replay), with each
@@ -175,7 +190,8 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     bucket, whose kernel entries give the ``kernels`` line's bounds (K3,
     K2 exactly; K1, counted for its fixed loop, within 0.1%), and the
     1080p ``DIS_MEDIUM`` bucket's ``cost_analysis()``, whose finest-level
-    R1, R2 and R3 entries give theirs exactly.
+    R0, R1 (its setup mode), R2, R3 and R3 (its compose mode) entries and
+    its F2 entry give theirs exactly.
 
 The user-facing surface (phase 4, after the times): the CLI
 (``dis_tpu_torch.cli.main``) and the sequence runner on a 9-frame
@@ -262,11 +278,16 @@ every level's planes, K1 its inputs with the raw template only for the
 patches frozen at the start) over 3.35 TB/s and its operations (K1's for
 the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
-No single PyTorch call computes K1-K3, R2, R3, S1, S3, S4 or the start,
-so their ``library_ms`` is null; R1's is ``grid_sample``'s (phase 1e).  Phase 6b
-also prints a replayed frame's kernels and splits its ops' time into the
-port's kernels and torch's (the glue, copies and fills); 6a says for how
-many families the card flow is bitwise the CPU flow.
+No single PyTorch call computes K1-K3, R0, R2, R3, S1, S3, S4, F2, the
+start or the modes, so their ``library_ms`` is null; R1's is
+``grid_sample``'s (phase 1e), F1's one ``F.pad`` (replicate) and F3's
+one ``F.interpolate`` (bilinear) (phase 1g).  Phase 6b also prints a
+replayed frame's kernels and splits its ops' time into the port's
+kernels, by id (``trace_budget.PORT_KERNELS``), and torch's (the glue,
+copies and fills); 6a says for how many families the card flow is
+bitwise the CPU flow.  Every row of the ``kernels`` line must have
+launched on the main path; the modes' rows (``mode_of``) count their own
+launches, which their kernel's row counts too.
 
 ``python3 chip_smoke.py --sweep-child OUT`` is phase 6a's CPU process, not
 an entry point.
@@ -279,8 +300,8 @@ search start with its templates, as one S1 or S1 then S2 where the tree
 still has S2, at the 1080p compat finest and coarsest scales and the
 KITTI B = 8 finest one), the
 replayed 1080p and 4K compat frames, and the refinement of the finest
-level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames (with R1-R3
-where the tree has them), those frames and the 1080p ``DIS_MEDIUM``
+level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames (with R0-R3
+and R1's and R3's modes where the tree has them), those frames and the 1080p ``DIS_MEDIUM``
 artifact's export and load, on the same inputs, for the
 ``dis_tpu_torch`` package under the directory ROOT
 (an unpacked earlier commit, say, to compare two trees in one run on one
@@ -298,7 +319,6 @@ import dataclasses
 import hashlib
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -316,7 +336,10 @@ S4_SWEEP_PS = (6, 8, 12)
 # phases (K2 and K1 with a pair axis count as K2b and K1b).  The search
 # start (once a kernel of its own, S2) runs inside every S1 launch: its row follows
 # LAUNCH_KEYS' and takes S1's launches.
-LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R1", "R2", "R3", "S1", "S3", "S4")
+LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R0", "R1", "R1s", "R2", "R3", "R3c",
+               "S1", "S3", "S4", "F1", "F2", "F3")
+# The kernels that phase 2g does not add up (its batches launch K2b and K1b).
+CORE = ("K3", "K2", "K1", "K2c")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
 # and configs; the port must land within EPE_TOL of it.  DIS_MEDIUM and
 # DIS_FULL: tools/jax_epe_readings.py (64 s and 302 s on the CPU).
@@ -562,16 +585,42 @@ def flow_gates(label, f, shift, epe_jax=None):
 
 
 def refine_counts(cfg):
-    """The refinement's launches in one call, whatever B is: R1 once per
-    outer iteration, R2 once per weight update and R3 once per half-sweep,
-    at every scale (``refine_per_level``) or the finest; none without
-    refinement."""
+    """The refinement's launches in one call, whatever B is: R0 once per
+    refined level (``planes6``), R1 once per outer iteration (in its setup
+    mode under ``planes6``), R2 once per weight update and R3 once per
+    half-sweep (the last of each outer iteration in its compose mode), at
+    every scale (``refine_per_level``) or the finest, and F2 once where
+    the refinement reads intensity planes; none without refinement."""
     if cfg.refinement_iters == 0:
         return {}
     levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
     r1 = levels * cfg.refinement_iters
     r2 = r1 * cfg.refinement_inner_sweeps
-    return {"R1": r1, "R2": r2, "R3": 2 * cfg.refinement_sor_sweeps * r2}
+    return {**({"R0": levels} if cfg.refinement_scheme == "planes6" else {}),
+            "R1": r1, "R2": r2, "R3": 2 * cfg.refinement_sor_sweeps * r2,
+            **({"F2": 1} if cfg.refinement_planes == "intensity" and cfg.coarsest_scale
+               else {})}
+
+
+def mode_counts(cfg):
+    """The launches of R1's setup mode (``R1s``) and R3's compose mode
+    (``R3c``) in one call, which ``refine_counts`` counts as R1's and R3's."""
+    if cfg.refinement_iters == 0:
+        return {}
+    levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
+    r1 = levels * cfg.refinement_iters
+    sweeps = cfg.refinement_inner_sweeps * cfg.refinement_sor_sweeps
+    return {**({"R1s": r1} if cfg.refinement_scheme == "planes6" else {}),
+            **({"R3c": r1} if sweeps else {})}
+
+
+def frame_counts(cfg, height: int, width: int):
+    """The frame's launches in one ``dis_flow`` call on [(B,) height,
+    width] frames: F1 where they pad to ``2**coarsest_scale``, F3 where
+    ``finest_scale > 0``."""
+    f = 2 ** cfg.coarsest_scale
+    return {**({"F1": 1} if height % f or width % f else {}),
+            **({"F3": 1} if cfg.finest_scale else {})}
 
 
 def glue_counts(cfg, n: int):
@@ -580,15 +629,19 @@ def glue_counts(cfg, n: int):
     return {"S1": n, **({"S3": n} if cfg.mode == "fixed" else {}), "S4": n}
 
 
-def scale_counts(cfg):
+def scale_counts(cfg, frame=None):
     """Launches one call must make, whatever B is: K2, K1, S1, S4 (and S3)
     once per scale (``glue_counts``); K3 once per image (or stack of images) for
-    up to four levels; R1-R3 as ``refine_counts`` says."""
+    up to four levels; R0-R3 and F2 as ``refine_counts`` says; and, for a
+    ``dis_flow`` call on [(B,) height, width] frames (``frame``), F1 and
+    F3 as ``frame_counts`` says (the engines on padded frames launch
+    neither)."""
     from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS
 
     n = cfg.coarsest_scale - cfg.finest_scale + 1
     return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n,
-            **refine_counts(cfg), **glue_counts(cfg, n)}
+            **refine_counts(cfg), **glue_counts(cfg, n),
+            **(frame_counts(cfg, *frame) if frame else {})}
 
 
 def want_4k(cfg):
@@ -596,25 +649,40 @@ def want_4k(cfg):
     return {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, **glue_counts(cfg, 4)}
 
 
+# The wrappers of R1's setup mode and R3's compose mode: their launches
+# count in R1's and R3's too, and read_counts leaves them out.
+MODES = ("R1s", "R3c")
+
+
 def kernel_wrappers():
-    """Every kernel's wrapper, by kernel."""
+    """Every kernel's wrapper, by kernel, and the modes' (``MODES``)."""
+    from dis_tpu_torch.ops.cuda import frame_kernel as fkern
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
-    from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
     from dis_tpu_torch.ops.cuda.scale_kernel import densify, fixed_weights, scale_templates
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-            "K1": iclk_search, "R1": refine_warp, "R2": refine_weights, "R3": refine_sor,
-            "S1": scale_templates, "S3": fixed_weights, "S4": densify}
+            "K1": iclk_search, "R0": rk.refine_planes, "R1": rk.refine_warp,
+            "R2": rk.refine_weights, "R3": rk.refine_sor, "S1": scale_templates,
+            "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
+            "F2": fkern.intensity_levels, "F3": fkern.frame_finish, "R1s": rk.refine_setup, "R3c": rk.refine_compose}
 
 
 def read_counts(wrappers):
     """Each wrapper's launches since its count was set to 0: K3, K2, K2c
-    and K1 always, R1-R3, S1, S3 and S4 where they ran (as
-    ``CompiledFlow.graph_launches`` and ``cost.kernel_ops`` give them)."""
-    return {k: w.launches for k, w in wrappers.items() if k[0] == "K" or w.launches}
+    and K1 always, the others where they ran (as
+    ``CompiledFlow.graph_launches`` and ``cost.kernel_ops`` give them),
+    the modes left out."""
+    return {k: w.launches for k, w in wrappers.items()
+            if k not in MODES and (k[0] == "K" or w.launches)}
+
+
+def read_modes(wrappers):
+    """The modes' launches since their counts were set to 0, where they ran."""
+    return {k: wrappers[k].launches for k in MODES if wrappers[k].launches}
 
 
 def grid_sample_ms(planes, flow, warped, card) -> float:
@@ -642,13 +710,18 @@ def grid_sample_ms(planes, flow, warped, card) -> float:
 
 def refine_step_inputs(args, picks):
     """Runs ``variational_refinement(*args)`` and returns, by kernel, the
-    inputs that the ``picks[kernel]``-th calls of R1, R2 and R3 gave their
-    kernel (the checked arguments of the ops' CUDA functions): the main
-    path's own inputs for each."""
+    inputs that the ``picks[kernel]``-th calls of R0, R1, R1's setup mode
+    (``R1s``), R2, R3 and R3's compose mode (``R3c``) gave their kernel
+    (the checked arguments of the ops' CUDA functions; those of the
+    tree's kernels only, and of the calls it made): the main path's own
+    inputs for each."""
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.variational import variational_refinement
 
-    names = {"R1": "_warp_cuda", "R2": "_weights_cuda", "R3": "_sor_cuda"}
+    names = {k: fn for k, fn in (("R0", "_planes_cuda"), ("R1", "_warp_cuda"),
+                                 ("R1s", "_setup_cuda"), ("R2", "_weights_cuda"),
+                                 ("R3", "_sor_cuda"), ("R3c", "_compose_cuda"))
+             if k in picks and hasattr(rk, fn)}
     seen = {k: [] for k in names}
     originals = {k: getattr(rk, fn) for k, fn in names.items()}
 
@@ -665,7 +738,33 @@ def refine_step_inputs(args, picks):
     finally:
         for k, fn in names.items():
             setattr(rk, fn, originals[k])
-    return {k: [seen[k][i] for i in picks[k]] for k in names}
+    return {k: [seen[k][i] for i in picks[k] if i < len(seen[k])] for k in names}
+
+
+def frame_step_inputs(run):
+    """Runs ``run()`` and returns, by kernel, the inputs that each call of
+    F1, F2 and F3 gave its kernel (the checked arguments of the ops' CUDA
+    functions): the main path's own inputs."""
+    from dis_tpu_torch.ops.cuda import frame_kernel as fkern
+
+    names = {"F1": "_pad_cuda", "F2": "_levels_cuda", "F3": "_finish_cuda"}
+    seen = {}
+    originals = {k: getattr(fkern, fn) for k, fn in names.items()}
+
+    def recorder(k):
+        def call(*a):
+            seen.setdefault(k, []).append(a)
+            return originals[k](*a)
+        return call
+
+    try:
+        for k, fn in names.items():
+            setattr(fkern, fn, recorder(k))
+        run()
+    finally:
+        for k, fn in names.items():
+            setattr(fkern, fn, originals[k])
+    return seen
 
 
 def scale_step_inputs(run):
@@ -706,12 +805,6 @@ def flat_tensors(x):
     if isinstance(x, torch.Tensor):
         return [x]
     return [t for item in x for t in flat_tensors(item)]
-
-
-# The port's own kernels (csrc/) by their names in a trace; every other
-# kernel there is torch's: the glue, copies and fills.
-PORT_KERNEL = re.compile(r"(?:^|[\s:])(?:templates|weights|densify|iclk|extract|banded|"
-                         r"pyramid|warp|sor)_kernel\b")
 
 
 def serve_child(artifact: str, out: str) -> int:
@@ -1520,7 +1613,7 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
             paths = trace_budget.capture(cfg, h, w, os.path.join(tmp, label.replace(" ", "_")),
                                          BUDGET_FRAMES, batch, dev, inputs=(x, y))
             counts = read(f"6b trace_budget {label}", batched=batch is not None)
-            want = scale_counts(cfg)
+            want = scale_counts(cfg, (h, w))
             check(counts == {**{k: per_frame * v for k, v in want.items()}, "K2c": 0},
                   f"6b {label}: launches {counts}, want {per_frame} x {want}")
             print(f"phase6 6b {label}: captured in {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1542,9 +1635,10 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
             # CUDA version; the eager trace launches the same kernels.
             read_by = "replay" if got["replay"]["kernels"] > 0 else "eager"
             b = got[read_by]
-            port_ms = sum(v for k, v in b["ops"].items() if PORT_KERNEL.search(k))
+            port_ms = b["port_ms"]
+            split = ", ".join(f"{k} {v:.4f}" for k, v in b["port_kernels"].items())
             print(f"phase6 6b {label}: {b['kernels']:.0f} kernels a frame; the port's kernels "
-                  f"(K, R, S) {port_ms:.4f} ms, torch glue, copies and fills "
+                  f"{port_ms:.4f} ms ({split}), torch glue, copies and fills "
                   f"{b['total_ms'] - port_ms:.4f} ms of the {b['total_ms']:.4f} ms of ops "
                   f"({read_by} trace) [{card}]", flush=True)
             print(f"phase6 6b {label}: budget ({read_by} trace) {b['device_ms']:.4f} device ms a "
@@ -1580,8 +1674,11 @@ def main() -> int:
     from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
     from dis_tpu_torch.ops.grid import init_from_coarser_flow, make_grid, scale_plan
     from dis_tpu_torch.ops.pyramid import construct_pyramid
-    from dis_tpu_torch.ops.variational import (refine_sor_plain, refine_warp_plain,
-                                               refine_weights_plain, variational_refinement)
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+    from dis_tpu_torch.ops.variational import (refine_compose_plain, refine_planes_plain,
+                                               refine_setup_plain, refine_sor_plain,
+                                               refine_warp_plain, refine_weights_plain,
+                                               variational_refinement)
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
@@ -1868,17 +1965,22 @@ def main() -> int:
     k2c_err = max(k2c_err, err)
     del pos_f
 
-    # -- phase 1e: the refinement's kernels R1-R3 ---------------------------------
+    # -- phase 1e: the refinement's kernels R0-R3 ---------------------------------
     # Each on the inputs the main path gives it at the finest level of the
     # 1080p DIS_MEDIUM and DIS_FULL frames and of the KITTI B = 8 DIS_MEDIUM
-    # batch (R1's call, R2's second, R3's 11th and 12th: the second weight
-    # update's first red and black half-sweeps, where du and dv are not 0),
-    # bitwise equal to its plain version; then timed beside it.
+    # batch (R0's call; R1's setup mode's call, and R1 on its planes and
+    # flow; R2's second; R3's 11th and 12th: the second weight update's
+    # first red and black half-sweeps, where du and dv are not 0; R3's
+    # compose mode's call: the last black half-sweep), bitwise equal to its
+    # plain version; then timed beside it.
     med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
     kmed_levels, kmed_planes = refined_levels(*kpad, dt.DIS_MEDIUM)
-    r_fns = {"R1": (refine_warp, refine_warp_plain, "refine_warp"),
+    r_fns = {"R0": (rk.refine_planes, refine_planes_plain, "refine_planes"),
+             "R1": (refine_warp, refine_warp_plain, "refine_warp"),
+             "R1s": (rk.refine_setup, refine_setup_plain, "refine_setup"),
              "R2": (refine_weights, refine_weights_plain, "refine_weights"),
-             "R3": (refine_sor, refine_sor_plain, "refine_sor")}
+             "R3": (refine_sor, refine_sor_plain, "refine_sor"),
+             "R3c": (rk.refine_compose, refine_compose_plain, "refine_compose")}
     r_err = {k: 0.0 for k in r_fns}
     rtimes, rcosts = {}, {}
     r1_library = None
@@ -1887,16 +1989,23 @@ def main() -> int:
             ("1080p full", dt.DIS_FULL, full_levels, full_planes),
             (f"KITTI medium B={nk}", dt.DIS_MEDIUM, kmed_levels, kmed_planes)):
         steps = refine_step_inputs(refine_inputs(cfg, levels, planes, 0),
-                                   {"R1": (0,), "R2": (1,), "R3": (10, 11)})
+                                   {"R0": (0,), "R1s": (0,), "R2": (1,), "R3": (10, 11),
+                                    "R3c": (0,)})
+        steps["R1"] = [args[:2] for args in steps["R1s"]]   # R1 on the same planes, flow
         for k, (kern, plain, op) in r_fns.items():
+            check(len(steps[k]) == (2 if k == "R3" else 1),
+                  f"{k} {label}: {len(steps[k])} recorded calls")
             for args in steps[k]:
                 before = kern.launches
-                got, want = kern(*args), plain(*args)
+                got, want = flat_tensors(kern(*args)), flat_tensors(plain(*args))
                 torch.cuda.synchronize()
                 check(kern.launches == before + 1, f"{k} {label}: not one launch")
+                check(len(got) == len(want), f"{k} {label}: {len(got)} outputs, plain "
+                      f"{len(want)}")
                 for g, v in zip(got, want):
                     r_err[k] = max(r_err[k], float((g.float() - v.float()).abs().max()))
-                    check(torch.equal(g, v), f"{k} {label}: differs from its plain version")
+                    check(g.shape == v.shape and torch.equal(g, v),
+                          f"{k} {label}: differs from its plain version")
             args = steps[k][0]
             km = replay_ms(lambda: kern(*args))
             pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
@@ -1907,9 +2016,9 @@ def main() -> int:
             if label == "1080p medium" and k == "R1":
                 r1_library = grid_sample_ms(*args, refine_warp(*args)[0], card)
             print(f"phase1e {label} {k} {tuple(args[0].shape)}: {len(steps[k])} call(s) "
-                  f"bitwise equal to the plain version; kernel {km:.4f} ms replayed, plain "
-                  f"{pm:.4f} ms ({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} "
-                  f"[{card}]", flush=True)
+                  f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
+                  f"({100.0 * bms / km:.0f}% of its bound), plain {pm:.4f} ms ({prm:.4f} ms "
+                  f"replayed), bound {bms:.4f} ms by {by} [{card}]", flush=True)
         del steps
     del kmed_levels, kmed_planes
 
@@ -2036,6 +2145,77 @@ def main() -> int:
                   flush=True)
         del steps
 
+    # -- phase 1g: the frame's glue, F1, F2 and F3 --------------------------------
+    # Each on the inputs the main path gives it (frame_step_inputs) in the
+    # dis_flow calls of the KITTI B = 8 batch under DIS_MEDIUM (F1, F2) and
+    # DIS_ULTRAFAST (F1, F3), the 1080p DIS_FULL frame (F1: 1080 rows padded
+    # to 1088; F2 on the padded frame) and the 1080p DIS_MEDIUM frame (F2),
+    # bitwise equal to its plain version (the op's CPU function, the plain
+    # torch code in the op's layout, run on the card); then timed beside it
+    # with its bound, F1 and F3 also beside the library call that computes
+    # the same function on the same inputs (one F.pad, replicate, of both
+    # images stacked; one F.interpolate, bilinear, of the scaled flow made
+    # planar, the uncropped frame).
+    from dis_tpu_torch.ops.cuda import frame_kernel as fkern
+
+    f_fns = {"F1": (fkern._pad_cuda, fkern._pad_cpu, "frame_pad"),
+             "F2": (fkern._levels_cuda, fkern._levels_cpu, "intensity_levels"),
+             "F3": (fkern._finish_cuda, fkern._finish_cpu, "frame_finish")}
+    f_err = dict.fromkeys(f_fns, 0.0)
+    ftimes, fcosts, f_library = {}, {}, {}
+    for label, cfg, x, y, want, timed in (
+            (f"KITTI medium B={nk}", dt.DIS_MEDIUM, ka, kb, ("F1", "F2"), ("F1",)),
+            (f"KITTI ultrafast B={nk}", dt.DIS_ULTRAFAST, ka, kb, ("F1", "F3"), ("F3",)),
+            ("1080p full", dt.DIS_FULL, a, b, ("F1", "F2"), ()),
+            ("1080p medium", dt.DIS_MEDIUM, a, b, ("F2",), ("F2",))):
+        steps = frame_step_inputs(lambda: dt.dis_flow(x, y, cfg))
+        check(sorted(steps) == sorted(want) and all(len(v) == 1 for v in steps.values()),
+              f"1g {label}: calls {({k: len(v) for k, v in steps.items()})}")
+        for k in want:
+            kern, plain, op = f_fns[k]
+            args = steps[k][0]
+            got, ref = flat_tensors(kern(*args)), flat_tensors(plain(*args))
+            torch.cuda.synchronize()
+            check(len(got) == len(ref), f"{k} {label}: {len(got)} outputs, plain {len(ref)}")
+            for g, v in zip(got, ref):
+                f_err[k] = max(f_err[k], float((g - v).abs().max()))
+                check(g.shape == v.shape and torch.equal(g, v),
+                      f"{k} {label}: differs from its plain version")
+            km = replay_ms(lambda: kern(*args))
+            pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
+            nbytes, ops = cost.op_cost(op, args)
+            bms, by = bound(nbytes, ops)
+            lib = ""
+            if k == "F1":
+                stacked = torch.stack(args[:2])
+                pads = (args[4], args[5], args[2], args[3])
+                lms = replay_ms(lambda: torch.nn.functional.pad(stacked, pads,
+                                                                mode="replicate"))
+                lib = f", F.pad {lms:.4f} ms replayed"
+            elif k == "F3":
+                flow, f = args[0], args[1]
+                planar = (flow * float(2 ** f)).movedim(-1, -3).contiguous()
+                planar = planar if planar.ndim == 4 else planar[None]
+                size = (flow.shape[-3] << f, flow.shape[-2] << f)
+
+                def upsample():
+                    return torch.nn.functional.interpolate(planar, size=size, mode="bilinear",
+                                                           align_corners=False)
+
+                t, l, hh, ww = args[2:6]
+                up = upsample()[..., t:t + hh, l:l + ww].movedim(-3, -1)
+                lms = replay_ms(upsample)
+                lib = (f", F.interpolate {lms:.4f} ms replayed (max |d| "
+                       f"{float((up - got[0].reshape(up.shape)).abs().max())} from F3)")
+            if k in timed:
+                ftimes[k], fcosts[k] = (km, pm), (nbytes, ops)
+                f_library[k] = lms if k in ("F1", "F3") else None
+            print(f"phase1g {label} {k} {tuple(args[0].shape)} -> {tuple(got[0].shape)}: "
+                  f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
+                  f"({100.0 * bms / km:.0f}% of its bound), plain {pm:.4f} ms ({prm:.4f} ms "
+                  f"replayed){lib}, bound {bms:.4f} ms by {by} [{card}]", flush=True)
+        del steps
+
     # -- phase 2: the main path ---------------------------------------------
     wrappers = kernel_wrappers()
     launches = dict.fromkeys(LAUNCH_KEYS, 0)
@@ -2076,11 +2256,11 @@ def main() -> int:
     kflows = {}
     kl = {"K2b": 0, "K1b": 0}
     for name, cfg in kitti_cfgs.items():
-        want = scale_counts(cfg)
         fn = batched_flow_fn(cfg)
         runs = {}
-        for label, call in (("batched_flow_fn", lambda: fn(*kpad)),
-                            ("dis_flow", lambda: dt.dis_flow(ka, kb, cfg))):
+        for label, call, frame in (("batched_flow_fn", lambda: fn(*kpad), None),
+                                   ("dis_flow", lambda: dt.dis_flow(ka, kb, cfg), (KH, KW))):
+            want = scale_counts(cfg, frame)
             for w in wrappers.values():
                 w.launches = 0
             runs[label] = call()
@@ -2091,7 +2271,7 @@ def main() -> int:
                   f"{name} {label}: launches {counts}, want {want} per batch")
             kl["K2b"] += counts["K2"]
             kl["K1b"] += counts["K1"]
-            for k in glue_counts(cfg, 1):
+            for k in (*glue_counts(cfg, 1), *(frame_counts(cfg, *frame) if frame else ())):
                 launches[k] += counts[k]
         flows_b = runs["dis_flow"]
         check(tuple(flows_b.shape) == (nk, KH, KW, 2), f"{name}: flow shape {tuple(flows_b.shape)}")
@@ -2124,7 +2304,7 @@ def main() -> int:
         t0 = time.perf_counter()
         cf = aot_compile(cfg, *shape)
         built = time.perf_counter() - t0
-        want = scale_counts(cfg)
+        want = scale_counts(cfg, shape[:2])
         gl = cf.graph_launches
         check(gl == {**want, "K2c": 0}, f"{label}: the graph holds launches {gl}, want {want}")
         for _ in range(2):
@@ -2222,23 +2402,24 @@ def main() -> int:
     # -- phase 2f: refinement presets at 1080p ----------------------------------
     refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL}
     want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
-                               "R1": 4, "R2": 20, "R3": 200,
-                               "S1": 4, "S3": 4, "S4": 4},
+                               "R0": 4, "R1": 4, "R2": 20, "R3": 200,
+                               "S1": 4, "S3": 4, "S4": 4, "F2": 1},
                     "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
-                             "R1": 5, "R2": 50, "R3": 500,
-                             "S1": 5, "S3": 5, "S4": 5}}
+                             "R0": 5, "R1": 5, "R2": 50, "R3": 500,
+                             "S1": 5, "S3": 5, "S4": 5, "F1": 1, "F2": 1}}
     rflows = {}
     for name, cfg in refined.items():
         for w in wrappers.values():
             w.launches = 0
         flow = dt.dis_flow(a, b, cfg)
         torch.cuda.synchronize()
-        counts = read_counts(wrappers)
-        print(f"phase2f {name} launches {counts}", flush=True)
-        check(counts == want_refined[name] == {**scale_counts(cfg), "K2c": 0},
+        counts, modes = read_counts(wrappers), read_modes(wrappers)
+        print(f"phase2f {name} launches {counts}, modes {modes}", flush=True)
+        check(counts == want_refined[name] == {**scale_counts(cfg, (H, W)), "K2c": 0},
               f"{name}: launches {counts}, want {want_refined[name]}")
+        check(modes == mode_counts(cfg), f"{name}: modes {modes}, want {mode_counts(cfg)}")
         for k in launches:
-            launches[k] += counts.get(k, 0)
+            launches[k] += {**counts, **modes}.get(k, 0)
         check(tuple(flow.shape) == (H, W, 2), f"{name}: flow shape {tuple(flow.shape)}")
         med, epe = flow_gates(name, flow.cpu().numpy(), SHIFT, EPE_JAX[name])
         plain = dt.dis_flow(a, b, cfg, plain=True)
@@ -2270,17 +2451,20 @@ def main() -> int:
 
     # -- phase 2g: refinement through the other paths (DIS_MEDIUM) ---------------
     med_cfg = dt.DIS_MEDIUM
-    for label, call in (("batched_flow_fn", lambda: batched_flow_fn(med_cfg)(*kpad)),
-                        ("dis_flow", lambda: dt.dis_flow(ka, kb, med_cfg))):
+    for label, call, frame in (
+            ("batched_flow_fn", lambda: batched_flow_fn(med_cfg)(*kpad), None),
+            ("dis_flow", lambda: dt.dis_flow(ka, kb, med_cfg), (KH, KW))):
         for w in wrappers.values():
             w.launches = 0
         out = call()
         torch.cuda.synchronize()
-        counts = read_counts(wrappers)
-        check(counts == {**scale_counts(med_cfg), "K2c": 0},
-              f"KITTI medium {label}: launches {counts}")
-        for k in (*refine_counts(med_cfg), *glue_counts(med_cfg, 1)):
-            launches[k] += counts[k]
+        counts, modes = read_counts(wrappers), read_modes(wrappers)
+        check(counts == {**scale_counts(med_cfg, frame), "K2c": 0}
+              and modes == mode_counts(med_cfg), f"KITTI medium {label}: launches {counts}, "
+              f"modes {modes}")
+        for k, n in {**counts, **modes}.items():
+            if k in launches and k not in CORE:
+                launches[k] += n
         if label == "batched_flow_fn":
             kmed_padded = out
     kmed = out
@@ -2305,7 +2489,8 @@ def main() -> int:
         built = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         gl = cf.graph_launches
-        check(gl == {**scale_counts(med_cfg), "K2c": 0}, f"medium {label}: graph holds {gl}")
+        check(gl == {**scale_counts(med_cfg, shape[:2]), "K2c": 0},
+              f"medium {label}: graph holds {gl}")
         for _ in range(2):
             out = cf(*inputs)
             torch.cuda.synchronize()
@@ -2372,7 +2557,7 @@ def main() -> int:
             ("1080p", bench_cfg, (H, W, None), (a, b), flows["compat"],
              {**scale_counts(bench_cfg), "K2c": 0}),
             ("kitti", cfg3, (KH, KW, nk), (ka, kb), kflows["config3"],
-             {**scale_counts(cfg3), "K2c": 0}),
+             {**scale_counts(cfg3, (KH, KW)), "K2c": 0}),
             ("4K", bench_cfg, (H4K, W4K, None), (a4, b4), flows4["compat"], want4),
             ("1080p medium", med_cfg, (H, W, None), (a, b), rflows["medium"],
              {**scale_counts(med_cfg), "K2c": 0})):
@@ -2608,14 +2793,21 @@ def main() -> int:
                 "dis_tpu/ops/pallas/iclk_kernel.py:573", k1b_err),
         "K2c": ("extract_regions_banded", src + "extract_banded.cu",
                 "dis_tpu/ops/pallas/extract_kernel.py:163", k2c_err),
-        # No pallas_call backs R1-R3: they replace XLA's fusions of the JAX
-        # package's refinement code (_warp_bilinear, inner, half_sweep).
+        # No pallas_call backs R0-R3: they replace XLA's fusions of the JAX
+        # package's refinement code (the level's Sobel planes, _warp_bilinear
+        # and the setup of outer, inner, half_sweep and the flow of outer).
+        "R0": ("refine_planes", src + "refine_planes.cu", "dis_tpu/ops/variational.py:188",
+               r_err["R0"]),
         "R1": ("refine_warp", src + "variational.cu", "dis_tpu/ops/variational.py:88",
                r_err["R1"]),
+        "R1s": ("refine_setup", src + "variational.cu", "dis_tpu/ops/variational.py:220",
+                r_err["R1s"]),
         "R2": ("refine_weights", src + "variational.cu", "dis_tpu/ops/variational.py:252",
                r_err["R2"]),
         "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
                r_err["R3"]),
+        "R3c": ("refine_compose", src + "variational.cu", "dis_tpu/ops/variational.py:314",
+                r_err["R3c"]),
         # Nor S1, S3, S4 and the start: they replace XLA's fusions of each
         # scale's jnp code.  The start (once S2) runs inside S1.
         "S1": ("scale_templates", src + "scale_glue.cu", "dis_tpu/ops/iclk.py:155",
@@ -2624,22 +2816,34 @@ def main() -> int:
         "S3": ("fixed_weights", src + "scale_glue.cu", "dis_tpu/models/dis.py:27",
                s_err["S3"]),
         "S4": ("densify", src + "scale_glue.cu", "dis_tpu/ops/densify.py:58", s_err["S4"]),
+        # Nor F1-F3: the frame's jnp code around the pipeline.
+        "F1": ("frame_pad", src + "frame_glue.cu", "dis_tpu/ops/image.py:146", f_err["F1"]),
+        "F2": ("intensity_levels", src + "frame_glue.cu", "dis_tpu/ops/pyramid.py:162",
+               f_err["F2"]),
+        "F3": ("frame_finish", src + "frame_glue.cu", "dis_tpu/models/dis.py:468",
+               f_err["F3"]),
     }
     times.update(rtimes)
     costs.update(rcosts)
     times.update(stimes)
     costs.update(scosts)
+    times.update(ftimes)
+    costs.update(fcosts)
+    library = {"R1": r1_library, **f_library}
     # cost_analysis's entries against the kernels line: K3 (one pyramid) and
     # K2 at the finest scale give the same bounds; K1 counts its fixed loop
     # and no start freezes, so its bytes differ by the raw templates of the
     # patches frozen at the start (a few hundred at 1080p).  The 1080p
-    # DIS_MEDIUM bucket's last R1 and R2 and its last red R3 are the finest
-    # level's, which the kernels line times.
+    # DIS_MEDIUM bucket's last R0, R1 (its setup mode), R2, red R3 and R3
+    # (its compose mode) are the finest level's, and its F2 the frame's,
+    # which the kernels line times.
     kc, kcm = served_cost["kernels"], med_cost["kernels"]
     for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
-                          ("K1", kc["K1"][-1], 1e-3), ("R1", kcm["R1"][-1], 0.0),
-                          ("R2", kcm["R2"][-1], 0.0), ("R3", kcm["R3"][-2], 0.0),
-                          ("S1", kc["S1"][-1], 0.0), ("S4", kc["S4"][-1], 0.0)):
+                          ("K1", kc["K1"][-1], 1e-3), ("R0", kcm["R0"][-1], 0.0),
+                          ("R1s", kcm["R1"][-1], 0.0), ("R2", kcm["R2"][-1], 0.0),
+                          ("R3", kcm["R3"][-2], 0.0), ("R3c", kcm["R3"][-1], 0.0),
+                          ("S1", kc["S1"][-1], 0.0), ("S4", kc["S4"][-1], 0.0),
+                          ("F2", kcm["F2"][-1], 0.0)):
         static = bound(entry["bytes accessed"], entry["flops"])
         run_bound = bound(*costs[k])
         print(f"cost_analysis {k}: bound {static[0]:.6f} ms by {static[1]}; kernels line "
@@ -2649,11 +2853,17 @@ def main() -> int:
     rows = []
     for k in (*LAUNCH_KEYS, "S2"):
         bound_ms, bound_by = bound(*costs[k])
+        check(launches["S1" if k == "S2" else k] > 0,
+              f"{k} was launched no time on the main path")
         rows.append({"name": meta[k][0], "route": "cuda", "source": meta[k][1],
                      "replaces": meta[k][2], "launches": launches["S1" if k == "S2" else k],
                      "max_abs_err": meta[k][3], "ms": times[k][0], "plain_ms": times[k][1],
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": r1_library if k == "R1" else None})
+                     "library_ms": library.get(k)})
+        if k in MODES:
+            # R1's setup mode and R3's compose mode: the same kernel, whose
+            # row's launches count this mode's too.
+            rows[-1]["mode_of"] = meta[k[:2]][0]
     # The start's row: fused into S1 (scale_templates), it launches
     # with S1, and its ms is what it adds inside S1 on the same inputs.
     rows[-1]["fused_into"] = "scale_templates"
@@ -2679,9 +2889,10 @@ def kernel_times(root: str) -> int:
     compat frame and the KITTI B = 8 batch, eager and replayed; the refinement
     of the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames
     and those frames, replayed and eager, a hash of the flow of each of
-    eight configs and inputs (``flow_sha256``), and, in a tree that has them, R1,
-    R2 and R3 on that level's inputs (the parent's refinement is torch
-    ops); the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
+    eight configs and inputs (``flow_sha256``), and, in a tree that has them, R0,
+    R1 (on the planes and flow of its setup mode where the tree has it),
+    R1's setup mode, R2, R3 and R3's compose mode on that level's inputs;
+    the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
     nodes and bytes.  K2
     gets the grid's column length where the tree's ``extract_regions``
     takes ``num_h``, as its main path does (``k2_num_h`` says which).
@@ -2806,11 +3017,19 @@ def kernel_times(root: str) -> int:
         if kernels:
             from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
-            steps = refine_step_inputs(args, {"R1": (0,), "R2": (1,), "R3": (10,)})
-            for k, fn in (("R1", rk.refine_warp), ("R2", rk.refine_weights),
-                          ("R3", rk.refine_sor)):
-                out[f"{k}_1080p_{key}_finest_replayed_ms"] = replay_ms(
-                    lambda: fn(*steps[k][0]))
+            # R1 on the planes and flow of R1's setup mode where the tree
+            # has it; R0 and the modes where the tree has them.
+            steps = refine_step_inputs(args, {"R0": (0,), "R1": (0,), "R1s": (0,),
+                                              "R2": (1,), "R3": (10,), "R3c": (0,)})
+            if not steps.get("R1") and steps.get("R1s"):
+                steps["R1"] = [steps["R1s"][0][:2]]
+            for k, name in (("R0", "refine_planes"), ("R1", "refine_warp"),
+                            ("R1s", "refine_setup"), ("R2", "refine_weights"),
+                            ("R3", "refine_sor"), ("R3c", "refine_compose")):
+                if steps.get(k):
+                    fn = getattr(rk, name)
+                    out[f"{k}_1080p_{key}_finest_replayed_ms"] = replay_ms(
+                        lambda: fn(*steps[k][0]))
             del steps
         del levels, planes, args
         served = aot_compile(cfg, H, W)

@@ -2,10 +2,13 @@
 
 Each kernel's work is a formula of its launch's shapes
 (:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, the
-refinement's :func:`refine_warp_cost`, :func:`refine_weights_cost`,
-:func:`refine_sor_cost`, and each scale's :func:`templates_cost` (plus
-:func:`start_cost` where S1 writes the start), :func:`weights_cost`,
-:func:`densify_cost`): each
+refinement's :func:`refine_planes_cost`, :func:`refine_warp_cost`,
+:func:`refine_setup_cost`, :func:`refine_weights_cost`,
+:func:`refine_sor_cost` (in its compose mode :func:`refine_compose_cost`),
+each scale's :func:`templates_cost` (plus :func:`start_cost` where S1
+writes the start), :func:`weights_cost`, :func:`densify_cost`, and the
+frame's :func:`frame_pad_cost`, :func:`intensity_levels_cost`,
+:func:`frame_finish_cost`): each
 input read once, each output written once, and the operations its
 arithmetic does.  ``chip_smoke.py`` reads the same formulas for the
 bounds of its ``kernels`` line, with the trips that its run's data
@@ -33,14 +36,19 @@ from torch.utils._pytree import tree_leaves
 from .config import DISConfig
 from .ops.cuda.pyramid_kernel import first_level_dims
 
-# The kernel each op launches, by op name.
+# The kernel each op launches, by op name (R1's setup mode and R3's
+# compose mode count as R1 and R3).
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
            "extract_regions_banded": "K2c", "iclk_search": "K1",
-           "refine_warp": "R1", "refine_weights": "R2", "refine_sor": "R3",
-           "scale_templates": "S1", "fixed_weights": "S3", "densify": "S4"}
-# The kernels every count names; the refinement's (R1-R3) appear only
-# where a program refines, each scale's (S1, S3, S4) where they launch (S3
-# in fixed mode only).
+           "refine_planes": "R0", "refine_warp": "R1", "refine_setup": "R1",
+           "refine_weights": "R2", "refine_sor": "R3", "refine_compose": "R3",
+           "scale_templates": "S1", "fixed_weights": "S3", "densify": "S4",
+           "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
+# The kernels every count names; the refinement's (R0-R3) appear only
+# where a program refines (R0 with the planes6 scheme), each scale's (S1,
+# S3, S4) where they launch (S3 in fixed mode only), the frame's F1 where
+# it pads, F2 where the refinement reads intensity planes, F3 where
+# finest_scale > 0.
 CORE_KERNELS = ("K3", "K2", "K2c", "K1")
 
 F32 = 4
@@ -108,6 +116,23 @@ def refine_warp_cost(nb: int, h: int, w: int, c: int) -> Tuple[int, int]:
     return px * (2 * c * F32 + 2 * F32 + 1), px * (37 + 7 * c)
 
 
+def refine_planes_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
+    """(bytes, operations) of one R0 launch over ``nb`` windows of ``h`` x
+    ``w`` pixels: the two windows read once, I1x, I1y and the six planes
+    written once; seven Sobels a pixel, 7 operations each."""
+    px = nb * h * w
+    return px * 10 * F32, px * 49
+
+
+def refine_setup_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
+    """(bytes, operations) of one R1 launch in its setup mode over ``nb``
+    planes of ``h`` x ``w``: the six planes, the flow, I1, I1x and I1y read
+    once and R2's 13 inputs written once; the warp's operations at C = 6
+    and three differences a pixel."""
+    px = nb * h * w
+    return px * 24 * F32, px * (37 + 7 * 6 + 3)
+
+
 def refine_weights_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
     """(bytes, operations) of one R2 launch over ``nb`` planes of ``h`` x
     ``w``: 13 planes read once and 12 written once; about 195 operations a
@@ -124,6 +149,39 @@ def refine_sor_cost(nb: int, h: int, w: int, color: int, relax: bool) -> Tuple[i
     px = nb * h * w
     updated = nb * ((h * w + 1) // 2 if color == 0 else h * w // 2)
     return px * 18 * F32, updated * (40 if relax else 34)
+
+
+def refine_compose_cost(nb: int, h: int, w: int, color: int,
+                        relax: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one R3 launch in its compose mode: the
+    half-sweep's, its 16 planes read and the flow's two planes written, and
+    two sums a pixel."""
+    nbytes, ops = refine_sor_cost(nb, h, w, color, relax)
+    return nbytes, ops + 2 * nb * h * w
+
+
+def frame_pad_cost(nb: int, h: int, w: int, top: int, bottom: int, left: int,
+                   right: int) -> Tuple[int, int]:
+    """(bytes, operations) of one F1 launch over ``nb`` pairs [h, w]: both
+    images read once and both padded images written once; no arithmetic."""
+    return 2 * nb * (h * w + (h + top + bottom) * (w + left + right)) * F32, 0
+
+
+def intensity_levels_cost(nb: int, h: int, w: int, levels: int) -> Tuple[int, int]:
+    """(bytes, operations) of one F2 launch over ``nb`` pairs [h, w]: both
+    sources read once and ``levels`` levels of both written once; four
+    operations a level pixel."""
+    out = sum((h >> s) * (w >> s) for s in range(1, levels + 1))
+    return 2 * nb * (h * w + out) * F32, 2 * nb * out * 4
+
+
+def frame_finish_cost(nb: int, fh: int, fw: int, height: int, width: int) -> Tuple[int, int]:
+    """(bytes, operations) of one F3 launch: the finest flow [nb, fh, fw, 2]
+    read once and the cropped flow [nb, height, width, 2] written once;
+    per output value four scaled taps, six products, three sums and two
+    complements, and about 10 operations a pixel for its coordinates."""
+    px = nb * height * width
+    return (nb * fh * fw + px) * 2 * F32, px * (2 * 15 + 10)
 
 
 def templates_cost(nb: int, th: int, tw: int, n: int, ps: int,
@@ -197,12 +255,32 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         planes = args[0]
         nb = planes.shape[0] if planes.ndim == 4 else 1
         return refine_warp_cost(nb, *planes.shape[-3:])
-    if name in ("refine_weights", "refine_sor"):
+    if name == "refine_planes":
+        img1, h, w = args[0], args[3], args[4]
+        return refine_planes_cost(img1.shape[0] if img1.ndim == 3 else 1, h, w)
+    if name == "refine_setup":
+        planes = args[0]
+        return refine_setup_cost(planes.shape[0] if planes.ndim == 4 else 1,
+                                 *planes.shape[-3:-1])
+    if name in ("refine_weights", "refine_sor", "refine_compose"):
         plane = args[0]
         nb = plane.shape[0] if plane.ndim == 3 else 1
         if name == "refine_weights":
             return refine_weights_cost(nb, *plane.shape[-2:])
-        return refine_sor_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
+        sweep = refine_sor_cost if name == "refine_sor" else refine_compose_cost
+        return sweep(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
+    if name == "frame_pad":
+        img1 = args[0]
+        return frame_pad_cost(img1.shape[0] if img1.ndim == 3 else 1, *img1.shape[-2:],
+                              *args[2:6])
+    if name == "intensity_levels":
+        img1, levels = args[0], args[2]
+        return intensity_levels_cost(img1.shape[0] if img1.ndim == 3 else 1,
+                                     *img1.shape[-2:], levels)
+    if name == "frame_finish":
+        flow, height, width = args[0], args[4], args[5]
+        return frame_finish_cost(flow.shape[0] if flow.ndim == 4 else 1, *flow.shape[-3:-1],
+                                 height, width)
     if name == "scale_templates":
         img, num_w, num_h, ps, residual = args[0], args[3], args[4], args[8], args[9]
         flow, centers = args[10], args[14]
@@ -242,8 +320,7 @@ def glue_bytes(func, args, kwargs, out) -> int:
 
 def kernel_ops(program) -> Dict[str, int]:
     """The kernel ops in an exported program's graph, by kernel: K3, K2,
-    K2c and K1 always, R1-R3 where the program refines, S1, S3 and S4
-    where they launch."""
+    K2c and K1 always, the others where they launch (``KERNELS``)."""
     ops = dict.fromkeys(CORE_KERNELS, 0)
     for node in program.graph.nodes:
         name = getattr(node.target, "name", lambda: "")()
@@ -258,8 +335,8 @@ def flow_cost(cfg: DISConfig, height: int, width: int,
     """``{"flops", "bytes accessed", "kernels", "glue"}`` of one
     ``dis_flow`` call on a [(batch,) height, width] bucket: totals, each
     kernel launch's ``{"flops", "bytes accessed"}`` in launch order by
-    kernel (K3, K2, K2c and K1 always, R1-R3 where the config refines,
-    S1, S3 and S4 where they launch), and the glue's op count and totals.  The CPU plans of the
+    kernel (K3, K2, K2c and K1 always, the others where they launch),
+    and the glue's op count and totals.  The CPU plans of the
     bucket are built (and cached) first: the trace reads them."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.utils._python_dispatch import TorchDispatchMode

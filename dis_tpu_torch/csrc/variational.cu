@@ -4,12 +4,19 @@
 // jnp code (dis_tpu/ops/variational.py) that XLA fuses into a few loops
 // per masked half-sweep.  They replace those fusions:
 //   R1 dis_refine_warp     the bilinear warp, _warp_bilinear (:88);
+//      dis_refine_setup    R1's setup mode (the planes6 scheme): the warp
+//                          and, from it, the weight update's thirteen
+//                          inputs (outer's head, :220-250, and the zero
+//                          increments of :312);
 //   R2 dis_refine_weights  the lagged weight update, the head of inner
 //                          (:252-283) and the per-update coefficients;
 //   R3 dis_refine_sor      one red or black SOR half-sweep, half_sweep
-//                          (:286-307).
-// Their plain versions are refine_warp_plain, refine_weights_plain and
-// refine_sor_plain in dis_tpu_torch/ops/variational.py.  Each kernel keeps
+//                          (:286-307); in its compose mode the last one of
+//                          an outer iteration, which writes the flow
+//                          (u0 + du, v0 + dv) (:314).
+// Their plain versions are refine_warp_plain, refine_setup_plain,
+// refine_weights_plain, refine_sor_plain and refine_compose_plain in
+// dis_tpu_torch/ops/variational.py.  Each kernel keeps
 // the plain version's operations, one float32 rounding per operation and
 // in its order (the build passes -fmad=false, so no product is contracted
 // into a multiply-add); the IRLS weight is 0.5 * (1 / sqrt(s2 + eps2))
@@ -41,7 +48,8 @@
 // memory sees each plane about once.  Measured there (H100 80GB HBM3 at
 // 700 W, chip_smoke.py phase 1e): R1 0.046, R2 0.085, R3 0.051 ms, 73-87%
 // of those bounds, where the torch ops they replace take 0.87, 1.27 and
-// 0.33 ms replayed.
+// 0.33 ms replayed.  R1's setup mode reads 11 planes and writes 13 (199
+// MB, 59 us): 0.074 ms, 80%; R3's compose mode, R3's bytes: 0.055 ms, 82%.
 
 #include <cuda_runtime.h>
 
@@ -77,17 +85,35 @@ __device__ __forceinline__ Pixel pixel_of(int64_t i, int h, int w) {
 // ---------------------------------------------------------------------------
 // R1: planes [nb, h, w, C] (C interleaved) sampled at x + flow, flow
 // [nb, h, w, 2]; writes out [C, nb, h, w] and inb [nb, h, w] (bool).
-template <int C>
+//
+// Its setup mode (SETUP, C = 6: refine_setup_plain) writes instead the
+// thirteen planes that R2 reads, out [13, nb, h, w] in R2's input order:
+// Iz = W - I1, Izx = Wx - I1x, Izy = Wy - I1y, the five warped derivative
+// planes, the mask m as 1.0 or 0.0, u0 and v0 from the flow, and du = dv
+// = 0.  I1 is read in place from its level plane (`setup.img1`, planes of
+// img_h x img_w, the window at offset p); I1x and I1y are R0's planes.
+struct Setup {
+  const float* img1;
+  const float* I1x;
+  const float* I1y;
+  int img_h, img_w, p;
+};
+enum SetupOut { O_IZ, O_IZX, O_IZY, O_WX, O_WY, O_WXX, O_WXY, O_WYY, O_M, O_U0, O_V0, O_DU,
+                O_DV, N_SETUP_OUT };
+
+template <int C, bool SETUP>
 __global__ void __launch_bounds__(THREADS)
 warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, int h, int w,
-            int64_t n, float* __restrict__ out, uint8_t* __restrict__ inb) {
+            int64_t n, float* __restrict__ out, uint8_t* __restrict__ inb, Setup setup) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const Pixel p = pixel_of(i, h, w);
   const float wm1 = (float)(w - 1), hm1 = (float)(h - 1);
-  const float fx = (float)p.x + flow[2 * i];
-  const float fy = (float)p.y + flow[2 * i + 1];
-  inb[i] = (fx >= 0.f) & (fx <= wm1) & (fy >= 0.f) & (fy <= hm1);
+  const float u0 = flow[2 * i], v0 = flow[2 * i + 1];
+  const float fx = (float)p.x + u0;
+  const float fy = (float)p.y + v0;
+  const bool in = (fx >= 0.f) & (fx <= wm1) & (fy >= 0.f) & (fy <= hm1);
+  if (!SETUP) inb[i] = in;
   const float fxc = fminf(fmaxf(fx, 0.f), wm1);
   const float fyc = fminf(fmaxf(fy, 0.f), hm1);
   const float x0f = floorf(fxc), y0f = floorf(fyc);
@@ -102,12 +128,28 @@ warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, in
   const float* c01 = planes + (p.base + (int64_t)y0 * w + x1) * C;
   const float* c10 = planes + (p.base + (int64_t)y1 * w + x0) * C;
   const float* c11 = planes + (p.base + (int64_t)y1 * w + x1) * C;
+  float v[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    float v = w00 * c00[c] + w01 * c01[c];
-    v = v + w10 * c10[c];
-    out[c * n + i] = v + w11 * c11[c];
+    float s = w00 * c00[c] + w01 * c01[c];
+    s = s + w10 * c10[c];
+    v[c] = s + w11 * c11[c];
+    if (!SETUP) out[c * n + i] = v[c];
   }
+  if (!SETUP) return;
+  const int64_t plane = (int64_t)setup.img_h * setup.img_w;
+  const float I1 = setup.img1[(p.base / ((int64_t)h * w)) * plane +
+                              (int64_t)(p.y + setup.p) * setup.img_w + p.x + setup.p];
+  out[O_IZ * n + i] = v[0] - I1;
+  out[O_IZX * n + i] = v[1] - setup.I1x[i];
+  out[O_IZY * n + i] = v[2] - setup.I1y[i];
+#pragma unroll
+  for (int c = 1; c < C; ++c) out[(O_WX + c - 1) * n + i] = v[c];
+  out[O_M * n + i] = in ? 1.0f : 0.0f;
+  out[O_U0 * n + i] = u0;
+  out[O_V0 * n + i] = v0;
+  out[O_DU * n + i] = 0.0f;
+  out[O_DV * n + i] = 0.0f;
 }
 
 // ---------------------------------------------------------------------------
@@ -203,6 +245,22 @@ struct SorArgs {
   const float* in[N_SOR_IN];
 };
 
+// COMPOSE (R3's compose mode, refine_compose_plain): the outer
+// iteration's last half-sweep, which writes the flow out [nb, h, w, 2] =
+// (u0 + du, v0 + dv) of its new du and dv instead of du and dv.
+template <bool COMPOSE>
+__device__ __forceinline__ void sor_store(float* __restrict__ out, int64_t n, int64_t i,
+                                          float u0, float v0, float du, float dv) {
+  if (COMPOSE) {
+    out[2 * i] = u0 + du;
+    out[2 * i + 1] = v0 + dv;
+  } else {
+    out[i] = du;
+    out[n + i] = dv;
+  }
+}
+
+template <bool COMPOSE>
 __global__ void __launch_bounds__(THREADS)
 sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax,
            float* __restrict__ out) {
@@ -215,8 +273,7 @@ sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax
   const float* dv = g.in[S_DV];
   const float du_c = du[i], dv_c = dv[i];
   if (((p.x + p.y) & 1) != color) {   // the other colour passes through
-    out[i] = du_c;
-    out[n + i] = dv_c;
+    sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_c, dv_c);
     return;
   }
   const int64_t row = p.base + (int64_t)p.y * w;
@@ -243,8 +300,7 @@ sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax
     du_new = du_c + (du_new - du_c) * omega;
     dv_new = dv_c + (dv_new - dv_c) * omega;
   }
-  out[i] = du_new;
-  out[n + i] = dv_new;
+  sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_new, dv_new);
 }
 
 int blocks_for(int64_t n) { return (int)((n + THREADS - 1) / THREADS); }
@@ -259,16 +315,34 @@ extern "C" int dis_refine_warp(const float* planes, const float* flow, int nb, i
                                int c, float* out, uint8_t* inb, cudaStream_t stream) {
   if (!shape_ok(nb, h, w)) return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)nb * h * w;
+  const Setup none = {nullptr, nullptr, nullptr, 0, 0, 0};
   switch (c) {
     case 1:
-      warp_kernel<1><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out, inb);
+      warp_kernel<1, false><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out,
+                                                                   inb, none);
       break;
     case 6:
-      warp_kernel<6><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out, inb);
+      warp_kernel<6, false><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out,
+                                                                   inb, none);
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// R1's setup mode: planes [nb, h, w, 6], flow [nb, h, w, 2], img1 [nb,
+// img_h, img_w] (I1 its window at offset p), I1x and I1y [nb, h, w]; out
+// [13, nb, h, w].
+extern "C" int dis_refine_setup(const float* planes, const float* flow, const float* img1,
+                                const float* I1x, const float* I1y, int nb, int h, int w,
+                                int img_h, int img_w, int p, float* out, cudaStream_t stream) {
+  if (!shape_ok(nb, h, w) || p < 0 || p + h > img_h || p + w > img_w)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n = (int64_t)nb * h * w;
+  const Setup setup = {img1, I1x, I1y, img_h, img_w, p};
+  warp_kernel<6, true><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out,
+                                                              nullptr, setup);
   return (int)cudaGetLastError();
 }
 
@@ -282,12 +356,20 @@ extern "C" int dis_refine_weights(const float* const* ins, int nb, int h, int w,
   return (int)cudaGetLastError();
 }
 
+// R3: out [2, nb, h, w] (du, dv); in its compose mode (compose != 0) the
+// flow [nb, h, w, 2].
 extern "C" int dis_refine_sor(const float* const* ins, int nb, int h, int w, int color,
-                              float omega, int relax, float* out, cudaStream_t stream) {
+                              float omega, int relax, int compose, float* out,
+                              cudaStream_t stream) {
   if (!shape_ok(nb, h, w) || (color != 0 && color != 1)) return (int)cudaErrorInvalidValue;
   SorArgs g;
   for (int k = 0; k < N_SOR_IN; ++k) g.in[k] = ins[k];
   const int64_t n = (int64_t)nb * h * w;
-  sor_kernel<<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax, out);
+  if (compose)
+    sor_kernel<true><<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax,
+                                                            out);
+  else
+    sor_kernel<false><<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax,
+                                                             out);
   return (int)cudaGetLastError();
 }

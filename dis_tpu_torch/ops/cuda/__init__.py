@@ -1,15 +1,18 @@
 """Wrappers of the hand-written CUDA kernels K1-K3 (K2 and K1 with their
 batched forms K2b and K1b: a leading pair axis on their inputs), K2c,
-the column-banded form of K2, the refinement's R1-R3 and each scale's
-S1, S3 and S4, and the ops they launch through.
+the column-banded form of K2, the refinement's R0-R3, each scale's S1,
+S3 and S4 and the frame's F1-F3, and the ops they launch through.
 
 Each C entry point of ``csrc/`` is registered as an op of the
 ``dis_tpu_torch`` namespace (``torch.library.custom_op``) with a flat
 schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
 ``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c),
-``iclk_search`` (K1, K1b), ``refine_warp``, ``refine_weights`` and
-``refine_sor`` (R1-R3), ``scale_templates`` (S1, the search start
-included), ``fixed_weights`` and ``densify`` (S3, S4).  Each op has three
+``iclk_search`` (K1, K1b), ``refine_planes`` (R0), ``refine_warp`` and
+``refine_setup`` (R1 and its setup mode), ``refine_weights`` (R2),
+``refine_sor`` and ``refine_compose`` (R3 and its compose mode),
+``scale_templates`` (S1, the search start included), ``fixed_weights``
+and ``densify`` (S3, S4), ``frame_pad``, ``intensity_levels`` and
+``frame_finish`` (F1-F3).  Each op has three
 functions: for CUDA, which allocates the outputs with ``torch.empty``,
 launches the kernel on the current stream (``_build.launch``) and adds
 one to its wrapper's ``launches`` count; a fake one (``register_fake``), which gives the
@@ -61,9 +64,11 @@ def all_on_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def check_input(t: torch.Tensor, name: str, device: torch.device,
-                dtype: torch.dtype, shape) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
-    the CUDA device ``device`` (or on the CPU within :func:`ops_on_cpu`)."""
+                dtype: torch.dtype, shape, contiguous: bool = True) -> None:
+    """Raise unless ``t`` is a ``dtype`` tensor of ``shape`` on the CUDA
+    device ``device`` (or on the CPU within :func:`ops_on_cpu`),
+    contiguous unless ``contiguous`` is false (a kernel that reads
+    strides)."""
     on_cpu_op = device.type == "cpu" and getattr(_local, "ops_on_cpu", False)
     if (t.device.type != "cuda" and not on_cpu_op) or t.device != device:
         raise ValueError(f"{name} is on {t.device}; the kernel takes tensors "
@@ -72,7 +77,7 @@ def check_input(t: torch.Tensor, name: str, device: torch.device,
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -97,6 +102,6 @@ def register(name: str, cuda_fn, fake_fn, cpu_fn, mutates_args=()):
 
 
 # The ops are registered when their modules are imported; importing this
-# package registers all ten (a loaded artifact needs them).
-from . import (extract_banded_kernel, extract_kernel, iclk_kernel,  # noqa: E402,F401
-               pyramid_kernel, refine_kernel, scale_kernel)
+# package registers all sixteen (a loaded artifact needs them).
+from . import (extract_banded_kernel, extract_kernel, frame_kernel,  # noqa: E402,F401
+               iclk_kernel, pyramid_kernel, refine_kernel, scale_kernel)

@@ -10,7 +10,9 @@ plane is always the last two axes; ``resize_bilinear`` and
 device of its input; each elementwise step is its own op, so no
 multiply-add is ever contracted, a batch gives each plane the bits it
 gets alone, and the results are those of the JAX package's written
-operation order.
+operation order.  :func:`frame_pad_plain` and :func:`frame_finish_plain`,
+the frame's padding and its finest flow's upsample and crop, are the
+plain versions of kernels F1 and F3 (``ops/cuda/frame_kernel.py``).
 """
 
 from __future__ import annotations
@@ -147,3 +149,28 @@ def crop_padding(flow: torch.Tensor, padw: int, padh: int, w_org: int,
     if flow.ndim == 4:
         return flow[:, t:t + h_org, l:l + w_org]
     return flow[t:t + h_org, l:l + w_org]
+
+
+def frame_pad_plain(img1: torch.Tensor, img2: torch.Tensor, coarsest_scale: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[int, int]]:
+    """:func:`pad_divisible` of both images of a pair (each [H, W] or
+    [B, H, W]): (padded img1, padded img2, (padw, padh)); the inputs
+    themselves where nothing pads.  The plain version of kernel F1."""
+    p1, pads = pad_divisible(img1, coarsest_scale)
+    p2, _ = pad_divisible(img2, coarsest_scale)
+    return p1, p2, pads
+
+
+def frame_finish_plain(flow: torch.Tensor, finest_scale: int, padw: int, padh: int,
+                       w_org: int, h_org: int) -> torch.Tensor:
+    """The flow at input resolution from the finest scale's flow [(B,) h,
+    w, 2] of a frame padded by (``padw``, ``padh``): scaled by
+    ``2**finest_scale`` and bilinearly upsampled to the padded frame
+    (main.cpp:191-196) where ``finest_scale > 0``, then cropped to [(B,)
+    h_org, w_org, 2] (main.cpp:198; a view).  The plain version of kernel
+    F3, which runs where ``finest_scale > 0``."""
+    if finest_scale != 0:
+        flow = flow * float(2 ** finest_scale)
+        flow = resize_bilinear(flow, flow.shape[-2] << finest_scale,
+                               flow.shape[-3] << finest_scale)
+    return crop_padding(flow, padw, padh, w_org, h_org)

@@ -12,11 +12,14 @@ The whole pyramid is one call of
 one launch for up to four levels; :func:`pyramid_plain`, the chain of
 :func:`pyramid_level_plain`, on CPU tensors.  A batch of images
 ``[B, H, W]`` gives levels ``[B, h + 2p, w + 2p]``, still one launch.
+The refinement's raw-intensity chain of both images
+(:func:`intensity_levels_plain`) is kernel F2 on CUDA tensors
+(``ops/cuda/frame_kernel.py::intensity_levels``).
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -90,3 +93,12 @@ def intensity_pyramid(img: torch.Tensor, coarsest_scale: int) -> List[torch.Tens
     for _ in range(coarsest_scale):
         out.append(im.resize_half(out[-1]))
     return out
+
+
+def intensity_levels_plain(img1: torch.Tensor, img2: torch.Tensor, coarsest_scale: int
+                           ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """:func:`intensity_pyramid` of both images of a pair: the plain
+    version of kernel F2, which builds levels ``1..coarsest_scale`` of both
+    in one launch (level 0 is each image itself)."""
+    return (intensity_pyramid(img1, coarsest_scale),
+            intensity_pyramid(img2, coarsest_scale))

@@ -14,12 +14,17 @@ warp ``refinement_inner_sweeps`` lagged robust-weight updates, per update
 ``refinement_omega``, each a pair of masked half-sweeps over the whole
 plane.  No TPU kernel backs it: the JAX package writes it as elementwise
 code that XLA fuses.  Here :func:`variational_refinement` is a Python
-loop over three steps, each one kernel on CUDA tensors
-(``ops/cuda/refine_kernel.py``, ``csrc/variational.cu``): R1 the warp
-(:func:`refine_warp_plain`), R2 one weight update
-(:func:`refine_weights_plain`) and R3 one half-sweep
-(:func:`refine_sor_plain`).  The three plain functions are the kernels'
-plain versions: torch ops, which CPU tensors (and ``plain=True``) run.
+loop over a few steps, each one kernel on CUDA tensors
+(``ops/cuda/refine_kernel.py``, ``csrc/refine_planes.cu`` and
+``csrc/variational.cu``): R0 the level's Sobel planes
+(:func:`refine_planes_plain`), R1 the warp (:func:`refine_warp_plain`; in
+its setup mode, :func:`refine_setup_plain`, also the weight update's
+inputs), R2 one weight update (:func:`refine_weights_plain`) and R3 one
+half-sweep (:func:`refine_sor_plain`; in its compose mode,
+:func:`refine_compose_plain`, the last one, which also writes the flow).
+These plain functions are the kernels' plain versions: torch ops, which
+CPU tensors (and ``plain=True``) run.  The ``warp1`` scheme warps one
+plane with R1 and keeps its Sobels and differences as torch ops.
 
 Every expression keeps the JAX package's order of operations, and each
 step is its own op, so no multiply-add is contracted.  Where the JAX
@@ -181,6 +186,73 @@ def refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, de
     return torch.where(mask, du_new, du), torch.where(mask, dv_new, dv)
 
 
+def refine_planes_plain(img1: torch.Tensor, img2: torch.Tensor, p: int, h: int, w: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The Sobel planes of one refinement level (``planes6``): I1 and I2
+    are the windows [(B,) h, w] at offset ``p`` of the planes ``img1`` and
+    ``img2`` [(B,) H, W].  Returns (I1x, I1y, planes [(B,) h, w, 6]), the
+    stack ``[I2, I2x, I2y, I2xx, I2xy, I2yy]`` that R1 warps; the second
+    Sobels reflect the first Sobel planes at the border (reflect-101 needs
+    2 or more rows and columns).  The plain version of kernel R0."""
+    I1 = img1[..., p:p + h, p:p + w]
+    I2 = img2[..., p:p + h, p:p + w]
+    I1x = im.sobel3(I1, "x")
+    I1y = im.sobel3(I1, "y")
+    I2x = im.sobel3(I2, "x")
+    I2y = im.sobel3(I2, "y")
+    I2xx = im.sobel3(I2x, "x")
+    I2xy = im.sobel3(I2x, "y")
+    I2yy = im.sobel3(I2y, "y")
+    return I1x, I1y, torch.stack([I2, I2x, I2y, I2xx, I2xy, I2yy], dim=-1)
+
+
+def refine_setup_plain(planes: torch.Tensor, flow: torch.Tensor, img1: torch.Tensor,
+                       I1x: torch.Tensor, I1y: torch.Tensor, p: int):
+    """The warp of an outer iteration (``planes6``) and the weight
+    update's thirteen inputs made from it: (Iz, Izx, Izy, Wx, Wy, Wxx,
+    Wxy, Wyy, m, u0, v0, du, dv), every plane [(B,) h, w], in the order of
+    :func:`refine_weights_plain`'s arguments.  ``planes`` and ``flow`` are
+    R1's; I1 is the window of ``img1`` at offset ``p``; the mask ``m`` is
+    1.0 where the warp fell inside the plane, u0 and v0 the flow's
+    components and du = dv = 0.  The plain version of R1's setup mode."""
+    h, w = flow.shape[-3:-1]
+    I1 = img1[..., p:p + h, p:p + w]
+    u0, v0 = flow.unbind(-1)
+    warped, inb = refine_warp_plain(planes, flow)
+    W, Wx, Wy, Wxx, Wxy, Wyy = warped.unbind(-1)
+    return (W - I1, Wx - I1x, Wy - I1y, Wx, Wy, Wxx, Wxy, Wyy, inb.to(torch.float32),
+            u0, v0, torch.zeros_like(u0), torch.zeros_like(v0))
+
+
+def refine_compose_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
+                         Su0, Sv0, color: int, omega: float) -> torch.Tensor:
+    """The last half-sweep of an outer iteration and the flow it leaves:
+    [(B,) h, w, 2] = (u0 + du, v0 + dv), du and dv the half-sweep's new
+    increments.  The plain version of R3's compose mode."""
+    du, dv = refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
+                              Su0, Sv0, color, omega)
+    return torch.stack([u0 + du, v0 + dv], dim=-1)
+
+
+def _warp1_inputs(warp, planes, flow, I1, I1x, I1y):
+    """The ``warp1`` scheme's weight-update inputs: R1 warps only I2, and
+    the gradients come from the Sobels of the warped image, averaged with
+    I1's (the gradient-averaging linearization of the DIS authors' OpenCV
+    refinement), as torch ops."""
+    u0, v0 = (c.contiguous() for c in flow.unbind(-1))
+    warped, inb = warp(planes, flow)
+    W = warped[..., 0]
+    Wxr = im.sobel3(W, "x")
+    Wyr = im.sobel3(W, "y")
+    Wx = 0.5 * (I1x + Wxr)
+    Wy = 0.5 * (I1y + Wyr)
+    Wxx = im.sobel3(Wx, "x")
+    Wxy = im.sobel3(Wx, "y")
+    Wyy = im.sobel3(Wy, "y")
+    return (W - I1, Wxr - I1x, Wyr - I1y, Wx, Wy, Wxx, Wxy, Wyy, inb.to(torch.float32),
+            u0, v0, torch.zeros_like(u0), torch.zeros_like(v0))
+
+
 def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
                            flow: torch.Tensor, cfg: DISConfig,
                            pad: Optional[int] = None, plain: bool = False) -> torch.Tensor:
@@ -190,76 +262,54 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     ``pad`` is the border width to slice off the planes (default
     ``cfg.img_padding``, matching the Q1 pyramid levels; 0 for the
     exact-size intensity planes of ``refinement_planes="intensity"``).
-    A leading pair axis runs through every step.  Each outer iteration
-    launches R1 once, each weight update R2 once and each half-sweep R3
-    once on CUDA tensors; ``plain=True`` runs their plain versions on any
-    device.  Returns the refined flow, of the shape of ``flow``.
+    A leading pair axis runs through every step.  On CUDA tensors the
+    ``planes6`` scheme launches R0 once, each outer iteration R1 once (in
+    its setup mode), each weight update R2 once and each half-sweep R3
+    once (the last in its compose mode, which writes the flow), and runs
+    no torch op; ``plain=True`` runs their plain versions on any device.
+    Returns the refined flow, of the shape of ``flow``.
     """
     if plain:
-        warp, weights, sor = refine_warp_plain, refine_weights_plain, refine_sor_plain
+        planes_fn, setup, warp = refine_planes_plain, refine_setup_plain, refine_warp_plain
+        weights, sor, compose = refine_weights_plain, refine_sor_plain, refine_compose_plain
     else:
-        from .cuda.refine_kernel import refine_sor as sor
-        from .cuda.refine_kernel import refine_warp as warp
-        from .cuda.refine_kernel import refine_weights as weights
+        from .cuda import refine_kernel as rk
+        planes_fn, setup, warp = rk.refine_planes, rk.refine_setup, rk.refine_warp
+        weights, sor, compose = rk.refine_weights, rk.refine_sor, rk.refine_compose
     h, w = flow.shape[-3:-1]
     p = cfg.img_padding if pad is None else pad
-    I1 = img1_padded[..., p:p + h, p:p + w]
-    I2 = img2_padded[..., p:p + h, p:p + w]
-
-    I1x = im.sobel3(I1, "x")
-    I1y = im.sobel3(I1, "y")
     warp1 = cfg.refinement_scheme == "warp1"
     if warp1:
-        # Only I2 itself is warped; gradients come from Sobel of the
-        # warped image (see below).
-        planes = I2.contiguous()[..., None]
+        I1 = img1_padded[..., p:p + h, p:p + w]
+        I1x = im.sobel3(I1, "x")
+        I1y = im.sobel3(I1, "y")
+        planes = img2_padded[..., p:p + h, p:p + w].contiguous()[..., None]
     else:
-        I2x = im.sobel3(I2, "x")
-        I2y = im.sobel3(I2, "y")
-        I2xx = im.sobel3(I2x, "x")
-        I2xy = im.sobel3(I2x, "y")
-        I2yy = im.sobel3(I2y, "y")
-        planes = torch.stack([I2, I2x, I2y, I2xx, I2xy, I2yy], dim=-1)
+        I1x, I1y, planes = planes_fn(img1_padded, img2_padded, p, h, w)
 
     alpha = cfg.refinement_alpha
     delta = cfg.refinement_delta
     gamma = cfg.refinement_gamma
     omega = cfg.refinement_omega
+    last = (cfg.refinement_inner_sweeps - 1, cfg.refinement_sor_sweeps - 1)
 
     for _ in range(cfg.refinement_iters):
         flow = flow.contiguous()
-        # The kernels take whole planes: u0 and v0 as planes of their own.
-        u0, v0 = (c.contiguous() for c in flow.unbind(-1))
-        warped, inb = warp(planes, flow)
         if warp1:
-            # Warp only I2, then differentiate the WARPED image and
-            # average with I1's gradients (the gradient-averaging
-            # linearization of the DIS authors' OpenCV refinement).
-            W = warped[..., 0]
-            Wxr = im.sobel3(W, "x")
-            Wyr = im.sobel3(W, "y")
-            Wx = 0.5 * (I1x + Wxr)
-            Wy = 0.5 * (I1y + Wyr)
-            Iz = W - I1
-            Izx = Wxr - I1x
-            Izy = Wyr - I1y
-            Wxx = im.sobel3(Wx, "x")
-            Wxy = im.sobel3(Wx, "y")
-            Wyy = im.sobel3(Wy, "y")
+            ins = _warp1_inputs(warp, planes, flow, I1, I1x, I1y)
         else:
-            W, Wx, Wy, Wxx, Wxy, Wyy = warped.unbind(-1)
-            Iz = W - I1
-            Izx = Wx - I1x
-            Izy = Wy - I1y
-        m = inb.to(torch.float32)
-
-        du = torch.zeros_like(u0)
-        dv = torch.zeros_like(v0)
-        for _ in range(cfg.refinement_inner_sweeps):
-            coef = weights(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
-                           alpha, delta, gamma)
-            for _ in range(cfg.refinement_sor_sweeps):
-                for color in (0, 1):   # red, then black
-                    du, dv = sor(u0, v0, du, dv, *coef, color, omega)
-        flow = torch.stack([u0 + du, v0 + dv], dim=-1)
+            ins = setup(planes, flow, img1_padded, I1x, I1y, p)
+        u0, v0, du, dv = ins[9:]
+        composed = None
+        for k in range(cfg.refinement_inner_sweeps):
+            coef = weights(*ins[:11], du, dv, alpha, delta, gamma)
+            for s in range(cfg.refinement_sor_sweeps):
+                du, dv = sor(u0, v0, du, dv, *coef, 0, omega)   # red
+                if (k, s) == last:   # black, and the flow
+                    composed = compose(u0, v0, du, dv, *coef, 1, omega)
+                else:
+                    du, dv = sor(u0, v0, du, dv, *coef, 1, omega)
+        # Without a half-sweep (no weight update or no SOR sweep) the flow
+        # is u0 + 0 and v0 + 0.
+        flow = torch.stack([u0 + du, v0 + dv], dim=-1) if composed is None else composed
     return flow

@@ -88,7 +88,7 @@ def _refine_full(img1: torch.Tensor, img2: torch.Tensor, flow: torch.Tensor,
     as ``dis_flow_padded`` runs it at the end of ``refine_per_level=False``:
     on the finest Q1 levels or on the intensity chain."""
     s = cfg.finest_scale
-    planes = build_refinement_planes(img1, img2, cfg)
+    planes = build_refinement_planes(img1, img2, cfg, plain)
     if planes is not None:
         return refine(None, None, flow, cfg, s, planes, plain)
     pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
@@ -111,7 +111,7 @@ def grid_tiled_flow(img1: torch.Tensor, img2: torch.Tensor, cfg: DISConfig,
                          f"rows into {n_parts} parts")
     pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
     pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
-    planes = build_refinement_planes(img1, img2, cfg)
+    planes = build_refinement_planes(img1, img2, cfg, plain)
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
         l1, l2 = pyr1[scale], pyr2[scale]

@@ -19,10 +19,9 @@ the card.
 :func:`load_exported` loads it as a :class:`CompiledFlow`, with no
 tracing of the pipeline's Python.  Shapes are static: one program per
 bucket, as on the TPU.  On a CUDA device the program holds the kernels
-as ops of the ``dis_tpu_torch`` namespace (``ops/cuda``; R1-R3 where the
-config refines), so the loading process imports the package for their
-registrations only; on
-the CPU it holds the plain versions as ATen ops and loads without the
+as ops of the ``dis_tpu_torch`` namespace (``ops/cuda``; R0-R3 where the
+config refines, F1-F3 where the frame needs them), so the loading process
+imports the package for their registrations only; on the CPU it holds the plain versions as ATen ops and loads without the
 package.  The bucket's plans are the program's constants.  The archive
 keeps beside the program the config, the bucket, the device and, for a
 CUDA program, the key of the kernel sources it was checked against
@@ -58,7 +57,8 @@ from .ops.cuda.extract_kernel import extract_regions
 from .ops.cuda.iclk_kernel import iclk_search
 from .ops.cuda.pyramid_kernel import pyramid_levels
 from .ops.cuda import scale_kernel
-from .ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
+from .ops.cuda import frame_kernel
+from .ops.cuda.refine_kernel import refine_planes, refine_sor, refine_warp, refine_weights
 from .ops.grid import ScalePlan, plan_cache_bytes
 from .utils import checks
 
@@ -151,8 +151,9 @@ class CompiledFlow:
                 static_out = self._run(*static_in)
             after = _launch_counts()
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
-        # K3, K2, K2c and K1 always; R1-R3 where the program refines; S1, S3
-        # and S4 where they launch (S3 in fixed mode).
+        # K3, K2, K2c and K1 always; R0-R3 where the program refines; S1, S3
+        # and S4 where they launch (S3 in fixed mode); F1-F3 where the frame
+        # pads, refines on intensity planes, and upsamples.
         self.graph_launches = {k: after[k] - before[k] for k in after
                                if k in CORE_KERNELS or after[k] != before[k]}
 
@@ -222,9 +223,13 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
 def _launch_counts() -> Dict[str, int]:
     return {"K3": pyramid_levels.launches, "K2": extract_regions.launches,
             "K2c": extract_regions_banded.launches, "K1": iclk_search.launches,
-            "R1": refine_warp.launches, "R2": refine_weights.launches,
-            "R3": refine_sor.launches, "S1": scale_kernel.scale_templates.launches,
-            "S3": scale_kernel.fixed_weights.launches, "S4": scale_kernel.densify.launches}
+            "R0": refine_planes.launches, "R1": refine_warp.launches,
+            "R2": refine_weights.launches, "R3": refine_sor.launches,
+            "S1": scale_kernel.scale_templates.launches,
+            "S3": scale_kernel.fixed_weights.launches, "S4": scale_kernel.densify.launches,
+            "F1": frame_kernel.frame_pad.launches,
+            "F2": frame_kernel.intensity_levels.launches,
+            "F3": frame_kernel.frame_finish.launches}
 
 
 class _Flow(torch.nn.Module):

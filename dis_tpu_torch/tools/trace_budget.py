@@ -16,7 +16,9 @@ graph: the one trace is the eager frame, and its ops are the CPU's.
 Each frame runs inside a range of its own (``FRAME``).  ``summarize``
 reads a Chrome trace and prints three views, per frame:
 
-1. device ms for each kernel, copy and fill name, largest first;
+1. device ms for each kernel, copy and fill name, largest first, the
+   port's kernels with their ids (``PORT_KERNELS``: K1-K3, R0-R3, S1,
+   S3, S4, F1-F3), torch's with the op that launched them;
 2. the same grouped by the innermost pipeline scope that launched it
    (kernels of a replay have none: ``(no scope)``);
 3. the device's time a frame: busy (the union of kernel, copy and fill
@@ -63,6 +65,16 @@ FRAME = "trace_budget.frame"
 SCOPES = re.compile(r"^(pyramid|scale_\d+|refine_s\d+|variational_refinement|stripe_scale_\d+)$")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 NO_SCOPE = "(no scope)"
+# The port's kernels (csrc/) by their function names in a trace, with
+# their ids (K2 and K1 with a pair axis launch the same functions, R1's
+# setup mode and R3's compose mode are instances of R1's and R3's); every
+# other kernel is torch's: the glue, copies and fills.
+PORT_KERNELS = tuple((re.compile(r"(?:^|[\s:])" + pattern), kid) for pattern, kid in (
+    (r"pyramid_kernel\b", "K3"), (r"extract_kernel\b", "K2"), (r"banded_kernel\b", "K2c"),
+    (r"iclk_kernel\b", "K1"), (r"planes_kernel\b", "R0"), (r"warp_kernel\b", "R1"),
+    (r"weights_kernel\(", "R2"), (r"sor_kernel\b", "R3"), (r"templates_kernel\b", "S1"),
+    (r"weights_kernel<", "S3"), (r"densify_kernel\b", "S4"), (r"pad_kernel\b", "F1"),
+    (r"levels_kernel\b", "F2"), (r"finish_kernel\b", "F3")))
 
 # The compat bench config of bench.py: iterations 16, patch 8, stride 5,
 # scales 3..0, no early exit.
@@ -189,8 +201,10 @@ def _self_times(ops):
 def budget(trace: dict) -> dict:
     """The budget of the frames in ``trace`` (a Chrome trace dict), per
     frame: {"events": "device" or "cpu", "frames", "ops": {name: ms},
-    "scopes": {scope: ms}, "total_ms", "busy_ms", "device_ms",
-    "span_ms", "window_ms", "busy_share", "kernels"}.
+    "scopes": {scope: ms}, "port_kernels": {id: ms}, "port_ms", "total_ms",
+    "busy_ms", "device_ms", "span_ms", "window_ms", "busy_share",
+    "kernels"}: ``port_kernels`` the ops of the port's kernels by id, and
+    ``port_ms`` their sum.
 
     Ops and scopes are largest first and both sum to ``total_ms``.  Of a
     frame on the device: ``busy_ms`` is the union of its events' spans;
@@ -266,12 +280,23 @@ def budget(trace: dict) -> dict:
     mean = lambda xs: sum(xs) / 1e3 / frames
     per = lambda c: {k: v / 1e3 / frames for k, v in c.most_common()}
     window = (w1 - w0) / 1e3 / frames
+    by_kernel = collections.Counter()
+    for k, v in ops.items():
+        if kernel_id(k):
+            by_kernel[kernel_id(k)] += v
     return {"events": "device" if dev_ev else "cpu", "frames": frames, "ops": per(ops),
+            "port_kernels": per(by_kernel), "port_ms": sum(by_kernel.values()) / 1e3 / frames,
             "scopes": per(by_scope), "total_ms": sum(ops.values()) / 1e3 / frames,
             "busy_ms": mean(busy), "device_ms": mean(launched), "span_ms": mean(spans),
             "window_ms": window, "busy_share": mean(busy) / window,
             "kernels": sum(e.get("cat") == "kernel" for e in dev_ev) / frames,
             "launched_by": {k: c.most_common(1)[0][0] for k, c in op_of.items()}}
+
+
+def kernel_id(name: str) -> Optional[str]:
+    """The id of the port's kernel that a trace names ``name`` (K1-K3, R0-R3,
+    S1, S3, S4, F1-F3), or None for torch's."""
+    return next((kid for pattern, kid in PORT_KERNELS if pattern.search(name)), None)
 
 
 def _short(kernel: str) -> str:
@@ -291,7 +316,7 @@ def summarize(trace_path: str, top: int = 20) -> dict:
     print(f"{trace_path}: {what} total {got['total_ms']:.4f} ms/frame "
           f"({len(got['ops'])} distinct names, {got['frames']} frames)")
     for k, v in list(got["ops"].items())[:top]:
-        by = got["launched_by"].get(k)
+        by = kernel_id(k) or got["launched_by"].get(k)
         print(f"{v:9.4f} ms  " + (f"[{by}] " if by else "") + _short(k)[:100])
     print("--- by pipeline scope")
     for k, v in got["scopes"].items():

@@ -31,7 +31,15 @@ the output's edges, S1 at each tile shape its plan picks (ps 2-20,
 strides 1-64), S4 on cover tables in another order or reaching past its
 staged sub-block; S1's start read from no flow while its flag is off,
 whatever pointer stands in its place; one S1 a scale on the main path,
-and no start kernel left.
+and no start kernel left; R0 (a level's Sobel planes), R1's setup mode
+and R3's compose mode bitwise equal to their plain versions at 2 and odd
+rows and columns, B absent, 1 and 3, on padded windows and whole planes,
+omega 1.0 and 1.6, and the refinement through them on the card bitwise
+the CPU's with Q1 and intensity planes; F1 (the frame's padding, also of
+a strided view), F2 (the intensity levels, chained past five) and F3 (the
+upsample and crop) bitwise equal to their plain versions, with R0 once a
+level, F2 once a frame, F1 only where the frame pads and F3 only where
+finest_scale > 0.
 """
 
 import numpy as np
@@ -596,8 +604,9 @@ def test_refined_graph_batch_and_tiles():
     x, y = _batch(2, 96, 128, 111)
     eager = dis_tpu_torch.dis_flow(x, y, cfg)
     compiled = aot_compile(cfg, 96, 128, batch=2)
-    assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R1": 4,
-                                       "R2": 20, "R3": 200, "S1": 4, "S3": 4, "S4": 4}
+    assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R0": 4, "R1": 4,
+                                       "R2": 20, "R3": 200, "S1": 4, "S3": 4, "S4": 4,
+                                       "F2": 1}
     for _ in range(2):
         assert torch.equal(compiled(x, y), eager)
     for i in range(2):
@@ -759,7 +768,7 @@ def test_cuda_artifact_replays_as_aot_compile(batch):
     cfg = dis_tpu_torch.DIS_FAST
     run, program = load_exported(export_flow(cfg, 75, 118, batch=batch))
     assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "S1": 4, "S3": 4,
-                                   "S4": 4}
+                                   "S4": 4, "F1": 1}
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     compiled = aot_compile(cfg, 75, 118, batch=batch)
     for _ in range(2):
@@ -1064,3 +1073,218 @@ def test_scale_wrappers_check_their_inputs():
     cols = torch.zeros(5, 3, dtype=torch.int64, device="cuda")
     with pytest.raises(TypeError, match="int64"):
         sk.densify(u, None, rows, cols, torch.zeros(4, 5, 1, device="cuda"), 2, 3)
+
+
+# -- R0, R1's setup mode, R3's compose mode, F1-F3: the last device glue -----------
+
+GLUE_SHAPES = [(2, 2), (2, 7), (5, 2), (9, 13), (37, 53), (67, 131)]
+
+
+def _planes_pair(batch, h, w, p, seed):
+    """Two level planes [(B,) h + 2p, w + 2p] of 0..255 values on the card."""
+    rng = np.random.default_rng(seed)
+    lead = () if batch is None else (batch,)
+    return tuple(torch.from_numpy((rng.random(lead + (h + 2 * p, w + 2 * p)) * 255)
+                                  .astype(np.float32)).cuda() for _ in range(2))
+
+
+@pytest.mark.parametrize("shape", GLUE_SHAPES)
+@pytest.mark.parametrize("batch", [None, 1, 3])
+@pytest.mark.parametrize("p", [0, 3])
+def test_refine_planes_setup_compose_bitwise(shape, batch, p):
+    """R0 on windows of the planes (p = 3, the Q1 levels' layout) and on
+    whole planes (p = 0, the intensity planes), R1's setup mode on its
+    planes and a random flow, and R3's compose mode (both colours, omega
+    1.0 and 1.6) on the weight update's coefficients: each bitwise equal
+    to its plain version, one launch each, counted in R1's and R3's."""
+    from dis_tpu_torch.ops import variational as tvar
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+    h, w = shape
+    img1, img2 = _planes_pair(batch, h, w, p, sum(shape) + p)
+    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_sor,
+                rk.refine_compose)
+    for w_ in wrappers:
+        w_.launches = 0
+    got, want = rk.refine_planes(img1, img2, p, h, w), tvar.refine_planes_plain(img1, img2,
+                                                                                p, h, w)
+    assert all(g.shape == v.shape and torch.equal(g, v) for g, v in zip(got, want))
+    I1x, I1y, planes = got
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(7)
+    flow = torch.from_numpy(((rng.random(lead + (h, w, 2)) - 0.5) * 9)
+                            .astype(np.float32)).cuda()
+    ins = rk.refine_setup(planes, flow, img1, I1x, I1y, p)
+    want = tvar.refine_setup_plain(planes, flow, img1, I1x, I1y, p)
+    assert len(ins) == 13 and all(torch.equal(g, v) for g, v in zip(ins, want))
+    assert all(t.is_contiguous() for t in ins)
+    coef = tvar.refine_weights_plain(*ins[:11], *(t + 0.01 for t in ins[11:]), 40.0, 5.0,
+                                     10.0)
+    sor = (*ins[9:11], ins[11] + 0.01, ins[12] - 0.02, *coef)
+    for color in (0, 1):
+        for omega in (1.0, 1.6):
+            got = rk.refine_compose(*sor, color, omega)
+            want = tvar.refine_compose_plain(*sor, color, omega)
+            assert got.shape == want.shape and torch.equal(got, want), (color, omega)
+    torch.cuda.synchronize()
+    assert [w_.launches for w_ in wrappers] == [1, 1, 1, 4, 4]
+
+
+def test_refine_planes_refuses_what_its_plain_version_refuses():
+    """The Sobel's reflect-101 border needs 2 rows and columns: a window of
+    1 raises on the card as it does in the plain version."""
+    from dis_tpu_torch.ops import variational as tvar
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+    for h, w in ((1, 5), (5, 1)):
+        a, b = _planes_pair(None, h, w, 0, 3)
+        with pytest.raises((RuntimeError, ValueError)):
+            tvar.refine_planes_plain(a, b, 0, h, w)
+        with pytest.raises(ValueError, match="reflect"):
+            rk.refine_planes(a, b, 0, h, w)
+
+
+@pytest.mark.parametrize("scheme", ["planes6", "warp1"])
+@pytest.mark.parametrize("planes", ["q1", "intensity"])
+@pytest.mark.parametrize("omega", [1.0, 1.6])
+@pytest.mark.parametrize("batch", [None, 1, 3])
+def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
+    """The refinement on the card (R0 once, R1 in its setup mode, R3's
+    last half-sweep in its compose mode) equals the same call on the CPU
+    bitwise, on Q1-style padded planes (pad 8) and on intensity planes
+    (pad 0), odd sizes; the warp1 scheme keeps R1's warp and no R0."""
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+    from dis_tpu_torch.ops.variational import variational_refinement
+
+    h, w, pad = 37, 53, (8 if planes == "q1" else 0)
+    x, y = _planes_pair(batch, h, w, pad, 5)
+    lead = () if batch is None else (batch,)
+    flow = torch.from_numpy(((np.random.default_rng(3).random(lead + (h, w, 2)) - 0.5) * 4)
+                            .astype(np.float32)).cuda()
+    cfg = dis_tpu_torch.DISConfig(mode="fixed", refinement_iters=2, refinement_inner_sweeps=3,
+                                  refinement_sor_sweeps=2, refinement_omega=omega,
+                                  refinement_alpha=40.0, refinement_scheme=scheme,
+                                  refinement_planes=planes)
+    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_weights,
+                rk.refine_sor, rk.refine_compose)
+    for w_ in wrappers:
+        w_.launches = 0
+    card = variational_refinement(x, y, flow, cfg, pad=pad)
+    six = scheme == "planes6"
+    assert [w_.launches for w_ in wrappers] == [int(six), 2, 2 * six, 6, 24, 2]
+    cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=pad)
+    torch.cuda.synchronize()
+    assert card.shape == flow.shape and torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 2), (5, 7), (37, 53), (375, 1242)])
+@pytest.mark.parametrize("batch", [None, 1, 3])
+@pytest.mark.parametrize("coarsest", [1, 3, 4])
+def test_frame_pad_bitwise(shape, batch, coarsest):
+    """F1 pads both images in one launch, bitwise ``pad_divisible``; a
+    frame that needs no padding launches nothing and is returned as it is;
+    a strided view pads as its copy does."""
+    from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda import frame_kernel as fk
+
+    a, b = _planes_pair(batch, *shape, 0, sum(shape))
+    fk.frame_pad.launches = 0
+    p1, p2, pads = fk.frame_pad(a, b, coarsest)
+    w1, w2, wpads = im.frame_pad_plain(a, b, coarsest)
+    assert pads == wpads and torch.equal(p1, w1) and torch.equal(p2, w2)
+    f = 2 ** coarsest
+    padded = shape[0] % f or shape[1] % f
+    assert fk.frame_pad.launches == int(bool(padded))
+    if not padded:
+        assert p1 is a and p2 is b
+    strided = a.transpose(-1, -2)
+    s1, s2, _ = fk.frame_pad(strided, b.transpose(-1, -2), coarsest)
+    c1, c2, _ = im.frame_pad_plain(strided.contiguous(), b.transpose(-1, -2).contiguous(),
+                                   coarsest)
+    assert torch.equal(s1, c1) and torch.equal(s2, c2)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("coarsest", [1, 2, 3, 4, 5, 7])
+@pytest.mark.parametrize("batch", [None, 1, 3])
+def test_intensity_levels_bitwise(coarsest, batch):
+    """F2 builds levels 1..coarsest of both images in one launch (two past
+    five levels), each bitwise ``intensity_pyramid``; level 0 is the image
+    itself."""
+    from dis_tpu_torch.ops.cuda import frame_kernel as fk
+    from dis_tpu_torch.ops.pyramid import intensity_pyramid
+
+    f = 2 ** coarsest
+    h, w = f * 3, f * 5 if coarsest < 7 else f
+    a, b = _planes_pair(batch, h, w, 0, coarsest)
+    fk.intensity_levels.launches = 0
+    got1, got2 = fk.intensity_levels(a, b, coarsest)
+    assert fk.intensity_levels.launches == -(-coarsest // fk.MAX_LEVELS)
+    assert got1[0] is a and got2[0] is b
+    for got, img in ((got1, a), (got2, b)):
+        want = intensity_pyramid(img, coarsest)
+        assert len(got) == len(want) == coarsest + 1
+        assert all(g.shape == v.shape and torch.equal(g, v) for g, v in zip(got, want))
+    with pytest.raises(ValueError, match="divisible"):
+        fk.intensity_levels(a[..., :-1], b[..., :-1], coarsest)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("finest", [1, 2])
+@pytest.mark.parametrize("frame", [(375, 1242), (37, 53), (64, 96), (2, 2)])
+@pytest.mark.parametrize("batch", [None, 1, 3])
+def test_frame_finish_bitwise(finest, frame, batch):
+    """F3 writes the cropped, upsampled, scaled flow in one launch, bitwise
+    the scale, ``resize_bilinear`` and ``crop_padding``; at finest scale 0
+    it launches nothing and returns the crop, a view."""
+    from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda import frame_kernel as fk
+
+    coarsest = 3
+    f = 2 ** coarsest
+    hh, ww = frame
+    ph, pw = -(-hh // f) * f, -(-ww // f) * f
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(hh + finest)
+    flow = torch.from_numpy(((rng.random(lead + (ph >> finest, pw >> finest, 2)) - 0.5) * 20)
+                            .astype(np.float32)).cuda()
+    fk.frame_finish.launches = 0
+    got = fk.frame_finish(flow, finest, pw - ww, ph - hh, ww, hh)
+    want = im.frame_finish_plain(flow, finest, pw - ww, ph - hh, ww, hh)
+    assert got.shape == want.shape == lead + (hh, ww, 2) and torch.equal(got, want)
+    assert fk.frame_finish.launches == 1
+    same = fk.frame_finish(flow, 0, 0, 0, pw >> finest, ph >> finest)
+    assert fk.frame_finish.launches == 1 and same.data_ptr() == flow.data_ptr()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("preset, frame, want", [
+    ("DIS_ULTRAFAST", (75, 118), {"F1": 1, "F3": 1}),
+    ("DIS_MEDIUM", (96, 128), {"F2": 1, "R0": 4}),
+    ("DIS_MEDIUM", (75, 118), {"F1": 1, "F2": 1, "R0": 4}),
+    ("DIS_FULL", (75, 118), {"F1": 1, "F2": 1, "R0": 5}),
+    ("DIS_FAST", (96, 128), {}),
+])
+def test_frame_and_level_launches(preset, frame, want):
+    """Per dis_flow call: R0 once a refined level, F2 once a frame where the
+    refinement reads intensity planes, F1 only where the frame pads, F3
+    only where finest_scale > 0; the flow equals the kernel pipeline
+    between the plain padding and the plain upsample and crop, bitwise."""
+    from dis_tpu_torch.ops import image as im
+    from dis_tpu_torch.ops.cuda import frame_kernel as fk
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+    cfg = getattr(dis_tpu_torch, preset)
+    x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in _smooth(*frame, 9))
+    counted = {"R0": rk.refine_planes, "F1": fk.frame_pad, "F2": fk.intensity_levels,
+               "F3": fk.frame_finish}
+    for w_ in counted.values():
+        w_.launches = 0
+    flow = dis_tpu_torch.dis_flow(x, y, cfg)
+    torch.cuda.synchronize()
+    assert {k: w_.launches for k, w_ in counted.items() if w_.launches} == want
+    assert flow.shape == frame + (2,) and bool(torch.isfinite(flow).all())
+    p1, p2, (padw, padh) = im.frame_pad_plain(x, y, cfg.coarsest_scale)
+    plain = im.frame_finish_plain(dis_tpu_torch.dis_flow_padded(p1, p2, cfg),
+                                  cfg.finest_scale, padw, padh, frame[1], frame[0])
+    assert torch.equal(flow, plain)

@@ -148,7 +148,7 @@ def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch):
     assert p.parent == _build.BUILD_DIR and p == _build.library_path()
     assert {s.name for s in _build.CSRC_DIR.glob("*.cu")} == {
         "pyramid_level.cu", "extract_regions.cu", "extract_banded.cu", "iclk.cu",
-        "variational.cu", "scale_glue.cu"}
+        "variational.cu", "scale_glue.cu", "refine_planes.cu", "frame_glue.cu"}
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", str(_build.PKG_DIR / "no-such-toolkit"))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -1,0 +1,418 @@
+"""The last device glue as kernels (R0, R1's setup mode, R3's compose mode,
+F1-F3) on the CPU.
+
+A refinement level's Sobel planes (R0, ``refine_planes_plain``), the
+weight update's inputs that R1 writes in its setup mode
+(``refine_setup_plain``), the flow that R3 writes in its compose mode
+(``refine_compose_plain``), the frame's padding (F1,
+``frame_pad_plain``), the refinement's intensity levels (F2,
+``intensity_levels_plain``) and the finest flow's upsample and crop (F3,
+``frame_finish_plain``) are plain torch versions of hand-written CUDA
+kernels (``csrc/refine_planes.cu``, ``csrc/variational.cu``,
+``csrc/frame_glue.cu``).  On ``numpy.random.default_rng`` inputs, odd
+and even sizes down to 2 x 2, B absent and 3:
+
+- each plain version is bitwise the JAX package's function on the CPU
+  (``sobel3`` chains and ``jnp.stack``; ``pad_divisible``;
+  ``intensity_pyramid`` through its ``window2`` route, whose association
+  the port uses; the scale, ``resize_bilinear`` and ``crop_padding``),
+  pair by pair;
+- R1's setup mode and R3's compose mode are bitwise the composition they
+  replaced (a verbatim copy below);
+- every new op passes ``torch.library.opcheck`` within ``ops_on_cpu``,
+  and its wrapper refuses there what the plain version refuses (a window
+  too small for the Sobel's reflect-101 border, dims that do not halve);
+- one ``planes6`` refinement level of ``DIS_MEDIUM`` and of ``DIS_FULL``
+  within ``ops_on_cpu`` dispatches no ATen op outside ``dis_tpu_torch::``
+  ops, views aside (54 before these kernels), and a whole ``dis_flow``
+  that pads and upsamples (``DIS_ULTRAFAST``) none either.
+
+The kernels themselves run on the card (``tests/test_torch_kernels_cuda.py``,
+``chip_smoke.py`` phases 1e and 1g).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import dis_tpu_torch
+from dis_tpu.ops import image as jim
+from dis_tpu.ops import pyramid as jpyr
+from dis_tpu_torch.ops import cuda as kops
+from dis_tpu_torch.ops import image as tim
+from dis_tpu_torch.ops import pyramid as tpyr
+from dis_tpu_torch.ops import variational as tvar
+from dis_tpu_torch.ops.cuda import frame_kernel as fk
+from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+from torch_threads import one_thread
+
+SHAPES = [(2, 2), (2, 7), (5, 2), (9, 13), (16, 24), (37, 53)]
+BATCHES = [None, 3]
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    with one_thread():
+        yield
+
+
+def _planes(batch, h, w, seed, scale=255.0):
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(seed)
+    return (rng.random(lead + (h, w)) * scale).astype(np.float32)
+
+
+def _pairs(x, batched):
+    """The pairs of a batch (or the one array) as NumPy arrays."""
+    return list(x) if batched else [x]
+
+
+def _check_pairwise(got, x_np, jax_fn, batched):
+    """``got`` [(B,) ...] torch equals ``jax_fn`` of each pair bitwise."""
+    for i, xi in enumerate(_pairs(x_np, batched)):
+        want = np.asarray(jax_fn(xi))
+        np.testing.assert_array_equal((got[i] if batched else got).numpy(), want)
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the ops one call dispatches: ``dis_tpu_torch`` ops by name
+    (``calls``), and non-view ATen ops (``aten``)."""
+
+    def __enter__(self):
+        self.calls, self.aten = {}, {}
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "dis_tpu_torch":
+            name = func.name().split("::")[1].split(".")[0]
+            self.calls[name] = self.calls.get(name, 0) + 1
+        elif func.namespace == "aten" and not func.is_view:
+            name = func.name()
+            self.aten[name] = self.aten.get(name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+# -- R0: the level's Sobel planes --------------------------------------------------
+
+def _jax_planes(i1, i2):
+    I1x, I1y = jim.sobel3(i1, "x"), jim.sobel3(i1, "y")
+    I2x, I2y = jim.sobel3(i2, "x"), jim.sobel3(i2, "y")
+    stack = jnp.stack([i2, I2x, I2y, jim.sobel3(I2x, "x"), jim.sobel3(I2x, "y"),
+                       jim.sobel3(I2y, "y")], axis=-1)
+    return I1x, I1y, stack
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("p", [0, 3])
+def test_refine_planes_plain_bitwise_vs_jax(shape, batch, p):
+    """R0's plain version on the windows at offset ``p`` equals the JAX
+    package's Sobel chains and stack on the same windows."""
+    h, w = shape
+    a = _planes(batch, h + 2 * p, w + 2 * p, sum(shape))
+    b = _planes(batch, h + 2 * p, w + 2 * p, sum(shape) + 1)
+    got = tvar.refine_planes_plain(torch.from_numpy(a), torch.from_numpy(b), p, h, w)
+    assert tuple(got[2].shape) == a.shape[:-2] + (h, w, 6)
+    win = (Ellipsis, slice(p, p + h), slice(p, p + w))
+    for i, (ai, bi) in enumerate(zip(_pairs(a[win], batch), _pairs(b[win], batch))):
+        for g, v in zip(got, _jax_planes(jnp.asarray(ai), jnp.asarray(bi))):
+            np.testing.assert_array_equal((g if batch is None else g[i]).numpy(),
+                                          np.asarray(v))
+
+
+def test_refine_planes_refuses_a_window_of_one():
+    """The plain version's reflect-101 pad refuses 1 row or column; within
+    ``ops_on_cpu`` (the CUDA path's checks) the wrapper refuses it too."""
+    for h, w in ((1, 4), (4, 1)):
+        a, b = (torch.from_numpy(_planes(None, h, w, s)) for s in (1, 2))
+        with pytest.raises((RuntimeError, ValueError)):
+            tvar.refine_planes_plain(a, b, 0, h, w)
+        with kops.ops_on_cpu(), pytest.raises(ValueError, match="reflect-101"):
+            rk.refine_planes(a, b, 0, h, w)
+    with kops.ops_on_cpu(), pytest.raises(ValueError, match="outside"):
+        a = torch.zeros(6, 6)
+        rk.refine_planes(a, a, 3, 4, 4)
+
+
+# -- R1's setup mode and R3's compose mode -------------------------------------------
+
+def _composition_setup(planes, flow, I1, I1x, I1y):
+    """The weight update's inputs as the refinement made them before R1's
+    setup mode (a verbatim copy of the loop's body)."""
+    flow = flow.contiguous()
+    u0, v0 = (c.contiguous() for c in flow.unbind(-1))
+    warped, inb = tvar.refine_warp_plain(planes, flow)
+    W, Wx, Wy, Wxx, Wxy, Wyy = warped.unbind(-1)
+    Iz = W - I1
+    Izx = Wx - I1x
+    Izy = Wy - I1y
+    m = inb.to(torch.float32)
+    du = torch.zeros_like(u0)
+    dv = torch.zeros_like(v0)
+    return Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv
+
+
+def _setup_inputs(batch, h, w, p, seed):
+    a = torch.from_numpy(_planes(batch, h + 2 * p, w + 2 * p, seed))
+    b = torch.from_numpy(_planes(batch, h + 2 * p, w + 2 * p, seed + 1))
+    I1x, I1y, planes = tvar.refine_planes_plain(a, b, p, h, w)
+    lead = () if batch is None else (batch,)
+    flow = torch.from_numpy(((np.random.default_rng(seed + 2).random(lead + (h, w, 2)) - 0.5)
+                             * 9).astype(np.float32))
+    return planes, flow, a, I1x, I1y, p
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("p", [0, 3])
+def test_setup_plain_is_the_composition(shape, batch, p):
+    """R1's setup mode's plain version is bitwise the warp, differences,
+    mask and zero increments it replaced, and the op's CPU function
+    stacks them in R2's input order."""
+    args = _setup_inputs(batch, *shape, p, sum(shape))
+    planes, flow, a, I1x, I1y, _ = args
+    h, w = shape
+    want = _composition_setup(planes, flow, a[..., p:p + h, p:p + w], I1x, I1y)
+    got = tvar.refine_setup_plain(*args)
+    assert len(got) == len(rk.WEIGHT_INPUTS) == 13
+    assert all(g.shape == v.shape and torch.equal(g, v) for g, v in zip(got, want))
+    assert torch.equal(rk.refine_setup_op(*args), torch.stack(want))
+
+
+def _sor_args(batch, h, w, seed):
+    planes, flow, a, I1x, I1y, p = _setup_inputs(batch, h, w, 0, seed)
+    ins = tvar.refine_setup_plain(planes, flow, a, I1x, I1y, p)
+    rng = np.random.default_rng(seed + 3)
+    du, dv = (torch.from_numpy((rng.standard_normal(ins[0].shape) * 0.05).astype(np.float32))
+              for _ in range(2))
+    coef = tvar.refine_weights_plain(*ins[:11], du, dv, 40.0, 5.0, 10.0)
+    return (ins[9], ins[10], du, dv, *coef)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("omega", [1.0, 1.6])
+def test_compose_plain_is_the_composition(shape, batch, color, omega):
+    """R3's compose mode's plain version is bitwise the half-sweep then
+    ``stack([u0 + du, v0 + dv])`` it replaced, also through the op."""
+    args = _sor_args(batch, *shape, sum(shape) + color)
+    du, dv = tvar.refine_sor_plain(*args, color, omega)
+    want = torch.stack([args[0] + du, args[1] + dv], dim=-1)
+    assert torch.equal(tvar.refine_compose_plain(*args, color, omega), want)
+    assert torch.equal(rk.refine_compose_op(*args, color, omega), want)
+
+
+# -- F1, F2, F3: the frame's glue ----------------------------------------------------
+
+FRAMES = [(2, 2), (5, 7), (16, 24), (37, 53), (75, 118)]
+
+
+@pytest.mark.parametrize("shape", FRAMES)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("coarsest", [1, 3, 4])
+def test_frame_pad_plain_bitwise_vs_jax(shape, batch, coarsest):
+    """F1's plain version pads both images as the JAX package's
+    ``pad_divisible`` pads each, with its pads."""
+    a, b = _planes(batch, *shape, 1), _planes(batch, *shape, 2)
+    p1, p2, pads = tim.frame_pad_plain(torch.from_numpy(a), torch.from_numpy(b), coarsest)
+    assert pads == jim.pad_divisible(jnp.asarray(_pairs(a, batch)[0]), coarsest)[1]
+    _check_pairwise(p1, a, lambda x: jim.pad_divisible(jnp.asarray(x), coarsest)[0], batch)
+    _check_pairwise(p2, b, lambda x: jim.pad_divisible(jnp.asarray(x), coarsest)[0], batch)
+
+
+@pytest.mark.parametrize("unit", [(1, 1), (3, 5), (6, 10)])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("coarsest", [0, 1, 3, 4])
+def test_intensity_levels_plain_bitwise_vs_jax(unit, batch, coarsest, monkeypatch):
+    """F2's plain version gives both images' chains, each bitwise the JAX
+    package's ``intensity_pyramid`` (its ``window2`` route), on planes of
+    ``unit`` times ``2**coarsest`` (2 x 2 the smallest that halves);
+    level 0 is the image itself."""
+    shape = tuple(u << coarsest for u in unit)
+    monkeypatch.setenv("DIS_TPU_RESIZE", "window2")
+    a, b = _planes(batch, *shape, 3), _planes(batch, *shape, 4)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    got1, got2 = tpyr.intensity_levels_plain(ta, tb, coarsest)
+    assert got1[0] is ta and got2[0] is tb and len(got1) == len(got2) == coarsest + 1
+    for got, x in ((got1, a), (got2, b)):
+        for s in range(coarsest + 1):
+            _check_pairwise(got[s], x,
+                            lambda xi: jpyr.intensity_pyramid(jnp.asarray(xi), coarsest)[s],
+                            batch)
+
+
+def test_intensity_levels_refuse_dims_that_do_not_halve():
+    """``resize_half`` refuses odd dims; within ``ops_on_cpu`` F2's wrapper
+    refuses dims not divisible by ``2**coarsest`` before any launch."""
+    a = torch.zeros(12, 20)
+    with pytest.raises(ValueError, match="even dims"):
+        tpyr.intensity_levels_plain(a, a, 3)
+    with kops.ops_on_cpu(), pytest.raises(ValueError, match="divisible"):
+        fk.intensity_levels(a, a, 3)
+
+
+@pytest.mark.parametrize("frame", FRAMES)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("finest", [0, 1, 2])
+def test_frame_finish_plain_bitwise_vs_jax(frame, batch, finest):
+    """F3's plain version equals the JAX package's scale, ``resize_bilinear``
+    and ``crop_padding`` of the finest flow of a frame padded for
+    ``coarsest_scale`` 3, pair by pair."""
+    hh, ww = frame
+    ph, pw = -(-hh // 8) * 8, -(-ww // 8) * 8
+    lead = () if batch is None else (batch,)
+    flow = (np.random.default_rng(hh + finest).standard_normal(
+        lead + (ph >> finest, pw >> finest, 2)) * 5).astype(np.float32)
+    got = tim.frame_finish_plain(torch.from_numpy(flow), finest, pw - ww, ph - hh, ww, hh)
+    assert tuple(got.shape) == lead + (hh, ww, 2)
+
+    def jax_finish(f):
+        f = jnp.asarray(f)
+        if finest:
+            f = jim.resize_bilinear(f * jnp.float32(2 ** finest), pw, ph)
+        return jim.crop_padding(f, pw - ww, ph - hh, ww, hh)
+
+    _check_pairwise(got, flow, jax_finish, batch)
+
+
+def test_frame_wrappers_launch_nothing_where_nothing_runs():
+    """F1 returns a frame that needs no padding as it is, F3 at finest
+    scale 0 the crop as a view, F2 at coarsest scale 0 the images: within
+    ``ops_on_cpu`` none dispatches its op."""
+    a = torch.from_numpy(_planes(None, 16, 24, 5))
+    flow = torch.zeros(16, 24, 2)
+    with _CountOps() as ops, kops.ops_on_cpu():
+        p1, p2, pads = fk.frame_pad(a, a, 3)
+        crop = fk.frame_finish(flow, 0, 0, 0, 24, 16)
+        l1, l2 = fk.intensity_levels(a, a, 0)
+    assert ops.calls == {} and ops.aten == {}
+    assert p1 is a and p2 is a and pads == (0, 0)
+    assert crop.data_ptr() == flow.data_ptr() and l1 == [a] and l2 == [a]
+
+
+# -- the ops -----------------------------------------------------------------------
+
+def _opcheck_cases():
+    t = torch.from_numpy
+    img = lambda b, h, w, s: t(_planes(b, h, w, s))
+    setup = _setup_inputs(2, 7, 9, 3, 11)
+    sor = _sor_args(2, 6, 9, 12)
+    flow = t((np.random.default_rng(13).standard_normal((2, 6, 8, 2)) * 3).astype(np.float32))
+    return [
+        ("refine_planes", rk.refine_planes_op, (img(2, 13, 15, 1), img(2, 13, 15, 2), 3, 7, 9)),
+        ("refine_planes_1", rk.refine_planes_op, (img(None, 5, 6, 1), img(None, 5, 6, 2), 0,
+                                                  5, 6)),
+        ("refine_setup", rk.refine_setup_op, setup),
+        ("refine_compose", rk.refine_compose_op, (*sor, 1, 1.6)),
+        ("refine_compose_1", rk.refine_compose_op, (*sor, 0, 1.0)),
+        ("frame_pad", fk.frame_pad_op, (img(2, 5, 7, 3), img(2, 5, 7, 4), 1, 2, 0, 1)),
+        ("intensity_levels", fk.intensity_levels_op, (img(2, 16, 24, 5), img(2, 16, 24, 6),
+                                                      3)),
+        ("frame_finish", fk.frame_finish_op, (flow, 1, 1, 2, 9, 13)),
+    ]
+
+
+@pytest.mark.parametrize("case", _opcheck_cases(), ids=lambda c: c[0])
+def test_opcheck_new_ops(case):
+    """Each new op passes ``torch.library.opcheck`` (its fake function
+    against its CPU function, its schema, no mutation) within
+    ``ops_on_cpu``."""
+    _, op, args = case
+    with kops.ops_on_cpu():
+        torch.library.opcheck(op, args)
+
+
+def test_new_ops_priced_and_counted():
+    """Each new op has a kernel id in ``cost.KERNELS`` (the modes count as
+    R1 and R3) and its wrapper a launch count, which a CPU call leaves
+    at 0."""
+    from dis_tpu_torch import cost
+
+    assert {n: cost.KERNELS[n] for n in ("refine_planes", "refine_setup", "refine_compose",
+                                         "frame_pad", "intensity_levels", "frame_finish")} == {
+        "refine_planes": "R0", "refine_setup": "R1", "refine_compose": "R3",
+        "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
+    for case, _, args in _opcheck_cases():
+        nbytes, ops = cost.op_cost(case.removesuffix("_1"), args)
+        assert nbytes > 0 and ops >= 0
+    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_compose, fk.frame_pad,
+                fk.intensity_levels, fk.frame_finish)
+    for w in wrappers:
+        w.launches = 0
+    with kops.ops_on_cpu():
+        for _, op, args in _opcheck_cases():
+            op(*args)
+    assert [w.launches for w in wrappers] == [0] * len(wrappers)
+
+
+# -- the slice: no torch op left in a refinement level or around the frame ------------
+
+@pytest.mark.parametrize("preset", ["DIS_MEDIUM", "DIS_FULL"])
+@pytest.mark.parametrize("planes", ["intensity", "q1"])
+def test_refinement_level_dispatches_only_kernel_ops(preset, planes):
+    """One ``planes6`` refinement level within ``ops_on_cpu`` (as a CUDA
+    tensor routes): R0 once, R1 once (its setup mode), R2 once a weight
+    update, R3 once a half-sweep (the last in its compose mode), and no
+    ATen op besides (views aside; 54 before these kernels), with the bits
+    of the inline plain path."""
+    import dataclasses
+
+    cfg = dataclasses.replace(getattr(dis_tpu_torch, preset), refinement_planes=planes)
+    h, w, p = 12, 20, (0 if planes == "intensity" else cfg.img_padding)
+    a, b = (torch.from_numpy(_planes(None, h + 2 * p, w + 2 * p, s)) for s in (1, 2))
+    flow = torch.from_numpy((np.random.default_rng(3).standard_normal((h, w, 2)) * 2)
+                            .astype(np.float32))
+    want = tvar.variational_refinement(a, b, flow, cfg, pad=p)
+    with _CountOps() as ops, kops.ops_on_cpu():
+        got = tvar.variational_refinement(a, b, flow, cfg, pad=p)
+    updates = cfg.refinement_inner_sweeps
+    sweeps = 2 * updates * cfg.refinement_sor_sweeps
+    assert ops.aten == {}
+    assert ops.calls == {"refine_planes": 1, "refine_setup": 1, "refine_weights": updates,
+                         "refine_sor": sweeps - 1, "refine_compose": 1}
+    assert torch.equal(got, want)
+
+
+def test_flow_frame_dispatches_only_kernel_ops():
+    """``dis_flow`` on an odd-size frame under ``DIS_ULTRAFAST`` (it pads
+    and upsamples) and ``DIS_MEDIUM`` (it pads and refines on the
+    intensity levels) within ``ops_on_cpu``: F1 once, F3 or F2 once, and
+    besides the kernels' ops only the scale plans' reads and small fills
+    of the search, none of them a pad, a resize or a stack."""
+    from conftest import synthetic_pair
+
+    a, b = (torch.from_numpy(x) for x in synthetic_pair(45, 61))
+    for cfg, frame in ((dis_tpu_torch.DIS_ULTRAFAST, {"frame_pad": 1, "frame_finish": 1}),
+                       (dis_tpu_torch.DIS_MEDIUM, {"frame_pad": 1, "intensity_levels": 1})):
+        want = dis_tpu_torch.dis_flow(a, b, cfg)
+        with _CountOps() as ops, kops.ops_on_cpu():
+            got = dis_tpu_torch.dis_flow(a, b, cfg)
+        assert {k: v for k, v in ops.calls.items()
+                if k in ("frame_pad", "intensity_levels", "frame_finish")} == frame
+        assert ops.aten == {}
+        assert torch.equal(got, want)
+
+
+def test_trace_budget_names_every_kernel():
+    """The trace budget names each of the port's kernels by its id from
+    its function's name in a trace (R2's and S3's share a name, their
+    signatures tell them apart), and none of torch's."""
+    from dis_tpu_torch.tools.trace_budget import kernel_id
+
+    names = {
+        "void (anonymous namespace)::pyramid_kernel<true>(float const*, int)": "K3",
+        "extract_kernel(dis_extract::Args)": "K2", "banded_kernel(dis_extract::Args)": "K2c",
+        "iclk_kernel<8, 8, 8>(float const*)": "K1", "planes_kernel(float const*)": "R0",
+        "warp_kernel<6, true>(float const*)": "R1", "weights_kernel(WeightArgs, int)": "R2",
+        "sor_kernel<true>(SorArgs, int)": "R3", "templates_kernel<8, 8>(TemplateGrid)": "S1",
+        "weights_kernel<8, 8>(float const*)": "S3", "densify_kernel<3, 3, true>(D)": "S4",
+        "pad_kernel(float const*)": "F1", "levels_kernel(float const*)": "F2",
+        "finish_kernel(float const*)": "F3",
+        "void at::native::(anonymous namespace)::replication_pad2d_kernel<float>()": None,
+        "[aten::copy_] Memcpy DtoD (Device -> Device)": None,
+        "void at::native::vectorized_elementwise_kernel<4, CUDAFunctor_add<float>>()": None}
+    assert {n: kernel_id(n) for n in names} == names

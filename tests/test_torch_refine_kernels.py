@@ -19,13 +19,17 @@ functions.  On numpy-seeded inputs:
   CPU ``rsqrt`` is not correctly rounded, and the difference grows
   through the sweeps to about 1e-5 px);
 - the three ops pass ``torch.library.opcheck``; a flow on CPU tensors
-  dispatches none of them, and within ``ops_on_cpu`` one R1 per outer
-  iteration, one R2 per weight update and one R3 per half-sweep;
+  dispatches none of them, and within ``ops_on_cpu`` one R0 a level, one
+  R1 per outer iteration (in its setup mode), one R2 per weight update
+  and one R3 per half-sweep (the last of an outer iteration in its
+  compose mode; ``tests/test_torch_refine_glue.py`` holds R0 and the
+  modes);
 - a CPU export of ``DIS_MEDIUM`` at 64x96 within ``ops_on_cpu`` records
-  R1 = 4, R2 = 20 and R3 = 200 op nodes (its four levels, 5 weight
-  updates of 5 sweeps each): about 2,600 graph nodes where the plain
-  refinement gave 34,478 (the plain K1 included); its cost analysis
-  counts each by the package's formulas.
+  R0 = 4, R1 = 4, R2 = 20, R3 = 200 and F2 = 1 op nodes (its four
+  levels, 5 weight updates of 5 sweeps each, the intensity levels): a
+  tenth of the 34,478 graph nodes the plain refinement gave (the plain
+  K1 included); its cost analysis counts each by the package's
+  formulas.
 
 The kernels themselves run on the card (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py`` phase 1e).
@@ -470,12 +474,14 @@ def test_wrappers_check_their_inputs():
 
 def test_cpu_tensors_route_inline_and_through_ops():
     """A refinement on CPU tensors dispatches no kernel op; within
-    ``ops_on_cpu`` it calls R1 once per outer iteration, R2 once per
-    weight update and R3 once per half-sweep, with the same bits, and
-    launches nothing."""
+    ``ops_on_cpu`` it calls R0 once, R1 (in its setup mode) once per outer
+    iteration, R2 once per weight update and R3 once per half-sweep (the
+    last of each outer iteration in its compose mode), with the same bits,
+    and launches nothing."""
     cfg = _cfg("planes6", 1.0)          # 2 outer x 3 updates x 2 sweeps
     i1, i2, flow = _refine_inputs(9, 13, 0, 2, seed=5)
-    wrappers = (rk.refine_warp, rk.refine_weights, rk.refine_sor)
+    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_weights,
+                rk.refine_sor, rk.refine_compose)
     for w in wrappers:
         w.launches = 0
     with _CountOps() as inline:
@@ -483,9 +489,10 @@ def test_cpu_tensors_route_inline_and_through_ops():
     assert inline.calls == {}
     with _CountOps() as routed, kops.ops_on_cpu():
         got = tvar.variational_refinement(i1, i2, flow, cfg, pad=0)
-    assert routed.calls == {"refine_warp": 2, "refine_weights": 6, "refine_sor": 24}
+    assert routed.calls == {"refine_planes": 1, "refine_setup": 2, "refine_weights": 6,
+                            "refine_sor": 22, "refine_compose": 2}
     assert torch.equal(got, want)
-    assert [w.launches for w in wrappers] == [0, 0, 0]
+    assert [w.launches for w in wrappers] == [0] * 6
 
 
 def test_cpu_export_records_the_refinement_ops():
@@ -504,8 +511,9 @@ def test_cpu_export_records_the_refinement_ops():
     with kops.ops_on_cpu():
         program = torch.export.export(_Flow(cfg), (torch.zeros(h, w), torch.zeros(h, w)))
     assert cost.kernel_ops(program) == {"K3": 2, "K2": levels, "K2c": 0, "K1": levels,
-                                        "R1": levels, "R2": 5 * levels, "R3": 50 * levels,
-                                        "S1": levels, "S3": levels, "S4": levels}
+                                        "R0": levels, "R1": levels, "R2": 5 * levels,
+                                        "R3": 50 * levels, "S1": levels, "S3": levels,
+                                        "S4": levels, "F2": 1}
     assert len(program.graph.nodes) < 34_478 // 10, len(program.graph.nodes)
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     from conftest import synthetic_pair
@@ -516,14 +524,17 @@ def test_cpu_export_records_the_refinement_ops():
     kernels = cost.flow_cost(cfg, h, w)["kernels"]
     assert {k: len(v) for k, v in kernels.items()} == cost.kernel_ops(program)
     want_r3 = []
+    entry = lambda k, i: (kernels[k][i]["bytes accessed"], kernels[k][i]["flops"])
     for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
         hs, ws = h >> s, w >> s
-        assert (kernels["R1"][cfg.coarsest_scale - s]["bytes accessed"],
-                kernels["R1"][cfg.coarsest_scale - s]["flops"]) == cost.refine_warp_cost(
-                    1, hs, ws, 6)
+        i = cfg.coarsest_scale - s
+        assert entry("R0", i) == cost.refine_planes_cost(1, hs, ws)
+        assert entry("R1", i) == cost.refine_setup_cost(1, hs, ws)
         want_r3 += [cost.refine_sor_cost(1, hs, ws, color, True)
-                    for _ in range(25) for color in (0, 1)]
+                    for _ in range(25) for color in (0, 1)][:-1]
+        want_r3.append(cost.refine_compose_cost(1, hs, ws, 1, True))
     assert [(e["bytes accessed"], e["flops"]) for e in kernels["R3"]] == want_r3
+    assert entry("F2", 0) == cost.intensity_levels_cost(1, h, w, cfg.coarsest_scale)
     assert kernels["R2"][0]["bytes accessed"] == cost.refine_weights_cost(1, 8, 12)[0]
 
 
