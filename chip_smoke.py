@@ -137,7 +137,11 @@ replace XLA's fusions of the JAX package's refinement code):
     ``DIS_FULL`` frame (1088 padded rows) and the 1080p ``DIS_MEDIUM``
     frame, each bitwise equal to its plain version and timed beside it
     with its bound, F1 and F3 also beside one ``F.pad`` and one
-    ``F.interpolate`` (their ``library_ms``);
+    ``F.interpolate`` (their ``library_ms``), each beside the floor of a
+    fill and a copy of the bytes it moves (``fill_floor``) and timed again
+    on inputs out of the L2 (``cold_replay_ms``); F2 also with five levels
+    in one launch and on rows of 66 floats (its scalar path), F3 also at
+    2^finest = 4 with an odd crop and at 2 with an even left edge;
 2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R0 4,
     R1 4, R2 20, R3 200, F2 1 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R0 5,
     R1 5, R2 50, R3 500, F1 1, F2 1 (``DIS_FULL``, whose five levels take
@@ -192,6 +196,18 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     1080p ``DIS_MEDIUM`` bucket's ``cost_analysis()``, whose finest-level
     R0, R1 (its setup mode), R2, R3 and R3 (its compose mode) entries and
     its F2 entry give theirs exactly.
+
+Small frames, after phase 2h:
+
+2i. ``dis_flow`` at 8 x 64, 9 x 64, 16 x 64, 64 x 16, 64 x 8 and 1 x 1
+    (coarse planes shorter than a region, coarsest levels of one or two
+    rows or columns; ``SMALL_FRAMES``, ``small_pair``) under compat, ``DIS_FAST``
+    and ``DIS_MEDIUM``, and a batch of 2 under compat: the launches of
+    ``scale_counts`` (adding to the kernels line's), every kernel call
+    held bitwise to its plain version on its recorded inputs
+    (``op_step_inputs``: K3, K2/K2b, K1/K1b, S1, S3, S4, R0, R1's setup
+    mode, R2, R3, R3's compose mode, F1-F3 as they ran), the flow finite
+    and within the phase-2 gates of the same call on the CPU.
 
 The user-facing surface (phase 4, after the times): the CLI
 (``dis_tpu_torch.cli.main``) and the sequence runner on a 9-frame
@@ -301,7 +317,9 @@ still has S2, at the 1080p compat finest and coarsest scales and the
 KITTI B = 8 finest one), the
 replayed 1080p and 4K compat frames, and the refinement of the finest
 level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames (with R0-R3
-and R1's and R3's modes where the tree has them), those frames and the 1080p ``DIS_MEDIUM``
+and R1's and R3's modes where the tree has them), F1, F2 and F3 on phase
+1g's timed inputs (also on inputs out of the L2, beside the floor of a
+fill and a copy of their bytes), those frames and the 1080p ``DIS_MEDIUM``
 artifact's export and load, on the same inputs, for the
 ``dis_tpu_torch`` package under the directory ROOT
 (an unpacked earlier commit, say, to compare two trees in one run on one
@@ -741,15 +759,55 @@ def refine_step_inputs(args, picks):
     return {k: [seen[k][i] for i in picks[k] if i < len(seen[k])] for k in names}
 
 
-def frame_step_inputs(run):
-    """Runs ``run()`` and returns, by kernel, the inputs that each call of
-    F1, F2 and F3 gave its kernel (the checked arguments of the ops' CUDA
-    functions): the main path's own inputs."""
-    from dis_tpu_torch.ops.cuda import frame_kernel as fkern
+# Phase 2i's frames (height, width): coarse planes shorter than a region,
+# coarsest levels of one or two rows or columns, and the smallest frame.
+SMALL_FRAMES = ((8, 64), (9, 64), (16, 64), (64, 16), (64, 8), (1, 1))
 
-    names = {"F1": "_pad_cuda", "F2": "_levels_cuda", "F3": "_finish_cuda"}
+
+def small_pair(h: int, w: int, seed: int):
+    """A smooth random frame [h, w] and the same frame shifted one column
+    (a flow of (1, 0)), NumPy only."""
+    from scipy.signal import convolve2d
+
+    r = np.random.default_rng(seed)
+    big = (r.random((h + 32, w + 33)) * 255).astype(np.float32)
+    k = np.ones((7, 7), np.float32) / 49.0
+    for _ in range(2):
+        big = convolve2d(big, k, mode="same", boundary="symm").astype(np.float32)
+    return (np.ascontiguousarray(big[16:16 + h, 17:17 + w]),
+            np.ascontiguousarray(big[16:16 + h, 16:16 + w]))
+
+
+def op_functions():
+    """Every kernel a ``dis_flow`` call can launch: (module, its op's CUDA
+    function, the plain version in the op's layout, which is the op's CPU
+    function and runs on any device)."""
+    from dis_tpu_torch.ops.cuda import (extract_kernel, frame_kernel, iclk_kernel,
+                                        pyramid_kernel, refine_kernel, scale_kernel)
+
+    return {"K3": (pyramid_kernel, "_pyramid_cuda", "_pyramid_cpu"),
+            "K2": (extract_kernel, "_extract_cuda", "_extract_cpu"),
+            "K1": (iclk_kernel, "_search_cuda", "_search_cpu"),
+            "S1": (scale_kernel, "_templates_cuda", "_templates_cpu"),
+            "S3": (scale_kernel, "_weights_cuda", "fixed_weights_plain"),
+            "S4": (scale_kernel, "_densify_cuda", "densify_plain"),
+            "R0": (refine_kernel, "_planes_cuda", "_planes_cpu"),
+            "R1": (refine_kernel, "_warp_cuda", "_warp_cpu"),
+            "R1s": (refine_kernel, "_setup_cuda", "_setup_cpu"),
+            "R2": (refine_kernel, "_weights_cuda", "_weights_cpu"),
+            "R3": (refine_kernel, "_sor_cuda", "_sor_cpu"),
+            "R3c": (refine_kernel, "_compose_cuda", "refine_compose_plain"),
+            "F1": (frame_kernel, "_pad_cuda", "_pad_cpu"),
+            "F2": (frame_kernel, "_levels_cuda", "_levels_cpu"),
+            "F3": (frame_kernel, "_finish_cuda", "_finish_cpu")}
+
+
+def op_step_inputs(run, fns):
+    """Runs ``run()`` with the CUDA functions of ``fns`` (``op_functions``)
+    recording their arguments; returns, by kernel, every call's arguments
+    (the kernels that ran), and ``run()``'s result under "out"."""
     seen = {}
-    originals = {k: getattr(fkern, fn) for k, fn in names.items()}
+    originals = {k: getattr(mod, fn) for k, (mod, fn, _) in fns.items()}
 
     def recorder(k):
         def call(*a):
@@ -758,13 +816,23 @@ def frame_step_inputs(run):
         return call
 
     try:
-        for k, fn in names.items():
-            setattr(fkern, fn, recorder(k))
-        run()
+        for k, (mod, fn, _) in fns.items():
+            setattr(mod, fn, recorder(k))
+        seen["out"] = run()
     finally:
-        for k, fn in names.items():
-            setattr(fkern, fn, originals[k])
+        for k, (mod, fn, _) in fns.items():
+            setattr(mod, fn, originals[k])
     return seen
+
+
+def frame_step_inputs(run):
+    """Runs ``run()`` and returns, by kernel, the inputs that each call of
+    F1, F2 and F3 gave its kernel (the checked arguments of the ops' CUDA
+    functions): the main path's own inputs."""
+    fns = {k: v for k, v in op_functions().items() if k[0] == "F"}
+    steps = op_step_inputs(run, fns)
+    del steps["out"]
+    return steps
 
 
 def scale_step_inputs(run):
@@ -775,26 +843,12 @@ def scale_step_inputs(run):
     not in fixed mode."""
     from dis_tpu_torch.ops.cuda import scale_kernel as sk
 
-    names = {k: fn for k, fn in (("S1", "_templates_cuda"), ("S2", "_start_cuda"),
-                                 ("S3", "_weights_cuda"), ("S4", "_densify_cuda"))
-             if hasattr(sk, fn)}
-    seen = {}
-    originals = {k: getattr(sk, fn) for k, fn in names.items()}
-
-    def recorder(k):
-        def call(*a):
-            seen.setdefault(k, []).append(a)
-            return originals[k](*a)
-        return call
-
-    try:
-        for k, fn in names.items():
-            setattr(sk, fn, recorder(k))
-        run()
-    finally:
-        for k, fn in names.items():
-            setattr(sk, fn, originals[k])
-    return seen
+    fns = {k: (sk, fn, None) for k, fn in (("S1", "_templates_cuda"), ("S2", "_start_cuda"),
+                                          ("S3", "_weights_cuda"), ("S4", "_densify_cuda"))
+           if hasattr(sk, fn)}
+    steps = op_step_inputs(run, fns)
+    del steps["out"]
+    return steps
 
 
 def flat_tensors(x):
@@ -851,6 +905,41 @@ def fresh_process(data: bytes):
         wall = time.perf_counter() - t0
         check(proc.returncode == 0, f"serving child failed:\n{proc.stdout}{proc.stderr}")
         return json.loads(proc.stdout.strip().splitlines()[-1]), torch.load(out), wall
+
+
+def cold_replay_ms(fn, args, nbytes: float, calls: int = 20) -> float:
+    """``replay_ms`` of ``fn`` over rotating copies of its tensor arguments,
+    enough that the calls between two uses of one copy move over 100 MB,
+    twice the H100's 50 MB L2: each call finds its inputs in device
+    memory, as a frame's first touch does, where ``replay_ms`` of one set
+    of inputs that fit the L2 reads them from it."""
+    n = min(calls, max(2, -(-int(100e6) // max(int(nbytes), 1)) + 1))
+    copies = [tuple(t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+              for _ in range(n)]
+    turn = [0]
+
+    def step():
+        fn(*copies[turn[0] % n])
+        turn[0] += 1
+
+    ms = replay_ms(step, calls=calls)
+    del copies
+    return ms
+
+
+def fill_floor(nbytes: float, dev):
+    """The floor under a kernel that moves ``nbytes``: device ms per call of
+    a fill (``zero_``) of as many bytes and of a copy (``copy_``) that
+    reads half of them and writes the other half, replayed.  Beside a
+    bound of a few microseconds, it tells a launch's ramp apart from the
+    kernel's own inefficiency."""
+    buf = torch.empty(int(nbytes) // 4, dtype=torch.float32, device=dev)
+    half = buf.numel() // 2
+    src, dst = buf[:half], buf[half:2 * half]
+    fill_ms = replay_ms(lambda: buf.zero_())
+    copy_ms = replay_ms(lambda: dst.copy_(src))
+    del buf
+    return fill_ms, copy_ms
 
 
 def in_turns(fns, a, b, reps: int = 10):
@@ -2162,7 +2251,7 @@ def main() -> int:
              "F2": (fkern._levels_cuda, fkern._levels_cpu, "intensity_levels"),
              "F3": (fkern._finish_cuda, fkern._finish_cpu, "frame_finish")}
     f_err = dict.fromkeys(f_fns, 0.0)
-    ftimes, fcosts, f_library = {}, {}, {}
+    ftimes, fcosts, f_library, f_floor, f_cold = {}, {}, {}, {}, {}
     for label, cfg, x, y, want, timed in (
             (f"KITTI medium B={nk}", dt.DIS_MEDIUM, ka, kb, ("F1", "F2"), ("F1",)),
             (f"KITTI ultrafast B={nk}", dt.DIS_ULTRAFAST, ka, kb, ("F1", "F3"), ("F3",)),
@@ -2210,11 +2299,40 @@ def main() -> int:
             if k in timed:
                 ftimes[k], fcosts[k] = (km, pm), (nbytes, ops)
                 f_library[k] = lms if k in ("F1", "F3") else None
+                f_floor[k] = fill_floor(nbytes, dev)
+                f_cold[k] = cold_replay_ms(kern, args, nbytes)
+                lib += (f", floor: a fill of its {nbytes / 1e6:.2f} MB {f_floor[k][0]:.4f} ms, a "
+                        f"copy of them {f_floor[k][1]:.4f} ms, replayed; kernel on inputs out "
+                        f"of the L2 {f_cold[k]:.4f} ms ({100.0 * bms / f_cold[k]:.0f}%)")
             print(f"phase1g {label} {k} {tuple(args[0].shape)} -> {tuple(got[0].shape)}: "
                   f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
                   f"({100.0 * bms / km:.0f}% of its bound), plain {pm:.4f} ms ({prm:.4f} ms "
                   f"replayed){lib}, bound {bms:.4f} ms by {by} [{card}]", flush=True)
         del steps
+    # F2's levels 4 and 5 in one launch and its scalar path (a row of 66
+    # floats), F3 at 2^finest = 4 with an odd crop and at 2 with an even
+    # left edge (its float2 stores): shapes no main-path call above gives
+    # them, on random inputs.
+    gen = torch.Generator().manual_seed(16)
+
+    def rand(*shape, scale=255.0):
+        return (torch.rand(shape, generator=gen) * scale).to(dev)
+
+    for k, label, args in (
+            ("F2", "5 levels of 1088x1920", (rand(1088, 1920), rand(1088, 1920), 5)),
+            ("F2", "1 level of 2x64x66", (rand(2, 64, 66), rand(2, 64, 66), 1)),
+            ("F3", "x4, crop 185x621 at (1, 3)", (rand(3, 47, 157, 2, scale=8.0), 2, 1, 3, 185,
+                                                  621)),
+            ("F3", "x2, crop 90x300 at (0, 2)", (rand(2, 48, 160, 2, scale=8.0), 1, 0, 2, 90,
+                                                 300))):
+        kern, plain, _ = f_fns[k]
+        got, ref = flat_tensors(kern(*args)), flat_tensors(plain(*args))
+        torch.cuda.synchronize()
+        for g, v in zip(got, ref, strict=True):
+            f_err[k] = max(f_err[k], float((g - v).abs().max()))
+            check(g.shape == v.shape and torch.equal(g, v),
+                  f"{k} {label}: differs from its plain version")
+        print(f"phase1g {k} {label}: bitwise equal to the plain version", flush=True)
 
     # -- phase 2: the main path ---------------------------------------------
     wrappers = kernel_wrappers()
@@ -2614,6 +2732,63 @@ def main() -> int:
     print("phase2h 1080p memory_analysis: " + json.dumps(served["1080p"].memory_analysis()),
           flush=True)
     print(f"phase2h took {time.perf_counter() - t2h:.2f} s", flush=True)
+
+    # -- phase 2i: small frames -------------------------------------------------
+    # dis_flow on the card at frames whose coarse planes are shorter than a
+    # region (rc = 19 at ps 8) and whose coarsest level is under 2 x 2:
+    # 8 x 64 (level 3 one row), 9 x 64 and 16 x 64 (two rows; 9 rows pad to
+    # 16), 64 x 16 (two columns), 64 x 8 (one) and 1 x 1 (padded to 8 x 8),
+    # under compat, DIS_FAST
+    # and DIS_MEDIUM, and a batch of 2 under compat (K2b, K1b).  Each
+    # call's launches are counted from 0 and add to the kernels line's;
+    # every kernel call it makes (the ops' CUDA functions, recorded) is
+    # held bitwise to its plain version on the same inputs; the flow,
+    # finite, to the same call's on the CPU under the phase-2 gates.
+    small_fns = op_functions()
+    small_calls = 0
+    t_small = time.perf_counter()
+    for sh_, sw_ in SMALL_FRAMES:
+        for name, cfg, nb_ in (("compat", dt.DIS_COMPAT_DEFAULT, 0),
+                               ("compat", dt.DIS_COMPAT_DEFAULT, 2),
+                               ("fast", dt.DIS_FAST, 0), ("medium", dt.DIS_MEDIUM, 0)):
+            pairs = [small_pair(sh_, sw_, seed) for seed in range(max(nb_, 1))]
+            x, y = (torch.from_numpy(np.stack([q[j] for q in pairs]) if nb_ else pairs[0][j])
+                    for j in (0, 1))
+            label = f"{sh_}x{sw_} {name}" + (f" B={nb_}" if nb_ else "")
+            for w in wrappers.values():
+                w.launches = 0
+            steps = op_step_inputs(lambda: dt.dis_flow(x.to(dev), y.to(dev), cfg), small_fns)
+            flow = steps.pop("out")
+            torch.cuda.synchronize()
+            counts, modes = read_counts(wrappers), read_modes(wrappers)
+            want = {**scale_counts(cfg, (sh_, sw_)), "K2c": 0}
+            check(counts == want and modes == mode_counts(cfg),
+                  f"2i {label}: launches {counts} {modes}, want {want} {mode_counts(cfg)}")
+            for k, n in {**counts, **modes}.items():
+                launches[k + "b" if nb_ and k in ("K2", "K1") else k] += n
+            for k, calls in steps.items():
+                mod, kern, plain = small_fns[k]
+                for args in calls:
+                    got = flat_tensors(getattr(mod, kern)(*args))
+                    ref = flat_tensors(getattr(mod, plain)(*args))
+                    check(len(got) == len(ref) and all(
+                        g.shape == v.shape and torch.equal(g, v) for g, v in zip(got, ref)),
+                        f"2i {label} {k}: differs from its plain version")
+                    small_calls += 1
+            cpu = dt.dis_flow(x, y, cfg)
+            f = flow.cpu()
+            check(f.shape == cpu.shape == (*x.shape, 2) and bool(torch.isfinite(f).all()),
+                  f"2i {label}: flow {tuple(f.shape)}, finite {bool(torch.isfinite(f).all())}")
+            d = torch.linalg.vector_norm(f - cpu, dim=-1)
+            dmean, dfrac = float(d.mean()), float((d > 1e-2).float().mean())
+            check(dmean <= 1e-3 and dfrac <= 0.01,
+                  f"2i {label}: card vs CPU mean {dmean} frac {dfrac}")
+            print(f"phase2i {label}: launches {counts}, every kernel call bitwise equal to its "
+                  f"plain version ({sorted(steps)}); card vs CPU flow mean {dmean} frac>1e-2 "
+                  f"{dfrac} (bitwise {torch.equal(f, cpu)})", flush=True)
+            del steps
+    print(f"phase2i: {small_calls} kernel calls held to their plain versions, "
+          f"{time.perf_counter() - t_small:.2f} s [{card}]", flush=True)
 
     # -- phase 3: times -------------------------------------------------------
     times = {}
@@ -3037,6 +3212,25 @@ def kernel_times(root: str) -> int:
         del served
         out[f"frame_1080p_{key}_eager_ms"] = time_ms(lambda: dt.dis_flow(a, b, cfg), reps=5,
                                                      warmup=1)
+    # F1, F2 and F3 on the inputs the main path gives them (phase 1g's
+    # timed calls), each beside the floor of a fill and a copy of the bytes
+    # it moves (the same in every tree).
+    from dis_tpu_torch import cost
+    from dis_tpu_torch.ops.cuda import frame_kernel as fkern
+
+    kraw = [torch.from_numpy(np.stack([q[j] for q in kpairs])).to(dev) for j in (0, 1)]
+    for k, key, cfg, (x, y) in (("F1", "kitti_b8_medium", dt.DIS_MEDIUM, kraw),
+                                ("F2", "1080p_medium", dt.DIS_MEDIUM, (a, b)),
+                                ("F3", "kitti_b8_ultrafast", dt.DIS_ULTRAFAST, kraw)):
+        steps = frame_step_inputs(lambda: dt.dis_flow(x, y, cfg))
+        fn, op = {"F1": (fkern._pad_cuda, "frame_pad"),
+                  "F2": (fkern._levels_cuda, "intensity_levels"),
+                  "F3": (fkern._finish_cuda, "frame_finish")}[k]
+        out[f"{k}_{key}_replayed_ms"] = replay_ms(lambda: fn(*steps[k][0]))
+        nbytes = cost.op_cost(op, steps[k][0])[0]
+        out[f"{k}_{key}_cold_replayed_ms"] = cold_replay_ms(fn, steps[k][0], nbytes)
+        out[f"{k}_{key}_fill_ms"], out[f"{k}_{key}_copy_ms"] = fill_floor(nbytes, dev)
+        del steps
     # The flows' bits, to hold two trees' flows to each other: a hash of
     # each config's flow on the same inputs.
     out["flow_sha256"] = {

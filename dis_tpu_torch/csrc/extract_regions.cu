@@ -29,6 +29,15 @@
 // without it (num_h = n) a group may straddle two columns, and the windows
 // outside its staged rows are copied from device memory: the same bits.
 // N = 0 launches nothing.
+//
+// A plane of fewer than rc rows or columns (a coarse level of a frame of
+// under 24 rows or columns at ps 8) has no window of rc x rc: there the
+// base is 0 on that axis and a window index past the plane reads its last
+// row or column, the edge rule of the NumPy oracle's sampler
+// (dis_tpu/oracle/reference_semantics.py::sample_patches clips every
+// tap), which the plain version follows.  Such a plane holds a few dozen
+// patches, so small_kernel copies them simply: one thread per region
+// float over a 1-D grid, each clipping its own indices.
 
 #include "extract_group.cuh"
 
@@ -39,18 +48,55 @@ extract_kernel(dis_extract::Args a) {
   dis_extract::extract_groups(a);
 }
 
+__global__ void __launch_bounds__(dis_extract::THREADS)
+small_kernel(dis_extract::Args a, long long total) {
+  const long long i = (long long)blockIdx.x * dis_extract::THREADS + threadIdx.x;
+  if (i >= total) return;
+  const int rc = 2 * a.ps + 3, rc2 = rc * rc;
+  const long long k = i / rc2;                     // pair * n + patch
+  const int e = (int)(i - k * rc2), r = e / rc, c = e - r * rc;
+  const long long pair = k / ((long long)a.num_w * a.num_h);
+  const int by = min(max(dis_ceil_coord(a.pos0[2 * k + 1]) + a.pad - a.row0 - a.ps - 2, 0),
+                     max(a.th - rc, 0));
+  const int bx = min(max(dis_ceil_coord(a.pos0[2 * k]) + a.pad - a.ps - 2, 0),
+                     max(a.tw - rc, 0));
+  if (e == 0) {
+    a.base_y[k] = by;
+    a.base_x[k] = bx;
+  }
+  a.regions[i] = a.img[pair * a.th * a.tw + (long long)min(by + r, a.th - 1) * a.tw +
+                       min(bx + c, a.tw - 1)];
+}
+
+// small_kernel over every patch of a plane smaller than a region.
+int launch_small(const dis_extract::Args& a, cudaStream_t stream) {
+  const int rc = 2 * a.ps + 3;
+  if (a.ps < 1 || rc > dis_extract::MAX_RC || a.nb < 0 || a.th < 1 || a.tw < 1 ||
+      (long long)a.th * a.tw > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)a.nb * a.num_w * a.num_h * rc * rc;
+  const long long blocks = (total + dis_extract::THREADS - 1) / dis_extract::THREADS;
+  if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
+  if (blocks > 0)
+    small_kernel<<<(unsigned)blocks, dis_extract::THREADS, 0, stream>>>(a, total);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // img [nb, th, tw] padded level planes whose first row is global row
 // row0; pos0 [nb, n, 2] (x, y) start positions of an x-outer grid of
 // columns of num_h patches (n a multiple of num_h); regions [nb, n, rc,
-// rc], 16-byte aligned; base_y, base_x [nb, n] int32.
+// rc], 16-byte aligned; base_y, base_x [nb, n] int32.  A plane of fewer
+// than rc rows or columns takes small_kernel.
 extern "C" int dis_extract_regions(const float* img, int nb, int th, int tw, const float* pos0,
                                    int n, int num_h, int ps, int pad, int row0, float* regions,
                                    int* base_y, int* base_x, cudaStream_t stream) {
   if (n < 0 || num_h < 0 || (num_h > 0 && n % num_h != 0)) return (int)cudaErrorInvalidValue;
   const dis_extract::Args a{img, th, tw, pos0, nb, num_h > 0 ? n / num_h : 0, num_h, ps, pad,
                             row0, regions, base_y, base_x, nullptr};
+  const int rc = 2 * ps + 3;
+  if (th < rc || tw < rc) return launch_small(a, stream);
   return dis_extract::launch<extract_kernel>(a, stream);
 }
 

@@ -267,7 +267,7 @@ int allow_smem(int bytes) {
 // finer level's padded image plane [nplanes, 2 h0 + 2p, 2 w0 + 2p].  outs is
 // a host array of 3 * levels device pointers, (img, dx, dy) for each level,
 // each [nplanes, (h0 >> s) + 2p, (w0 >> s) + 2p].  h0 and w0 must be
-// divisible by 2^(levels - 1) with the coarsest level at least 2 x 2;
+// divisible by 2^(levels - 1) with the coarsest level at least 1 x 1;
 // nplanes <= 65535.  Returns cudaGetLastError() after the launch.
 extern "C" int dis_pyramid(const float* src, int src_h, int src_w, float* const* outs,
                            int nplanes, int levels, int h0, int w0, int p, int base,
@@ -275,7 +275,7 @@ extern "C" int dis_pyramid(const float* src, int src_h, int src_w, float* const*
   if (levels < 1 || levels > MAX_LEVELS || nplanes < 1 || nplanes > 65535 || p < 0)
     return (int)cudaErrorInvalidValue;
   const int L = levels - 1;
-  if ((h0 >> L) << L != h0 || (w0 >> L) << L != w0 || (h0 >> L) < 2 || (w0 >> L) < 2)
+  if ((h0 >> L) << L != h0 || (w0 >> L) << L != w0 || (h0 >> L) < 1 || (w0 >> L) < 1)
     return (int)cudaErrorInvalidValue;
   Outs o{};
   for (int s = 0; s < levels; ++s) {

@@ -55,9 +55,12 @@ constexpr int SW = TW + 4, SH = TH + 4;    // I2, 2-pixel halo
 constexpr int GW = TW + 2, GH = TH + 2;    // I1 and the first Sobels, 1-pixel ring
 constexpr int PLANES = 6;
 
+// The reflect-101 image of i in [-1, n] (np.pad's "reflect" rule): -1 is 1
+// and n is n - 2, and on an axis of one entry (n = 1) both are 0.
 __device__ __forceinline__ int reflect101(int i, int n) {
   i = i < 0 ? -i : i;
-  return i >= n ? 2 * (n - 1) - i : i;
+  i = i >= n ? 2 * (n - 1) - i : i;
+  return min(max(i, 0), n - 1);
 }
 
 // A staged plane: entry [j][k] holds frame (oy + j, ox + k); ld its row
@@ -165,7 +168,7 @@ planes_kernel(const float* __restrict__ img1, const float* __restrict__ img2, in
 extern "C" int dis_refine_planes(const float* img1, const float* img2, int nb, int img_h,
                                  int img_w, int p, int h, int w, float* grads, float* planes,
                                  cudaStream_t stream) {
-  if (nb < 1 || nb > 65535 || h < 2 || w < 2 || p < 0 || p + h > img_h || p + w > img_w ||
+  if (nb < 1 || nb > 65535 || h < 1 || w < 1 || p < 0 || p + h > img_h || p + w > img_w ||
       (int64_t)nb * h * w > ((int64_t)1 << 31))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, nb);

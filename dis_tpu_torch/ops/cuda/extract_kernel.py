@@ -17,6 +17,10 @@ the staged part is copied from device memory, so the result never
 depends on the cap.  ``num_h``, the grid's column length, makes the
 groups follow the columns (``inverse_search`` passes it); without it a
 group may straddle two columns and take that fallback for some windows.
+A plane of fewer than ``rc`` rows or columns (a coarse level of a small
+frame) takes a simple kernel of the same source, one thread per region
+float, each window index clipped to the plane as the plain version clips
+it.
 
 The constants below are the kernel's (``dis_extract_layout`` returns
 them on the card); ``shared_bytes``, ``blocks_per_sm`` and
@@ -98,9 +102,8 @@ def extract_regions(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int,
         num_h = n
     elif (num_h == 0 and n) or (num_h and n % num_h):
         raise ValueError(f"{n} patches do not form columns of num_h = {num_h}")
-    rc = region_size(ps)
-    if th < rc or tw < rc:
-        raise ValueError(f"plane {th}x{tw} is smaller than a {rc}x{rc} region")
+    if th < 1 or tw < 1:
+        raise ValueError(f"plane {th}x{tw} is empty")
     check_input(img2, "img2", dev, torch.float32, lead + (th, tw))
     check_input(pos0, "pos0", dev, torch.float32, lead + (n, 2))
     return dispatch(extract_regions_op, _extract_cuda, dev, img2, pos0, ps, pad, row0,

@@ -12,9 +12,13 @@ that XLA fuses.  They replace, once per ``dis_flow`` call:
   ``2**finest_scale``, upsampled bilinearly and cropped
   (``dis_tpu/models/dis.py:468-472``), where ``finest_scale > 0``.
 
-Each is bound by bytes on the H100 and launches one thread per output
-pixel (F1 and F3 a block per output row; F2 one thread per level-1
-pixel, the coarser levels of a tile built in shared memory).  Their plain versions are ``ops/image.py::
+Each is bound by bytes on the H100.  F1 launches one thread per output
+pixel, a block per output row.  F2 gives a block of four warps a 16 x 128
+tile of level 1, each thread four pixels of four rows from float4 loads,
+levels 2 and 3 in its registers and across a lane pair, levels 4 and 5 in
+shared memory.  F3 gives a warp an output row and each lane runs of
+``2**finest_scale`` columns that share their float2 taps, stored as
+float4 pairs.  Their plain versions are ``ops/image.py::
 frame_pad_plain``, ``ops/pyramid.py::intensity_levels_plain`` and
 ``ops/image.py::frame_finish_plain``; each kernel keeps their float32
 operations in order, so it equals them bitwise.  Where the frame needs
@@ -39,8 +43,8 @@ from ..image import frame_finish_plain, frame_pad_plain, replicate_pad
 from ..pyramid import intensity_levels_plain
 from . import all_on_cpu, check_input, dispatch, register
 
-MAX_GRID = 65535             # gridDim.y (F1, F3: a block per output row) and gridDim.z
-MAX_LEVELS = 5               # F2's levels a launch: a 16 x 16 tile down to 1 x 1
+MAX_GRID = 65535             # gridDim.y (F1: a block per output row; F3 keeps its limit) and .z
+MAX_LEVELS = 5               # F2's levels a launch: its tile's 16 level-1 rows down to 1
 T = torch.Tensor             # the ops' schemas come from these annotations
 
 

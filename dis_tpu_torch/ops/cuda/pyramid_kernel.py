@@ -76,8 +76,9 @@ def _check(src: torch.Tensor, p: int, n: int, base: bool) -> None:
     f = 1 << (n - 1)
     if h % f or w % f:
         raise ValueError(f"{n} levels need dims divisible by {f}, got {h}x{w}")
-    if h // f < 2 or w // f < 2:
-        raise ValueError(f"level of {h // f}x{w // f} is too small for the 3x3 stencil")
+    if h // f < 1 or w // f < 1:
+        raise ValueError(f"a level of {h // f}x{w // f}: the kernel takes 1 or more rows "
+                         "and columns")
     check_input(src, "src", src.device, torch.float32, lead + (sh, sw))
 
 

@@ -93,9 +93,9 @@ def refine_planes(img1: torch.Tensor, img2: torch.Tensor, p: int, h: int, w: int
     if not (1 <= nb <= MAX_PLANES and nb * h * w <= MAX_PIXELS):
         raise ValueError(f"{nb} planes of {h}x{w}: the kernel takes 1 to {MAX_PLANES} "
                          f"planes and {MAX_PIXELS} pixels")
-    if h < 2 or w < 2:
-        raise ValueError(f"a window of {h}x{w}: the Sobel's reflect-101 border needs 2 or "
-                         "more rows and columns")
+    if h < 1 or w < 1:
+        raise ValueError(f"a window of {h}x{w}: the kernel takes 1 or more rows and "
+                         "columns")
     if p < 0 or p + h > ih or p + w > iw:
         raise ValueError(f"the window [{h}, {w}] at offset {p} is outside the planes "
                          f"[{ih}, {iw}]")

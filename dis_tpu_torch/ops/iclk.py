@@ -256,17 +256,21 @@ def extract_regions_plain(img2: torch.Tensor, pos0: torch.Tensor, ps: int,
                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of kernels K2, K2b and K2c: each patch's [rc, rc]
     window of the padded level plane [(B,) th, tw] at ``base =
-    clip(ceil(pos0 + 1e-5) + pad - ps - 2, 0, dim - rc)`` (``row0``
-    subtracted from the y base), for start positions [(B,) N, 2].
+    clip(ceil(pos0 + 1e-5) + pad - ps - 2, 0, max(dim - rc, 0))`` (``row0``
+    subtracted from the y base), for start positions [(B,) N, 2].  On an
+    axis of fewer than ``rc`` entries the base is 0 and a window index
+    past the plane reads its last row or column, the oracle's edge rule
+    (``reference_semantics.py::sample_patches`` clips every tap).
     Returns (regions [(B,) N, rc, rc], base_y, base_x [(B,) N] int32)."""
     th, tw = img2.shape[-2:]
     lead = img2.shape[:-2]
     rc = region_size(ps)
-    base_y = (_ceil_coord(pos0[..., 1], pad - row0) - ps - 2).clamp(0, th - rc)
-    base_x = (_ceil_coord(pos0[..., 0], pad) - ps - 2).clamp(0, tw - rc)
+    base_y = (_ceil_coord(pos0[..., 1], pad - row0) - ps - 2).clamp(0, max(th - rc, 0))
+    base_x = (_ceil_coord(pos0[..., 0], pad) - ps - 2).clamp(0, max(tw - rc, 0))
     ar = torch.arange(rc, device=img2.device)
-    idx = ((base_y.long()[..., None, None] + ar[:, None]) * tw
-           + base_x.long()[..., None, None] + ar)          # [..., N, rc, rc]
+    rows = (base_y.long()[..., None, None] + ar[:, None]).clamp(max=th - 1)
+    cols = (base_x.long()[..., None, None] + ar).clamp(max=tw - 1)
+    idx = rows * tw + cols                                 # [..., N, rc, rc]
     flat = img2.reshape(*lead, th * tw)
     regions = flat.gather(-1, idx.reshape(*lead, -1)).reshape(idx.shape)
     return regions, base_y, base_x

@@ -28,10 +28,29 @@ def _pad(img: torch.Tensor, lrtb, mode: str) -> torch.Tensor:
     return F.pad(img[None], lrtb, mode=mode)[0]
 
 
+def _reflect101_index(n: int, r: int, device=None) -> torch.Tensor:
+    """Source indices [n + 2r] of an axis of ``n >= 1`` entries padded by
+    ``r`` on both sides with reflect-101, ``np.pad``'s ``reflect`` rule at
+    every size: period ``2 (n - 1)``, and an axis of one entry repeats it."""
+    i = torch.arange(-r, n + r, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    i = i.remainder(2 * (n - 1))
+    return torch.where(i >= n, 2 * (n - 1) - i, i)
+
+
 def reflect101_pad(img: torch.Tensor, r: int) -> torch.Tensor:
     """Reflect-101 border (``cv::BORDER_DEFAULT``: the edge pixel is not
-    repeated), which is PyTorch's ``reflect`` mode."""
-    return _pad(img, (r, r, r, r), "reflect")
+    repeated), PyTorch's ``reflect`` mode where the pad is narrower than
+    the plane; else, as ``np.pad(mode="reflect")``, the same rule read
+    through :func:`_reflect101_index` (a plane of one row or column repeats
+    it)."""
+    h, w = img.shape[-2:]
+    if r < h and r < w:
+        return _pad(img, (r, r, r, r), "reflect")
+    rows = _reflect101_index(h, r, img.device)
+    cols = _reflect101_index(w, r, img.device)
+    return img.index_select(-2, rows).index_select(-1, cols)
 
 
 def replicate_pad(img: torch.Tensor, t: int, b: int, l: int, r: int) -> torch.Tensor:

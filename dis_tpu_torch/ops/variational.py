@@ -192,8 +192,9 @@ def refine_planes_plain(img1: torch.Tensor, img2: torch.Tensor, p: int, h: int, 
     are the windows [(B,) h, w] at offset ``p`` of the planes ``img1`` and
     ``img2`` [(B,) H, W].  Returns (I1x, I1y, planes [(B,) h, w, 6]), the
     stack ``[I2, I2x, I2y, I2xx, I2xy, I2yy]`` that R1 warps; the second
-    Sobels reflect the first Sobel planes at the border (reflect-101 needs
-    2 or more rows and columns).  The plain version of kernel R0."""
+    Sobels reflect the first Sobel planes at the border (reflect-101 as
+    ``np.pad`` reflects: a window of one row or column repeats it).  The
+    plain version of kernel R0."""
     I1 = img1[..., p:p + h, p:p + w]
     I2 = img2[..., p:p + h, p:p + w]
     I1x = im.sobel3(I1, "x")

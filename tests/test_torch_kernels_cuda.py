@@ -32,14 +32,17 @@ strides 1-64), S4 on cover tables in another order or reaching past its
 staged sub-block; S1's start read from no flow while its flag is off,
 whatever pointer stands in its place; one S1 a scale on the main path,
 and no start kernel left; R0 (a level's Sobel planes), R1's setup mode
-and R3's compose mode bitwise equal to their plain versions at 2 and odd
-rows and columns, B absent, 1 and 3, on padded windows and whole planes,
+and R3's compose mode bitwise equal to their plain versions at 1, 2 and
+odd rows and columns (R0 at 1 also against a NumPy reflect reference), B
+absent, 1 and 3, on padded windows and whole planes,
 omega 1.0 and 1.6, and the refinement through them on the card bitwise
 the CPU's with Q1 and intensity planes; F1 (the frame's padding, also of
 a strided view), F2 (the intensity levels, chained past five) and F3 (the
 upsample and crop) bitwise equal to their plain versions, with R0 once a
 level, F2 once a frame, F1 only where the frame pads and F3 only where
-finest_scale > 0.
+finest_scale > 0; at small frames (8 x 64 to 64 x 8) K3 down to levels of
+one row or column, K2 and K2b on planes shorter or narrower than a region,
+and ``dis_flow`` under every preset within 1e-3 px mean of the CPU's.
 """
 
 import numpy as np
@@ -391,6 +394,48 @@ def test_extract_groups_straddle_and_ragged(num_h, batch, plane):
             assert torch.equal(a, p)
 
 
+@pytest.mark.parametrize("plane", [(17, 40), (18, 18), (40, 18), (17, 17), (1, 30)])
+@pytest.mark.parametrize("batch", [None, 2])
+def test_extract_small_planes_bitwise(plane, batch):
+    """K2 and K2b on padded planes with fewer rows or columns than a region
+    (coarse levels of small frames): base 0 on that axis and every window
+    index past the plane clipped to its edge, bitwise the plain version,
+    at start positions over the policed range and beyond it."""
+    ps = 8
+    th, tw = plane
+    lead = () if batch is None else (batch,)
+    r = np.random.default_rng(th * tw)
+    img = torch.from_numpy((r.random(lead + plane) * 255).astype(np.float32)).cuda()
+    pos0 = np.stack([r.uniform(-6, tw - ps + 2, lead + (37,)),
+                     r.uniform(-6, th - ps + 2, lead + (37,))], -1).astype(np.float32)
+    pos0 = torch.from_numpy(pos0).cuda()
+    extract_regions.launches = 0
+    got = extract_regions(img, pos0, ps, ps)
+    want = iclk.extract_regions_plain(img, pos0, ps, ps)
+    torch.cuda.synchronize()
+    assert extract_regions.launches == 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("size", [(8, 64), (9, 64), (16, 64), (64, 16), (64, 8), (1, 1),
+                                  (2, 3)])
+@pytest.mark.parametrize("preset", ["DIS_COMPAT_DEFAULT", "DIS_FAST", "DIS_MEDIUM",
+                                    "DIS_ULTRAFAST", "DIS_FULL"])
+def test_small_frames_card_equals_cpu(size, preset):
+    """dis_flow at small frames on the card (coarse planes shorter than a
+    region, levels of one or two rows or columns): finite, and within
+    1e-3 px mean (at most 1% of pixels over 1e-2 px) of the same call on
+    the CPU."""
+    cfg = getattr(dis_tpu_torch, preset)
+    x, y = (torch.from_numpy(np.ascontiguousarray(v)) for v in _smooth(*size, 3))
+    got = dis_tpu_torch.dis_flow(x.cuda(), y.cuda(), cfg).cpu()
+    want = dis_tpu_torch.dis_flow(x, y, cfg)
+    assert got.shape == want.shape == size + (2,) and bool(torch.isfinite(got).all())
+    d = torch.linalg.vector_norm(got - want, dim=-1)
+    assert float(d.mean()) <= 1e-3 and float((d > 1e-2).float().mean()) <= 0.01
+
+
 def test_extract_layout_matches_kernel():
     """The wrapper's launch constants are the kernel's, and the occupancy
     calculator gives the blocks per SM the launch arithmetic promises."""
@@ -462,11 +507,15 @@ def test_tiled_flow_equals_untiled(mode):
 
 
 @pytest.mark.parametrize("shape,coarsest", [((64, 96), c) for c in (1, 2, 3, 4)]
-                         + [((376, 1248), 3), ((1072, 3840), 3), ((1072, 3840), 4)])
+                         + [((376, 1248), 3), ((1072, 3840), 3), ((1072, 3840), 4)]
+                         + [((8, 64), 3), ((16, 64), 3), ((64, 16), 3), ((64, 8), 3),
+                            ((16, 64), 4)])
 def test_pyramid_fused_bitwise(shape, coarsest):
     """Every plane of every level of one K3 launch (two past MAX_LEVELS
     levels) equals the plain level-by-level chain; 1072 x 3840 is a 4K
-    middle stripe (720 own rows and two 176-row halos)."""
+    middle stripe (720 own rows and two 176-row halos); small frames take
+    levels of one or two rows or columns (8 x 64 down to 1 x 8, 64 x 8 to
+    8 x 1, 16 x 64 in five levels to 1 x 4)."""
     x = torch.from_numpy(np.ascontiguousarray(_smooth(*shape, 7)[0])).cuda()
     pyramid_levels.launches = 0
     kern = construct_pyramid(x, coarsest, 8)
@@ -1130,18 +1179,58 @@ def test_refine_planes_setup_compose_bitwise(shape, batch, p):
     assert [w_.launches for w_ in wrappers] == [1, 1, 1, 4, 4]
 
 
-def test_refine_planes_refuses_what_its_plain_version_refuses():
-    """The Sobel's reflect-101 border needs 2 rows and columns: a window of
-    1 raises on the card as it does in the plain version."""
+def _np_sobel3(x, axis):
+    """``sobel3`` in NumPy on ``np.pad(mode="reflect")``, which repeats a
+    plane of one row or column."""
+    p = np.pad(x, 1, mode="reflect")
+    if axis == "x":
+        d = p[:, 2:] - p[:, :-2]
+        out = d[:-2, :] + 2.0 * d[1:-1, :] + d[2:, :]
+    else:
+        d = p[2:, :] - p[:-2, :]
+        out = d[:, :-2] + 2.0 * d[:, 1:-1] + d[:, 2:]
+    return out * np.float32(0.125)
+
+
+@pytest.mark.parametrize("shape", [(1, 5), (5, 1), (1, 1), (1, 40), (40, 1)])
+def test_refine_planes_refuses_what_its_plain_version_refuses(shape):
+    """A window of one row or column (a coarse level of a small frame):
+    R0 on the card and its plain version both give the Sobel chains of a
+    NumPy reflect reference, bitwise, on padded windows (p = 3) and whole
+    planes; R1's setup mode, R2, R3 and R3's compose mode on such a level
+    equal their plain versions bitwise (their neighbour reads clamp to the
+    one row or column)."""
     from dis_tpu_torch.ops import variational as tvar
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
-    for h, w in ((1, 5), (5, 1)):
-        a, b = _planes_pair(None, h, w, 0, 3)
-        with pytest.raises((RuntimeError, ValueError)):
-            tvar.refine_planes_plain(a, b, 0, h, w)
-        with pytest.raises(ValueError, match="reflect"):
-            rk.refine_planes(a, b, 0, h, w)
+    h, w = shape
+    for p in (0, 3):
+        a, b = _planes_pair(None, h, w, p, 3)
+        i1, i2 = (t.cpu().numpy()[p:p + h, p:p + w] for t in (a, b))
+        i2x, i2y = _np_sobel3(i2, "x"), _np_sobel3(i2, "y")
+        want = (_np_sobel3(i1, "x"), _np_sobel3(i1, "y"),
+                np.stack([i2, i2x, i2y, _np_sobel3(i2x, "x"), _np_sobel3(i2x, "y"),
+                          _np_sobel3(i2y, "y")], axis=-1))
+        got = rk.refine_planes(a, b, p, h, w)
+        plain = tvar.refine_planes_plain(a, b, p, h, w)
+        for g, q, v in zip(got, plain, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), v)
+            np.testing.assert_array_equal(q.cpu().numpy(), v)
+        I1x, I1y, planes = got
+        flow = torch.from_numpy(((np.random.default_rng(5).random((h, w, 2)) - 0.5) * 3)
+                                .astype(np.float32)).cuda()
+        ins = rk.refine_setup(planes, flow, a, I1x, I1y, p)
+        want_ins = tvar.refine_setup_plain(planes, flow, a, I1x, I1y, p)
+        assert all(torch.equal(g, v) for g, v in zip(ins, want_ins))
+        du, dv = ins[11] + 0.01, ins[12] - 0.02
+        coef = rk.refine_weights(*ins[:11], du, dv, 40.0, 5.0, 10.0)
+        want_coef = tvar.refine_weights_plain(*ins[:11], du, dv, 40.0, 5.0, 10.0)
+        assert all(torch.equal(g, v) for g, v in zip(coef, want_coef))
+        for color in (0, 1):
+            sor = (*ins[9:11], du, dv, *coef, color, 1.6)
+            assert all(torch.equal(g, v) for g, v in zip(rk.refine_sor(*sor),
+                                                          tvar.refine_sor_plain(*sor)))
+            assert torch.equal(rk.refine_compose(*sor), tvar.refine_compose_plain(*sor))
 
 
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
@@ -1230,8 +1319,8 @@ def test_intensity_levels_bitwise(coarsest, batch):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("finest", [1, 2])
-@pytest.mark.parametrize("frame", [(375, 1242), (37, 53), (64, 96), (2, 2)])
+@pytest.mark.parametrize("finest", [1, 2, 3])
+@pytest.mark.parametrize("frame", [(375, 1242), (37, 53), (64, 96), (2, 2), (9, 64)])
 @pytest.mark.parametrize("batch", [None, 1, 3])
 def test_frame_finish_bitwise(finest, frame, batch):
     """F3 writes the cropped, upsampled, scaled flow in one launch, bitwise

@@ -20,8 +20,9 @@ and even sizes down to 2 x 2, B absent and 3:
 - R1's setup mode and R3's compose mode are bitwise the composition they
   replaced (a verbatim copy below);
 - every new op passes ``torch.library.opcheck`` within ``ops_on_cpu``,
-  and its wrapper refuses there what the plain version refuses (a window
-  too small for the Sobel's reflect-101 border, dims that do not halve);
+  and its wrapper refuses there what the plain version refuses (dims that
+  do not halve), and a window of one row or column, which both take, gives
+  the Sobels of a NumPy reflect reference;
 - one ``planes6`` refinement level of ``DIS_MEDIUM`` and of ``DIS_FULL``
   within ``ops_on_cpu`` dispatches no ATen op outside ``dis_tpu_torch::``
   ops, views aside (54 before these kernels), and a whole ``dis_flow``
@@ -123,15 +124,40 @@ def test_refine_planes_plain_bitwise_vs_jax(shape, batch, p):
                                           np.asarray(v))
 
 
-def test_refine_planes_refuses_a_window_of_one():
-    """The plain version's reflect-101 pad refuses 1 row or column; within
-    ``ops_on_cpu`` (the CUDA path's checks) the wrapper refuses it too."""
-    for h, w in ((1, 4), (4, 1)):
-        a, b = (torch.from_numpy(_planes(None, h, w, s)) for s in (1, 2))
-        with pytest.raises((RuntimeError, ValueError)):
-            tvar.refine_planes_plain(a, b, 0, h, w)
-        with kops.ops_on_cpu(), pytest.raises(ValueError, match="reflect-101"):
-            rk.refine_planes(a, b, 0, h, w)
+def _np_sobel3(x, axis):
+    """``sobel3`` in NumPy on ``np.pad(mode="reflect")`` (the NumPy oracle's
+    border, which repeats a plane of one row or column)."""
+    p = np.pad(x, 1, mode="reflect")
+    if axis == "x":
+        d = p[:, 2:] - p[:, :-2]
+        out = d[:-2, :] + 2.0 * d[1:-1, :] + d[2:, :]
+    else:
+        d = p[2:, :] - p[:-2, :]
+        out = d[:, :-2] + 2.0 * d[:, 1:-1] + d[:, 2:]
+    return out * np.float32(0.125)
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (4, 1), (1, 1)])
+def test_refine_planes_refuses_a_window_of_one(shape):
+    """A window of one row or column (a coarse level of a small frame):
+    R0's plain version, and its wrapper within ``ops_on_cpu`` (the CUDA
+    path's checks), give the Sobel chains of a NumPy reflect reference,
+    bitwise, padded windows and whole planes alike; the wrapper still
+    refuses a window outside the planes."""
+    h, w = shape
+    for p in (0, 2):
+        a, b = (torch.from_numpy(_planes(None, h + 2 * p, w + 2 * p, s)) for s in (1, 2))
+        i1, i2 = a.numpy()[p:p + h, p:p + w], b.numpy()[p:p + h, p:p + w]
+        i2x, i2y = _np_sobel3(i2, "x"), _np_sobel3(i2, "y")
+        want = (_np_sobel3(i1, "x"), _np_sobel3(i1, "y"),
+                np.stack([i2, i2x, i2y, _np_sobel3(i2x, "x"), _np_sobel3(i2x, "y"),
+                          _np_sobel3(i2y, "y")], axis=-1))
+        got = tvar.refine_planes_plain(a, b, p, h, w)
+        with kops.ops_on_cpu():
+            wrapped = rk.refine_planes(a, b, p, h, w)
+        for g, k, v in zip(got, wrapped, want):
+            np.testing.assert_array_equal(g.numpy(), v)
+            np.testing.assert_array_equal(k.numpy(), v)
     with kops.ops_on_cpu(), pytest.raises(ValueError, match="outside"):
         a = torch.zeros(6, 6)
         rk.refine_planes(a, a, 3, 4, 4)
