@@ -88,8 +88,12 @@ The refinement presets (``DIS_MEDIUM``: ps 8, stride 4, scales 3..0;
 the intensity planes, 5 and 10 weight updates of 5 red-black SOR sweeps),
 whose variational refinement runs as the kernels R0 (the level's Sobel
 planes), R1 (the warp, once per level; in its setup mode it also writes
-the weight update's inputs), R2 (a weight update) and R3 (a half-sweep;
-the last of a level in its compose mode, which writes the flow), and
+the weight update's inputs; in its warp1 mode, R1w, under
+``refinement_scheme="warp1"``, it warps I2 alone and writes those inputs
+from the Sobels of the warped plane and of I1, and R0 does not run), R2
+(a weight update) and R3 (a half-sweep; the last of a level in its
+compose mode, which writes the flow, clipped under ``refined_init_clamp``;
+a level without a half-sweep in its no-sweep mode), and
 whose intensity planes come from F2, which no ``pallas_call`` backs (they
 replace XLA's fusions of the JAX package's refinement code):
 
@@ -105,8 +109,13 @@ replace XLA's fusions of the JAX package's refinement code):
     run (``refine_step_inputs``), and R1 on the setup mode's planes and
     flow, each bitwise equal to its plain version and timed beside it
     (kernel replayed, plain eager and replayed) with its bound and its
-    share of it; R1 also beside ``grid_sample`` (bilinear, border
-    padding), the yardstick of its ``library_ms``;
+    share of it, and again on inputs out of the L2 (``cold_replay_ms``);
+    R1 also beside ``grid_sample`` (bilinear, border
+    padding), the yardstick of its ``library_ms``; R1's warp1 mode (R1w)
+    likewise on the finest level of the 1080p ``DIS_MEDIUM`` frame under
+    ``warp1``; R3's compose mode with its clip on the compose mode's
+    inputs with a bound that binds (``CLIP_BOUND``), and its no-sweep mode
+    on the same u0, v0, du and dv with and without the clip;
 1f. (each scale's glue) S1 (templates, inverse Hessians, fixed mode's
     ``Tn`` and the search start: the NN init and the start test, which
     were once a kernel of their own, S2), S3 (fixed mode's
@@ -143,12 +152,14 @@ replace XLA's fusions of the JAX package's refinement code):
     in one launch and on rows of 66 floats (its scalar path), F3 also at
     2^finest = 4 with an odd crop and at 2 with an even left edge;
 2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R0 4,
-    R1 4, R2 20, R3 200, F2 1 (``DIS_MEDIUM``) and K3 4, K2 5, K1 5, R0 5,
+    R1 4, R2 20, R3 200, F2 1 (``DIS_MEDIUM``; under ``warp1`` the same
+    without R0, every R1 in its warp1 mode) and K3 4, K2 5, K1 5, R0 5,
     R1 5, R2 50, R3 500, F1 1, F2 1 (``DIS_FULL``, whose five levels take
     two K3 launches per image, and whose 1080 rows pad to 1088), R1 and R3
     one a level in their modes (``mode_counts``), no K2c; the median within
     0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
-    CPU reading (``tools/jax_epe_readings.py``), the kernel path against
+    CPU reading (``tools/jax_epe_readings.py``; ``warp1``'s, ``EPE_JAX``,
+    from the same call), the kernel path against
     the plain path under the phase-2 gates; the refinement of each
     frame's finest level on the card bitwise equal to the same call on
     the CPU;
@@ -161,9 +172,13 @@ replace XLA's fusions of the JAX package's refinement code):
     R3 50), bitwise equal to untiled; 4K unclamped (K2 at every scale,
     no K2c) and 1080p
     and 4K with ``refined_init_clamp`` (K2c exactly where
-    ``scale_extraction_route`` says), each flow finite with its median
-    within 0.01 px of its shift;
-3d. times: eager and replayed ms/frame for 1080p ``DIS_MEDIUM`` and
+    ``scale_extraction_route`` says; R3 clips in its compose mode, one a
+    level, and no ``clamp`` op runs), each flow finite with its median
+    within 0.01 px of its shift; 1080p with no weight update and the
+    clamp (R3 once a level in its no-sweep mode, with its clip) equal to
+    the frame without refinement;
+3d. times: eager and replayed ms/frame for 1080p ``DIS_MEDIUM`` (also
+    under ``warp1``, whose replay is held bitwise to its eager frame) and
     ``DIS_FULL`` and 4K ``DIS_MEDIUM``, each beside the same frame without
     refinement, replayed, which gives the refinement's share; KITTI
     ``DIS_MEDIUM`` pairs/s at B = 8; and the refinement alone, replayed,
@@ -354,17 +369,24 @@ S4_SWEEP_PS = (6, 8, 12)
 # phases (K2 and K1 with a pair axis count as K2b and K1b).  The search
 # start (once a kernel of its own, S2) runs inside every S1 launch: its row follows
 # LAUNCH_KEYS' and takes S1's launches.
-LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R0", "R1", "R1s", "R2", "R3", "R3c",
-               "S1", "S3", "S4", "F1", "F2", "F3")
+LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R0", "R1", "R1s", "R1w", "R2", "R3",
+               "R3c", "R3k", "R3n", "S1", "S3", "S4", "F1", "F2", "F3")
 # The kernels that phase 2g does not add up (its batches launch K2b and K1b).
 CORE = ("K3", "K2", "K1", "K2c")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
 # and configs; the port must land within EPE_TOL of it.  DIS_MEDIUM and
 # DIS_FULL: tools/jax_epe_readings.py (64 s and 302 s on the CPU).
+# DIS_MEDIUM under refinement_scheme="warp1" ("warp1"): the same jitted
+# dis_tpu.dis_flow call on the CPU with dataclasses.replace(DIS_MEDIUM,
+# refinement_scheme="warp1") (49 s).
 EPE_JAX = {"compat": 0.1526, "fast": 0.00515,
-           "medium": 0.00048054210492409766, "full": 0.0002898645179811865}
+           "medium": 0.00048054210492409766, "full": 0.0002898645179811865,
+           "warp1": 0.0004975744523108006}
 EPE_TOL = 0.002
 REPS = 20
+# Phase 1e's bound for R3's clip on the 1080p finest level, whose flow is
+# about (3, 2) px: it binds on every u and on some v.
+CLIP_BOUND = 2.5
 
 # KITTI-size batch: 8 pairs of 375 x 1242 (padded to 376 x 1248 inside),
 # pair i shifted by KITTI_SHIFTS[i] px (x, y).
@@ -588,6 +610,23 @@ def torch_ops(fn) -> int:
     return Count.n
 
 
+def aten_calls(fn):
+    """``fn()`` and the non-view aten ops it dispatched, by name."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    names = {}
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "aten" and not func.is_view:
+                names[func.name()] = names.get(func.name(), 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        out = fn()
+    return out, names
+
+
 def flow_gates(label, f, shift, epe_jax=None):
     """The flow [..., H, W, 2] on the host: finite, its median within 0.01
     px of ``shift`` and, where given, its mean EPE within EPE_TOL of the
@@ -605,31 +644,39 @@ def flow_gates(label, f, shift, epe_jax=None):
 def refine_counts(cfg):
     """The refinement's launches in one call, whatever B is: R0 once per
     refined level (``planes6``), R1 once per outer iteration (in its setup
-    mode under ``planes6``), R2 once per weight update and R3 once per
-    half-sweep (the last of each outer iteration in its compose mode), at
-    every scale (``refine_per_level``) or the finest, and F2 once where
-    the refinement reads intensity planes; none without refinement."""
+    mode under ``planes6``, in its warp1 mode under ``warp1``), R2 once per
+    weight update and R3 once per half-sweep (the last of each outer
+    iteration in its compose mode; once per outer iteration in its no-sweep
+    mode where there is no half-sweep), at every scale
+    (``refine_per_level``) or the finest, and F2 once where the refinement
+    reads intensity planes; none without refinement."""
     if cfg.refinement_iters == 0:
         return {}
     levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
     r1 = levels * cfg.refinement_iters
     r2 = r1 * cfg.refinement_inner_sweeps
+    r3 = 2 * cfg.refinement_sor_sweeps * r2
     return {**({"R0": levels} if cfg.refinement_scheme == "planes6" else {}),
-            "R1": r1, "R2": r2, "R3": 2 * cfg.refinement_sor_sweeps * r2,
+            **({"R1": r1} if r1 else {}), **({"R2": r2} if r2 else {}),
+            **({"R3": r3 or r1} if r1 else {}),
             **({"F2": 1} if cfg.refinement_planes == "intensity" and cfg.coarsest_scale
                else {})}
 
 
 def mode_counts(cfg):
-    """The launches of R1's setup mode (``R1s``) and R3's compose mode
-    (``R3c``) in one call, which ``refine_counts`` counts as R1's and R3's."""
+    """The launches of R1's setup and warp1 modes (``R1s``, ``R1w``) and
+    R3's compose and no-sweep modes (``R3c``, ``R3n``) in one call, which
+    ``refine_counts`` counts as R1's and R3's, and of R3 with its clip
+    (``R3k``): the last outer iteration of each level that
+    ``refine_level`` clips (``refined_init_clamp``, per level)."""
     if cfg.refinement_iters == 0:
         return {}
     levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
     r1 = levels * cfg.refinement_iters
     sweeps = cfg.refinement_inner_sweeps * cfg.refinement_sor_sweeps
-    return {**({"R1s": r1} if cfg.refinement_scheme == "planes6" else {}),
-            **({"R3c": r1} if sweeps else {})}
+    return {("R1s" if cfg.refinement_scheme == "planes6" else "R1w"): r1,
+            ("R3c" if sweeps else "R3n"): r1,
+            **({"R3k": levels} if cfg.refined_init_clamp and cfg.refine_per_level else {})}
 
 
 def frame_counts(cfg, height: int, width: int):
@@ -667,9 +714,10 @@ def want_4k(cfg):
     return {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, **glue_counts(cfg, 4)}
 
 
-# The wrappers of R1's setup mode and R3's compose mode: their launches
-# count in R1's and R3's too, and read_counts leaves them out.
-MODES = ("R1s", "R3c")
+# The wrappers of R1's setup and warp1 modes and R3's compose and
+# no-sweep modes, and the count of R3's launches with its clip: their
+# launches count in R1's and R3's too, and read_counts leaves them out.
+MODES = ("R1s", "R1w", "R3c", "R3k", "R3n")
 
 
 def kernel_wrappers():
@@ -686,7 +734,9 @@ def kernel_wrappers():
             "K1": iclk_search, "R0": rk.refine_planes, "R1": rk.refine_warp,
             "R2": rk.refine_weights, "R3": rk.refine_sor, "S1": scale_templates,
             "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
-            "F2": fkern.intensity_levels, "F3": fkern.frame_finish, "R1s": rk.refine_setup, "R3c": rk.refine_compose}
+            "F2": fkern.intensity_levels, "F3": fkern.frame_finish, "R1s": rk.refine_setup,
+            "R1w": rk.refine_setup_warp1, "R3c": rk.refine_compose, "R3k": rk.clamped,
+            "R3n": rk.refine_nosweep}
 
 
 def read_counts(wrappers):
@@ -726,26 +776,38 @@ def grid_sample_ms(planes, flow, warped, card) -> float:
     return ms
 
 
+def wrapper_args(k, a):
+    """The arguments of the wrapper of R3's compose or no-sweep mode (``k``
+    ``R3c``, ``R3n``) from those its CUDA function took: the clip's bound,
+    or none, where the function takes a flag and a bound (a tree since R3's
+    clip); any other kernel's as they are."""
+    if (k, len(a)) in (("R3c", 20), ("R3n", 6)):
+        return a[:-2] + ((a[-1],) if a[-2] else ())
+    return a
+
+
 def refine_step_inputs(args, picks):
     """Runs ``variational_refinement(*args)`` and returns, by kernel, the
-    inputs that the ``picks[kernel]``-th calls of R0, R1, R1's setup mode
-    (``R1s``), R2, R3 and R3's compose mode (``R3c``) gave their kernel
-    (the checked arguments of the ops' CUDA functions; those of the
-    tree's kernels only, and of the calls it made): the main path's own
-    inputs for each."""
+    inputs that the ``picks[kernel]``-th calls of R0, R1, R1's setup and
+    warp1 modes (``R1s``, ``R1w``), R2, R3 and R3's compose and no-sweep
+    modes (``R3c``, ``R3n``) gave their kernel
+    (the checked arguments of the ops' CUDA functions, as the wrappers take
+    them, ``wrapper_args``; those of the tree's kernels only, and of the
+    calls it made): the main path's own inputs for each."""
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.variational import variational_refinement
 
     names = {k: fn for k, fn in (("R0", "_planes_cuda"), ("R1", "_warp_cuda"),
-                                 ("R1s", "_setup_cuda"), ("R2", "_weights_cuda"),
-                                 ("R3", "_sor_cuda"), ("R3c", "_compose_cuda"))
+                                 ("R1s", "_setup_cuda"), ("R1w", "_setup_warp1_cuda"),
+                                 ("R2", "_weights_cuda"), ("R3", "_sor_cuda"),
+                                 ("R3c", "_compose_cuda"), ("R3n", "_nosweep_cuda"))
              if k in picks and hasattr(rk, fn)}
     seen = {k: [] for k in names}
     originals = {k: getattr(rk, fn) for k, fn in names.items()}
 
     def recorder(k):
         def call(*a):
-            seen[k].append(a if len(seen[k]) in picks[k] else None)
+            seen[k].append(wrapper_args(k, a) if len(seen[k]) in picks[k] else None)
             return originals[k](*a)
         return call
 
@@ -794,9 +856,11 @@ def op_functions():
             "R0": (refine_kernel, "_planes_cuda", "_planes_cpu"),
             "R1": (refine_kernel, "_warp_cuda", "_warp_cpu"),
             "R1s": (refine_kernel, "_setup_cuda", "_setup_cpu"),
+            "R1w": (refine_kernel, "_setup_warp1_cuda", "_setup_warp1_cpu"),
             "R2": (refine_kernel, "_weights_cuda", "_weights_cpu"),
             "R3": (refine_kernel, "_sor_cuda", "_sor_cpu"),
-            "R3c": (refine_kernel, "_compose_cuda", "refine_compose_plain"),
+            "R3c": (refine_kernel, "_compose_cuda", "_compose_cpu"),
+            "R3n": (refine_kernel, "_nosweep_cuda", "_nosweep_cpu"),
             "F1": (frame_kernel, "_pad_cuda", "_pad_cpu"),
             "F2": (frame_kernel, "_levels_cuda", "_levels_cpu"),
             "F3": (frame_kernel, "_finish_cuda", "_finish_cpu")}
@@ -1764,8 +1828,9 @@ def main() -> int:
     from dis_tpu_torch.ops.grid import init_from_coarser_flow, make_grid, scale_plan
     from dis_tpu_torch.ops.pyramid import construct_pyramid
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
-    from dis_tpu_torch.ops.variational import (refine_compose_plain, refine_planes_plain,
-                                               refine_setup_plain, refine_sor_plain,
+    from dis_tpu_torch.ops.variational import (refine_compose_plain, refine_nosweep_plain,
+                                               refine_planes_plain, refine_setup_plain,
+                                               refine_setup_warp1_plain, refine_sor_plain,
                                                refine_warp_plain, refine_weights_plain,
                                                variational_refinement)
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
@@ -2061,7 +2126,11 @@ def main() -> int:
     # flow; R2's second; R3's 11th and 12th: the second weight update's
     # first red and black half-sweeps, where du and dv are not 0; R3's
     # compose mode's call: the last black half-sweep), bitwise equal to its
-    # plain version; then timed beside it.
+    # plain version; then timed beside it, at 1080p DIS_MEDIUM also on
+    # inputs out of the L2.  Then R1's warp1 mode (R1w) on the finest level
+    # of the 1080p DIS_MEDIUM frame under warp1, and R3's compose mode with
+    # its clip (CLIP_BOUND, which binds) and its no-sweep mode (with and
+    # without the clip) on the 1080p DIS_MEDIUM compose mode's inputs.
     med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
     kmed_levels, kmed_planes = refined_levels(*kpad, dt.DIS_MEDIUM)
     r_fns = {"R0": (rk.refine_planes, refine_planes_plain, "refine_planes"),
@@ -2070,8 +2139,8 @@ def main() -> int:
              "R2": (refine_weights, refine_weights_plain, "refine_weights"),
              "R3": (refine_sor, refine_sor_plain, "refine_sor"),
              "R3c": (rk.refine_compose, refine_compose_plain, "refine_compose")}
-    r_err = {k: 0.0 for k in r_fns}
-    rtimes, rcosts = {}, {}
+    r_err = {k: 0.0 for k in (*r_fns, "R1w", "R3k", "R3n")}
+    rtimes, rcosts, rcold = {}, {}, {}
     r1_library = None
     for label, cfg, levels, planes in (
             ("1080p medium", dt.DIS_MEDIUM, med_levels, med_planes),
@@ -2100,16 +2169,63 @@ def main() -> int:
             pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
             nbytes, ops = cost.op_cost(op, args)
             bms, by = bound(nbytes, ops)
+            cold = ""
             if label == "1080p medium":
                 rtimes[k], rcosts[k] = (km, pm), (nbytes, ops)
+                rcold[k] = cold_replay_ms(kern, args, nbytes)
+                cold = (f", on inputs out of the L2 {rcold[k]:.4f} ms "
+                        f"({100.0 * bms / rcold[k]:.0f}%)")
             if label == "1080p medium" and k == "R1":
                 r1_library = grid_sample_ms(*args, refine_warp(*args)[0], card)
             print(f"phase1e {label} {k} {tuple(args[0].shape)}: {len(steps[k])} call(s) "
                   f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
-                  f"({100.0 * bms / km:.0f}% of its bound), plain {pm:.4f} ms ({prm:.4f} ms "
-                  f"replayed), bound {bms:.4f} ms by {by} [{card}]", flush=True)
+                  f"({100.0 * bms / km:.0f}% of its bound){cold}, plain {pm:.4f} ms "
+                  f"({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} [{card}]", flush=True)
+        if label == "1080p medium":
+            compose_args = steps["R3c"][0]
         del steps
     del kmed_levels, kmed_planes
+    warp1_cfg = dataclasses.replace(dt.DIS_MEDIUM, refinement_scheme="warp1")
+    w1_levels, w1_planes = refined_levels(a, b, warp1_cfg)
+    w1_args = refine_step_inputs(refine_inputs(warp1_cfg, w1_levels, w1_planes, 0),
+                                 {"R1w": (0,)})["R1w"]
+    check(len(w1_args) == 1, f"R1w 1080p medium warp1: {len(w1_args)} recorded calls")
+    u0v0dudv = compose_args[:4]
+    # name: (wrapper, plain version, op, op's arguments beside the
+    # wrapper's, the wrapper's arguments checked, the timed ones first)
+    modes = {"R1w": (rk.refine_setup_warp1, refine_setup_warp1_plain, "refine_setup_warp1",
+                     (), [w1_args[0]]),
+             "R3k": (rk.refine_compose, refine_compose_plain, "refine_compose",
+                     (True, CLIP_BOUND), [(*compose_args, CLIP_BOUND)]),
+             "R3n": (rk.refine_nosweep, refine_nosweep_plain, "refine_nosweep", (False, 0.0),
+                     [u0v0dudv, (*u0v0dudv, CLIP_BOUND)])}
+    for k, (kern, plain, op, flags, calls) in modes.items():
+        for args in calls:
+            before = kern.launches
+            got, want = flat_tensors(kern(*args)), flat_tensors(plain(*args))
+            torch.cuda.synchronize()
+            check(kern.launches == before + 1, f"{k}: not one launch")
+            check(len(got) == len(want), f"{k}: {len(got)} outputs, plain {len(want)}")
+            for g, v in zip(got, want):
+                r_err[k] = max(r_err[k], float((g - v).abs().max()))
+                check(g.shape == v.shape and torch.equal(g, v),
+                      f"{k} {tuple(g.shape)}: differs from its plain version")
+            if isinstance(args[-1], float) and args[-1] == CLIP_BOUND:
+                check(bool((got[0].abs() == CLIP_BOUND).any()), f"{k}: the clip never binds")
+        args = calls[0]
+        op_args = args[:-1] + flags if k == "R3k" else args + flags
+        km = replay_ms(lambda: kern(*args))
+        pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
+        nbytes, ops = cost.op_cost(op, op_args)
+        bms, by = bound(nbytes, ops)
+        rtimes[k], rcosts[k] = (km, pm), (nbytes, ops)
+        rcold[k] = cold_replay_ms(kern, args, nbytes)
+        print(f"phase1e 1080p medium {k} {tuple(args[0].shape)}: {len(calls)} call(s) bitwise "
+              f"equal to the plain version; kernel {km:.4f} ms replayed ({100.0 * bms / km:.0f}% "
+              f"of its bound), on inputs out of the L2 {rcold[k]:.4f} ms "
+              f"({100.0 * bms / rcold[k]:.0f}%), plain {pm:.4f} ms ({prm:.4f} ms replayed), "
+              f"bound {bms:.4f} ms by {by} [{card}]", flush=True)
+    del w1_args, compose_args, u0v0dudv, modes
 
     # -- phase 1f: each scale's glue, S1, S3 and S4 ------------------------------
     # Each on the inputs the main path gives it at the finest scale (its last
@@ -2518,10 +2634,13 @@ def main() -> int:
     del untiled, out
 
     # -- phase 2f: refinement presets at 1080p ----------------------------------
-    refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL}
+    refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL, "warp1": warp1_cfg}
     want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
                                "R0": 4, "R1": 4, "R2": 20, "R3": 200,
                                "S1": 4, "S3": 4, "S4": 4, "F2": 1},
+                    "warp1": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
+                              "R1": 4, "R2": 20, "R3": 200,
+                              "S1": 4, "S3": 4, "S4": 4, "F2": 1},
                     "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
                              "R0": 5, "R1": 5, "R2": 50, "R3": 500,
                              "S1": 5, "S3": 5, "S4": 5, "F1": 1, "F2": 1}}
@@ -2550,8 +2669,9 @@ def main() -> int:
         del plain, d
     # The refinement alone, on the card and on the CPU, for the finest
     # level's inputs of each frame (the stepwise run equals dis_flow).
-    rlevels = {"medium": (med_levels, med_planes), "full": (full_levels, full_planes)}
-    crops = {"medium": (0, 0), "full": (fpw, fph)}
+    rlevels = {"medium": (med_levels, med_planes), "full": (full_levels, full_planes),
+               "warp1": (w1_levels, w1_planes)}
+    crops = {"medium": (0, 0), "full": (fpw, fph), "warp1": (0, 0)}
     for name, (levels, planes) in rlevels.items():
         check(torch.equal(im.crop_padding(levels[0][4], *crops[name], W, H), rflows[name]),
               f"{name}: stepwise run differs")
@@ -2645,10 +2765,15 @@ def main() -> int:
               flush=True)
     del untiled, untiled_fin, out
 
+    # The clamped frames clip in R3 (its compose mode, or its no-sweep mode
+    # where a level makes no weight update): no clamp op runs.
+    clamped_cfg = dataclasses.replace(med_cfg, refined_init_clamp=True)
+    nosweep_cfg = dataclasses.replace(clamped_cfg, refinement_inner_sweeps=0)
     for label, img1, img2, cfg in (
             ("4K medium", a4, b4, med_cfg),
-            ("1080p medium clamped", a, b, dataclasses.replace(med_cfg, refined_init_clamp=True)),
-            ("4K medium clamped", a4, b4, dataclasses.replace(med_cfg, refined_init_clamp=True))):
+            ("1080p medium clamped", a, b, clamped_cfg),
+            ("4K medium clamped", a4, b4, clamped_cfg),
+            ("1080p medium clamped, no weight update", a, b, nosweep_cfg)):
         ww, hh = img1.shape[-1], img1.shape[-2]
         routes = [scale_extraction_route(cfg, ww, hh, s)
                   for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)]
@@ -2656,17 +2781,29 @@ def main() -> int:
         want = {**scale_counts(cfg), "K2": len(routes) - n_k2c, "K2c": n_k2c}
         for w in wrappers.values():
             w.launches = 0
-        flow = dt.dis_flow(img1, img2, cfg)
+        flow, aten = aten_calls(lambda: dt.dis_flow(img1, img2, cfg))
         torch.cuda.synchronize()
-        counts = read_counts(wrappers)
+        counts, modes = read_counts(wrappers), read_modes(wrappers)
         check(counts == want, f"{label}: launches {counts}, want {want} (routes {routes})")
+        check(modes == mode_counts(cfg), f"{label}: modes {modes}, want {mode_counts(cfg)}")
+        clamps = {n: c for n, c in aten.items() if "clamp" in n or "clip" in n}
+        check(not clamps, f"{label}: torch clamps {clamps}")
+        for k, n in {**counts, **modes}.items():
+            if k in launches and k not in CORE:
+                launches[k] += n
         if label == "4K medium":
             check(n_k2c == 0, f"4K medium unclamped: routes {routes}")
         med, epe = flow_gates(label, flow.cpu().numpy(), SHIFT)
-        print(f"phase2g {label}: routes by scale (finest first) {routes}, launches {counts}; "
-              f"median {med.tolist()} epe {epe}", flush=True)
+        print(f"phase2g {label}: routes by scale (finest first) {routes}, launches {counts}, "
+              f"modes {modes}, {sum(aten.values())} torch ops, none a clamp; median "
+              f"{med.tolist()} epe {epe}", flush=True)
         if label == "4K medium":
             flow4_med = flow
+        if cfg is nosweep_cfg:
+            bare = dt.dis_flow(a, b, dataclasses.replace(cfg, refinement_iters=0))
+            check(torch.equal(flow, bare), f"{label}: differs from the frame without refinement")
+            print(f"phase2g {label}: equal to the frame without refinement", flush=True)
+            del bare
         del flow
 
     # -- phase 2h: the saved serving artifact (torch.export) ----------------------
@@ -2895,10 +3032,11 @@ def main() -> int:
     frame_ms, bare_ms = {}, {}
     for label, cfg, (x, y) in (("1080p medium", dt.DIS_MEDIUM, (a, b)),
                                ("1080p full", dt.DIS_FULL, (a, b)),
+                               ("1080p warp1", warp1_cfg, (a, b)),
                                ("4K medium", dt.DIS_MEDIUM, (a4, b4))):
         cf = served_med["1080p"] if label == "1080p medium" else aot_compile(cfg, *x.shape)
         want = {"1080p medium": rflows["medium"], "1080p full": rflows["full"],
-                "4K medium": flow4_med}[label]
+                "1080p warp1": rflows["warp1"], "4K medium": flow4_med}[label]
         check(torch.equal(cf(x, y), want), f"{label}: graph replay differs from eager")
         e = time_ms(lambda: dt.dis_flow(x, y, cfg), reps=5, warmup=1)
         r = time_ms(lambda: cf(x, y), reps=10)
@@ -2977,12 +3115,18 @@ def main() -> int:
                r_err["R1"]),
         "R1s": ("refine_setup", src + "variational.cu", "dis_tpu/ops/variational.py:220",
                 r_err["R1s"]),
+        "R1w": ("refine_setup_warp1", src + "refine_planes.cu",
+                "dis_tpu/ops/variational.py:223", r_err["R1w"]),
         "R2": ("refine_weights", src + "variational.cu", "dis_tpu/ops/variational.py:252",
                r_err["R2"]),
         "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
                r_err["R3"]),
         "R3c": ("refine_compose", src + "variational.cu", "dis_tpu/ops/variational.py:314",
                 r_err["R3c"]),
+        "R3k": ("refine_compose_clamp", src + "variational.cu", "dis_tpu/models/dis.py:101",
+                r_err["R3k"]),
+        "R3n": ("refine_nosweep", src + "variational.cu", "dis_tpu/ops/variational.py:314",
+                r_err["R3n"]),
         # Nor S1, S3, S4 and the start: they replace XLA's fusions of each
         # scale's jnp code.  The start (once S2) runs inside S1.
         "S1": ("scale_templates", src + "scale_glue.cu", "dis_tpu/ops/iclk.py:155",
@@ -3035,9 +3179,12 @@ def main() -> int:
                      "max_abs_err": meta[k][3], "ms": times[k][0], "plain_ms": times[k][1],
                      "bound_ms": bound_ms, "bound_by": bound_by,
                      "library_ms": library.get(k)})
+        if k in rcold or k in f_cold:
+            rows[-1]["cold_ms"] = rcold.get(k, f_cold.get(k))
         if k in MODES:
-            # R1's setup mode and R3's compose mode: the same kernel, whose
-            # row's launches count this mode's too.
+            # R1's and R3's modes: the same kernel, whose row's launches
+            # count this mode's too (R1w a kernel of its own that counts as
+            # R1's; R3k R3's launches with the clip flag).
             rows[-1]["mode_of"] = meta[k[:2]][0]
     # The start's row: fused into S1 (scale_templates), it launches
     # with S1, and its ms is what it adds inside S1 on the same inputs.
@@ -3063,10 +3210,13 @@ def kernel_times(root: str) -> int:
     replayed 1080p and 4K compat frames (``aot_compile``), the eager 1080p
     compat frame and the KITTI B = 8 batch, eager and replayed; the refinement
     of the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL`` frames
-    and those frames, replayed and eager, a hash of the flow of each of
-    eight configs and inputs (``flow_sha256``), and, in a tree that has them, R0,
-    R1 (on the planes and flow of its setup mode where the tree has it),
-    R1's setup mode, R2, R3 and R3's compose mode on that level's inputs;
+    and those frames, replayed and eager, the same of the 1080p
+    ``DIS_MEDIUM`` frame under ``warp1``, a hash of the flow of each of
+    eleven configs and inputs (``flow_sha256``: the clamped 1080p and 4K
+    and the ``warp1`` ``DIS_MEDIUM`` frames among them), and, in a tree
+    that has them, R0, R1 (on the planes and flow of its setup mode where
+    the tree has it), R1's setup and warp1 modes, R2, R3 and R3's compose
+    mode on that level's inputs;
     the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
     nodes and bytes.  K2
     gets the grid's column length where the tree's ``extract_regions``
@@ -3183,7 +3333,8 @@ def kernel_times(root: str) -> int:
 
     kernels = importlib.util.find_spec("dis_tpu_torch.ops.cuda.refine_kernel") is not None
     out["refine_kernels"] = kernels
-    for key, cfg in (("medium", dt.DIS_MEDIUM), ("full", dt.DIS_FULL)):
+    warp1_cfg = dataclasses.replace(dt.DIS_MEDIUM, refinement_scheme="warp1")
+    for key, cfg in (("medium", dt.DIS_MEDIUM), ("full", dt.DIS_FULL), ("warp1", warp1_cfg)):
         x, y = (im.pad_divisible(t, cfg.coarsest_scale)[0] for t in (a, b))
         levels, planes = refined_levels(x, y, cfg)
         args = refine_inputs(cfg, levels, planes, 0)
@@ -3195,12 +3346,14 @@ def kernel_times(root: str) -> int:
             # R1 on the planes and flow of R1's setup mode where the tree
             # has it; R0 and the modes where the tree has them.
             steps = refine_step_inputs(args, {"R0": (0,), "R1": (0,), "R1s": (0,),
-                                              "R2": (1,), "R3": (10,), "R3c": (0,)})
+                                              "R1w": (0,), "R2": (1,), "R3": (10,),
+                                              "R3c": (0,)})
             if not steps.get("R1") and steps.get("R1s"):
                 steps["R1"] = [steps["R1s"][0][:2]]
             for k, name in (("R0", "refine_planes"), ("R1", "refine_warp"),
-                            ("R1s", "refine_setup"), ("R2", "refine_weights"),
-                            ("R3", "refine_sor"), ("R3c", "refine_compose")):
+                            ("R1s", "refine_setup"), ("R1w", "refine_setup_warp1"),
+                            ("R2", "refine_weights"), ("R3", "refine_sor"),
+                            ("R3c", "refine_compose")):
                 if steps.get(k):
                     fn = getattr(rk, name)
                     out[f"{k}_1080p_{key}_finest_replayed_ms"] = replay_ms(
@@ -3233,6 +3386,7 @@ def kernel_times(root: str) -> int:
         del steps
     # The flows' bits, to hold two trees' flows to each other: a hash of
     # each config's flow on the same inputs.
+    clamped = dataclasses.replace(dt.DIS_MEDIUM, refined_init_clamp=True)
     out["flow_sha256"] = {
         key: hashlib.sha256(dt.dis_flow(x, y, cfg).cpu().numpy().tobytes()).hexdigest()[:16]
         for key, (cfg, x, y) in {
@@ -3240,7 +3394,10 @@ def kernel_times(root: str) -> int:
             "medium_1080p": (dt.DIS_MEDIUM, a, b), "full_1080p": (dt.DIS_FULL, a, b),
             "compat_4k": (bench_cfg, a4, b4), "fast_4k": (dt.DIS_FAST, a4, b4),
             "compat_kitti_b8": (bench_cfg, ka, kb),
-            "ultrafast_kitti_b8": (dt.DIS_ULTRAFAST, ka, kb)}.items()}
+            "ultrafast_kitti_b8": (dt.DIS_ULTRAFAST, ka, kb),
+            "medium_warp1_1080p": (warp1_cfg, a, b),
+            "medium_clamped_1080p": (clamped, a, b), "medium_clamped_4k": (clamped, a4, b4)
+        }.items()}
     # The 1080p DIS_MEDIUM artifact: its size, export and load in this process.
     t0 = time.perf_counter()
     data = export_flow(dt.DIS_MEDIUM, H, W)

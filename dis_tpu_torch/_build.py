@@ -48,7 +48,8 @@ SIGNATURES = {
     "dis_refine_warp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "dis_refine_setup": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "dis_refine_weights": [_P, _I, _I, _I, _F, _F, _F, _P, _P],
-    "dis_refine_sor": [_P, _I, _I, _I, _I, _F, _I, _I, _P, _P],
+    "dis_refine_setup_warp1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "dis_refine_sor": [_P, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _P, _P],
     "dis_scale_templates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _I, _I, _P, _P, _P, _P, _P,
                             _I, _I, _P, _P, _P, _I, _I, _I, _P, _F, _F, _F, _P, _P, _P, _P],

@@ -3,8 +3,10 @@
 Each kernel's work is a formula of its launch's shapes
 (:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, the
 refinement's :func:`refine_planes_cost`, :func:`refine_warp_cost`,
-:func:`refine_setup_cost`, :func:`refine_weights_cost`,
-:func:`refine_sor_cost` (in its compose mode :func:`refine_compose_cost`),
+:func:`refine_setup_cost` (in its warp1 mode
+:func:`refine_setup_warp1_cost`), :func:`refine_weights_cost`,
+:func:`refine_sor_cost` (in its compose mode :func:`refine_compose_cost`,
+in its no-sweep mode :func:`refine_nosweep_cost`),
 each scale's :func:`templates_cost` (plus :func:`start_cost` where S1
 writes the start), :func:`weights_cost`, :func:`densify_cost`, and the
 frame's :func:`frame_pad_cost`, :func:`intensity_levels_cost`,
@@ -36,12 +38,13 @@ from torch.utils._pytree import tree_leaves
 from .config import DISConfig
 from .ops.cuda.pyramid_kernel import first_level_dims
 
-# The kernel each op launches, by op name (R1's setup mode and R3's
-# compose mode count as R1 and R3).
+# The kernel each op launches, by op name (R1's setup and warp1 modes and
+# R3's compose and no-sweep modes count as R1 and R3).
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
            "extract_regions_banded": "K2c", "iclk_search": "K1",
            "refine_planes": "R0", "refine_warp": "R1", "refine_setup": "R1",
-           "refine_weights": "R2", "refine_sor": "R3", "refine_compose": "R3",
+           "refine_setup_warp1": "R1", "refine_weights": "R2", "refine_sor": "R3",
+           "refine_compose": "R3", "refine_nosweep": "R3",
            "scale_templates": "S1", "fixed_weights": "S3", "densify": "S4",
            "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
 # The kernels every count names; the refinement's (R0-R3) appear only
@@ -133,6 +136,15 @@ def refine_setup_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
     return px * 24 * F32, px * (37 + 7 * 6 + 3)
 
 
+def refine_setup_warp1_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
+    """(bytes, operations) of one R1 launch in its warp1 mode over ``nb``
+    windows of ``h`` x ``w``: I1, I2 and the flow read once and R2's 13
+    inputs written once; the warp's operations at C = 1, seven Sobels a
+    pixel (7 operations each), the two means and three differences."""
+    px = nb * h * w
+    return px * 17 * F32, px * (37 + 7 + 7 * 7 + 2 * 2 + 3)
+
+
 def refine_weights_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
     """(bytes, operations) of one R2 launch over ``nb`` planes of ``h`` x
     ``w``: 13 planes read once and 12 written once; about 195 operations a
@@ -151,13 +163,21 @@ def refine_sor_cost(nb: int, h: int, w: int, color: int, relax: bool) -> Tuple[i
     return px * 18 * F32, updated * (40 if relax else 34)
 
 
-def refine_compose_cost(nb: int, h: int, w: int, color: int,
-                        relax: bool) -> Tuple[int, int]:
+def refine_compose_cost(nb: int, h: int, w: int, color: int, relax: bool,
+                        clamp: bool = False) -> Tuple[int, int]:
     """(bytes, operations) of one R3 launch in its compose mode: the
     half-sweep's, its 16 planes read and the flow's two planes written, and
-    two sums a pixel."""
+    two sums a pixel (and two comparisons a value where it ``clamp``s)."""
     nbytes, ops = refine_sor_cost(nb, h, w, color, relax)
-    return nbytes, ops + 2 * nb * h * w
+    return nbytes, ops + (6 if clamp else 2) * nb * h * w
+
+
+def refine_nosweep_cost(nb: int, h: int, w: int, clamp: bool) -> Tuple[int, int]:
+    """(bytes, operations) of one R3 launch in its no-sweep mode: u0, v0,
+    du and dv read once and the flow's two planes written once; two sums a
+    pixel (and two comparisons a value where it ``clamp``s)."""
+    px = nb * h * w
+    return px * 6 * F32, px * (6 if clamp else 2)
 
 
 def frame_pad_cost(nb: int, h: int, w: int, top: int, bottom: int, left: int,
@@ -258,17 +278,21 @@ def op_cost(name: str, args) -> Tuple[int, int]:
     if name == "refine_planes":
         img1, h, w = args[0], args[3], args[4]
         return refine_planes_cost(img1.shape[0] if img1.ndim == 3 else 1, h, w)
-    if name == "refine_setup":
-        planes = args[0]
-        return refine_setup_cost(planes.shape[0] if planes.ndim == 4 else 1,
-                                 *planes.shape[-3:-1])
-    if name in ("refine_weights", "refine_sor", "refine_compose"):
+    if name in ("refine_setup", "refine_setup_warp1"):
+        lead_hw = args[0 if name == "refine_setup" else 1].shape[:-1]
+        setup = refine_setup_cost if name == "refine_setup" else refine_setup_warp1_cost
+        return setup(lead_hw[0] if len(lead_hw) == 3 else 1, *lead_hw[-2:])
+    if name in ("refine_weights", "refine_sor", "refine_compose", "refine_nosweep"):
         plane = args[0]
         nb = plane.shape[0] if plane.ndim == 3 else 1
         if name == "refine_weights":
             return refine_weights_cost(nb, *plane.shape[-2:])
-        sweep = refine_sor_cost if name == "refine_sor" else refine_compose_cost
-        return sweep(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
+        if name == "refine_nosweep":
+            return refine_nosweep_cost(nb, *plane.shape[-2:], args[4])
+        if name == "refine_sor":
+            return refine_sor_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
+        return refine_compose_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0,
+                                   len(args) > 18 and args[18])
     if name == "frame_pad":
         img1 = args[0]
         return frame_pad_cost(img1.shape[0] if img1.ndim == 3 else 1, *img1.shape[-2:],

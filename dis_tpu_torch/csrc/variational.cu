@@ -13,10 +13,15 @@
 //   R3 dis_refine_sor      one red or black SOR half-sweep, half_sweep
 //                          (:286-307); in its compose mode the last one of
 //                          an outer iteration, which writes the flow
-//                          (u0 + du, v0 + dv) (:314).
-// Their plain versions are refine_warp_plain, refine_setup_plain,
-// refine_weights_plain, refine_sor_plain and refine_compose_plain in
-// dis_tpu_torch/ops/variational.py.  Each kernel keeps
+//                          (u0 + du, v0 + dv) (:314), clipped to a bound
+//                          under a flag (refined_init_clamp's jnp.clip,
+//                          dis_tpu/models/dis.py:101-103); in its no-sweep
+//                          mode that flow of an outer iteration without a
+//                          half-sweep, with the same clip.
+// R1's warp1 mode (R1w), a tile kernel, is in refine_planes.cu.  Their
+// plain versions are refine_warp_plain, refine_setup_plain,
+// refine_weights_plain, refine_sor_plain, refine_compose_plain and
+// refine_nosweep_plain in dis_tpu_torch/ops/variational.py.  Each kernel keeps
 // the plain version's operations, one float32 rounding per operation and
 // in its order (the build passes -fmad=false, so no product is contracted
 // into a multiply-add); the IRLS weight is 0.5 * (1 / sqrt(s2 + eps2))
@@ -245,25 +250,36 @@ struct SorArgs {
   const float* in[N_SOR_IN];
 };
 
+// x clipped to [-b, b] as torch.clamp and jnp.clip clip it: NaN passes
+// through and -0.0 stays -0.0 (fminf and fmaxf would drop a NaN).
+__device__ __forceinline__ float clip(float x, float b) {
+  return x < -b ? -b : (x > b ? b : x);
+}
+
 // COMPOSE (R3's compose mode, refine_compose_plain): the outer
 // iteration's last half-sweep, which writes the flow out [nb, h, w, 2] =
-// (u0 + du, v0 + dv) of its new du and dv instead of du and dv.
+// (u0 + du, v0 + dv) of its new du and dv instead of du and dv, each
+// clipped to [-bound, bound] where `clamp` (a runtime flag).
 template <bool COMPOSE>
 __device__ __forceinline__ void sor_store(float* __restrict__ out, int64_t n, int64_t i,
-                                          float u0, float v0, float du, float dv) {
+                                          float u0, float v0, float du, float dv, int clamp,
+                                          float bound) {
   if (COMPOSE) {
-    out[2 * i] = u0 + du;
-    out[2 * i + 1] = v0 + dv;
+    const float u = u0 + du, v = v0 + dv;
+    out[2 * i] = clamp ? clip(u, bound) : u;
+    out[2 * i + 1] = clamp ? clip(v, bound) : v;
   } else {
     out[i] = du;
     out[n + i] = dv;
   }
 }
 
+// NOSWEEP (R3's no-sweep mode, refine_nosweep_plain, with COMPOSE): every
+// pixel passes through, so only u0, v0, du and dv are read.
 template <bool COMPOSE>
 __global__ void __launch_bounds__(THREADS)
-sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax,
-           float* __restrict__ out) {
+sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax, int clamp,
+           float bound, int nosweep, float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const Pixel p = pixel_of(i, h, w);
@@ -272,8 +288,8 @@ sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax
   const float* du = g.in[S_DU];
   const float* dv = g.in[S_DV];
   const float du_c = du[i], dv_c = dv[i];
-  if (((p.x + p.y) & 1) != color) {   // the other colour passes through
-    sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_c, dv_c);
+  if (nosweep || ((p.x + p.y) & 1) != color) {   // the other colour passes through
+    sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_c, dv_c, clamp, bound);
     return;
   }
   const int64_t row = p.base + (int64_t)p.y * w;
@@ -300,7 +316,7 @@ sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax
     du_new = du_c + (du_new - du_c) * omega;
     dv_new = dv_c + (dv_new - dv_c) * omega;
   }
-  sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_new, dv_new);
+  sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_new, dv_new, clamp, bound);
 }
 
 int blocks_for(int64_t n) { return (int)((n + THREADS - 1) / THREADS); }
@@ -357,19 +373,22 @@ extern "C" int dis_refine_weights(const float* const* ins, int nb, int h, int w,
 }
 
 // R3: out [2, nb, h, w] (du, dv); in its compose mode (compose != 0) the
-// flow [nb, h, w, 2].
+// flow [nb, h, w, 2], clipped to [-bound, bound] where clamp != 0; in its
+// no-sweep mode (nosweep != 0, with compose) the flow (u0 + du, v0 + dv)
+// with the same clip, from ins[0..3] alone (the others are not read).
 extern "C" int dis_refine_sor(const float* const* ins, int nb, int h, int w, int color,
-                              float omega, int relax, int compose, float* out,
-                              cudaStream_t stream) {
-  if (!shape_ok(nb, h, w) || (color != 0 && color != 1)) return (int)cudaErrorInvalidValue;
+                              float omega, int relax, int compose, int clamp, float bound,
+                              int nosweep, float* out, cudaStream_t stream) {
+  if (!shape_ok(nb, h, w) || (color != 0 && color != 1) || ((clamp || nosweep) && !compose))
+    return (int)cudaErrorInvalidValue;
   SorArgs g;
   for (int k = 0; k < N_SOR_IN; ++k) g.in[k] = ins[k];
   const int64_t n = (int64_t)nb * h * w;
   if (compose)
     sor_kernel<true><<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax,
-                                                            out);
+                                                            clamp, bound, nosweep, out);
   else
     sor_kernel<false><<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax,
-                                                             out);
+                                                             0, 0.0f, 0, out);
   return (int)cudaGetLastError();
 }

@@ -218,30 +218,30 @@ def build_refinement_planes(img1_padded: torch.Tensor, img2_padded: torch.Tensor
 
 
 def refine(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
-           planes=None, plain: bool = False) -> torch.Tensor:
+           planes=None, plain: bool = False, bound: Optional[float] = None) -> torch.Tensor:
     """The variational refinement of ``flow`` at ``scale``: on the Q1
     level planes ``l1.img`` and ``l2.img``, or, where ``planes`` (from
     :func:`build_refinement_planes`) is given, on the intensity planes of
-    that scale (the levels are then not read and may be None).
-    ``plain=True`` runs the plain versions of R0-R3 on any device."""
+    that scale (the levels are then not read and may be None); clipped to
+    [-bound, bound] where ``bound`` is given.  ``plain=True`` runs the
+    plain versions of R0-R3 on any device."""
     if planes is None:
-        return variational_refinement(l1.img, l2.img, flow, cfg, plain=plain)
+        return variational_refinement(l1.img, l2.img, flow, cfg, plain=plain, bound=bound)
     return variational_refinement(planes[0][scale], planes[1][scale], flow, cfg, pad=0,
-                                  plain=plain)
+                                  plain=plain, bound=bound)
 
 
 def refine_level(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
                  planes=None, plain: bool = False) -> torch.Tensor:
     """Per-level variational refinement at ``scale`` (DIS paper sec.
-    3.3), shared by the untiled and grid-tiled engines.  With
-    ``cfg.refined_init_clamp`` the refined field is clipped to the
-    policing-chain bound ``motion_bound(cfg, scale)``, which restores the
-    static init bound that K2c's route needs."""
-    flow = refine(l1, l2, flow, cfg, scale, planes, plain)
-    if cfg.refined_init_clamp:
-        b = motion_bound(cfg, scale)
-        flow = flow.clamp(-b, b)
-    return flow
+    3.3), shared by the untiled and grid-tiled engines, which call it
+    where ``refinement_iters > 0``.  With ``cfg.refined_init_clamp`` the
+    refined field is clipped to the policing-chain bound
+    ``motion_bound(cfg, scale)``, which restores the static init bound
+    that K2c's route needs: R3 clips the flow as it writes it in the last
+    outer iteration."""
+    bound = motion_bound(cfg, scale) if cfg.refined_init_clamp else None
+    return refine(l1, l2, flow, cfg, scale, planes, plain, bound)
 
 
 def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,

@@ -19,12 +19,15 @@ loop over a few steps, each one kernel on CUDA tensors
 ``csrc/variational.cu``): R0 the level's Sobel planes
 (:func:`refine_planes_plain`), R1 the warp (:func:`refine_warp_plain`; in
 its setup mode, :func:`refine_setup_plain`, also the weight update's
-inputs), R2 one weight update (:func:`refine_weights_plain`) and R3 one
-half-sweep (:func:`refine_sor_plain`; in its compose mode,
-:func:`refine_compose_plain`, the last one, which also writes the flow).
-These plain functions are the kernels' plain versions: torch ops, which
-CPU tensors (and ``plain=True``) run.  The ``warp1`` scheme warps one
-plane with R1 and keeps its Sobels and differences as torch ops.
+inputs, and in its warp1 mode, :func:`refine_setup_warp1_plain`, the
+``warp1`` scheme's warp, Sobels and inputs), R2 one weight update
+(:func:`refine_weights_plain`) and R3 one half-sweep
+(:func:`refine_sor_plain`; in its compose mode,
+:func:`refine_compose_plain`, the last one, which also writes the flow,
+clipped where a bound is given; in its no-sweep mode,
+:func:`refine_nosweep_plain`, the flow of an outer iteration without a
+half-sweep).  These plain functions are the kernels' plain versions:
+torch ops, which CPU tensors (and ``plain=True``) run.
 
 Every expression keeps the JAX package's order of operations, and each
 step is its own op, so no multiply-add is contracted.  Where the JAX
@@ -225,23 +228,24 @@ def refine_setup_plain(planes: torch.Tensor, flow: torch.Tensor, img1: torch.Ten
             u0, v0, torch.zeros_like(u0), torch.zeros_like(v0))
 
 
-def refine_compose_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
-                         Su0, Sv0, color: int, omega: float) -> torch.Tensor:
-    """The last half-sweep of an outer iteration and the flow it leaves:
-    [(B,) h, w, 2] = (u0 + du, v0 + dv), du and dv the half-sweep's new
-    increments.  The plain version of R3's compose mode."""
-    du, dv = refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
-                              Su0, Sv0, color, omega)
-    return torch.stack([u0 + du, v0 + dv], dim=-1)
-
-
-def _warp1_inputs(warp, planes, flow, I1, I1x, I1y):
-    """The ``warp1`` scheme's weight-update inputs: R1 warps only I2, and
-    the gradients come from the Sobels of the warped image, averaged with
-    I1's (the gradient-averaging linearization of the DIS authors' OpenCV
-    refinement), as torch ops."""
-    u0, v0 = (c.contiguous() for c in flow.unbind(-1))
-    warped, inb = warp(planes, flow)
+def refine_setup_warp1_plain(img2: torch.Tensor, flow: torch.Tensor, img1: torch.Tensor,
+                             p: int):
+    """The warp of an outer iteration under the ``warp1`` scheme and the
+    weight update's thirteen inputs made from it, every plane [(B,) h, w]
+    in the order of :func:`refine_weights_plain`'s arguments.  I1 and I2
+    are the windows at offset ``p`` of ``img1`` and ``img2`` [(B,) H, W];
+    only I2 is warped (at ``x + flow``, R1's taps), and the gradients come
+    from the Sobels of the warped image W, averaged with I1's (the
+    gradient-averaging linearization of the DIS authors' OpenCV
+    refinement): Wx = 0.5 (I1x + sobel(W)), the second Sobels of those
+    means, Iz = W - I1, Izx and Izy the first Sobels' differences, the
+    mask, u0, v0 and du = dv = 0.  The plain version of R1's warp1 mode."""
+    h, w = flow.shape[-3:-1]
+    I1 = img1[..., p:p + h, p:p + w]
+    I1x = im.sobel3(I1, "x")
+    I1y = im.sobel3(I1, "y")
+    u0, v0 = flow.unbind(-1)
+    warped, inb = refine_warp_plain(img2[..., p:p + h, p:p + w][..., None], flow)
     W = warped[..., 0]
     Wxr = im.sobel3(W, "x")
     Wyr = im.sobel3(W, "y")
@@ -254,38 +258,63 @@ def _warp1_inputs(warp, planes, flow, I1, I1x, I1y):
             u0, v0, torch.zeros_like(u0), torch.zeros_like(v0))
 
 
+def refine_compose_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
+                         Su0, Sv0, color: int, omega: float,
+                         bound: Optional[float] = None) -> torch.Tensor:
+    """The last half-sweep of an outer iteration and the flow it leaves:
+    [(B,) h, w, 2] = (u0 + du, v0 + dv), du and dv the half-sweep's new
+    increments, clipped to [-bound, bound] where ``bound`` is given.  The
+    plain version of R3's compose mode."""
+    du, dv = refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
+                              Su0, Sv0, color, omega)
+    return refine_nosweep_plain(u0, v0, du, dv, bound)
+
+
+def refine_nosweep_plain(u0, v0, du, dv, bound: Optional[float] = None) -> torch.Tensor:
+    """The flow of an outer iteration that makes no half-sweep (no weight
+    update or no SOR sweep): (u0 + du, v0 + dv) [(B,) h, w, 2], clipped to
+    [-bound, bound] where ``bound`` is given (as ``jnp.clip`` with a
+    float32 bound: NaN passes, -0.0 stays).  The plain version of R3's
+    no-sweep mode, and the end of its compose mode's."""
+    flow = torch.stack([u0 + du, v0 + dv], dim=-1)
+    return flow if bound is None else flow.clamp(-bound, bound)
+
+
 def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
                            flow: torch.Tensor, cfg: DISConfig,
-                           pad: Optional[int] = None, plain: bool = False) -> torch.Tensor:
+                           pad: Optional[int] = None, plain: bool = False,
+                           bound: Optional[float] = None) -> torch.Tensor:
     """Refine ``flow`` [(B,) h, w, 2] given the level image planes
     [(B,) h + 2 pad, w + 2 pad].
 
     ``pad`` is the border width to slice off the planes (default
     ``cfg.img_padding``, matching the Q1 pyramid levels; 0 for the
     exact-size intensity planes of ``refinement_planes="intensity"``).
-    A leading pair axis runs through every step.  On CUDA tensors the
-    ``planes6`` scheme launches R0 once, each outer iteration R1 once (in
-    its setup mode), each weight update R2 once and each half-sweep R3
-    once (the last in its compose mode, which writes the flow), and runs
-    no torch op; ``plain=True`` runs their plain versions on any device.
-    Returns the refined flow, of the shape of ``flow``.
+    Where ``bound`` is given, the last outer iteration clips the flow it
+    writes to [-bound, bound] (``refined_init_clamp``).  A leading pair
+    axis runs through every step.  On CUDA tensors the ``planes6`` scheme
+    launches R0 once, each outer iteration R1 once (in its setup mode;
+    under ``warp1`` in its warp1 mode, and no R0), each weight update R2
+    once and each half-sweep R3 once (the last in its compose mode, which
+    writes the flow; an outer iteration without a half-sweep launches R3
+    once in its no-sweep mode instead), and runs no torch op;
+    ``plain=True`` runs their plain versions on any device.  Returns the
+    refined flow, of the shape of ``flow``.
     """
     if plain:
-        planes_fn, setup, warp = refine_planes_plain, refine_setup_plain, refine_warp_plain
-        weights, sor, compose = refine_weights_plain, refine_sor_plain, refine_compose_plain
+        planes_fn, setup, setup_warp1 = (refine_planes_plain, refine_setup_plain,
+                                         refine_setup_warp1_plain)
+        weights, sor, compose, nosweep = (refine_weights_plain, refine_sor_plain,
+                                          refine_compose_plain, refine_nosweep_plain)
     else:
         from .cuda import refine_kernel as rk
-        planes_fn, setup, warp = rk.refine_planes, rk.refine_setup, rk.refine_warp
-        weights, sor, compose = rk.refine_weights, rk.refine_sor, rk.refine_compose
+        planes_fn, setup, setup_warp1 = rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1
+        weights, sor, compose, nosweep = (rk.refine_weights, rk.refine_sor, rk.refine_compose,
+                                          rk.refine_nosweep)
     h, w = flow.shape[-3:-1]
     p = cfg.img_padding if pad is None else pad
     warp1 = cfg.refinement_scheme == "warp1"
-    if warp1:
-        I1 = img1_padded[..., p:p + h, p:p + w]
-        I1x = im.sobel3(I1, "x")
-        I1y = im.sobel3(I1, "y")
-        planes = img2_padded[..., p:p + h, p:p + w].contiguous()[..., None]
-    else:
+    if not warp1:
         I1x, I1y, planes = planes_fn(img1_padded, img2_padded, p, h, w)
 
     alpha = cfg.refinement_alpha
@@ -294,10 +323,11 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     omega = cfg.refinement_omega
     last = (cfg.refinement_inner_sweeps - 1, cfg.refinement_sor_sweeps - 1)
 
-    for _ in range(cfg.refinement_iters):
+    for it in range(cfg.refinement_iters):
+        clip = bound if it == cfg.refinement_iters - 1 else None
         flow = flow.contiguous()
         if warp1:
-            ins = _warp1_inputs(warp, planes, flow, I1, I1x, I1y)
+            ins = setup_warp1(img2_padded, flow, img1_padded, p)
         else:
             ins = setup(planes, flow, img1_padded, I1x, I1y, p)
         u0, v0, du, dv = ins[9:]
@@ -307,10 +337,10 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
             for s in range(cfg.refinement_sor_sweeps):
                 du, dv = sor(u0, v0, du, dv, *coef, 0, omega)   # red
                 if (k, s) == last:   # black, and the flow
-                    composed = compose(u0, v0, du, dv, *coef, 1, omega)
+                    composed = compose(u0, v0, du, dv, *coef, 1, omega, clip)
                 else:
                     du, dv = sor(u0, v0, du, dv, *coef, 1, omega)
         # Without a half-sweep (no weight update or no SOR sweep) the flow
         # is u0 + 0 and v0 + 0.
-        flow = torch.stack([u0 + du, v0 + dv], dim=-1) if composed is None else composed
+        flow = nosweep(u0, v0, du, dv, clip) if composed is None else composed
     return flow

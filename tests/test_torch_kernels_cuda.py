@@ -31,8 +31,8 @@ the output's edges, S1 at each tile shape its plan picks (ps 2-20,
 strides 1-64), S4 on cover tables in another order or reaching past its
 staged sub-block; S1's start read from no flow while its flag is off,
 whatever pointer stands in its place; one S1 a scale on the main path,
-and no start kernel left; R0 (a level's Sobel planes), R1's setup mode
-and R3's compose mode bitwise equal to their plain versions at 1, 2 and
+and no start kernel left; R0 (a level's Sobel planes), R1's setup and warp1 modes
+and R3's compose (with its clip) and no-sweep modes bitwise equal to their plain versions at 1, 2 and
 odd rows and columns (R0 at 1 also against a NumPy reflect reference), B
 absent, 1 and 3, on padded windows and whole planes,
 omega 1.0 and 1.6, and the refinement through them on the card bitwise
@@ -1241,7 +1241,8 @@ def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
     """The refinement on the card (R0 once, R1 in its setup mode, R3's
     last half-sweep in its compose mode) equals the same call on the CPU
     bitwise, on Q1-style padded planes (pad 8) and on intensity planes
-    (pad 0), odd sizes; the warp1 scheme keeps R1's warp and no R0."""
+    (pad 0), odd sizes; the warp1 scheme launches R1 in its warp1 mode
+    and no R0."""
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.variational import variational_refinement
 
@@ -1254,16 +1255,102 @@ def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
                                   refinement_sor_sweeps=2, refinement_omega=omega,
                                   refinement_alpha=40.0, refinement_scheme=scheme,
                                   refinement_planes=planes)
-    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_weights,
-                rk.refine_sor, rk.refine_compose)
+    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_setup_warp1,
+                rk.refine_weights, rk.refine_sor, rk.refine_compose)
     for w_ in wrappers:
         w_.launches = 0
     card = variational_refinement(x, y, flow, cfg, pad=pad)
     six = scheme == "planes6"
-    assert [w_.launches for w_ in wrappers] == [int(six), 2, 2 * six, 6, 24, 2]
+    assert [w_.launches for w_ in wrappers] == [int(six), 2, 2 * six, 2 * (1 - six), 6, 24, 2]
     cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=pad)
     torch.cuda.synchronize()
     assert card.shape == flow.shape and torch.equal(card.cpu(), cpu)
+
+
+@pytest.mark.parametrize("shape", GLUE_SHAPES + [(1, 5), (5, 1), (1, 1), (1, 40), (40, 1)])
+@pytest.mark.parametrize("batch", [None, 1, 3])
+@pytest.mark.parametrize("p", [0, 3])
+def test_refine_warp1_clip_nosweep_bitwise(shape, batch, p):
+    """R1's warp1 mode (R1w) on windows of two level planes and a flow that
+    reaches past every edge, R3's compose mode with its clip (both colours,
+    omega 1.0 and 1.6, a bound that binds) and its no-sweep mode with and
+    without the clip, on planes holding a NaN, -0.0 and values far past the
+    bound: each bitwise equal to its plain version (bit patterns, so NaNs
+    and signed zeros count), one launch each, counted in R1's and R3's."""
+    from dis_tpu_torch.ops import variational as tvar
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+    h, w = shape
+    img1, img2 = _planes_pair(batch, h, w, p, sum(shape) + 2 * p)
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(17)
+    flow = torch.from_numpy(((rng.random(lead + (h, w, 2)) - 0.5) * 9)
+                            .astype(np.float32)).cuda()
+    wrappers = (rk.refine_warp, rk.refine_setup_warp1, rk.refine_sor, rk.refine_compose,
+                rk.refine_nosweep, rk.clamped)
+    for w_ in wrappers:
+        w_.launches = 0
+    bits = lambda t: t.contiguous().view(torch.int32)
+    ins = rk.refine_setup_warp1(img2, flow, img1, p)
+    want = tvar.refine_setup_warp1_plain(img2, flow, img1, p)
+    assert len(ins) == 13 and all(torch.equal(bits(g), bits(v)) for g, v in zip(ins, want))
+    assert all(t.is_contiguous() for t in ins)
+    u0, v0 = ins[9].clone(), ins[10].clone()
+    du, dv = ins[11] + 0.01, ins[12] - 0.02
+    for k, t in enumerate((u0, v0, du, dv)):
+        flat = t.view(-1)
+        flat[k % flat.numel()] = float("nan") if k == 0 else -0.0
+        flat[-1] = 1e4 * (-1) ** k
+    coef = tvar.refine_weights_plain(*ins[:9], u0, v0, du, dv, 40.0, 5.0, 10.0)
+    sor = (u0, v0, du, dv, *(c.contiguous() for c in coef))
+    for color in (0, 1):
+        for omega in (1.0, 1.6):
+            got = rk.refine_compose(*sor, color, omega, 0.75)
+            ref = tvar.refine_compose_plain(*sor, color, omega, 0.75)
+            assert got.shape == ref.shape and torch.equal(bits(got), bits(ref)), (color, omega)
+    for bound in (None, 0.75):
+        got = rk.refine_nosweep(u0, v0, du, dv, bound)
+        ref = tvar.refine_nosweep_plain(u0, v0, du, dv, bound)
+        assert got.shape == ref.shape and torch.equal(bits(got), bits(ref)), bound
+    torch.cuda.synchronize()
+    assert [w_.launches for w_ in wrappers] == [1, 1, 6, 4, 2, 5]
+
+
+@pytest.mark.parametrize("scheme", ["planes6", "warp1"])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_clamped_and_nosweep_levels_card_equal_cpu(scheme, batch):
+    """``refine_level`` with ``refined_init_clamp`` at the coarsest scale
+    (its clip binds) and a level without a weight update, on the card,
+    equal the same calls on the CPU bitwise, with R3's clip and no-sweep
+    launches counted."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from dis_tpu_torch.models.dis import motion_bound, refine_level
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+    from dis_tpu_torch.ops.variational import variational_refinement
+
+    h, w, pad = 37, 53, 8
+    x, y = _planes_pair(batch, h, w, pad, 9)
+    lead = () if batch is None else (batch,)
+    flow = torch.from_numpy((np.random.default_rng(4).standard_normal(lead + (h, w, 2)) * 8)
+                            .astype(np.float32)).cuda()
+    cfg = dataclasses.replace(dis_tpu_torch.DIS_MEDIUM, refinement_scheme=scheme,
+                              refined_init_clamp=True)
+    s = cfg.coarsest_scale
+    levels = [SimpleNamespace(img=t) for t in (x, y)]
+    for w_ in (rk.refine_compose, rk.refine_nosweep, rk.clamped):
+        w_.launches = 0
+    card = refine_level(*levels, flow, cfg, s)
+    cpu = refine_level(*(SimpleNamespace(img=t.cpu()) for t in (x, y)), flow.cpu(), cfg, s)
+    torch.cuda.synchronize()
+    assert torch.equal(card.cpu(), cpu) and float(cpu.abs().max()) == motion_bound(cfg, s)
+    nosweep = dataclasses.replace(cfg, refinement_inner_sweeps=0, refined_init_clamp=False)
+    card = variational_refinement(x, y, flow, nosweep)
+    torch.cuda.synchronize()
+    assert torch.equal(card, flow)
+    assert [w_.launches for w_ in (rk.refine_compose, rk.refine_nosweep, rk.clamped)] == \
+        [1, 1, 1]
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 2), (5, 7), (37, 53), (375, 1242)])

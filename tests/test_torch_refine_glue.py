@@ -1,10 +1,13 @@
-"""The last device glue as kernels (R0, R1's setup mode, R3's compose mode,
-F1-F3) on the CPU.
+"""The last device glue as kernels (R0, R1's setup and warp1 modes, R3's
+compose and no-sweep modes, F1-F3) on the CPU.
 
 A refinement level's Sobel planes (R0, ``refine_planes_plain``), the
 weight update's inputs that R1 writes in its setup mode
-(``refine_setup_plain``), the flow that R3 writes in its compose mode
-(``refine_compose_plain``), the frame's padding (F1,
+(``refine_setup_plain``) and, under the ``warp1`` scheme, in its warp1
+mode (``refine_setup_warp1_plain``), the flow that R3 writes in its
+compose mode (``refine_compose_plain``, clipped to a bound where
+``refined_init_clamp`` asks) and in its no-sweep mode
+(``refine_nosweep_plain``), the frame's padding (F1,
 ``frame_pad_plain``), the refinement's intensity levels (F2,
 ``intensity_levels_plain``) and the finest flow's upsample and crop (F3,
 ``frame_finish_plain``) are plain torch versions of hand-written CUDA
@@ -17,16 +20,20 @@ and even sizes down to 2 x 2, B absent and 3:
   ``intensity_pyramid`` through its ``window2`` route, whose association
   the port uses; the scale, ``resize_bilinear`` and ``crop_padding``),
   pair by pair;
-- R1's setup mode and R3's compose mode are bitwise the composition they
-  replaced (a verbatim copy below);
+- R1's setup and warp1 modes and R3's compose mode (with and without
+  its clip) and no-sweep mode are bitwise the composition they replaced
+  (verbatim copies below), R1's warp1 mode also on windows of one row or
+  column, the clip also on NaN, -0.0 and values past the bound;
 - every new op passes ``torch.library.opcheck`` within ``ops_on_cpu``,
   and its wrapper refuses there what the plain version refuses (dims that
   do not halve), and a window of one row or column, which both take, gives
   the Sobels of a NumPy reflect reference;
-- one ``planes6`` refinement level of ``DIS_MEDIUM`` and of ``DIS_FULL``
-  within ``ops_on_cpu`` dispatches no ATen op outside ``dis_tpu_torch::``
-  ops, views aside (54 before these kernels), and a whole ``dis_flow``
-  that pads and upsamples (``DIS_ULTRAFAST``) none either.
+- one refinement level of ``DIS_MEDIUM`` and of ``DIS_FULL`` within
+  ``ops_on_cpu`` dispatches no ATen op outside ``dis_tpu_torch::`` ops,
+  views aside (54 before these kernels under ``planes6``, about 40 a warp
+  under ``warp1``), under either scheme, clamped (``refine_level`` with
+  ``refined_init_clamp``) and without a half-sweep, and a whole
+  ``dis_flow`` that pads and upsamples (``DIS_ULTRAFAST``) none either.
 
 The kernels themselves run on the card (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py`` phases 1e and 1g).
@@ -232,6 +239,136 @@ def test_compose_plain_is_the_composition(shape, batch, color, omega):
     assert torch.equal(rk.refine_compose_op(*args, color, omega), want)
 
 
+def _bits(t):
+    """The float32 bits of ``t``: equal bits, equal NaNs and signed zeros."""
+    return t.contiguous().view(torch.int32)
+
+
+def _composition_warp1(img2, flow, img1, p):
+    """The ``warp1`` scheme's weight-update inputs as the refinement made them
+    before R1's warp1 mode: the level's I1 Sobels and I2 copy, then
+    ``_warp1_inputs`` with R1's warp (verbatim copies)."""
+    h, w = flow.shape[-3:-1]
+    I1 = img1[..., p:p + h, p:p + w]
+    I1x = tim.sobel3(I1, "x")
+    I1y = tim.sobel3(I1, "y")
+    planes = img2[..., p:p + h, p:p + w].contiguous()[..., None]
+    flow = flow.contiguous()
+    u0, v0 = (c.contiguous() for c in flow.unbind(-1))
+    warped, inb = tvar.refine_warp_plain(planes, flow)
+    W = warped[..., 0]
+    Wxr = tim.sobel3(W, "x")
+    Wyr = tim.sobel3(W, "y")
+    Wx = 0.5 * (I1x + Wxr)
+    Wy = 0.5 * (I1y + Wyr)
+    Wxx = tim.sobel3(Wx, "x")
+    Wxy = tim.sobel3(Wx, "y")
+    Wyy = tim.sobel3(Wy, "y")
+    return (W - I1, Wxr - I1x, Wyr - I1y, Wx, Wy, Wxx, Wxy, Wyy, inb.to(torch.float32),
+            u0, v0, torch.zeros_like(u0), torch.zeros_like(v0))
+
+
+def _warp1_args(batch, h, w, p, seed):
+    """R1w's arguments: two level planes and a flow of up to 4.5 px, which
+    reaches past every edge."""
+    a = torch.from_numpy(_planes(batch, h + 2 * p, w + 2 * p, seed))
+    b = torch.from_numpy(_planes(batch, h + 2 * p, w + 2 * p, seed + 1))
+    lead = () if batch is None else (batch,)
+    flow = torch.from_numpy(((np.random.default_rng(seed + 2).random(lead + (h, w, 2)) - 0.5)
+                             * 9).astype(np.float32))
+    return b, flow, a, p
+
+
+def _check_warp1(args):
+    want = _composition_warp1(*args)
+    got = tvar.refine_setup_warp1_plain(*args)
+    assert len(got) == len(rk.WEIGHT_INPUTS) == 13
+    assert all(g.shape == v.shape and torch.equal(_bits(g), _bits(v)) for g, v in zip(got, want))
+    assert torch.equal(rk.refine_setup_warp1_op(*args), torch.stack(want))
+    with kops.ops_on_cpu():
+        routed = rk.refine_setup_warp1(*args)
+    assert all(torch.equal(g, v) for g, v in zip(routed, want))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("p", [0, 3])
+def test_setup_warp1_plain_is_the_composition(shape, batch, p):
+    """R1's warp1 mode's plain version is bitwise the level's I1 Sobels and
+    the warp, Sobels, means, differences, mask and zero increments of each
+    outer iteration that it replaced, in R2's input order; so are the op's
+    CPU function and the wrapper within ``ops_on_cpu``."""
+    _check_warp1(_warp1_args(batch, *shape, p, sum(shape) + p))
+
+
+@pytest.mark.parametrize("shape", [(1, 4), (4, 1), (1, 1)])
+def test_setup_warp1_takes_a_window_of_one(shape):
+    """A window of one row or column, or of one pixel (a coarse level of a
+    small frame), padded and whole, B absent and 2: the same bits."""
+    for p in (0, 3):
+        for batch in (None, 2):
+            _check_warp1(_warp1_args(batch, *shape, p, 7 + p))
+    with kops.ops_on_cpu(), pytest.raises(ValueError, match="no window"):
+        a = torch.zeros(6, 6)
+        rk.refine_setup_warp1(a, torch.zeros(4, 4, 2), a, 3)
+
+
+def _edge_values(*planes):
+    """Copies of ``planes`` with a NaN, a -0.0 and values far past any bound
+    written into their first pixels."""
+    out = [t.clone() for t in planes]
+    for k, t in enumerate(out):
+        flat = t.view(-1)
+        flat[k % flat.numel()] = float("nan") if k == 0 else -0.0
+        flat[-1] = 1e4 * (-1) ** k
+    return out
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 2), (9, 13)])
+@pytest.mark.parametrize("batch", BATCHES)
+@pytest.mark.parametrize("bound", [0.5, 2.0, 1e5])
+def test_compose_clip_is_compose_then_clamp(shape, batch, bound):
+    """R3's compose mode with a bound is bitwise the compose, then
+    ``clamp(-bound, bound)`` as ``refine_level`` clipped it (both colours,
+    omega 1.0 and 1.6; a NaN, -0.0 and +-1e4 among u0, v0, du and dv), also
+    through the op with its flag; without the flag the bound is ignored."""
+    args = _sor_args(batch, *shape, sum(shape))
+    args = (*_edge_values(*args[:4]), *args[4:])
+    for color in (0, 1):
+        for omega in (1.0, 1.6):
+            plain = tvar.refine_compose_plain(*args, color, omega)
+            want = plain.clamp(-bound, bound)
+            got = tvar.refine_compose_plain(*args, color, omega, bound)
+            assert torch.equal(_bits(got), _bits(want))
+            assert torch.equal(_bits(rk.refine_compose_op(*args, color, omega, True, bound)),
+                               _bits(want))
+            assert torch.equal(_bits(rk.refine_compose_op(*args, color, omega, False, bound)),
+                               _bits(plain))
+    if bound < 1e4 and shape != (1, 1):   # (a 1 x 1 plane holds +-1e4 only)
+        assert bool((want.abs() == bound).any()) and bool(want.isnan().any())
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (5, 2), (9, 13)])
+@pytest.mark.parametrize("batch", BATCHES)
+def test_nosweep_plain_is_the_stack(shape, batch):
+    """R3's no-sweep mode's plain version is bitwise the ``torch.stack([u0 +
+    du, v0 + dv])`` it replaced, and with a bound that stack then
+    ``clamp(-bound, bound)``: a NaN passes, -0.0 + -0.0 stays -0.0, values
+    past the bound clip; also through the op."""
+    u0, v0, du, dv = _edge_values(*_sor_args(batch, *shape, sum(shape))[:4])
+    want = torch.stack([u0 + du, v0 + dv], dim=-1)
+    assert torch.equal(_bits(tvar.refine_nosweep_plain(u0, v0, du, dv)), _bits(want))
+    assert torch.equal(_bits(rk.refine_nosweep_op(u0, v0, du, dv, False, 0.0)), _bits(want))
+    assert bool(torch.signbit(want).any())
+    for bound in (0.5, 3.0):
+        clipped = want.clamp(-bound, bound)
+        assert torch.equal(_bits(tvar.refine_nosweep_plain(u0, v0, du, dv, bound)),
+                           _bits(clipped))
+        assert torch.equal(_bits(rk.refine_nosweep_op(u0, v0, du, dv, True, bound)),
+                           _bits(clipped))
+        assert bool((clipped.abs() == bound).any())
+
+
 # -- F1, F2, F3: the frame's glue ----------------------------------------------------
 
 FRAMES = [(2, 2), (5, 7), (16, 24), (37, 53), (75, 118)]
@@ -335,6 +472,11 @@ def _opcheck_cases():
         ("refine_setup", rk.refine_setup_op, setup),
         ("refine_compose", rk.refine_compose_op, (*sor, 1, 1.6)),
         ("refine_compose_1", rk.refine_compose_op, (*sor, 0, 1.0)),
+        ("refine_compose_2", rk.refine_compose_op, (*sor, 1, 1.6, True, 0.5)),
+        ("refine_setup_warp1", rk.refine_setup_warp1_op, _warp1_args(2, 7, 9, 3, 14)),
+        ("refine_setup_warp1_1", rk.refine_setup_warp1_op, _warp1_args(None, 1, 5, 0, 15)),
+        ("refine_nosweep", rk.refine_nosweep_op, (*sor[:4], False, 0.0)),
+        ("refine_nosweep_1", rk.refine_nosweep_op, (*sor[:4], True, 0.5)),
         ("frame_pad", fk.frame_pad_op, (img(2, 5, 7, 3), img(2, 5, 7, 4), 1, 2, 0, 1)),
         ("intensity_levels", fk.intensity_levels_op, (img(2, 16, 24, 5), img(2, 16, 24, 6),
                                                       3)),
@@ -355,18 +497,23 @@ def test_opcheck_new_ops(case):
 def test_new_ops_priced_and_counted():
     """Each new op has a kernel id in ``cost.KERNELS`` (the modes count as
     R1 and R3) and its wrapper a launch count, which a CPU call leaves
-    at 0."""
+    at 0, as it leaves the count of R3's clip."""
+    import re
+
     from dis_tpu_torch import cost
 
-    assert {n: cost.KERNELS[n] for n in ("refine_planes", "refine_setup", "refine_compose",
-                                         "frame_pad", "intensity_levels", "frame_finish")} == {
-        "refine_planes": "R0", "refine_setup": "R1", "refine_compose": "R3",
-        "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
+    names = ("refine_planes", "refine_setup", "refine_setup_warp1", "refine_compose",
+             "refine_nosweep", "frame_pad", "intensity_levels", "frame_finish")
+    assert {n: cost.KERNELS[n] for n in names} == {
+        "refine_planes": "R0", "refine_setup": "R1", "refine_setup_warp1": "R1",
+        "refine_compose": "R3", "refine_nosweep": "R3", "frame_pad": "F1",
+        "intensity_levels": "F2", "frame_finish": "F3"}
     for case, _, args in _opcheck_cases():
-        nbytes, ops = cost.op_cost(case.removesuffix("_1"), args)
+        nbytes, ops = cost.op_cost(re.sub(r"_\d$", "", case), args)
         assert nbytes > 0 and ops >= 0
-    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_compose, fk.frame_pad,
-                fk.intensity_levels, fk.frame_finish)
+    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1, rk.refine_compose,
+                rk.refine_nosweep, rk.clamped, fk.frame_pad, fk.intensity_levels,
+                fk.frame_finish)
     for w in wrappers:
         w.launches = 0
     with kops.ops_on_cpu():
@@ -377,30 +524,67 @@ def test_new_ops_priced_and_counted():
 
 # -- the slice: no torch op left in a refinement level or around the frame ------------
 
-@pytest.mark.parametrize("preset", ["DIS_MEDIUM", "DIS_FULL"])
-@pytest.mark.parametrize("planes", ["intensity", "q1"])
-def test_refinement_level_dispatches_only_kernel_ops(preset, planes):
-    """One ``planes6`` refinement level within ``ops_on_cpu`` (as a CUDA
-    tensor routes): R0 once, R1 once (its setup mode), R2 once a weight
-    update, R3 once a half-sweep (the last in its compose mode), and no
-    ATen op besides (views aside; 54 before these kernels), with the bits
-    of the inline plain path."""
-    import dataclasses
+LEVEL_CASES = [(planes, preset, variant) for variant in ("planes6", "warp1", "clamped", "nosweep")
+               for preset in ("DIS_MEDIUM", "DIS_FULL") for planes in ("intensity", "q1")]
 
-    cfg = dataclasses.replace(getattr(dis_tpu_torch, preset), refinement_planes=planes)
+
+@pytest.mark.parametrize("planes,preset,variant", LEVEL_CASES,
+                         ids=[f"{pl}-{pr}" + ("" if v == "planes6" else f"-{v}")
+                              for pl, pr, v in LEVEL_CASES])
+def test_refinement_level_dispatches_only_kernel_ops(preset, planes, variant):
+    """One refinement level within ``ops_on_cpu`` (as a CUDA tensor
+    routes): under ``planes6`` R0 once and R1 once (its setup mode), under
+    ``warp1`` R1 once in its warp1 mode and no R0; R2 once a weight update,
+    R3 once a half-sweep (the last in its compose mode); ``clamped``, a
+    ``planes6`` ``refine_level`` with ``refined_init_clamp`` at the
+    coarsest scale, whose clip binds, the same launches; ``nosweep`` (no
+    weight update) R3 once in its no-sweep mode instead; and no ATen op
+    besides (views aside; 54 before these kernels, about 40 a warp under
+    ``warp1``), with the bits of the inline plain path."""
+    import dataclasses
+    from types import SimpleNamespace
+
+    from dis_tpu_torch.models import dis as tdis
+
+    cfg = dataclasses.replace(getattr(dis_tpu_torch, preset), refinement_planes=planes,
+                              refinement_scheme="warp1" if variant == "warp1" else "planes6",
+                              refined_init_clamp=variant == "clamped",
+                              refinement_inner_sweeps=(0 if variant == "nosweep" else
+                                                       getattr(dis_tpu_torch,
+                                                               preset).refinement_inner_sweeps))
     h, w, p = 12, 20, (0 if planes == "intensity" else cfg.img_padding)
     a, b = (torch.from_numpy(_planes(None, h + 2 * p, w + 2 * p, s)) for s in (1, 2))
-    flow = torch.from_numpy((np.random.default_rng(3).standard_normal((h, w, 2)) * 2)
-                            .astype(np.float32))
-    want = tvar.variational_refinement(a, b, flow, cfg, pad=p)
+    flow = torch.from_numpy((np.random.default_rng(3).standard_normal((h, w, 2))
+                             * (8 if variant == "clamped" else 2)).astype(np.float32))
+    scale = cfg.coarsest_scale
+    if variant == "clamped":
+        levels = [SimpleNamespace(img=x) for x in (a, b)]
+        per_scale = None if planes == "q1" else [{scale: x} for x in (a, b)]
+
+        def run():
+            return tdis.refine_level(*levels, flow, cfg, scale, per_scale)
+    else:
+        def run():
+            return tvar.variational_refinement(a, b, flow, cfg, pad=p)
+    want = run()
     with _CountOps() as ops, kops.ops_on_cpu():
-        got = tvar.variational_refinement(a, b, flow, cfg, pad=p)
+        got = run()
     updates = cfg.refinement_inner_sweeps
     sweeps = 2 * updates * cfg.refinement_sor_sweeps
     assert ops.aten == {}
-    assert ops.calls == {"refine_planes": 1, "refine_setup": 1, "refine_weights": updates,
-                         "refine_sor": sweeps - 1, "refine_compose": 1}
+    setup = {"refine_setup_warp1": 1} if variant == "warp1" else {"refine_planes": 1,
+                                                                  "refine_setup": 1}
+    last = {"refine_nosweep": 1} if variant == "nosweep" else {"refine_compose": 1}
+    assert ops.calls == {**setup, **({"refine_weights": updates, "refine_sor": sweeps - 1}
+                                     if updates else {}), **last}
     assert torch.equal(got, want)
+    if variant == "clamped":
+        bound = tdis.motion_bound(cfg, scale)
+        assert float(got.abs().max()) == bound and float(flow.abs().max()) > bound
+        assert torch.equal(got, tvar.variational_refinement(a, b, flow, cfg, pad=p)
+                           .clamp(-bound, bound))
+    if variant == "nosweep":
+        assert torch.equal(got, flow)
 
 
 def test_flow_frame_dispatches_only_kernel_ops():
@@ -433,7 +617,8 @@ def test_trace_budget_names_every_kernel():
         "void (anonymous namespace)::pyramid_kernel<true>(float const*, int)": "K3",
         "extract_kernel(dis_extract::Args)": "K2", "banded_kernel(dis_extract::Args)": "K2c",
         "iclk_kernel<8, 8, 8>(float const*)": "K1", "planes_kernel(float const*)": "R0",
-        "warp_kernel<6, true>(float const*)": "R1", "weights_kernel(WeightArgs, int)": "R2",
+        "warp_kernel<6, true>(float const*)": "R1", "warp1_kernel(float const*)": "R1",
+        "weights_kernel(WeightArgs, int)": "R2",
         "sor_kernel<true>(SorArgs, int)": "R3", "templates_kernel<8, 8>(TemplateGrid)": "S1",
         "weights_kernel<8, 8>(float const*)": "S3", "densify_kernel<3, 3, true>(D)": "S4",
         "pad_kernel(float const*)": "F1", "levels_kernel(float const*)": "F2",

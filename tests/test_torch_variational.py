@@ -18,7 +18,7 @@ numpy seeds:
 - ``intensity_pyramid`` bitwise against the JAX package's ``window2``
   decimation (the association the port copies);
 - ``refine_level`` with ``refined_init_clamp`` (the clip to the
-  policing-chain bound) within the same 1e-4 px.
+  policing-chain bound), under both schemes, within the same 1e-4 px.
 
 The IRLS weight is pinned to ``fl(0.5 / fl(sqrt(fl(s2 + eps2))))``.
 """
@@ -154,16 +154,23 @@ def test_intensity_pyramid_bitwise(batch, monkeypatch):
             np.testing.assert_array_equal((g[i] if batch else g).numpy(), np.asarray(w))
 
 
-@pytest.mark.parametrize("planes", ["intensity", "q1"])
-def test_refine_level_clamp_matches_jax(planes):
+CLAMP_CASES = [("intensity", "planes6"), ("q1", "planes6"), ("intensity", "warp1"),
+               ("q1", "warp1")]
+
+
+@pytest.mark.parametrize("planes,scheme", CLAMP_CASES,
+                         ids=[pl + ("" if sc == "planes6" else f"-{sc}")
+                              for pl, sc in CLAMP_CASES])
+def test_refine_level_clamp_matches_jax(planes, scheme):
     """``DIS_MEDIUM`` (2 x 2 sweeps) with the clamp at scale 1 of 2: a flow of 11 +- 2
     px refined and clipped to ``motion_bound`` (12 px), on the Q1 level
-    planes or the intensity planes of that scale."""
+    planes or the intensity planes of that scale, under either scheme (the
+    port clips in R3's compose mode)."""
     from types import SimpleNamespace
 
     jcfg = dataclasses.replace(J_MEDIUM, coarsest_scale=2, refined_init_clamp=True,
                                refinement_planes=planes, refinement_inner_sweeps=2,
-                               refinement_sor_sweeps=2)
+                               refinement_sor_sweeps=2, refinement_scheme=scheme)
     tcfg = interop.config_from_dict(dataclasses.asdict(jcfg))
     bound = jdis.motion_bound(jcfg, 1)
     assert tdis.motion_bound(tcfg, 1) == bound == 12.0
