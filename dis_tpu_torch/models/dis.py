@@ -35,10 +35,11 @@ stripe of the frame (:func:`dis_flow_stripe`, which never refines).  All
 geometry stays global, so each is bitwise those rows of the untiled
 flow.
 
-Each stage runs inside a ``torch.profiler.record_function`` range named as
-the JAX package's ``jax.named_scope`` (``pyramid``, ``scale_{s}``,
-``refine_s{s}``, ``variational_refinement``, ``stripe_scale_{s}``), so a
-profile (``utils/profiling.py``) attributes device time to stages.  The
+Each stage runs inside ``utils/profiling.py::stage``, named as the JAX
+package's ``jax.named_scope`` (``pyramid``, ``scale_{s}``, ``refine_s{s}``,
+``variational_refinement``, ``stripe_scale_{s}``): a ``record_function``
+range while a profiler runs, so that a profile attributes device time to
+stages, and the stage and scale of each launch of a launch manifest.  The
 ``DIS_TPU_CHECK`` guards (``utils/checks.py``) sit in the search and at
 the end of :func:`dis_flow_padded`; they cost nothing unless a
 ``checks.checked`` call is running.
@@ -51,7 +52,6 @@ import math
 from typing import Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from ..config import DISConfig
 from ..ops import iclk
@@ -61,7 +61,7 @@ from ..ops.grid import ScalePlan, make_grid, scale_plan
 from ..ops.cuda.frame_kernel import frame_finish, frame_pad, intensity_levels
 from ..ops.pyramid import construct_pyramid, intensity_levels_plain
 from ..ops.variational import variational_refinement
-from ..utils import checks
+from ..utils import checks, profiling
 
 
 def _fixed_weights(res: iclk.SearchResult, tpl: iclk.PatchTemplates,
@@ -265,7 +265,7 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
     f = 2 ** cfg.coarsest_scale
     if w % f or h % f:
         raise ValueError(f"padded input dims must be divisible by {f}")
-    with record_function("pyramid"):
+    with profiling.stage("pyramid"):
         pyr1 = construct_pyramid(img1, cfg.coarsest_scale, cfg.img_padding, plain)
         pyr2 = construct_pyramid(img2, cfg.coarsest_scale, cfg.img_padding, plain)
     planes = build_refinement_planes(img1, img2, cfg, plain)
@@ -274,21 +274,21 @@ def dis_flow_padded(img1: torch.Tensor, img2: torch.Tensor,
     flow = None
     debug = []
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        with record_function(f"scale_{scale}"):
+        with profiling.stage(f"scale_{scale}", scale):
             l1, l2 = pyr1[scale], pyr2[scale]
             flow, geom, res = dis_scale_window(l1, l2, flow, cfg, scale, 0, l1.height,
                                                plain=plain)
             if refine_each:
                 # The refined field seeds the next finer scale's init.
-                with record_function(f"refine_s{scale}"):
+                with profiling.stage(f"refine_s{scale}", scale):
                     flow = refine_level(l1, l2, flow, cfg, scale, planes, plain)
             if return_debug:
                 p = cfg.img_padding
                 debug.append((scale, geom.centers, res.u,
                               l1.img[..., p:p + l1.height, p:p + l1.width]))
     if refine_at_end:
-        with record_function("variational_refinement"):
-            s = cfg.finest_scale
+        s = cfg.finest_scale
+        with profiling.stage("variational_refinement", s):
             flow = refine(pyr1[s], pyr2[s], flow, cfg, s, planes, plain)
     if checks.active():
         checks.check(torch.isfinite(flow).all(), "pipeline produced non-finite flow")
@@ -378,12 +378,12 @@ def dis_flow_stripe(img1_ext: torch.Tensor, img2_ext: torch.Tensor,
         cfg = dataclasses.replace(cfg, refinement_iters=0)
     iy_plan, win_plan = _stripe_plan(cfg, global_h, own_r0, own_h)
     validate_stripe_geometry(cfg, w, global_h, row0, ext_h, own_r0, own_h)
-    with record_function("pyramid"):
+    with profiling.stage("pyramid"):
         pyr1 = construct_pyramid(img1_ext, cfg.coarsest_scale, cfg.img_padding, plain)
         pyr2 = construct_pyramid(img2_ext, cfg.coarsest_scale, cfg.img_padding, plain)
     flow = None
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        with record_function(f"stripe_scale_{scale}"):
+        with profiling.stage(f"stripe_scale_{scale}", scale):
             coarse_r0 = 0 if flow is None else win_plan[scale + 1][0]
             flow, _, _ = _scale(pyr1[scale], pyr2[scale], flow, cfg, scale,
                                 global_h >> scale, iy_plan[scale], win_plan[scale],

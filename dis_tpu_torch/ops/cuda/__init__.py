@@ -14,8 +14,10 @@ schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
 and ``densify`` (S3, S4), ``frame_pad``, ``intensity_levels`` and
 ``frame_finish`` (F1-F3).  Each op has three
 functions: for CUDA, which allocates the outputs with ``torch.empty``,
-launches the kernel on the current stream (``_build.launch``) and adds
-one to its wrapper's ``launches`` count; a fake one (``register_fake``), which gives the
+launches the kernel on the current stream (``_build.launch``) and counts
+the launch (:func:`launched`: one to its wrapper's ``launches`` count,
+and an entry of the launch manifest that ``utils/profiling.py`` may be
+recording); a fake one (``register_fake``), which gives the
 outputs' shapes and dtypes only, so that ``torch.export`` records the op
 as one node of a saved program (``serving.export_flow``); and for the
 CPU, the kernel's plain PyTorch version, so that
@@ -38,6 +40,8 @@ import contextlib
 import threading
 
 import torch
+
+from ...utils import profiling
 
 _local = threading.local()
 
@@ -79,6 +83,16 @@ def check_input(t: torch.Tensor, name: str, device: torch.device,
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
     if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def launched(op: str, kernel: str, *wrappers) -> None:
+    """Count one launch of ``kernel`` (a key of
+    ``profiling.KERNEL_FUNCTIONS``) through the op ``op``: one to the
+    ``launches`` of each of ``wrappers`` (the kernel's wrapper first, then
+    a mode's), and an entry of the manifest recording on this thread."""
+    for w in wrappers:
+        w.launches += 1
+    profiling.note_launch(op, kernel)
 
 
 def dispatch(op, cuda_fn, device: torch.device, *args):

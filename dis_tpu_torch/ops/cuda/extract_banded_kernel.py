@@ -27,7 +27,7 @@ import torch
 
 from ... import _build
 from ..iclk import extract_regions_plain, region_size
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 from .extract_kernel import check_patch_size, empty_regions
 
 MAX_PAIRS = 65_535
@@ -85,7 +85,7 @@ def _banded_cuda(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int, row0
                   pos0.data_ptr(), num_w, num_h, ps, pad, row0,
                   regions.data_ptr(), base_y.data_ptr(), base_x.data_ptr(),
                   None if outside is None else outside.data_ptr())
-    extract_regions_banded.launches += 1
+    launched("extract_regions_banded", "K2c", extract_regions_banded)
     return regions, base_y, base_x
 
 

@@ -36,7 +36,7 @@ import torch
 
 from ... import _build
 from ..iclk import extract_regions_plain, region_size
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 
 THREADS = 256
 PATCHES_PER_GROUP = 48
@@ -131,7 +131,9 @@ def _extract_cuda(img2: torch.Tensor, pos0: torch.Tensor, ps: int, pad: int, row
     _build.launch("dis_extract_regions", img2.device, img2.data_ptr(), nb, th, tw,
                   pos0.data_ptr(), n, num_h, ps, pad, row0, regions.data_ptr(),
                   base_y.data_ptr(), base_x.data_ptr())
-    extract_regions.launches += 1
+    rc = region_size(ps)
+    kernel = "K2s" if th < rc or tw < rc else "K2b" if img2.ndim == 3 else "K2"
+    launched("extract_regions", kernel, extract_regions)
     return regions, base_y, base_x
 
 

@@ -41,7 +41,7 @@ import torch
 from ... import _build
 from ..image import frame_finish_plain, frame_pad_plain, replicate_pad
 from ..pyramid import intensity_levels_plain
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 
 MAX_GRID = 65535             # gridDim.y (F1: a block per output row; F3 keeps its limit) and .z
 MAX_LEVELS = 5               # F2's levels a launch: its tile's 16 level-1 rows down to 1
@@ -101,7 +101,7 @@ def _pad_cuda(img1: T, img2: T, top: int, bottom: int, left: int, right: int) ->
     _build.launch("dis_frame_pad", img1.device, img1.data_ptr(), img2.data_ptr(),
                   _strides(img1), _strides(img2), nb, *img1.shape[-2:], *out.shape[-2:],
                   top, left, out.data_ptr())
-    frame_pad.launches += 1
+    launched("frame_pad", "F1", frame_pad)
     return out
 
 
@@ -158,7 +158,7 @@ def _levels_cuda(img1: T, img2: T, levels: int) -> List[T]:
     ptrs = (ctypes.c_void_p * levels)(*(t.data_ptr() for t in outs))
     _build.launch("dis_intensity_levels", img1.device, img1.data_ptr(), img2.data_ptr(), nb,
                   *img1.shape[-2:], levels, ptrs)
-    intensity_levels.launches += 1
+    launched("intensity_levels", "F2", intensity_levels)
     return outs
 
 
@@ -207,7 +207,7 @@ def _finish_cuda(flow: T, finest_scale: int, top: int, left: int, height: int,
     f = 1 << finest_scale
     _build.launch("dis_frame_finish", flow.device, flow.data_ptr(), nb, *flow.shape[-3:-1],
                   height, width, top, left, float(f), 1.0 / f, out.data_ptr())
-    frame_finish.launches += 1
+    launched("frame_finish", "F3", frame_finish)
     return out
 
 

@@ -21,7 +21,7 @@ import torch
 from ... import _build
 from ...config import DISConfig
 from ..iclk import PatchTemplates, iclk_search_plain, inv_taps, region_size
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 
 MAX_TAPS = 512   # ps^2 limit of the kernel's register tiles (ps <= 22)
 
@@ -116,7 +116,7 @@ def _search_cuda(regions: torch.Tensor, base_y: torch.Tensor, base_x: torch.Tens
         init_u.data_ptr(), conv0.data_ptr(), nb, n, ps, iterations + 1, ps, row0, width,
         height, int(normalize), int(fixed), ps / 2.0, conv_eps, inv_taps(ps),
         u.data_ptr(), Q.data_ptr(), conv.data_ptr())
-    iclk_search.launches += 1
+    launched("iclk_search", "K1b" if init_u.ndim == 3 else "K1", iclk_search)
     return u, Q, conv
 
 

@@ -21,7 +21,7 @@ import torch
 
 from ... import _build
 from ..pyramid import pyramid_plain
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 
 MAX_PLANES = 65535   # gridDim.z
 MAX_LEVELS = 4       # per launch: the shared memory of a 64 x 64 base tile
@@ -100,7 +100,7 @@ def _pyramid_cuda(src: torch.Tensor, p: int, levels: int, base: bool) -> List[to
     outs = (ctypes.c_void_p * (3 * levels))(*(t.data_ptr() for t in planes))
     _build.launch("dis_pyramid", src.device, src.data_ptr(), sh, sw, outs, nplanes,
                   levels, h, w, p, int(base))
-    pyramid_levels.launches += 1
+    launched("pyramid_levels", "K3", pyramid_levels)
     return planes
 
 

@@ -59,7 +59,7 @@ from ... import _build
 from ..variational import (refine_compose_plain, refine_nosweep_plain, refine_planes_plain,
                            refine_setup_plain, refine_setup_warp1_plain, refine_sor_plain,
                            refine_warp_plain, refine_weights_plain)
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 
 WARP_CHANNELS = (1, 6)   # the kernel's instances: warp1 and planes6
 WEIGHT_INPUTS = ("Iz", "Izx", "Izy", "Wx", "Wy", "Wxx", "Wxy", "Wyy", "m", "u0", "v0",
@@ -127,7 +127,7 @@ def _planes_cuda(img1: T, img2: T, p: int, h: int, w: int) -> Tuple[T, T]:
     nb = img1.shape[0] if img1.ndim == 3 else 1
     _build.launch("dis_refine_planes", img1.device, img1.data_ptr(), img2.data_ptr(), nb,
                   *img1.shape[-2:], p, h, w, grads.data_ptr(), planes.data_ptr())
-    refine_planes.launches += 1
+    launched("refine_planes", "R0", refine_planes)
     return grads, planes
 
 
@@ -170,7 +170,7 @@ def _warp_cuda(planes: T, flow: T) -> Tuple[T, T]:
     nb, h, w = _plane_dims(planes[..., 0], "planes")
     _build.launch("dis_refine_warp", planes.device, planes.data_ptr(), flow.data_ptr(),
                   nb, h, w, planes.shape[-1], out.data_ptr(), inb.data_ptr())
-    refine_warp.launches += 1
+    launched("refine_warp", "R1", refine_warp)
     return out, inb
 
 
@@ -216,8 +216,7 @@ def _setup_cuda(planes: T, flow: T, img1: T, I1x: T, I1y: T, p: int) -> T:
     _build.launch("dis_refine_setup", planes.device, planes.data_ptr(), flow.data_ptr(),
                   img1.data_ptr(), I1x.data_ptr(), I1y.data_ptr(), nb, h, w,
                   *img1.shape[-2:], p, out.data_ptr())
-    refine_warp.launches += 1
-    refine_setup.launches += 1
+    launched("refine_setup", "R1s", refine_warp, refine_setup)
     return out
 
 
@@ -259,8 +258,7 @@ def _setup_warp1_cuda(img2: T, flow: T, img1: T, p: int) -> T:
     nb, h, w = _plane_dims(flow[..., 0], "flow")
     _build.launch("dis_refine_setup_warp1", flow.device, img1.data_ptr(), img2.data_ptr(),
                   flow.data_ptr(), nb, *img2.shape[-2:], p, h, w, out.data_ptr())
-    refine_warp.launches += 1
-    refine_setup_warp1.launches += 1
+    launched("refine_setup_warp1", "R1w", refine_warp, refine_setup_warp1)
     return out
 
 
@@ -298,7 +296,7 @@ def _weights_cuda(Iz: T, Izx: T, Izy: T, Wx: T, Wy: T, Wxx: T, Wxy: T, Wyy: T, m
     nb, h, w = _plane_dims(Iz, "Iz")
     _build.launch("dis_refine_weights", Iz.device, _pointers(ins), nb, h, w, alpha, delta,
                   gamma, out.data_ptr())
-    refine_weights.launches += 1
+    launched("refine_weights", "R2", refine_weights)
     return out
 
 
@@ -383,8 +381,13 @@ def _sor_launch(ins, color: int, omega: float, compose: bool, out: torch.Tensor,
     _build.launch("dis_refine_sor", ins[0].device, _pointers(ins), nb, h, w, color, omega,
                   int(omega != 1.0), int(compose), int(clamp), bound, int(nosweep),
                   out.data_ptr())
-    refine_sor.launches += 1
-    clamped.launches += int(clamp)
+    if nosweep:
+        op, kernel, mode = "refine_nosweep", "R3n", (refine_nosweep,)
+    elif compose:
+        op, kernel, mode = "refine_compose", "R3c", (refine_compose,)
+    else:
+        op, kernel, mode = "refine_sor", "R3", ()
+    launched(op, kernel, refine_sor, *mode, *((clamped,) if clamp else ()))
 
 
 def _sor_cpu(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det, Su0, Sv0,
@@ -406,7 +409,6 @@ def _compose_cuda(u0: T, v0: T, du: T, dv: T, wE: T, wW: T, wS: T, wN: T, A11: T
     ins = (u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det, Su0, Sv0)
     out = _compose_empty(*ins, color, omega, clamp, bound)
     _sor_launch(ins, color, omega, True, out, clamp, bound)
-    refine_compose.launches += 1
     return out
 
 
@@ -427,7 +429,6 @@ def _nosweep_cuda(u0: T, v0: T, du: T, dv: T, clamp: bool, bound: float) -> T:
     out = _nosweep_empty(u0, v0, du, dv, clamp, bound)
     _sor_launch((u0, v0, du, dv) + (u0,) * (len(SOR_INPUTS) - 4), 0, 1.0, True, out, clamp,
                 bound, nosweep=True)
-    refine_nosweep.launches += 1
     return out
 
 

@@ -47,7 +47,7 @@ import torch
 from ... import _build
 from ..densify import densify_plain, fixed_weights_plain
 from ..iclk import PatchTemplates, Start, inv_taps, scale_templates_plain
-from . import all_on_cpu, check_input, dispatch, register
+from . import all_on_cpu, check_input, dispatch, launched, register
 from .iclk_kernel import lane_layout
 
 T = torch.Tensor             # the ops' schemas come from these annotations
@@ -245,7 +245,7 @@ def _templates_cuda(img: T, dx: T, dy: T, num_w: int, num_h: int, steps: int, y0
                   coarse_row_offset, centers.data_ptr() if start else None,
                   -float(ps) / 2.0, float(width + ps // 2 - 2), float(height + ps // 2 - 2),
                   *(t.data_ptr() if start else None for t in out[5:]))
-    scale_templates.launches += 1
+    launched("scale_templates", "S1", scale_templates)
     return out
 
 
@@ -295,7 +295,7 @@ def _weights_cuda(Q: torch.Tensor, T: torch.Tensor, start_oob: torch.Tensor, ps:
     _build.launch("dis_fixed_weights", Q.device, Q.data_ptr(), T.data_ptr(),
                   start_oob.data_ptr(), nb, n, ps, int(normalize), float(ps * ps),
                   out.data_ptr())
-    fixed_weights.launches += 1
+    launched("fixed_weights", "S3", fixed_weights)
     return out
 
 
@@ -352,7 +352,7 @@ def _densify_cuda(u: T, weights: Optional[T], cover_rows: T, cover_cols: T,
                   cover_cols.data_ptr(), uniform_wsum.data_ptr() if weights is None else None,
                   int(weights is not None), nb, out_h, width, kr, kc, num_w, num_h,
                   tiles.grid_rows, tiles.grid_cols, tiles.shared_bytes, out.data_ptr())
-    densify.launches += 1
+    launched("densify", "S4", densify)
     return out
 
 

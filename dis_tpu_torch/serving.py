@@ -39,6 +39,7 @@ the artifact on random frames and prints its time per call).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -50,17 +51,10 @@ import torch
 
 from . import _build
 from .config import PRESETS, DISConfig
-from .cost import CORE_KERNELS, flow_cost
+from .cost import CORE_KERNELS, KERNELS, flow_cost
 from .models.dis import dis_flow, flow_plans
-from .ops.cuda.extract_banded_kernel import extract_regions_banded
-from .ops.cuda.extract_kernel import extract_regions
-from .ops.cuda.iclk_kernel import iclk_search
-from .ops.cuda.pyramid_kernel import pyramid_levels
-from .ops.cuda import scale_kernel
-from .ops.cuda import frame_kernel
-from .ops.cuda.refine_kernel import refine_planes, refine_sor, refine_warp, refine_weights
 from .ops.grid import ScalePlan, plan_cache_bytes
-from .utils import checks
+from .utils import checks, profiling
 
 WARMUP_CALLS = 2
 META_FILE = "dis_tpu_torch.json"    # the archive's extra file
@@ -89,11 +83,19 @@ class CompiledFlow:
         init=False, default=None)                  # None on the CPU
     static_in: Tuple[torch.Tensor, ...] = dataclasses.field(init=False, default=())
     static_out: Optional[torch.Tensor] = dataclasses.field(init=False, default=None)
-    # Kernel launches recorded into the graph, by kernel; every replay runs
-    # them all.  (A kernel counts a launch when it is captured, not when
-    # it is replayed.)
+    # The kernel launches captured into the graph, in launch order, each
+    # with its op, kernel id, stage and scale (utils/profiling.py; a loaded
+    # program runs no pipeline Python, so its launches have no stage): a
+    # replay runs them in this order.  graph_launches counts them by
+    # kernel.  (A kernel counts a launch when it is captured, not when it
+    # is replayed.)
+    graph_manifest: Tuple[profiling.Launch, ...] = dataclasses.field(init=False,
+                                                                    default=())
     graph_launches: Dict[str, int] = dataclasses.field(init=False,
                                                        default_factory=dict)
+    # A timing event captured as the graph's first node: a replay records
+    # it when the graph starts to run on the card (profiling.Recorder).
+    graph_head: Optional[torch.cuda.Event] = dataclasses.field(init=False, default=None)
 
     @property
     def input_shape(self) -> Tuple[int, ...]:
@@ -104,7 +106,9 @@ class CompiledFlow:
         """Flow [(B,) H, W, 2] float32 on the executable's device.  On CUDA
         the result is a fresh tensor (a clone of the graph's output
         buffer), so it stays valid across later calls.  A loaded program
-        is captured at its first call."""
+        is captured at its first call.  While a profiler runs or a
+        recorder records (``utils/profiling.py``), the request's copy-in,
+        replay and copy-out are its stages."""
         a, b = torch.as_tensor(img1), torch.as_tensor(img2)
         want = self.input_shape
         if tuple(a.shape) != want or tuple(b.shape) != want:
@@ -119,10 +123,21 @@ class CompiledFlow:
                 raise RuntimeError(f"CompiledFlow on {self.device} holds no captured "
                                    "graph: make it with aot_compile")
             self._capture()
-        self.static_in[0].copy_(a)
-        self.static_in[1].copy_(b)
-        self.graph.replay()
-        return self.static_out.clone()
+        req = profiling.request(self.graph_head)
+        if req is None:
+            self.static_in[0].copy_(a)
+            self.static_in[1].copy_(b)
+            self.graph.replay()
+            return self.static_out.clone()
+        with req:
+            req.stage(0)
+            self.static_in[0].copy_(a)
+            self.static_in[1].copy_(b)
+            req.stage(1)
+            self.graph.replay()
+            req.stage(2)
+            out = self.static_out.clone()
+        return out
 
     def _run(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if self.program is not None:
@@ -132,8 +147,10 @@ class CompiledFlow:
     def _capture(self) -> None:
         """Build and load the kernels, run the program ``WARMUP_CALLS``
         times on a side stream, then capture one run into a CUDA graph
-        over static inputs.  A first launch inside the capture would load
-        the library and set K2's shared-memory allowance mid-capture."""
+        over static inputs, after a timing event (``graph_head``), with
+        the launch manifest of the run.  A first launch inside the capture
+        would load the library and set K2's shared-memory allowance
+        mid-capture."""
         dev = self.device
         _build.library()
         with torch.cuda.device(dev):
@@ -146,16 +163,19 @@ class CompiledFlow:
                     self._run(*static_in)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            before = _launch_counts()
-            with torch.cuda.graph(graph):
+            head = torch.cuda.Event(enable_timing=True, external=True)
+            with profiling.launch_manifest() as manifest, torch.cuda.graph(graph):
+                head.record()
                 static_out = self._run(*static_in)
-            after = _launch_counts()
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
+        self.graph_head = head
+        self.graph_manifest = tuple(manifest)
         # K3, K2, K2c and K1 always; R0-R3 where the program refines; S1, S3
         # and S4 where they launch (S3 in fixed mode); F1-F3 where the frame
         # pads, refines on intensity planes, and upsamples.
-        self.graph_launches = {k: after[k] - before[k] for k in after
-                               if k in CORE_KERNELS or after[k] != before[k]}
+        counts = collections.Counter(KERNELS[e.op] for e in manifest)
+        self.graph_launches = {k: counts[k] for k in dict.fromkeys(KERNELS.values())
+                               if k in CORE_KERNELS or counts[k]}
 
     def cost_analysis(self) -> Dict:
         """``{"flops", "bytes accessed", "kernels", "glue"}`` of one call,
@@ -218,18 +238,6 @@ def aot_compile(cfg: DISConfig, height: int, width: int,
     if dev.type == "cuda":
         compiled._capture()
     return compiled
-
-
-def _launch_counts() -> Dict[str, int]:
-    return {"K3": pyramid_levels.launches, "K2": extract_regions.launches,
-            "K2c": extract_regions_banded.launches, "K1": iclk_search.launches,
-            "R0": refine_planes.launches, "R1": refine_warp.launches,
-            "R2": refine_weights.launches, "R3": refine_sor.launches,
-            "S1": scale_kernel.scale_templates.launches,
-            "S3": scale_kernel.fixed_weights.launches, "S4": scale_kernel.densify.launches,
-            "F1": frame_kernel.frame_pad.launches,
-            "F2": frame_kernel.intensity_levels.launches,
-            "F3": frame_kernel.frame_finish.launches}
 
 
 class _Flow(torch.nn.Module):
