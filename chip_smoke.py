@@ -90,32 +90,40 @@ whose variational refinement runs as the kernels R0 (the level's Sobel
 planes), R1 (the warp, once per level; in its setup mode it also writes
 the weight update's inputs; in its warp1 mode, R1w, under
 ``refinement_scheme="warp1"``, it warps I2 alone and writes those inputs
-from the Sobels of the warped plane and of I1, and R0 does not run), R2
-(a weight update) and R3 (a half-sweep; the last of a level in its
-compose mode, which writes the flow, clipped under ``refined_init_clamp``;
-a level without a half-sweep in its no-sweep mode), and
+from the Sobels of the warped plane and of I1, and R0 does not run), R23
+(a weight update and its half-sweeps on tiles in shared memory; the last
+of a level in its compose mode, which writes the flow, clipped under
+``refined_init_clamp``) and R3 (a level without a half-sweep, in its
+no-sweep mode; R2 and R3, a weight update and a half-sweep, R23's gate),
+and
 whose intensity planes come from F2, which no ``pallas_call`` backs (they
 replace XLA's fusions of the JAX package's refinement code):
 
 1d. (also) K2c and K2 on ``DIS_FULL``'s 1080p finest grid (230,400
     patches, ps 12) from its own refined init, with the share of windows
     copied from device memory;
-1e. R0, R1's setup mode, R2, R3 and R3's compose mode on the inputs the
-    main path gives them at the finest level of the 1080p ``DIS_MEDIUM``
-    and ``DIS_FULL`` frames and of the KITTI B = 8 ``DIS_MEDIUM`` batch
-    (R0's and the setup mode's calls, R2's second, R3's 11th and 12th: a
-    red and a black half-sweep with nonzero increments, the compose
-    mode's call: the last black half-sweep), recorded from a refinement
-    run (``refine_step_inputs``), and R1 on the setup mode's planes and
-    flow, each bitwise equal to its plain version and timed beside it
-    (kernel replayed, plain eager and replayed) with its bound and its
-    share of it, and again on inputs out of the L2 (``cold_replay_ms``);
-    R1 also beside ``grid_sample`` (bilinear, border
-    padding), the yardstick of its ``library_ms``; R1's warp1 mode (R1w)
-    likewise on the finest level of the 1080p ``DIS_MEDIUM`` frame under
-    ``warp1``; R3's compose mode with its clip on the compose mode's
-    inputs with a bound that binds (``CLIP_BOUND``), and its no-sweep mode
-    on the same u0, v0, du and dv with and without the clip;
+1e. R0, R1's setup mode and R23 on the inputs the main path gives them
+    at the finest level of the 1080p ``DIS_MEDIUM`` and ``DIS_FULL``
+    frames and of the KITTI B = 8 ``DIS_MEDIUM`` batch (R0's and the setup
+    mode's calls, R23's second, a weight update with nonzero increments,
+    and its last, the compose mode), recorded from a refinement run
+    (``refine_step_inputs``), and R1 on the setup mode's planes and flow,
+    each bitwise equal to its plain version (R23 also to R2 and R3's
+    chain) and timed beside it (kernel replayed, plain eager and replayed)
+    with its bound and its share of it, and again on inputs out of the L2
+    (``cold_replay_ms``); R2, R3 and R3's compose mode, off the main path
+    since R23 and its gate, on the inputs of R23's update (R3 its first
+    red and black half-sweeps, the compose mode the last black one of the
+    last update); R23 also on both calls at every level of the 1080p
+    ``hd1080_medium`` frame (flowbench's configuration) and on the finest
+    level of the 1080p ``DIS_MEDIUM`` frame under ``warp1``, bitwise equal
+    to its plain version and to R2 and R3, timed beside R2 and R3 a level;
+    R1 also beside ``grid_sample`` (bilinear, border padding), the
+    yardstick of its ``library_ms``; R1's warp1 mode (R1w) likewise on the
+    finest level of the 1080p ``DIS_MEDIUM`` frame under ``warp1``; R23's
+    compose mode with the clip on the compose mode's inputs with a bound
+    that binds (``CLIP_BOUND``), and R3's no-sweep mode on the last half-
+    sweep's u0, v0, du and dv with and without the clip;
 1f. (each scale's glue) S1 (templates, inverse Hessians, fixed mode's
     ``Tn`` and the search start: the NN init and the start test, which
     were once a kernel of their own, S2), S3 (fixed mode's
@@ -152,10 +160,10 @@ replace XLA's fusions of the JAX package's refinement code):
     in one launch and on rows of 66 floats (its scalar path), F3 also at
     2^finest = 4 with an odd crop and at 2 with an even left edge;
 2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R0 4,
-    R1 4, R2 20, R3 200, F2 1 (``DIS_MEDIUM``; under ``warp1`` the same
+    R1 4, R23 20, F2 1 (``DIS_MEDIUM``; under ``warp1`` the same
     without R0, every R1 in its warp1 mode) and K3 4, K2 5, K1 5, R0 5,
-    R1 5, R2 50, R3 500, F1 1, F2 1 (``DIS_FULL``, whose five levels take
-    two K3 launches per image, and whose 1080 rows pad to 1088), R1 and R3
+    R1 5, R23 50, F1 1, F2 1 (``DIS_FULL``, whose five levels take
+    two K3 launches per image, and whose 1080 rows pad to 1088), R1 and R23
     one a level in their modes (``mode_counts``), no K2c; the median within
     0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
     CPU reading (``tools/jax_epe_readings.py``; ``warp1``'s, ``EPE_JAX``,
@@ -168,11 +176,11 @@ replace XLA's fusions of the JAX package's refinement code):
     B = 8 (peak memory printed) holding the eager launches, each replay
     bitwise equal to eager; ``grid_tiled_flow`` (3 parts) and
     ``tiled_flow_exact`` (3 stripes, routed to the grid engine), and
-    ``refine_per_level=False`` through ``tiled_flow_exact`` (R1 1, R2 5,
-    R3 50), bitwise equal to untiled; 4K unclamped (K2 at every scale,
+    ``refine_per_level=False`` through ``tiled_flow_exact`` (R1 1, R23
+    5), bitwise equal to untiled; 4K unclamped (K2 at every scale,
     no K2c) and 1080p
     and 4K with ``refined_init_clamp`` (K2c exactly where
-    ``scale_extraction_route`` says; R3 clips in its compose mode, one a
+    ``scale_extraction_route`` says; R23 clips in its compose mode, one a
     level, and no ``clamp`` op runs), each flow finite with its median
     within 0.01 px of its shift; 1080p with no weight update and the
     clamp (R3 once a level in its no-sweep mode, with its clip) equal to
@@ -191,7 +199,7 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     KITTI size with B = 8, the compat 4K bucket and ``DIS_MEDIUM`` at
     1080p: each program holds the kernel ops in the counts of
     ``scale_counts`` (at 4K one extraction is K2c; ``DIS_MEDIUM`` also R0
-    4, R1 4, R2 20, R3 200, F2 1; KITTI F1 1) and no gather of a plain
+    4, R1 4, R23 20, F2 1; KITTI F1 1) and no gather of a plain
     K2, K1 or R1; the KITTI,
     4K and ``DIS_MEDIUM`` artifacts, reloaded in this process
     (``load_exported``), replay bitwise equal to their eager kernel flows
@@ -209,7 +217,8 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     bucket, whose kernel entries give the ``kernels`` line's bounds (K3,
     K2 exactly; K1, counted for its fixed loop, within 0.1%), and the
     1080p ``DIS_MEDIUM`` bucket's ``cost_analysis()``, whose finest-level
-    R0, R1 (its setup mode), R2, R3 and R3 (its compose mode) entries and
+    R0, R1 (its setup mode) and R23 (a weight update and its compose
+    mode) entries and
     its F2 entry give theirs exactly.
 
 Small frames, after phase 2h:
@@ -221,7 +230,7 @@ Small frames, after phase 2h:
     ``scale_counts`` (adding to the kernels line's), every kernel call
     held bitwise to its plain version on its recorded inputs
     (``op_step_inputs``: K3, K2/K2b, K1/K1b, S1, S3, S4, R0, R1's setup
-    mode, R2, R3, R3's compose mode, F1-F3 as they ran), the flow finite
+    mode, R23, F1-F3 as they ran), the flow finite
     and within the phase-2 gates of the same call on the CPU.
 
 The user-facing surface (phase 4, after the times): the CLI
@@ -309,7 +318,7 @@ every level's planes, K1 its inputs with the raw template only for the
 patches frozen at the start) over 3.35 TB/s and its operations (K1's for
 the trips these inputs run) over 67 TFLOP/s, the H100 SXM's HBM3 and
 float32 peaks; the formulas are the package's (``dis_tpu_torch/cost.py``).
-No single PyTorch call computes K1-K3, R0, R2, R3, S1, S3, S4, F2, the
+No single PyTorch call computes K1-K3, R0, R3, R23, S1, S3, S4, F2, the
 start or the modes, so their ``library_ms`` is null; R1's is
 ``grid_sample``'s (phase 1e), F1's one ``F.pad`` (replicate) and F3's
 one ``F.interpolate`` (bilinear) (phase 1g).  Phase 6b also prints a
@@ -369,8 +378,8 @@ S4_SWEEP_PS = (6, 8, 12)
 # phases (K2 and K1 with a pair axis count as K2b and K1b).  The search
 # start (once a kernel of its own, S2) runs inside every S1 launch: its row follows
 # LAUNCH_KEYS' and takes S1's launches.
-LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R0", "R1", "R1s", "R1w", "R2", "R3",
-               "R3c", "R3k", "R3n", "S1", "S3", "S4", "F1", "F2", "F3")
+LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R0", "R1", "R1s", "R1w", "R23", "R23c",
+               "R3", "R3k", "R3n", "S1", "S3", "S4", "F1", "F2", "F3")
 # The kernels that phase 2g does not add up (its batches launch K2b and K1b).
 CORE = ("K3", "K2", "K1", "K2c")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
@@ -644,30 +653,31 @@ def flow_gates(label, f, shift, epe_jax=None):
 def refine_counts(cfg):
     """The refinement's launches in one call, whatever B is: R0 once per
     refined level (``planes6``), R1 once per outer iteration (in its setup
-    mode under ``planes6``, in its warp1 mode under ``warp1``), R2 once per
-    weight update and R3 once per half-sweep (the last of each outer
-    iteration in its compose mode; once per outer iteration in its no-sweep
-    mode where there is no half-sweep), at every scale
-    (``refine_per_level``) or the finest, and F2 once where the refinement
-    reads intensity planes; none without refinement."""
+    mode under ``planes6``, in its warp1 mode under ``warp1``), R23 once
+    per weight update (the last of each outer iteration in its compose
+    mode; ``update_plan`` splits no update of up to 10 SOR sweeps), or R3
+    once per outer iteration in its no-sweep mode where there is no
+    half-sweep, at every scale (``refine_per_level``) or the finest, and F2
+    once where the refinement reads intensity planes; none without
+    refinement."""
     if cfg.refinement_iters == 0:
         return {}
     levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
     r1 = levels * cfg.refinement_iters
-    r2 = r1 * cfg.refinement_inner_sweeps
-    r3 = 2 * cfg.refinement_sor_sweeps * r2
+    r23 = r1 * cfg.refinement_inner_sweeps * (cfg.refinement_sor_sweeps > 0)
     return {**({"R0": levels} if cfg.refinement_scheme == "planes6" else {}),
-            **({"R1": r1} if r1 else {}), **({"R2": r2} if r2 else {}),
-            **({"R3": r3 or r1} if r1 else {}),
+            **({"R1": r1} if r1 else {}), **({"R23": r23} if r23 else {}),
+            **({"R3": r1} if r1 and not r23 else {}),
             **({"F2": 1} if cfg.refinement_planes == "intensity" and cfg.coarsest_scale
                else {})}
 
 
 def mode_counts(cfg):
-    """The launches of R1's setup and warp1 modes (``R1s``, ``R1w``) and
-    R3's compose and no-sweep modes (``R3c``, ``R3n``) in one call, which
-    ``refine_counts`` counts as R1's and R3's, and of R3 with its clip
-    (``R3k``): the last outer iteration of each level that
+    """The launches of R1's setup and warp1 modes (``R1s``, ``R1w``), R23's
+    compose mode (``R23c``) and R3's no-sweep mode (``R3n``) in one call,
+    which ``refine_counts`` counts as R1's, R23's and R3's, and of the
+    launches with the clip on (``R3k``, R23's compose mode or R3's
+    no-sweep mode): the last outer iteration of each level that
     ``refine_level`` clips (``refined_init_clamp``, per level)."""
     if cfg.refinement_iters == 0:
         return {}
@@ -675,7 +685,7 @@ def mode_counts(cfg):
     r1 = levels * cfg.refinement_iters
     sweeps = cfg.refinement_inner_sweeps * cfg.refinement_sor_sweeps
     return {("R1s" if cfg.refinement_scheme == "planes6" else "R1w"): r1,
-            ("R3c" if sweeps else "R3n"): r1,
+            ("R23c" if sweeps else "R3n"): r1,
             **({"R3k": levels} if cfg.refined_init_clamp and cfg.refine_per_level else {})}
 
 
@@ -715,9 +725,12 @@ def want_4k(cfg):
 
 
 # The wrappers of R1's setup and warp1 modes and R3's compose and
-# no-sweep modes, and the count of R3's launches with its clip: their
-# launches count in R1's and R3's too, and read_counts leaves them out.
-MODES = ("R1s", "R1w", "R3c", "R3k", "R3n")
+# no-sweep modes, the count of R23's compose mode and the count of the
+# launches with the clip on: their launches count in R1's, R3's and R23's
+# too, and read_counts leaves them out.
+MODES = ("R1s", "R1w", "R23c", "R3c", "R3k", "R3n")
+# The kernel each mode's row of the kernels line is a mode of.
+MODE_OF = {"R1s": "R1", "R1w": "R1", "R23c": "R23", "R3c": "R3", "R3k": "R23", "R3n": "R3"}
 
 
 def kernel_wrappers():
@@ -732,11 +745,12 @@ def kernel_wrappers():
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
             "K1": iclk_search, "R0": rk.refine_planes, "R1": rk.refine_warp,
-            "R2": rk.refine_weights, "R3": rk.refine_sor, "S1": scale_templates,
+            "R2": rk.refine_weights, "R3": rk.refine_sor, "R23": rk.refine_update,
+            "S1": scale_templates,
             "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
             "F2": fkern.intensity_levels, "F3": fkern.frame_finish, "R1s": rk.refine_setup,
-            "R1w": rk.refine_setup_warp1, "R3c": rk.refine_compose, "R3k": rk.clamped,
-            "R3n": rk.refine_nosweep}
+            "R1w": rk.refine_setup_warp1, "R23c": rk.composed, "R3c": rk.refine_compose,
+            "R3k": rk.clamped, "R3n": rk.refine_nosweep}
 
 
 def read_counts(wrappers):
@@ -777,11 +791,11 @@ def grid_sample_ms(planes, flow, warped, card) -> float:
 
 
 def wrapper_args(k, a):
-    """The arguments of the wrapper of R3's compose or no-sweep mode (``k``
-    ``R3c``, ``R3n``) from those its CUDA function took: the clip's bound,
-    or none, where the function takes a flag and a bound (a tree since R3's
-    clip); any other kernel's as they are."""
-    if (k, len(a)) in (("R3c", 20), ("R3n", 6)):
+    """The arguments of the wrapper of R23 or of R3's compose or no-sweep
+    mode (``k`` ``R23``, ``R3c``, ``R3n``) from those its CUDA function
+    took: the clip's bound, or none, where the function takes a flag and a
+    bound (a tree since R3's clip); any other kernel's as they are."""
+    if (k, len(a)) in (("R23", 21), ("R3c", 20), ("R3n", 6)):
         return a[:-2] + ((a[-1],) if a[-2] else ())
     return a
 
@@ -789,8 +803,8 @@ def wrapper_args(k, a):
 def refine_step_inputs(args, picks):
     """Runs ``variational_refinement(*args)`` and returns, by kernel, the
     inputs that the ``picks[kernel]``-th calls of R0, R1, R1's setup and
-    warp1 modes (``R1s``, ``R1w``), R2, R3 and R3's compose and no-sweep
-    modes (``R3c``, ``R3n``) gave their kernel
+    warp1 modes (``R1s``, ``R1w``), R23, R2, R3 and R3's compose and
+    no-sweep modes (``R3c``, ``R3n``) gave their kernel
     (the checked arguments of the ops' CUDA functions, as the wrappers take
     them, ``wrapper_args``; those of the tree's kernels only, and of the
     calls it made): the main path's own inputs for each."""
@@ -799,7 +813,8 @@ def refine_step_inputs(args, picks):
 
     names = {k: fn for k, fn in (("R0", "_planes_cuda"), ("R1", "_warp_cuda"),
                                  ("R1s", "_setup_cuda"), ("R1w", "_setup_warp1_cuda"),
-                                 ("R2", "_weights_cuda"), ("R3", "_sor_cuda"),
+                                 ("R23", "_update_cuda"), ("R2", "_weights_cuda"),
+                                 ("R3", "_sor_cuda"),
                                  ("R3c", "_compose_cuda"), ("R3n", "_nosweep_cuda"))
              if k in picks and hasattr(rk, fn)}
     seen = {k: [] for k in names}
@@ -857,6 +872,7 @@ def op_functions():
             "R1": (refine_kernel, "_warp_cuda", "_warp_cpu"),
             "R1s": (refine_kernel, "_setup_cuda", "_setup_cpu"),
             "R1w": (refine_kernel, "_setup_warp1_cuda", "_setup_warp1_cpu"),
+            "R23": (refine_kernel, "_update_cuda", "_update_cpu"),
             "R2": (refine_kernel, "_weights_cuda", "_weights_cpu"),
             "R3": (refine_kernel, "_sor_cuda", "_sor_cpu"),
             "R3c": (refine_kernel, "_compose_cuda", "_compose_cpu"),
@@ -1832,7 +1848,7 @@ def main() -> int:
                                                refine_planes_plain, refine_setup_plain,
                                                refine_setup_warp1_plain, refine_sor_plain,
                                                refine_warp_plain, refine_weights_plain,
-                                               variational_refinement)
+                                               update_plan, variational_refinement)
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
@@ -2119,27 +2135,76 @@ def main() -> int:
     k2c_err = max(k2c_err, err)
     del pos_f
 
-    # -- phase 1e: the refinement's kernels R0-R3 ---------------------------------
+    # -- phase 1e: the refinement's kernels R0, R1, R23 (R2 and R3 its gate) -------
     # Each on the inputs the main path gives it at the finest level of the
     # 1080p DIS_MEDIUM and DIS_FULL frames and of the KITTI B = 8 DIS_MEDIUM
     # batch (R0's call; R1's setup mode's call, and R1 on its planes and
-    # flow; R2's second; R3's 11th and 12th: the second weight update's
-    # first red and black half-sweeps, where du and dv are not 0; R3's
-    # compose mode's call: the last black half-sweep), bitwise equal to its
-    # plain version; then timed beside it, at 1080p DIS_MEDIUM also on
-    # inputs out of the L2.  Then R1's warp1 mode (R1w) on the finest level
-    # of the 1080p DIS_MEDIUM frame under warp1, and R3's compose mode with
-    # its clip (CLIP_BOUND, which binds) and its no-sweep mode (with and
-    # without the clip) on the 1080p DIS_MEDIUM compose mode's inputs.
+    # flow; R23's second call, a weight update whose increments are not 0,
+    # and its last, the compose mode), bitwise equal to its plain version;
+    # R23 also to the standalone R2 and R3 that it replaced, which stay its
+    # gate: R2 on R23's second call's inputs, R3 on the first red and black
+    # half-sweeps of that update and its compose mode on the last black
+    # half-sweep of the last update (their inputs from the plain versions),
+    # each bitwise equal to its plain version.  Then each timed beside its
+    # plain version, at 1080p DIS_MEDIUM also on inputs out of the L2, and
+    # R23 beside R2 and R3's chain.  Then R23 on every level of the 1080p
+    # hd1080_medium frame (flowbench's configuration) and on the finest
+    # level of the 1080p DIS_MEDIUM frame under warp1, where R1's warp1
+    # mode (R1w) also runs; R23's compose mode with the clip (CLIP_BOUND,
+    # which binds) and R3's no-sweep mode (with and without the clip) on
+    # the 1080p DIS_MEDIUM compose mode's inputs.
+    from dis_tpu_torch.ops.variational import refine_update_plain
+
+    def update_chain(*args):
+        """R23's work through R2, then R3 a half-sweep (its compose mode
+        last where R23's call composes)."""
+        ins, (alpha, delta, gamma, sweeps, omega, compose), bound_ = (
+            args[:13], args[13:19], args[19] if len(args) > 19 else None)
+        coef = refine_weights(*ins, alpha, delta, gamma)
+        du, dv = ins[11:13]
+        for j in range(2 * sweeps):
+            if compose and j == 2 * sweeps - 1:
+                return rk.refine_compose(*ins[9:11], du, dv, *coef, j & 1, omega, bound_)
+            du, dv = refine_sor(*ins[9:11], du, dv, *coef, j & 1, omega)
+        return du, dv
+
+    def r23_gate(label, args):
+        """R23 on ``args`` (one launch) bitwise equal to its plain version
+        and to R2 and R3's chain; the largest difference."""
+        before = rk.refine_update.launches
+        got = flat_tensors(rk.refine_update(*args))
+        want = flat_tensors(refine_update_plain(*args))
+        chain = flat_tensors(update_chain(*args))
+        torch.cuda.synchronize()
+        check(rk.refine_update.launches == before + 1, f"R23 {label}: not one launch")
+        for g, v, c in zip(got, want, chain):
+            check(g.shape == v.shape == c.shape and torch.equal(g, v) and torch.equal(g, c),
+                  f"R23 {label}: differs from its plain version or from R2 and R3")
+        return max(float((g - v).abs().max()) for g, v in zip(got, want))
+
+    def gate_steps(steps, sweeps):
+        """R2's, R3's and R3's compose mode's inputs from R23's recorded
+        calls (its second and its last)."""
+        upd, last = steps["R23"]
+        coef = refine_weights_plain(*upd[:16])
+        steps["R2"] = [upd[:16]]
+        steps["R3"] = [(*upd[9:13], *coef, color, upd[17]) for color in (0, 1)]
+        lcoef = refine_weights_plain(*last[:16])
+        du, dv = last[11:13]
+        for j in range(2 * sweeps - 1):
+            du, dv = refine_sor_plain(*last[9:11], du, dv, *lcoef, j & 1, last[17])
+        steps["R3c"] = [(*last[9:11], du, dv, *lcoef, 1, last[17])]
+
     med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
     kmed_levels, kmed_planes = refined_levels(*kpad, dt.DIS_MEDIUM)
     r_fns = {"R0": (rk.refine_planes, refine_planes_plain, "refine_planes"),
              "R1": (refine_warp, refine_warp_plain, "refine_warp"),
              "R1s": (rk.refine_setup, refine_setup_plain, "refine_setup"),
+             "R23": (rk.refine_update, refine_update_plain, "refine_update"),
              "R2": (refine_weights, refine_weights_plain, "refine_weights"),
              "R3": (refine_sor, refine_sor_plain, "refine_sor"),
              "R3c": (rk.refine_compose, refine_compose_plain, "refine_compose")}
-    r_err = {k: 0.0 for k in (*r_fns, "R1w", "R3k", "R3n")}
+    r_err = {k: 0.0 for k in (*r_fns, "R1w", "R23c", "R3k", "R3n")}
     rtimes, rcosts, rcold = {}, {}, {}
     r1_library = None
     for label, cfg, levels, planes in (
@@ -2147,13 +2212,18 @@ def main() -> int:
             ("1080p full", dt.DIS_FULL, full_levels, full_planes),
             (f"KITTI medium B={nk}", dt.DIS_MEDIUM, kmed_levels, kmed_planes)):
         steps = refine_step_inputs(refine_inputs(cfg, levels, planes, 0),
-                                   {"R0": (0,), "R1s": (0,), "R2": (1,), "R3": (10, 11),
-                                    "R3c": (0,)})
+                                   {"R0": (0,), "R1s": (0,),
+                                    "R23": (1, cfg.refinement_inner_sweeps - 1)})
+        check(len(steps["R23"]) == 2, f"R23 {label}: {len(steps['R23'])} recorded calls")
         steps["R1"] = [args[:2] for args in steps["R1s"]]   # R1 on the same planes, flow
+        gate_steps(steps, cfg.refinement_sor_sweeps)
         for k, (kern, plain, op) in r_fns.items():
-            check(len(steps[k]) == (2 if k == "R3" else 1),
+            check(len(steps[k]) == (2 if k in ("R3", "R23") else 1),
                   f"{k} {label}: {len(steps[k])} recorded calls")
             for args in steps[k]:
+                if k == "R23":
+                    r_err[k] = max(r_err[k], r23_gate(label, args))
+                    continue
                 before = kern.launches
                 got, want = flat_tensors(kern(*args)), flat_tensors(plain(*args))
                 torch.cuda.synchronize()
@@ -2177,26 +2247,61 @@ def main() -> int:
                         f"({100.0 * bms / rcold[k]:.0f}%)")
             if label == "1080p medium" and k == "R1":
                 r1_library = grid_sample_ms(*args, refine_warp(*args)[0], card)
+            if k == "R23":
+                cm = replay_ms(lambda: update_chain(*args))
+                cold += f", R2 and R3's chain {cm:.4f} ms replayed"
             print(f"phase1e {label} {k} {tuple(args[0].shape)}: {len(steps[k])} call(s) "
                   f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
                   f"({100.0 * bms / km:.0f}% of its bound){cold}, plain {pm:.4f} ms "
                   f"({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} [{card}]", flush=True)
         if label == "1080p medium":
-            compose_args = steps["R3c"][0]
+            compose_args = steps["R23"][1]
+            u0v0dudv = steps["R3c"][0][:4]
         del steps
     del kmed_levels, kmed_planes
+    # R23 at each level of the benchmark's 1080p hd1080_medium frame (1080
+    # rows padded to 1088 for its coarsest scale 5).
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "flowbench", "configs",
+                           "hd1080_medium.json")) as fh:
+        hd_cfg = dt.DISConfig(**json.load(fh)["dis"])
+    (ha, _), (hb, _) = (im.pad_divisible(t, hd_cfg.coarsest_scale) for t in (a, b))
+    hd_levels, hd_planes = refined_levels(ha, hb, hd_cfg)
+    del ha, hb
+    for scale in range(hd_cfg.coarsest_scale, hd_cfg.finest_scale - 1, -1):
+        calls = refine_step_inputs(refine_inputs(hd_cfg, hd_levels, hd_planes, scale),
+                                   {"R23": (1, hd_cfg.refinement_inner_sweeps - 1)})["R23"]
+        check(len(calls) == 2, f"R23 hd1080_medium level {scale}: {len(calls)} calls")
+        for args in calls:
+            r_err["R23"] = max(r_err["R23"], r23_gate(f"hd1080_medium level {scale}", args))
+        args = calls[0]
+        km, cm = replay_ms(lambda: rk.refine_update(*args)), replay_ms(
+            lambda: update_chain(*args))
+        bms, by = bound(*cost.op_cost("refine_update", args))
+        print(f"phase1e hd1080_medium level {scale} R23 {tuple(args[0].shape)}: 2 calls "
+              f"bitwise equal to the plain version and to R2 and R3; kernel {km:.4f} ms "
+              f"replayed ({100.0 * bms / km:.0f}% of its bound), R2 and R3's chain {cm:.4f} "
+              f"ms, tiles {update_plan(1, *args[0].shape[-2:], 5)} [{card}]", flush=True)
+    del hd_levels, hd_planes, calls, args
     warp1_cfg = dataclasses.replace(dt.DIS_MEDIUM, refinement_scheme="warp1")
     w1_levels, w1_planes = refined_levels(a, b, warp1_cfg)
-    w1_args = refine_step_inputs(refine_inputs(warp1_cfg, w1_levels, w1_planes, 0),
-                                 {"R1w": (0,)})["R1w"]
-    check(len(w1_args) == 1, f"R1w 1080p medium warp1: {len(w1_args)} recorded calls")
-    u0v0dudv = compose_args[:4]
+    w1_steps = refine_step_inputs(refine_inputs(warp1_cfg, w1_levels, w1_planes, 0),
+                                  {"R1w": (0,), "R23": (1, warp1_cfg.refinement_inner_sweeps - 1)})
+    w1_args = w1_steps["R1w"]
+    check(len(w1_args) == 1 and len(w1_steps["R23"]) == 2,
+          f"1080p medium warp1: {len(w1_args)} R1w, {len(w1_steps['R23'])} R23 calls")
+    for args in w1_steps["R23"]:
+        r_err["R23"] = max(r_err["R23"], r23_gate("1080p medium warp1", args))
+    print("phase1e 1080p medium warp1 R23: 2 calls bitwise equal to the plain version and to "
+          "R2 and R3", flush=True)
+    del w1_steps
     # name: (wrapper, plain version, op, op's arguments beside the
     # wrapper's, the wrapper's arguments checked, the timed ones first)
     modes = {"R1w": (rk.refine_setup_warp1, refine_setup_warp1_plain, "refine_setup_warp1",
                      (), [w1_args[0]]),
-             "R3k": (rk.refine_compose, refine_compose_plain, "refine_compose",
-                     (True, CLIP_BOUND), [(*compose_args, CLIP_BOUND)]),
+             "R23c": (rk.refine_update, refine_update_plain, "refine_update", (),
+                      [compose_args]),
+             "R3k": (rk.refine_update, refine_update_plain, "refine_update", (True,),
+                     [(*compose_args, CLIP_BOUND)]),
              "R3n": (rk.refine_nosweep, refine_nosweep_plain, "refine_nosweep", (False, 0.0),
                      [u0v0dudv, (*u0v0dudv, CLIP_BOUND)])}
     for k, (kern, plain, op, flags, calls) in modes.items():
@@ -2213,7 +2318,7 @@ def main() -> int:
             if isinstance(args[-1], float) and args[-1] == CLIP_BOUND:
                 check(bool((got[0].abs() == CLIP_BOUND).any()), f"{k}: the clip never binds")
         args = calls[0]
-        op_args = args[:-1] + flags if k == "R3k" else args + flags
+        op_args = args[:-1] + flags + args[-1:] if k == "R3k" else args + flags
         km = replay_ms(lambda: kern(*args))
         pm, prm = time_ms(lambda: plain(*args)), replay_ms(lambda: plain(*args))
         nbytes, ops = cost.op_cost(op, op_args)
@@ -2636,13 +2741,13 @@ def main() -> int:
     # -- phase 2f: refinement presets at 1080p ----------------------------------
     refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL, "warp1": warp1_cfg}
     want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
-                               "R0": 4, "R1": 4, "R2": 20, "R3": 200,
+                               "R0": 4, "R1": 4, "R23": 20,
                                "S1": 4, "S3": 4, "S4": 4, "F2": 1},
                     "warp1": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
-                              "R1": 4, "R2": 20, "R3": 200,
+                              "R1": 4, "R23": 20,
                               "S1": 4, "S3": 4, "S4": 4, "F2": 1},
                     "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
-                             "R0": 5, "R1": 5, "R2": 50, "R3": 500,
+                             "R0": 5, "R1": 5, "R23": 50,
                              "S1": 5, "S3": 5, "S4": 5, "F1": 1, "F2": 1}}
     rflows = {}
     for name, cfg in refined.items():
@@ -3117,14 +3222,14 @@ def main() -> int:
                 r_err["R1s"]),
         "R1w": ("refine_setup_warp1", src + "refine_planes.cu",
                 "dis_tpu/ops/variational.py:223", r_err["R1w"]),
-        "R2": ("refine_weights", src + "variational.cu", "dis_tpu/ops/variational.py:252",
-               r_err["R2"]),
+        "R23": ("refine_update", src + "variational.cu", "dis_tpu/ops/variational.py:252",
+                r_err["R23"]),
+        "R23c": ("refine_update_compose", src + "variational.cu",
+                 "dis_tpu/ops/variational.py:314", r_err["R23c"]),
         "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
                r_err["R3"]),
-        "R3c": ("refine_compose", src + "variational.cu", "dis_tpu/ops/variational.py:314",
-                r_err["R3c"]),
-        "R3k": ("refine_compose_clamp", src + "variational.cu", "dis_tpu/models/dis.py:101",
-                r_err["R3k"]),
+        "R3k": ("refine_update_compose_clamp", src + "variational.cu",
+                "dis_tpu/models/dis.py:101", r_err["R3k"]),
         "R3n": ("refine_nosweep", src + "variational.cu", "dis_tpu/ops/variational.py:314",
                 r_err["R3n"]),
         # Nor S1, S3, S4 and the start: they replace XLA's fusions of each
@@ -3153,14 +3258,14 @@ def main() -> int:
     # K2 at the finest scale give the same bounds; K1 counts its fixed loop
     # and no start freezes, so its bytes differ by the raw templates of the
     # patches frozen at the start (a few hundred at 1080p).  The 1080p
-    # DIS_MEDIUM bucket's last R0, R1 (its setup mode), R2, red R3 and R3
-    # (its compose mode) are the finest level's, and its F2 the frame's,
-    # which the kernels line times.
+    # DIS_MEDIUM bucket's last R0, R1 (its setup mode) and R23 (the last
+    # two: a weight update, then its compose mode) are the finest level's,
+    # and its F2 the frame's, which the kernels line times.
     kc, kcm = served_cost["kernels"], med_cost["kernels"]
     for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
                           ("K1", kc["K1"][-1], 1e-3), ("R0", kcm["R0"][-1], 0.0),
-                          ("R1s", kcm["R1"][-1], 0.0), ("R2", kcm["R2"][-1], 0.0),
-                          ("R3", kcm["R3"][-2], 0.0), ("R3c", kcm["R3"][-1], 0.0),
+                          ("R1s", kcm["R1"][-1], 0.0), ("R23", kcm["R23"][-2], 0.0),
+                          ("R23c", kcm["R23"][-1], 0.0),
                           ("S1", kc["S1"][-1], 0.0), ("S4", kc["S4"][-1], 0.0),
                           ("F2", kcm["F2"][-1], 0.0)):
         static = bound(entry["bytes accessed"], entry["flops"])
@@ -3182,10 +3287,11 @@ def main() -> int:
         if k in rcold or k in f_cold:
             rows[-1]["cold_ms"] = rcold.get(k, f_cold.get(k))
         if k in MODES:
-            # R1's and R3's modes: the same kernel, whose row's launches
-            # count this mode's too (R1w a kernel of its own that counts as
-            # R1's; R3k R3's launches with the clip flag).
-            rows[-1]["mode_of"] = meta[k[:2]][0]
+            # R1's, R3's and R23's modes: the same kernel, whose row's
+            # launches count this mode's too (R1w a kernel of its own that
+            # counts as R1's; R3k the launches with the clip flag, timed
+            # in R23's compose mode).
+            rows[-1]["mode_of"] = meta[MODE_OF[k]][0]
     # The start's row: fused into S1 (scale_templates), it launches
     # with S1, and its ms is what it adds inside S1 on the same inputs.
     rows[-1]["fused_into"] = "scale_templates"
@@ -3215,8 +3321,9 @@ def kernel_times(root: str) -> int:
     eleven configs and inputs (``flow_sha256``: the clamped 1080p and 4K
     and the ``warp1`` ``DIS_MEDIUM`` frames among them), and, in a tree
     that has them, R0, R1 (on the planes and flow of its setup mode where
-    the tree has it), R1's setup and warp1 modes, R2, R3 and R3's compose
-    mode on that level's inputs;
+    the tree has it), R1's setup and warp1 modes, R23 (its second call),
+    and R2, R3 and R3's compose mode where the main path still calls them,
+    on that level's inputs;
     the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
     nodes and bytes.  K2
     gets the grid's column length where the tree's ``extract_regions``
@@ -3346,14 +3453,14 @@ def kernel_times(root: str) -> int:
             # R1 on the planes and flow of R1's setup mode where the tree
             # has it; R0 and the modes where the tree has them.
             steps = refine_step_inputs(args, {"R0": (0,), "R1": (0,), "R1s": (0,),
-                                              "R1w": (0,), "R2": (1,), "R3": (10,),
-                                              "R3c": (0,)})
+                                              "R1w": (0,), "R23": (1,), "R2": (1,),
+                                              "R3": (10,), "R3c": (0,)})
             if not steps.get("R1") and steps.get("R1s"):
                 steps["R1"] = [steps["R1s"][0][:2]]
             for k, name in (("R0", "refine_planes"), ("R1", "refine_warp"),
                             ("R1s", "refine_setup"), ("R1w", "refine_setup_warp1"),
-                            ("R2", "refine_weights"), ("R3", "refine_sor"),
-                            ("R3c", "refine_compose")):
+                            ("R23", "refine_update"), ("R2", "refine_weights"),
+                            ("R3", "refine_sor"), ("R3c", "refine_compose")):
                 if steps.get(k):
                     fn = getattr(rk, name)
                     out[f"{k}_1080p_{key}_finest_replayed_ms"] = replay_ms(

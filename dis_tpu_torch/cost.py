@@ -6,7 +6,7 @@ refinement's :func:`refine_planes_cost`, :func:`refine_warp_cost`,
 :func:`refine_setup_cost` (in its warp1 mode
 :func:`refine_setup_warp1_cost`), :func:`refine_weights_cost`,
 :func:`refine_sor_cost` (in its compose mode :func:`refine_compose_cost`,
-in its no-sweep mode :func:`refine_nosweep_cost`),
+in its no-sweep mode :func:`refine_nosweep_cost`), :func:`refine_update_cost`,
 each scale's :func:`templates_cost` (plus :func:`start_cost` where S1
 writes the start), :func:`weights_cost`, :func:`densify_cost`, and the
 frame's :func:`frame_pad_cost`, :func:`intensity_levels_cost`,
@@ -44,11 +44,12 @@ KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
            "extract_regions_banded": "K2c", "iclk_search": "K1",
            "refine_planes": "R0", "refine_warp": "R1", "refine_setup": "R1",
            "refine_setup_warp1": "R1", "refine_weights": "R2", "refine_sor": "R3",
-           "refine_compose": "R3", "refine_nosweep": "R3",
+           "refine_compose": "R3", "refine_nosweep": "R3", "refine_update": "R23",
            "scale_templates": "S1", "fixed_weights": "S3", "densify": "S4",
            "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
-# The kernels every count names; the refinement's (R0-R3) appear only
-# where a program refines (R0 with the planes6 scheme), each scale's (S1,
+# The kernels every count names; the refinement's (R0, R1, R23, and R3 in
+# its no-sweep mode) appear only where a program refines (R0 with the
+# planes6 scheme, R23 where it makes a half-sweep), each scale's (S1,
 # S3, S4) where they launch (S3 in fixed mode only), the frame's F1 where
 # it pads, F2 where the refinement reads intensity planes, F3 where
 # finest_scale > 0.
@@ -180,6 +181,20 @@ def refine_nosweep_cost(nb: int, h: int, w: int, clamp: bool) -> Tuple[int, int]
     return px * 6 * F32, px * (6 if clamp else 2)
 
 
+def refine_update_cost(nb: int, h: int, w: int, sweeps: int, relax: bool,
+                       compose: bool = False, clamp: bool = False) -> Tuple[int, int]:
+    """(bytes, operations) of one R23 launch, a weight update of ``sweeps``
+    SOR sweeps over ``nb`` planes of ``h`` x ``w``: R2's 13 planes read
+    once and du and dv (or the flow) written once; R2's operations and
+    each half-sweep's (:func:`refine_weights_cost`, :func:`refine_sor_cost`),
+    and in the compose mode two sums a pixel (and two comparisons a value
+    where it ``clamp``s).  The halo's repeated work is not counted."""
+    ops = refine_weights_cost(nb, h, w)[1]
+    ops += sum(refine_sor_cost(nb, h, w, j & 1, relax)[1] for j in range(2 * sweeps))
+    px = nb * h * w
+    return px * 15 * F32, ops + ((6 if clamp else 2) * px if compose else 0)
+
+
 def frame_pad_cost(nb: int, h: int, w: int, top: int, bottom: int, left: int,
                    right: int) -> Tuple[int, int]:
     """(bytes, operations) of one F1 launch over ``nb`` pairs [h, w]: both
@@ -282,6 +297,11 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         lead_hw = args[0 if name == "refine_setup" else 1].shape[:-1]
         setup = refine_setup_cost if name == "refine_setup" else refine_setup_warp1_cost
         return setup(lead_hw[0] if len(lead_hw) == 3 else 1, *lead_hw[-2:])
+    if name == "refine_update":
+        plane = args[0]
+        sweeps, omega, compose = args[16:19]
+        return refine_update_cost(plane.shape[0] if plane.ndim == 3 else 1, *plane.shape[-2:],
+                                  sweeps, omega != 1.0, compose, len(args) > 19 and args[19])
     if name in ("refine_weights", "refine_sor", "refine_compose", "refine_nosweep"):
         plane = args[0]
         nb = plane.shape[0] if plane.ndim == 3 else 1

@@ -33,3 +33,32 @@ __device__ __forceinline__ float dis_group_sum(const float (&v)[K]) {
   for (int off = 1; off < G; off <<= 1) s = s + __shfl_xor_sync(0xffffffffu, s, off);
   return s;
 }
+
+// The dynamic shared memory a family of kernels may take on this device:
+// the opt-in maximum less a kernel's static shared memory, granted to each
+// of fns once per device (never per shape, so that a later launch never
+// lowers it).  The least of them; 0 on an error.  S1 and S4
+// (scale_glue.cu) and R23 (variational.cu) ask through it.
+template <int N>
+int dis_shared_limit(int (&granted)[64], const void* const (&fns)[N]) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (granted[dev] == 0) {
+    int optin = 0;
+    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+        cudaSuccess)
+      return 0;
+    int least = optin;
+    for (const void* fn : fns) {
+      cudaFuncAttributes attr;
+      if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return 0;
+      const int dynamic = optin - (int)attr.sharedSizeBytes;
+      if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic) !=
+          cudaSuccess)
+        return 0;
+      least = dynamic < least ? dynamic : least;
+    }
+    granted[dev] = least;
+  }
+  return granted[dev];
+}

@@ -669,34 +669,6 @@ densify_kernel(const DensifyArgs a) {
   }
 }
 
-// The dynamic shared memory a family of kernels may take on this device:
-// the opt-in maximum less a kernel's static shared memory, granted to each
-// of fns once per device (never per shape, so that a later launch never
-// lowers it).  The least of them; 0 on an error.
-template <int N>
-int shared_limit(int (&granted)[64], const void* const (&fns)[N]) {
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (granted[dev] == 0) {
-    int optin = 0;
-    if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-        cudaSuccess)
-      return 0;
-    int least = optin;
-    for (const void* fn : fns) {
-      cudaFuncAttributes attr;
-      if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess) return 0;
-      const int dynamic = optin - (int)attr.sharedSizeBytes;
-      if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, dynamic) !=
-          cudaSuccess)
-        return 0;
-      least = dynamic < least ? dynamic : least;
-    }
-    granted[dev] = least;
-  }
-  return granted[dev];
-}
-
 const void* const TEMPLATE_KERNELS[] = {
     (const void*)templates_kernel<8, 8>, (const void*)templates_kernel<8, 16>,
     (const void*)templates_kernel<8, 32>, (const void*)templates_kernel<16, 32>,
@@ -761,7 +733,7 @@ extern "C" int dis_scale_templates(const float* img, const float* dx, const floa
   if (start && (!aligned8(centers) || !aligned8(init_u) || !aligned8(pos0) ||
                 (coarser && !aligned8(flow))))
     return (int)cudaErrorMisalignedAddress;
-  const int limit = shared_limit(templates_granted, TEMPLATE_KERNELS);
+  const int limit = dis_shared_limit(templates_granted, TEMPLATE_KERNELS);
   if (limit == 0) return (int)cudaGetLastError();
   TemplateGrid grid;
   grid.img = img;
@@ -860,7 +832,7 @@ extern "C" int dis_densify(const float* u, const float* wts, const long long* co
   if (!aligned8(u) || !aligned8(out)) return (int)cudaErrorMisalignedAddress;
   if ((long long)shared != densify_bytes(kr, kc, cap_r, cap_c, weighted))
     return (int)cudaErrorInvalidValue;
-  const int limit = shared_limit(densify_granted, DENSIFY_KERNELS);
+  const int limit = dis_shared_limit(densify_granted, DENSIFY_KERNELS);
   if (limit == 0) return (int)cudaGetLastError();
   DensifyArgs a;
   a.u = u;

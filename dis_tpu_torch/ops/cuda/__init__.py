@@ -1,7 +1,8 @@
 """Wrappers of the hand-written CUDA kernels K1-K3 (K2 and K1 with their
 batched forms K2b and K1b: a leading pair axis on their inputs), K2c,
-the column-banded form of K2, the refinement's R0-R3, each scale's S1,
-S3 and S4 and the frame's F1-F3, and the ops they launch through.
+the column-banded form of K2, the refinement's R0-R3 and R23, each
+scale's S1, S3 and S4 and the frame's F1-F3, and the ops they launch
+through.
 
 Each C entry point of ``csrc/`` is registered as an op of the
 ``dis_tpu_torch`` namespace (``torch.library.custom_op``) with a flat
@@ -9,7 +10,8 @@ schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
 ``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c),
 ``iclk_search`` (K1, K1b), ``refine_planes`` (R0), ``refine_warp`` and
 ``refine_setup`` (R1 and its setup mode), ``refine_weights`` (R2),
-``refine_sor`` and ``refine_compose`` (R3 and its compose mode),
+``refine_sor``, ``refine_compose`` and ``refine_nosweep`` (R3 and its
+compose and no-sweep modes), ``refine_update`` (R23),
 ``scale_templates`` (S1, the search start included), ``fixed_weights``
 and ``densify`` (S3, S4), ``frame_pad``, ``intensity_levels`` and
 ``frame_finish`` (F1-F3).  Each op has three
@@ -116,6 +118,6 @@ def register(name: str, cuda_fn, fake_fn, cpu_fn, mutates_args=()):
 
 
 # The ops are registered when their modules are imported; importing this
-# package registers all sixteen (a loaded artifact needs them).
+# package registers all of them (a loaded artifact needs them).
 from . import (extract_banded_kernel, extract_kernel, frame_kernel,  # noqa: E402,F401
                iclk_kernel, pyramid_kernel, refine_kernel, scale_kernel)

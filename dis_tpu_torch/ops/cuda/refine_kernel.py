@@ -1,5 +1,5 @@
-"""R0-R3: the variational refinement's device loop (``csrc/refine_planes.cu``,
-``csrc/variational.cu``).
+"""R0-R3 and R23: the variational refinement's device loop
+(``csrc/refine_planes.cu``, ``csrc/variational.cu``).
 
 No Pallas kernel backs them: the JAX package writes the refinement as
 elementwise code (``dis_tpu/ops/variational.py``) that XLA fuses into a
@@ -15,21 +15,25 @@ step of ``ops/variational.py::variational_refinement``:
   du = dv = 0); in its warp1 mode, :func:`refine_setup_warp1` (``warp1``,
   R1w), it warps I2 alone and writes the same thirteen inputs from the
   Sobels of the warped plane and of I1 (:191-197 and :223-242 there);
-- R2 :func:`refine_weights`, one lagged weight update with its 2x2
-  systems (the head of ``inner``), once per update;
-- R3 :func:`refine_sor`, one red or black half-sweep (``half_sweep``),
-  twice per SOR sweep; in its compose mode, :func:`refine_compose`, the
-  last half-sweep of an outer iteration, which writes the flow (u0 + du,
-  v0 + dv) (:314 there), clipped to a bound where one is given
-  (``refined_init_clamp``, ``dis_tpu/models/dis.py:101-103``); in its
-  no-sweep mode, :func:`refine_nosweep`, that flow of an outer iteration
-  that makes no half-sweep, with the same clip.
+- R23 :func:`refine_update`, one lagged weight update (the head of
+  ``inner``) and all its red and black half-sweeps (``half_sweep``) on
+  tiles held on chip, once per update; in its compose mode, the
+  last update of an outer iteration, it writes the flow (u0 + du, v0 +
+  dv) (:314 there), clipped to a bound where one is given
+  (``refined_init_clamp``, ``dis_tpu/models/dis.py:101-103``);
+- R3 in its no-sweep mode, :func:`refine_nosweep`, that flow of an outer
+  iteration that makes no half-sweep, with the same clip;
+- R2 :func:`refine_weights` (one weight update) and R3
+  :func:`refine_sor` (one half-sweep; in its compose mode,
+  :func:`refine_compose`, the last one, which writes the flow), the
+  kernels R23 replaced, which stay its gate (``chip_smoke.py``).
 
-Each is bound by bytes on the H100: one thread per pixel (R0 and R1w a
-tile of them, staged in shared memory), the planes read and written in
-coalesced rows, the stencils' neighbours from cache.  Their plain
-versions are ``refine_planes_plain``, ``refine_warp_plain``,
-``refine_setup_plain``, ``refine_setup_warp1_plain``,
+R0, R1, R2 and R3 are bound by bytes on the H100: one thread per pixel
+(R0 and R1w a tile of them, staged in shared memory), the planes read
+and written in coalesced rows, the stencils' neighbours from cache; R23
+by its halo's repeated work and the latency of its chain of half-sweeps.  Their plain versions are
+``refine_planes_plain``, ``refine_warp_plain``, ``refine_setup_plain``,
+``refine_setup_warp1_plain``, ``refine_update_plain``,
 ``refine_weights_plain``, ``refine_sor_plain``, ``refine_compose_plain``
 and ``refine_nosweep_plain`` of ``ops/variational.py``; each kernel keeps
 their operations and rounding, so it equals them bitwise.
@@ -39,12 +43,13 @@ several: R0's I1x and I1y [2, (B,) h, w] and its planes [(B,) h, w, 6];
 R1's warped planes [C, (B,) h, w] (the wrapper hands them back as
 [(B,) h, w, C], a view whose planes stay contiguous for R2) and its mask,
 or in its setup and warp1 modes R2's thirteen inputs [13, (B,) h, w];
-R2's twelve planes [12, (B,) h, w]; R3's new du and dv [2, (B,) h, w],
-or in its compose and no-sweep modes the flow [(B,) h, w, 2].  So
-``torch.export`` and CUDA graphs need no handling of mutation.  A mode's
-launch counts in its kernel's ``launches`` (R1's, R3's) and in its own
-wrapper's; R3's clip, a flag of its compose and no-sweep modes, also in
-``clamped.launches``.
+R2's twelve planes [12, (B,) h, w]; R3's and R23's new du and dv
+[2, (B,) h, w], or in their compose modes and R3's no-sweep mode the flow
+[(B,) h, w, 2].  So ``torch.export`` and CUDA graphs need no handling of
+mutation.  A mode's launch counts in its kernel's ``launches`` (R1's,
+R3's) and in its own wrapper's (R23's compose mode in
+``composed.launches``); the clip, a flag of R3's compose and no-sweep
+modes and of R23's compose mode, also in ``clamped.launches``.
 """
 
 from __future__ import annotations
@@ -56,9 +61,10 @@ from typing import Optional, Tuple
 import torch
 
 from ... import _build
-from ..variational import (refine_compose_plain, refine_nosweep_plain, refine_planes_plain,
-                           refine_setup_plain, refine_setup_warp1_plain, refine_sor_plain,
-                           refine_warp_plain, refine_weights_plain)
+from ..variational import (H100_SMS, refine_compose_plain, refine_nosweep_plain,
+                           refine_planes_plain, refine_setup_plain, refine_setup_warp1_plain,
+                           refine_sor_plain, refine_update_plain, refine_warp_plain,
+                           refine_weights_plain, update_plan)
 from . import all_on_cpu, check_input, dispatch, launched, register
 
 WARP_CHANNELS = (1, 6)   # the kernel's instances: warp1 and planes6
@@ -68,7 +74,7 @@ WEIGHT_OUTPUTS = 12
 SOR_INPUTS = ("u0", "v0", "du", "dv", "wE", "wW", "wS", "wN", "A11", "A12", "A22", "b1c",
               "b2c", "det", "Su0", "Sv0")
 MAX_PIXELS = 2 ** 31 - 256   # the kernels' 1-D grid of nb * h * w threads
-MAX_PLANES = 65535           # R0's and R1w's gridDim.z
+MAX_PLANES = 65535           # R0's and R1w's gridDim.z, R23's gridDim.y
 T = torch.Tensor             # the ops' schemas come from these annotations
 
 
@@ -436,6 +442,79 @@ def _nosweep_cpu(u0, v0, du, dv, clamp, bound):
     return refine_nosweep_plain(u0, v0, du, dv, bound if clamp else None)
 
 
+# -- R23: one weight update -------------------------------------------------------
+
+def refine_update(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
+                  alpha: float, delta: float, gamma: float, sweeps: int, omega: float,
+                  compose: bool = False, bound: Optional[float] = None):
+    """One weight update, every plane [(B,) h, w]: R2's coefficients from
+    the increments ``du``, ``dv``, then ``sweeps`` red-black SOR sweeps
+    over-relaxed by ``omega``.  Returns the new (du, dv); where
+    ``compose``, the flow [(B,) h, w, 2] = (u0 + du, v0 + dv) of the last
+    half-sweep, clipped to [-bound, bound] (a float32 bound) where
+    ``bound`` is given.  One launch of R23 (``update_plan``: more where
+    the half-sweeps' halo would leave a tile no interior, each of some of
+    the half-sweeps)."""
+    ins = (Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv)
+    if all_on_cpu(*ins):
+        return refine_update_plain(*ins, alpha, delta, gamma, sweeps, omega, compose, bound)
+    if sweeps < 1:
+        raise ValueError(f"sweeps must be 1 or more, got {sweeps}")
+    nb, _, _ = _plane_dims(Iz, "Iz")
+    if nb > MAX_PLANES:
+        raise ValueError(f"{nb} planes: the kernel takes 1 to {MAX_PLANES}")
+    if bound is not None and not compose:
+        raise ValueError("the clip is a flag of the compose mode")
+    dev = Iz.device
+    for t, name in zip(ins, WEIGHT_INPUTS):
+        check_input(t, name, dev, torch.float32, Iz.shape)
+    out = dispatch(refine_update_op, _update_cuda, dev, *ins, alpha, delta, gamma, sweeps,
+                   omega, compose, *_clip(bound))
+    return out if compose else out.unbind(0)
+
+
+def _update_empty(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv, alpha, delta, gamma,
+                  sweeps, omega, compose, clamp=False, bound=0.0):
+    return Iz.new_empty(tuple(Iz.shape) + (2,) if compose else (2,) + tuple(Iz.shape))
+
+
+def _update_cuda(Iz: T, Izx: T, Izy: T, Wx: T, Wy: T, Wxx: T, Wxy: T, Wyy: T, m: T, u0: T,
+                 v0: T, du: T, dv: T, alpha: float, delta: float, gamma: float, sweeps: int,
+                 omega: float, compose: bool, clamp: bool = False, bound: float = 0.0) -> T:
+    """R23 on checked inputs: the new du and dv [2, (B,) h, w], or where
+    ``compose`` the flow [(B,) h, w, 2], clipped where ``clamp``.  A launch
+    after the update's first starts from the previous one's du and dv."""
+    ins = (Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv)
+    nb, h, w = _plane_dims(Iz, "Iz")
+    plan = update_plan(nb, h, w, sweeps, sms=_multiprocessors(Iz.device))
+    for k, (ih, iw, j0, nh) in enumerate(plan):
+        last = k == len(plan) - 1
+        out = _update_empty(*ins, alpha, delta, gamma, sweeps, omega, compose and last)
+        _build.launch("dis_refine_update", Iz.device, _pointers(ins + (du, dv)), nb, h, w, ih, iw,
+                      j0, nh, alpha, delta, gamma, omega, int(omega != 1.0),
+                      int(compose and last), int(clamp and last), bound, out.data_ptr())
+        modes = ((composed,) if compose else ()) + ((clamped,) if clamp else ())
+        launched("refine_update", "R23", refine_update, *(modes if last else ()))
+        if not last:
+            du, dv = out.unbind(0)
+    return out
+
+
+def _multiprocessors(device: torch.device) -> int:
+    """The card's multiprocessors (the H100's for CPU tensors, which reach
+    the CUDA function only where a test stubs the launch)."""
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _update_cpu(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv, alpha, delta, gamma,
+                sweeps, omega, compose, clamp=False, bound=0.0):
+    out = refine_update_plain(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv, alpha,
+                              delta, gamma, sweeps, omega, compose, bound if clamp else None)
+    return out if compose else torch.stack(out)
+
+
 refine_planes.launches = 0
 refine_warp.launches = 0
 refine_setup.launches = 0
@@ -444,8 +523,12 @@ refine_weights.launches = 0
 refine_sor.launches = 0
 refine_compose.launches = 0
 refine_nosweep.launches = 0
-# R3's launches with its clip on (its compose or no-sweep mode).
+refine_update.launches = 0
+# The launches with the clip on: R3's (its compose or no-sweep modes) and
+# R23's (its compose mode).
 clamped = SimpleNamespace(launches=0)
+# R23's launches in its compose mode, which write the flow.
+composed = SimpleNamespace(launches=0)
 refine_planes_op = register("refine_planes", _planes_cuda, _planes_empty, _planes_cpu)
 refine_warp_op = register("refine_warp", _warp_cuda, _warp_empty, _warp_cpu)
 refine_setup_op = register("refine_setup", _setup_cuda, _setup_empty, _setup_cpu)
@@ -455,3 +538,4 @@ refine_weights_op = register("refine_weights", _weights_cuda, _weights_empty, _w
 refine_sor_op = register("refine_sor", _sor_cuda, _sor_empty, _sor_cpu)
 refine_compose_op = register("refine_compose", _compose_cuda, _compose_empty, _compose_cpu)
 refine_nosweep_op = register("refine_nosweep", _nosweep_cuda, _nosweep_empty, _nosweep_cpu)
+refine_update_op = register("refine_update", _update_cuda, _update_empty, _update_cpu)

@@ -20,14 +20,26 @@ loop over a few steps, each one kernel on CUDA tensors
 (:func:`refine_planes_plain`), R1 the warp (:func:`refine_warp_plain`; in
 its setup mode, :func:`refine_setup_plain`, also the weight update's
 inputs, and in its warp1 mode, :func:`refine_setup_warp1_plain`, the
-``warp1`` scheme's warp, Sobels and inputs), R2 one weight update
-(:func:`refine_weights_plain`) and R3 one half-sweep
-(:func:`refine_sor_plain`; in its compose mode,
-:func:`refine_compose_plain`, the last one, which also writes the flow,
-clipped where a bound is given; in its no-sweep mode,
-:func:`refine_nosweep_plain`, the flow of an outer iteration without a
-half-sweep).  These plain functions are the kernels' plain versions:
-torch ops, which CPU tensors (and ``plain=True``) run.
+``warp1`` scheme's warp, Sobels and inputs), and R23 one weight update
+with all its half-sweeps (:func:`refine_update_plain`: R2's
+:func:`refine_weights_plain`, then R3's :func:`refine_sor_plain` a
+half-sweep; in its compose mode, the last update of an outer iteration,
+:func:`refine_compose_plain` last, which also writes the flow, clipped
+where a bound is given); R3 in its no-sweep mode
+(:func:`refine_nosweep_plain`) writes the flow of an outer iteration
+without a half-sweep.  So a ``planes6`` level of ``DIS_MEDIUM`` makes 7
+launches (R0, R1 and five R23), where R2 once an update and R3 once a
+half-sweep made 57; R2 and R3 stay callable, R23's gate on the card.
+These plain functions are the kernels' plain versions: torch ops, which
+CPU tensors (and ``plain=True``) run.
+
+R23 holds a tile of the planes on chip through its update:
+:func:`update_plan` picks the tiles from the level's shape, the pair
+count and the sweeps, and :func:`refine_update_tiled` runs the same
+tiles through the plain versions, which tests hold bitwise to the
+untiled update.  Its bound on the H100 is the halo's repeated work and
+the latency of its chain of half-sweeps, not the bytes of the update,
+which it reads once and writes once.
 
 Every expression keeps the JAX package's order of operations, and each
 step is its own op, so no multiply-add is contracted.  Where the JAX
@@ -43,6 +55,7 @@ it.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -280,6 +293,164 @@ def refine_nosweep_plain(u0, v0, du, dv, bound: Optional[float] = None) -> torch
     return flow if bound is None else flow.clamp(-bound, bound)
 
 
+def refine_update_plain(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
+                        alpha: float, delta: float, gamma: float, sweeps: int, omega: float,
+                        compose: bool = False, bound: Optional[float] = None):
+    """One weight update: :func:`refine_weights_plain`, then ``sweeps``
+    red-black SOR sweeps (:func:`refine_sor_plain`, red first).  Returns
+    the new (du, dv); where ``compose``, the last half-sweep is
+    :func:`refine_compose_plain`'s and the flow [(B,) h, w, 2] is
+    returned, clipped to [-bound, bound] where ``bound`` is given.  The
+    plain version of kernel R23."""
+    ins = (Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv)
+    return _update_launch_plain(ins, du, dv, alpha, delta, gamma, omega, 0, 2 * sweeps,
+                                compose, bound)
+
+
+def _update_launch_plain(ins, du, dv, alpha, delta, gamma, omega, j0: int, nh: int,
+                         compose: bool, bound: Optional[float], parity: int = 0):
+    """One R23 launch's work: R2's coefficients from the thirteen ``ins``
+    (the update's increments among them), then the update's half-sweeps
+    ``j0`` to ``j0 + nh - 1`` (colour ``j & 1``) from ``du`` and ``dv``,
+    the last one composing the flow where ``compose``.  ``parity`` is that
+    of the planes' first row and column in the whole plane (a tile's)."""
+    coef = refine_weights_plain(*ins, alpha, delta, gamma)
+    u0, v0 = ins[9:11]
+    for j in range(j0, j0 + nh):
+        color = (j + parity) & 1
+        if compose and j == j0 + nh - 1:
+            return refine_compose_plain(u0, v0, du, dv, *coef, color, omega, bound)
+        du, dv = refine_sor_plain(u0, v0, du, dv, *coef, color, omega)
+    return du, dv
+
+
+# R23's tiles (csrc/variational.cu): its threads, the pixel pairs (a
+# row's pixels 2k and 2k + 1) a thread holds, so the pairs a tile may
+# hold, and the H100's multiprocessors.
+UPDATE_THREADS = 512
+UPDATE_PAIRS = 3
+UPDATE_CAPACITY = UPDATE_THREADS * UPDATE_PAIRS
+H100_SMS = 132
+# The least interior side that a launch's halo leaves a square tile of
+# the capacity; more half-sweeps are split over launches.
+UPDATE_MIN_INTERIOR = 14
+# A block's time beside its tile's pixels, in pixels (update_plan).
+UPDATE_BLOCK_COST = 2048
+
+
+def tile_extent(n: int, inner: int, tiles: int, nh: int) -> int:
+    """Rows (or columns) that R23's tiles of ``inner`` interior rows load
+    on a plane of ``n``, ``tiles`` of them across it, for ``nh``
+    half-sweeps: the interior with its halo (``nh`` before it, ``nh + 1``
+    after it, where it is inside the plane), cut at the plane; the same
+    formula as the kernel's."""
+    return n if tiles == 1 else min(n, inner + (nh + 1) + (nh if tiles > 2 else 0))
+
+
+def tile_pairs(th: int, tw: int) -> int:
+    """The pixel pairs of a tile of ``th`` x ``tw``: its rows' pixels 2k
+    and 2k + 1, the last one alone where ``tw`` is odd."""
+    return th * ((tw + 1) // 2)
+
+
+def _splits(n: int):
+    """The distinct (tiles, interior) that cut ``n`` rows into tiles of an
+    equal interior (the last one shorter)."""
+    seen = {}
+    for k in range(1, n + 1):
+        inner = -(-n // k)
+        seen.setdefault(inner, -(-n // inner))
+    return [(tiles, inner) for inner, tiles in seen.items()]
+
+
+@functools.lru_cache(maxsize=None)
+def update_plan(nb: int, h: int, w: int, sweeps: int, capacity: int = UPDATE_CAPACITY,
+                sms: int = H100_SMS) -> Tuple[Tuple[int, int, int, int], ...]:
+    """R23's launches for one weight update of ``sweeps`` SOR sweeps over
+    ``nb`` planes of ``h`` x ``w``: (ih, iw, j0, nh) each, tiles of ih x iw
+    interior pixels running the half-sweeps ``j0`` to ``j0 + nh - 1``.
+
+    A launch takes at most the half-sweeps whose halo leaves a square tile
+    of ``capacity`` pixel pairs an interior of ``UPDATE_MIN_INTERIOR`` (20
+    half-sweeps at the H100's capacity), the update's split evenly over as
+    few launches as that allows; a plane of at most ``capacity`` pairs may
+    instead be one tile, with no halo, for all of them.  Of the tilings
+    that fit ``capacity``, a launch takes the one with the least ``waves x
+    (tile pixels + UPDATE_BLOCK_COST)``, a wave being ``sms`` blocks (one
+    a multiprocessor): small planes take more, smaller tiles, which spread
+    over the card, large ones the largest tiles, whose halo repeats the
+    least work."""
+    total = 2 * sweeps
+    if total < 1:
+        raise ValueError(f"sweeps must be 1 or more, got {sweeps}")
+    side = int((2 * capacity) ** 0.5)
+    per = max(1, (side - 1 - UPDATE_MIN_INTERIOR) // 2)
+    if tile_pairs(h, w) <= capacity and total > per:
+        return ((h, w, 0, total),)
+    n = -(-total // per)
+    q, r = divmod(total, n)
+    out, j0 = [], 0
+    for k in range(n):
+        nh = q + (k < r)
+        best = None
+        for ty, ih in _splits(h):
+            eh = tile_extent(h, ih, ty, nh)
+            for tx, iw in _splits(w):
+                ew = tile_extent(w, iw, tx, nh)
+                if tile_pairs(eh, ew) > capacity:
+                    continue
+                waves = -(-nb * ty * tx // sms)
+                key = (waves * (eh * ew + UPDATE_BLOCK_COST), nb * ty * tx, -ih)
+                best = min(best, (key, ih, iw)) if best else (key, ih, iw)
+        if best is None:
+            raise ValueError(f"no tile of {capacity} pixel pairs holds {nh} half-sweeps' halo")
+        out.append((best[1], best[2], j0, nh))
+        j0 += nh
+    return tuple(out)
+
+
+def refine_update_tiled(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
+                        alpha: float, delta: float, gamma: float, sweeps: int, omega: float,
+                        compose: bool = False, bound: Optional[float] = None,
+                        capacity: int = UPDATE_CAPACITY, sms: int = H100_SMS,
+                        halo: Optional[Tuple[int, int]] = None):
+    """:func:`refine_update_plain` as R23 computes it: the launches and
+    tiles of :func:`update_plan`, each tile's loaded window (its interior
+    and ``halo`` rows and columns before and after it, (nh, nh + 1) by
+    default, the kernel's) run through the plain versions on its own, with
+    the replicate border at the window's edges, and only its interior
+    kept.  Equal to :func:`refine_update_plain` bitwise exactly where the
+    halo holds every pixel that a window edge inside the plane reaches."""
+    ins = (Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv)
+    nb = Iz.shape[0] if Iz.ndim == 3 else 1
+    h, w = Iz.shape[-2:]
+    plan = update_plan(nb, h, w, sweeps, capacity, sms)
+    for k, (ih, iw, j0, nh) in enumerate(plan):
+        last = compose and k == len(plan) - 1
+        out = Iz.new_empty(Iz.shape + (2,)) if last else Iz.new_empty((2,) + Iz.shape)
+        before, after = (nh, nh + 1) if halo is None else halo
+        for r0 in range(0, h, ih):
+            y0, y1 = max(0, r0 - before), min(h, r0 + ih + after)
+            for c0 in range(0, w, iw):
+                x0, x1 = max(0, c0 - before), min(w, c0 + iw + after)
+                win = (..., slice(y0, y1), slice(x0, x1))
+                got = _update_launch_plain([t[win] for t in ins], du[win], dv[win], alpha,
+                                           delta, gamma, omega, j0, nh, last, bound,
+                                           (y0 + x0) & 1)
+                inner = (..., slice(r0 - y0, min(h, r0 + ih) - y0),
+                         slice(c0 - x0, min(w, c0 + iw) - x0))
+                dst = (..., slice(r0, r0 + ih), slice(c0, c0 + iw))
+                if last:
+                    out[dst + (slice(None),)] = got[inner + (slice(None),)]
+                else:
+                    out[(0,) + dst] = got[0][inner]
+                    out[(1,) + dst] = got[1][inner]
+        if last:
+            return out
+        du, dv = out.unbind(0)
+    return du, dv
+
+
 def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
                            flow: torch.Tensor, cfg: DISConfig,
                            pad: Optional[int] = None, plain: bool = False,
@@ -304,13 +475,11 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     if plain:
         planes_fn, setup, setup_warp1 = (refine_planes_plain, refine_setup_plain,
                                          refine_setup_warp1_plain)
-        weights, sor, compose, nosweep = (refine_weights_plain, refine_sor_plain,
-                                          refine_compose_plain, refine_nosweep_plain)
+        update, nosweep = refine_update_plain, refine_nosweep_plain
     else:
         from .cuda import refine_kernel as rk
         planes_fn, setup, setup_warp1 = rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1
-        weights, sor, compose, nosweep = (rk.refine_weights, rk.refine_sor, rk.refine_compose,
-                                          rk.refine_nosweep)
+        update, nosweep = rk.refine_update, rk.refine_nosweep
     h, w = flow.shape[-3:-1]
     p = cfg.img_padding if pad is None else pad
     warp1 = cfg.refinement_scheme == "warp1"
@@ -321,7 +490,9 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     delta = cfg.refinement_delta
     gamma = cfg.refinement_gamma
     omega = cfg.refinement_omega
-    last = (cfg.refinement_inner_sweeps - 1, cfg.refinement_sor_sweeps - 1)
+    sweeps = cfg.refinement_sor_sweeps
+    # Without a half-sweep the weight updates change nothing.
+    updates = cfg.refinement_inner_sweeps if sweeps > 0 else 0
 
     for it in range(cfg.refinement_iters):
         clip = bound if it == cfg.refinement_iters - 1 else None
@@ -332,14 +503,12 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
             ins = setup(planes, flow, img1_padded, I1x, I1y, p)
         u0, v0, du, dv = ins[9:]
         composed = None
-        for k in range(cfg.refinement_inner_sweeps):
-            coef = weights(*ins[:11], du, dv, alpha, delta, gamma)
-            for s in range(cfg.refinement_sor_sweeps):
-                du, dv = sor(u0, v0, du, dv, *coef, 0, omega)   # red
-                if (k, s) == last:   # black, and the flow
-                    composed = compose(u0, v0, du, dv, *coef, 1, omega, clip)
-                else:
-                    du, dv = sor(u0, v0, du, dv, *coef, 1, omega)
+        for k in range(updates):
+            if k == updates - 1:   # the last update's last half-sweep writes the flow
+                composed = update(*ins[:11], du, dv, alpha, delta, gamma, sweeps, omega,
+                                  True, clip)
+            else:
+                du, dv = update(*ins[:11], du, dv, alpha, delta, gamma, sweeps, omega)
         # Without a half-sweep (no weight update or no SOR sweep) the flow
         # is u0 + 0 and v0 + 0.
         flow = nosweep(u0, v0, du, dv, clip) if composed is None else composed

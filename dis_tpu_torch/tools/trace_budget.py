@@ -68,13 +68,16 @@ NO_SCOPE = "(no scope)"
 # The port's kernels (csrc/) by their function names in a trace, with
 # their ids (K2 and K1 with a pair axis launch the same functions, R1's
 # setup mode and R3's compose and no-sweep modes are instances of R1's and
-# R3's, and R1's warp1 mode, a function of its own, counts as R1); every
-# other kernel is torch's: the glue, copies and fills.
+# R3's, R1's warp1 mode, a function of its own, counts as R1, and R23 is
+# an overload of R3's function, told apart by its arguments); every other
+# kernel is torch's: the glue, copies and fills.
 PORT_KERNELS = tuple((re.compile(r"(?:^|[\s:])" + pattern), kid) for pattern, kid in (
     (r"pyramid_kernel\b", "K3"), (r"extract_kernel\b", "K2"), (r"banded_kernel\b", "K2c"),
     (r"iclk_kernel\b", "K1"), (r"planes_kernel\b", "R0"), (r"warp_kernel\b", "R1"),
     (r"warp1_kernel\b", "R1"),
-    (r"weights_kernel\(", "R2"), (r"sor_kernel\b", "R3"), (r"templates_kernel\b", "S1"),
+    (r"weights_kernel\(", "R2"),
+    (r"sor_kernel<\w+>\((?:\(anonymous namespace\)::)?UpdateArgs\b", "R23"),
+    (r"sor_kernel\b", "R3"), (r"templates_kernel\b", "S1"),
     (r"weights_kernel<", "S3"), (r"densify_kernel\b", "S4"), (r"pad_kernel\b", "F1"),
     (r"levels_kernel\b", "F2"), (r"finish_kernel\b", "F3")))
 
@@ -296,7 +299,7 @@ def budget(trace: dict) -> dict:
 
 
 def kernel_id(name: str) -> Optional[str]:
-    """The id of the port's kernel that a trace names ``name`` (K1-K3, R0-R3,
+    """The id of the port's kernel that a trace names ``name`` (K1-K3, R0-R3, R23,
     S1, S3, S4, F1-F3), or None for torch's."""
     return next((kid for pattern, kid in PORT_KERNELS if pattern.search(name)), None)
 

@@ -19,7 +19,9 @@ whose patches freeze at different trips;
 with the refinement presets too; the refinement's kernels R1 (warp), R2
 (weight update) and R3 (half-sweep) bitwise equal to their plain
 versions at 1, 2 and odd rows and columns, B = 8 and the 1080p finest
-level; the refinement through them on the card bitwise equal to the same
+level, and R23 (a weight update and its half-sweeps on tiles) to its
+plain version and to R2 and R3, also with its half-sweeps split over
+launches; the refinement through them on the card bitwise equal to the same
 call on the CPU, and ``plain=True`` launching none of them; each scale's
 S1 (templates, inverse Hessians and the search start, once S2's), S3
 (fixed mode's weights) and S4 (densification) bitwise equal to their plain
@@ -56,7 +58,8 @@ from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
 from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, lane_layout
 from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS, pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.cuda import scale_kernel as sk
-from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
+from dis_tpu_torch.ops.cuda.refine_kernel import (refine_sor, refine_update, refine_warp,
+                                                  refine_weights)
 from dis_tpu_torch.ops.grid import make_grid
 from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
 
@@ -595,10 +598,10 @@ def test_search_mixed_trips_bitwise(ps, mode):
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
 @pytest.mark.parametrize("batch", [None, 2])
 def test_refinement_card_equals_cpu(scheme, batch):
-    """The refinement on the card, through R1-R3 (one warp, 5 weight
-    updates, 50 half-sweeps), equals the same call on the CPU (their
-    plain versions) bitwise: no reduction, correctly rounded roots and
-    divisions, no contracted multiply-add."""
+    """The refinement on the card, through R1 and R23 (one warp, 5 weight
+    updates of 10 half-sweeps each; no R2 or R3), equals the same call on
+    the CPU (their plain versions) bitwise: no reduction, correctly
+    rounded roots and divisions, no contracted multiply-add."""
     from dis_tpu_torch.ops.variational import variational_refinement
 
     b = batch or 1
@@ -610,10 +613,10 @@ def test_refinement_card_equals_cpu(scheme, batch):
     cfg = dis_tpu_torch.DISConfig(mode="fixed", refinement_iters=1, refinement_inner_sweeps=5,
                                   refinement_sor_sweeps=5, refinement_omega=1.6,
                                   refinement_alpha=40.0, refinement_scheme=scheme)
-    for w in REFINE_WRAPPERS:
+    for w in REFINE_WRAPPERS + MAIN_REFINE_WRAPPERS:
         w.launches = 0
     card = variational_refinement(x, y, flow, cfg, pad=0)
-    assert [w.launches for w in REFINE_WRAPPERS] == [1, 5, 50]
+    assert [w.launches for w in REFINE_WRAPPERS + MAIN_REFINE_WRAPPERS] == [1, 0, 0, 1, 5]
     cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=0)
     torch.cuda.synchronize()
     assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
@@ -624,15 +627,16 @@ def test_refined_dis_flow_kernels_vs_plain(preset):
     a, b = _smooth(96, 160, 5)
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = getattr(dis_tpu_torch, preset)
-    wrappers = (pyramid_levels, extract_regions, iclk_search) + REFINE_WRAPPERS + SCALE_WRAPPERS
-    for w in wrappers:
+    wrappers = ((pyramid_levels, extract_regions, iclk_search) + MAIN_REFINE_WRAPPERS
+                + SCALE_WRAPPERS)
+    for w in wrappers + REFINE_WRAPPERS[1:]:
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
     assert all(w.launches > 0 for w in wrappers)
     levels = cfg.coarsest_scale - cfg.finest_scale + 1
     updates = levels * cfg.refinement_inner_sweeps
-    assert [w.launches for w in REFINE_WRAPPERS] == [levels, updates,
-                                                     updates * cfg.refinement_sor_sweeps * 2]
+    assert [w.launches for w in MAIN_REFINE_WRAPPERS + REFINE_WRAPPERS[1:]] == [levels, updates,
+                                                                               0, 0]
     for w in wrappers:
         w.launches = 0
     plain = dis_tpu_torch.dis_flow(x, y, cfg, plain=True)
@@ -654,8 +658,7 @@ def test_refined_graph_batch_and_tiles():
     eager = dis_tpu_torch.dis_flow(x, y, cfg)
     compiled = aot_compile(cfg, 96, 128, batch=2)
     assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R0": 4, "R1": 4,
-                                       "R2": 20, "R3": 200, "S1": 4, "S3": 4, "S4": 4,
-                                       "F2": 1}
+                                       "R23": 20, "S1": 4, "S3": 4, "S4": 4, "F2": 1}
     for _ in range(2):
         assert torch.equal(compiled(x, y), eager)
     for i in range(2):
@@ -667,6 +670,9 @@ def test_refined_graph_batch_and_tiles():
 
 
 REFINE_WRAPPERS = (refine_warp, refine_weights, refine_sor)
+# The refinement's kernels on the main path: R1 and R23 (R2 and R3 only
+# its gate).
+MAIN_REFINE_WRAPPERS = (refine_warp, refine_update)
 
 
 def _refine_step_inputs(batch, h, w, seed):
@@ -1238,11 +1244,11 @@ def test_refine_planes_refuses_what_its_plain_version_refuses(shape):
 @pytest.mark.parametrize("omega", [1.0, 1.6])
 @pytest.mark.parametrize("batch", [None, 1, 3])
 def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
-    """The refinement on the card (R0 once, R1 in its setup mode, R3's
-    last half-sweep in its compose mode) equals the same call on the CPU
-    bitwise, on Q1-style padded planes (pad 8) and on intensity planes
-    (pad 0), odd sizes; the warp1 scheme launches R1 in its warp1 mode
-    and no R0."""
+    """The refinement on the card (R0 once, R1 in its setup mode, R23 once
+    a weight update, the last in its compose mode) equals the same call
+    on the CPU bitwise, on Q1-style padded planes (pad 8) and on
+    intensity planes (pad 0), odd sizes; the warp1 scheme launches R1 in
+    its warp1 mode and no R0; R2 and R3 do not launch."""
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.variational import variational_refinement
 
@@ -1256,12 +1262,12 @@ def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
                                   refinement_alpha=40.0, refinement_scheme=scheme,
                                   refinement_planes=planes)
     wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_setup_warp1,
-                rk.refine_weights, rk.refine_sor, rk.refine_compose)
+                rk.refine_update, rk.composed, rk.refine_weights, rk.refine_sor)
     for w_ in wrappers:
         w_.launches = 0
     card = variational_refinement(x, y, flow, cfg, pad=pad)
     six = scheme == "planes6"
-    assert [w_.launches for w_ in wrappers] == [int(six), 2, 2 * six, 2 * (1 - six), 6, 24, 2]
+    assert [w_.launches for w_ in wrappers] == [int(six), 2, 2 * six, 2 * (1 - six), 6, 2, 0, 0]
     cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=pad)
     torch.cuda.synchronize()
     assert card.shape == flow.shape and torch.equal(card.cpu(), cpu)
@@ -1321,8 +1327,8 @@ def test_refine_warp1_clip_nosweep_bitwise(shape, batch, p):
 def test_clamped_and_nosweep_levels_card_equal_cpu(scheme, batch):
     """``refine_level`` with ``refined_init_clamp`` at the coarsest scale
     (its clip binds) and a level without a weight update, on the card,
-    equal the same calls on the CPU bitwise, with R3's clip and no-sweep
-    launches counted."""
+    equal the same calls on the CPU bitwise, with R23's clip (in its
+    compose mode) and R3's no-sweep launch counted."""
     import dataclasses
     from types import SimpleNamespace
 
@@ -1339,7 +1345,7 @@ def test_clamped_and_nosweep_levels_card_equal_cpu(scheme, batch):
                               refined_init_clamp=True)
     s = cfg.coarsest_scale
     levels = [SimpleNamespace(img=t) for t in (x, y)]
-    for w_ in (rk.refine_compose, rk.refine_nosweep, rk.clamped):
+    for w_ in (rk.composed, rk.refine_nosweep, rk.clamped):
         w_.launches = 0
     card = refine_level(*levels, flow, cfg, s)
     cpu = refine_level(*(SimpleNamespace(img=t.cpu()) for t in (x, y)), flow.cpu(), cfg, s)
@@ -1349,8 +1355,62 @@ def test_clamped_and_nosweep_levels_card_equal_cpu(scheme, batch):
     card = variational_refinement(x, y, flow, nosweep)
     torch.cuda.synchronize()
     assert torch.equal(card, flow)
-    assert [w_.launches for w_ in (rk.refine_compose, rk.refine_nosweep, rk.clamped)] == \
+    assert [w_.launches for w_ in (rk.composed, rk.refine_nosweep, rk.clamped)] == \
         [1, 1, 1]
+
+
+def _update_chain(ins, sweeps, omega, compose, bound):
+    """R23's work through R2, then R3 a half-sweep (its compose mode last
+    where ``compose``)."""
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+    coef = rk.refine_weights(*ins, 40.0, 5.0, 10.0)
+    du, dv = ins[11:13]
+    for j in range(2 * sweeps):
+        if compose and j == 2 * sweeps - 1:
+            return rk.refine_compose(*ins[9:11], du, dv, *coef, j & 1, omega, bound)
+        du, dv = rk.refine_sor(*ins[9:11], du, dv, *coef, j & 1, omega)
+    return torch.stack([du, dv])
+
+
+@pytest.mark.parametrize("shape", GLUE_SHAPES + [(1, 5), (5, 1), (1, 40), (40, 1), (34, 60),
+                                                 (136, 240), (544, 960)])
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("sweeps,omega", [(1, 1.0), (5, 1.6)])
+@pytest.mark.parametrize("capacity", [None, 400])
+def test_refine_update_bitwise(shape, batch, sweeps, omega, capacity, monkeypatch):
+    """R23, a weight update and its half-sweeps on tiles in shared memory,
+    bitwise equal to its plain version and to R2 then R3 a half-sweep (the
+    kernels it replaced, its gate), with and without its compose mode and
+    the clip, one launch an update; with tiles of 400 pixels (capacity)
+    the update's half-sweeps split over launches, each of some of them."""
+    from dis_tpu_torch.ops import variational as tvar
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
+
+    if capacity is not None:
+        monkeypatch.setattr(rk, "update_plan", lambda *a, sms=None: tvar.update_plan(
+            *a, capacity=capacity, sms=sms))
+    h, w = shape
+    lead = () if batch is None else (batch,)
+    rng = np.random.default_rng(h * w + sweeps)
+    f = lambda s: torch.from_numpy((rng.standard_normal(lead + shape) * s)
+                                   .astype(np.float32)).cuda()
+    ins = [f(20), f(5), f(5), f(8), f(8), f(3), f(3), f(3),
+           torch.from_numpy((rng.random(lead + shape) > 0.2).astype(np.float32)).cuda(),
+           f(2), f(2), f(0.05), f(0.05)]
+    bits = lambda t: t.contiguous().view(torch.int32)
+    plan = rk.update_plan(batch or 1, h, w, sweeps, sms=rk._multiprocessors(ins[0].device))
+    for compose, bound in ((False, None), (True, None), (True, 0.5)):
+        before = rk.refine_update.launches
+        got = rk.refine_update(*ins, 40.0, 5.0, 10.0, sweeps, omega, compose, bound)
+        want = tvar.refine_update_plain(*ins, 40.0, 5.0, 10.0, sweeps, omega, compose, bound)
+        if not compose:
+            got, want = torch.stack(got), torch.stack(want)
+        chain = _update_chain(ins, sweeps, omega, compose, bound)
+        torch.cuda.synchronize()
+        assert rk.refine_update.launches == before + len(plan)
+        assert got.shape == want.shape == chain.shape
+        assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(chain))
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 2), (5, 7), (37, 53), (375, 1242)])

@@ -1,5 +1,5 @@
 """The last device glue as kernels (R0, R1's setup and warp1 modes, R3's
-compose and no-sweep modes, F1-F3) on the CPU.
+compose and no-sweep modes, F1-F3) and R23's tiles on the CPU.
 
 A refinement level's Sobel planes (R0, ``refine_planes_plain``), the
 weight update's inputs that R1 writes in its setup mode
@@ -24,12 +24,22 @@ and even sizes down to 2 x 2, B absent and 3:
   its clip) and no-sweep mode are bitwise the composition they replaced
   (verbatim copies below), R1's warp1 mode also on windows of one row or
   column, the clip also on NaN, -0.0 and values past the bound;
+- R23's tiles (``update_plan``, a halo of nh half-sweeps before a
+  tile's interior and nh + 1 after it), emulated with the plain versions
+  on each tile's window (``refine_update_tiled``), are bitwise the
+  untiled weight update (``refine_update_plain``): a 1080p medium cell's
+  coarsest level (34 x 60), as tiles and as one tile, odd sizes, a plane
+  smaller than a tile, B = 2, 1 and 5 sweeps, omega 1.0 and 1.6, with
+  and without the compose mode's clip, and updates split over launches;
+  a halo one pixel narrower on either side is not; every plan's tiles
+  fit a block and cover the plane;
 - every new op passes ``torch.library.opcheck`` within ``ops_on_cpu``,
   and its wrapper refuses there what the plain version refuses (dims that
   do not halve), and a window of one row or column, which both take, gives
   the Sobels of a NumPy reflect reference;
 - one refinement level of ``DIS_MEDIUM`` and of ``DIS_FULL`` within
-  ``ops_on_cpu`` dispatches no ATen op outside ``dis_tpu_torch::`` ops,
+  ``ops_on_cpu`` (R0, R1, and R23 once a weight update) dispatches no
+  ATen op outside ``dis_tpu_torch::`` ops,
   views aside (54 before these kernels under ``planes6``, about 40 a warp
   under ``warp1``), under either scheme, clamped (``refine_level`` with
   ``refined_init_clamp``) and without a half-sweep, and a whole
@@ -457,6 +467,93 @@ def test_frame_wrappers_launch_nothing_where_nothing_runs():
     assert crop.data_ptr() == flow.data_ptr() and l1 == [a] and l2 == [a]
 
 
+# -- R23: a weight update on tiles ------------------------------------------------------
+
+def _update_args(batch, h, w, seed):
+    """R23's thirteen planes: R1's setup mode's, with increments of a few
+    hundredths."""
+    planes, flow, a, I1x, I1y, p = _setup_inputs(batch, h, w, 0, seed)
+    ins = tvar.refine_setup_plain(planes, flow, a, I1x, I1y, p)
+    rng = np.random.default_rng(seed + 5)
+    du, dv = (torch.from_numpy((rng.standard_normal(ins[0].shape) * 0.05).astype(np.float32))
+              for _ in range(2))
+    return (*ins[:11], du, dv)
+
+
+# (batch, h, w, the pixel pairs a tile may hold, multiprocessors): a 1080p
+# medium cell's coarsest level on the H100's tiles and as one tile (one
+# multiprocessor: no tile spreads the work), odd sizes whose half-sweeps
+# split over launches at 5 sweeps, a plane smaller than one tile, and two
+# pairs on tiles of a halo and a few rows and columns of interior, one
+# half-sweep a launch.
+TILE_CASES = {"34x60": (None, 34, 60, tvar.UPDATE_CAPACITY, tvar.H100_SMS),
+              "34x60_one_tile": (None, 34, 60, tvar.UPDATE_CAPACITY, 1),
+              "37x53_split": (None, 37, 53, 200, tvar.H100_SMS),
+              "9x13_one_tile": (None, 9, 13, tvar.UPDATE_CAPACITY, 1),
+              "B2_23x37_split": (2, 23, 37, 100, tvar.H100_SMS)}
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+@pytest.mark.parametrize("sweeps", [1, 5])
+@pytest.mark.parametrize("omega", [1.0, 1.6])
+@pytest.mark.parametrize("bound", [None, 0.5])
+def test_update_tiles_are_the_untiled_update(case, sweeps, omega, bound):
+    """R23's tiling (``update_plan``'s launches and tiles, a halo of nh
+    before a tile's interior and nh + 1 after it), emulated with the plain
+    versions on each tile's window, is bitwise the untiled update: R2,
+    then the half-sweeps, the last one composing the flow (clipped where a
+    bound is given), and without the compose mode the new du and dv."""
+    batch, h, w, capacity, sms = TILE_CASES[case]
+    args = _update_args(batch, h, w, h * w + sweeps)
+    plan = tvar.update_plan(batch or 1, h, w, sweeps, capacity, sms)
+    assert sum(nh for *_, nh in plan) == 2 * sweeps
+    assert (len(plan) > 1) == (case.endswith("split") and sweeps == 5
+                               or case.startswith("B2") and sweeps == 1)
+    assert (plan[0][:2] == (h, w)) == case.endswith("one_tile")
+    for compose in (True, False):
+        got = tvar.refine_update_tiled(*args, 20.0, 5.0, 10.0, sweeps, omega, compose,
+                                       bound if compose else None, capacity, sms)
+        want = tvar.refine_update_plain(*args, 20.0, 5.0, 10.0, sweeps, omega, compose,
+                                        bound if compose else None)
+        if not compose:
+            got, want = torch.stack(got), torch.stack(want)
+        assert got.shape == want.shape and torch.equal(_bits(got), _bits(want)), compose
+
+
+@pytest.mark.parametrize("shrink", ["before", "after"])
+def test_update_halo_is_exact(shrink):
+    """A halo one pixel narrower before or after a tile's interior than
+    R23's (nh, nh + 1) gives other bits: the halo is no wider than the
+    update needs."""
+    batch, h, w, capacity, sms = TILE_CASES["34x60"]
+    args = _update_args(batch, h, w, 11)
+    (_, _, _, nh), = tvar.update_plan(1, h, w, 5, capacity, sms)
+    halo = (nh - 1, nh + 1) if shrink == "before" else (nh, nh)
+    want = tvar.refine_update_plain(*args, 20.0, 5.0, 10.0, 5, 1.6, True)
+    exact = tvar.refine_update_tiled(*args, 20.0, 5.0, 10.0, 5, 1.6, True, None, capacity, sms)
+    narrow = tvar.refine_update_tiled(*args, 20.0, 5.0, 10.0, 5, 1.6, True, None, capacity, sms,
+                                      halo=halo)
+    assert torch.equal(exact, want) and not torch.equal(narrow, want)
+
+
+@pytest.mark.parametrize("nb,h,w,sweeps", [(1, 544, 960, 5), (1, 34, 60, 5), (1, 1088, 1920, 5),
+                                          (8, 188, 621, 5), (1, 1, 4000, 5), (1, 544, 960, 12),
+                                          (1, 136, 240, 1)])
+def test_update_plan_fits_and_covers(nb, h, w, sweeps):
+    """Each of ``update_plan``'s launches has tiles whose pixel pairs its
+    block's threads can hold, which cover the plane and leave each an
+    interior; the launches run the update's half-sweeps in order, all in
+    one launch up to 10 sweeps."""
+    plan = tvar.update_plan(nb, h, w, sweeps)
+    assert [j0 for _, _, j0, _ in plan] == [sum(p[3] for p in plan[:k]) for k in range(len(plan))]
+    assert sum(p[3] for p in plan) == 2 * sweeps and (len(plan) == 1) == (sweeps <= 10)
+    for ih, iw, _, nh in plan:
+        ty, tx = -(-h // ih), -(-w // iw)
+        assert 1 <= ih <= h and 1 <= iw <= w
+        assert (tvar.tile_pairs(tvar.tile_extent(h, ih, ty, nh), tvar.tile_extent(w, iw, tx, nh))
+                <= tvar.UPDATE_CAPACITY)
+
+
 # -- the ops -----------------------------------------------------------------------
 
 def _opcheck_cases():
@@ -464,6 +561,7 @@ def _opcheck_cases():
     img = lambda b, h, w, s: t(_planes(b, h, w, s))
     setup = _setup_inputs(2, 7, 9, 3, 11)
     sor = _sor_args(2, 6, 9, 12)
+    update = _update_args(2, 6, 9, 16)
     flow = t((np.random.default_rng(13).standard_normal((2, 6, 8, 2)) * 3).astype(np.float32))
     return [
         ("refine_planes", rk.refine_planes_op, (img(2, 13, 15, 1), img(2, 13, 15, 2), 3, 7, 9)),
@@ -477,6 +575,10 @@ def _opcheck_cases():
         ("refine_setup_warp1_1", rk.refine_setup_warp1_op, _warp1_args(None, 1, 5, 0, 15)),
         ("refine_nosweep", rk.refine_nosweep_op, (*sor[:4], False, 0.0)),
         ("refine_nosweep_1", rk.refine_nosweep_op, (*sor[:4], True, 0.5)),
+        ("refine_update", rk.refine_update_op, (*update, 40.0, 5.0, 10.0, 2, 1.6, False)),
+        ("refine_update_1", rk.refine_update_op, (*update, 40.0, 5.0, 10.0, 1, 1.0, True)),
+        ("refine_update_2", rk.refine_update_op, (*update, 40.0, 5.0, 10.0, 3, 1.6, True, True,
+                                                  0.5)),
         ("frame_pad", fk.frame_pad_op, (img(2, 5, 7, 3), img(2, 5, 7, 4), 1, 2, 0, 1)),
         ("intensity_levels", fk.intensity_levels_op, (img(2, 16, 24, 5), img(2, 16, 24, 6),
                                                       3)),
@@ -497,23 +599,23 @@ def test_opcheck_new_ops(case):
 def test_new_ops_priced_and_counted():
     """Each new op has a kernel id in ``cost.KERNELS`` (the modes count as
     R1 and R3) and its wrapper a launch count, which a CPU call leaves
-    at 0, as it leaves the count of R3's clip."""
+    at 0, as it leaves the counts of the clip and of R23's compose mode."""
     import re
 
     from dis_tpu_torch import cost
 
     names = ("refine_planes", "refine_setup", "refine_setup_warp1", "refine_compose",
-             "refine_nosweep", "frame_pad", "intensity_levels", "frame_finish")
+             "refine_nosweep", "refine_update", "frame_pad", "intensity_levels", "frame_finish")
     assert {n: cost.KERNELS[n] for n in names} == {
         "refine_planes": "R0", "refine_setup": "R1", "refine_setup_warp1": "R1",
-        "refine_compose": "R3", "refine_nosweep": "R3", "frame_pad": "F1",
-        "intensity_levels": "F2", "frame_finish": "F3"}
+        "refine_compose": "R3", "refine_nosweep": "R3", "refine_update": "R23",
+        "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
     for case, _, args in _opcheck_cases():
         nbytes, ops = cost.op_cost(re.sub(r"_\d$", "", case), args)
         assert nbytes > 0 and ops >= 0
     wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1, rk.refine_compose,
-                rk.refine_nosweep, rk.clamped, fk.frame_pad, fk.intensity_levels,
-                fk.frame_finish)
+                rk.refine_nosweep, rk.refine_update, rk.clamped, rk.composed, fk.frame_pad,
+                fk.intensity_levels, fk.frame_finish)
     for w in wrappers:
         w.launches = 0
     with kops.ops_on_cpu():
@@ -534,13 +636,14 @@ LEVEL_CASES = [(planes, preset, variant) for variant in ("planes6", "warp1", "cl
 def test_refinement_level_dispatches_only_kernel_ops(preset, planes, variant):
     """One refinement level within ``ops_on_cpu`` (as a CUDA tensor
     routes): under ``planes6`` R0 once and R1 once (its setup mode), under
-    ``warp1`` R1 once in its warp1 mode and no R0; R2 once a weight update,
-    R3 once a half-sweep (the last in its compose mode); ``clamped``, a
-    ``planes6`` ``refine_level`` with ``refined_init_clamp`` at the
-    coarsest scale, whose clip binds, the same launches; ``nosweep`` (no
-    weight update) R3 once in its no-sweep mode instead; and no ATen op
-    besides (views aside; 54 before these kernels, about 40 a warp under
-    ``warp1``), with the bits of the inline plain path."""
+    ``warp1`` R1 once in its warp1 mode and no R0; R23 once a weight
+    update (the last in its compose mode; R2 and R3 once a half-sweep
+    before R23); ``clamped``, a ``planes6`` ``refine_level`` with
+    ``refined_init_clamp`` at the coarsest scale, whose clip binds, the
+    same launches; ``nosweep`` (no weight update) R3 once in its no-sweep
+    mode instead; and no ATen op besides (views aside; 54 before these
+    kernels, about 40 a warp under ``warp1``), with the bits of the inline
+    plain path."""
     import dataclasses
     from types import SimpleNamespace
 
@@ -570,13 +673,11 @@ def test_refinement_level_dispatches_only_kernel_ops(preset, planes, variant):
     with _CountOps() as ops, kops.ops_on_cpu():
         got = run()
     updates = cfg.refinement_inner_sweeps
-    sweeps = 2 * updates * cfg.refinement_sor_sweeps
     assert ops.aten == {}
     setup = {"refine_setup_warp1": 1} if variant == "warp1" else {"refine_planes": 1,
                                                                   "refine_setup": 1}
-    last = {"refine_nosweep": 1} if variant == "nosweep" else {"refine_compose": 1}
-    assert ops.calls == {**setup, **({"refine_weights": updates, "refine_sor": sweeps - 1}
-                                     if updates else {}), **last}
+    assert ops.calls == {**setup, **({"refine_update": updates} if updates else
+                                     {"refine_nosweep": 1})}
     assert torch.equal(got, want)
     if variant == "clamped":
         bound = tdis.motion_bound(cfg, scale)
@@ -619,7 +720,10 @@ def test_trace_budget_names_every_kernel():
         "iclk_kernel<8, 8, 8>(float const*)": "K1", "planes_kernel(float const*)": "R0",
         "warp_kernel<6, true>(float const*)": "R1", "warp1_kernel(float const*)": "R1",
         "weights_kernel(WeightArgs, int)": "R2",
-        "sor_kernel<true>(SorArgs, int)": "R3", "templates_kernel<8, 8>(TemplateGrid)": "S1",
+        "sor_kernel<true>(SorArgs, int)": "R3",
+        "void (anonymous namespace)::sor_kernel<true>((anonymous namespace)::UpdateArgs, int)":
+            "R23",
+        "sor_kernel<false>(UpdateArgs, int)": "R23", "templates_kernel<8, 8>(TemplateGrid)": "S1",
         "weights_kernel<8, 8>(float const*)": "S3", "densify_kernel<3, 3, true>(D)": "S4",
         "pad_kernel(float const*)": "F1", "levels_kernel(float const*)": "F2",
         "finish_kernel(float const*)": "F3",

@@ -20,16 +20,16 @@ functions.  On numpy-seeded inputs:
   through the sweeps to about 1e-5 px);
 - the three ops pass ``torch.library.opcheck``; a flow on CPU tensors
   dispatches none of them, and within ``ops_on_cpu`` one R0 a level, one
-  R1 per outer iteration (in its setup mode), one R2 per weight update
-  and one R3 per half-sweep (the last of an outer iteration in its
-  compose mode; ``tests/test_torch_refine_glue.py`` holds R0 and the
+  R1 per outer iteration (in its setup mode) and one R23 per weight
+  update (the last of an outer iteration in its compose mode), where R2
+  once a weight update and R3 once a half-sweep ran before R23
+  (``tests/test_torch_refine_glue.py`` holds R0, R23's tiles and the
   modes);
 - a CPU export of ``DIS_MEDIUM`` at 64x96 within ``ops_on_cpu`` records
-  R0 = 4, R1 = 4, R2 = 20, R3 = 200 and F2 = 1 op nodes (its four
-  levels, 5 weight updates of 5 sweeps each, the intensity levels): a
-  tenth of the 34,478 graph nodes the plain refinement gave (the plain
-  K1 included); its cost analysis counts each by the package's
-  formulas.
+  R0 = 4, R1 = 4, R23 = 20 and F2 = 1 op nodes (its four levels, 5
+  weight updates of 5 sweeps each, the intensity levels): under a tenth
+  of the 34,478 graph nodes the plain refinement gave (the plain K1
+  included); its cost analysis counts each by the package's formulas.
 
 The kernels themselves run on the card (``tests/test_torch_kernels_cuda.py``,
 ``chip_smoke.py`` phase 1e).
@@ -475,13 +475,14 @@ def test_wrappers_check_their_inputs():
 def test_cpu_tensors_route_inline_and_through_ops():
     """A refinement on CPU tensors dispatches no kernel op; within
     ``ops_on_cpu`` it calls R0 once, R1 (in its setup mode) once per outer
-    iteration, R2 once per weight update and R3 once per half-sweep (the
-    last of each outer iteration in its compose mode), with the same bits,
-    and launches nothing."""
+    iteration and R23 once per weight update (R2 once per weight update
+    and R3 once per half-sweep before R23; the last of each outer
+    iteration in its compose mode), with the same bits, and launches
+    nothing."""
     cfg = _cfg("planes6", 1.0)          # 2 outer x 3 updates x 2 sweeps
     i1, i2, flow = _refine_inputs(9, 13, 0, 2, seed=5)
     wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_weights,
-                rk.refine_sor, rk.refine_compose)
+                rk.refine_sor, rk.refine_compose, rk.refine_update)
     for w in wrappers:
         w.launches = 0
     with _CountOps() as inline:
@@ -489,19 +490,18 @@ def test_cpu_tensors_route_inline_and_through_ops():
     assert inline.calls == {}
     with _CountOps() as routed, kops.ops_on_cpu():
         got = tvar.variational_refinement(i1, i2, flow, cfg, pad=0)
-    assert routed.calls == {"refine_planes": 1, "refine_setup": 2, "refine_weights": 6,
-                            "refine_sor": 22, "refine_compose": 2}
+    assert routed.calls == {"refine_planes": 1, "refine_setup": 2, "refine_update": 6}
     assert torch.equal(got, want)
-    assert [w.launches for w in wrappers] == [0] * 6
+    assert [w.launches for w in wrappers] == [0] * 7
 
 
 def test_cpu_export_records_the_refinement_ops():
     """``DIS_MEDIUM`` at 64x96 traced through the ops (within
-    ``ops_on_cpu``, as a CUDA export routes): R1 once per level, R2 five
-    times and R3 fifty times, in a program a tenth the size of the plain
-    refinement's 34,478 nodes, which runs the ops' CPU functions with the
-    eager bits; its cost analysis counts each launch by the package's
-    formulas."""
+    ``ops_on_cpu``, as a CUDA export routes): R1 once per level and R23
+    five times (R2 five times and R3 fifty times before R23), in a program
+    a tenth the size of the plain refinement's 34,478 nodes, which runs
+    the ops' CPU functions with the eager bits; its cost analysis counts
+    each launch by the package's formulas."""
     from dis_tpu_torch.models.dis import flow_plans
     from dis_tpu_torch.serving import _Flow
 
@@ -511,9 +511,8 @@ def test_cpu_export_records_the_refinement_ops():
     with kops.ops_on_cpu():
         program = torch.export.export(_Flow(cfg), (torch.zeros(h, w), torch.zeros(h, w)))
     assert cost.kernel_ops(program) == {"K3": 2, "K2": levels, "K2c": 0, "K1": levels,
-                                        "R0": levels, "R1": levels, "R2": 5 * levels,
-                                        "R3": 50 * levels, "S1": levels, "S3": levels,
-                                        "S4": levels, "F2": 1}
+                                        "R0": levels, "R1": levels, "R23": 5 * levels,
+                                        "S1": levels, "S3": levels, "S4": levels, "F2": 1}
     assert len(program.graph.nodes) < 34_478 // 10, len(program.graph.nodes)
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     from conftest import synthetic_pair
@@ -523,19 +522,21 @@ def test_cpu_export_records_the_refinement_ops():
 
     kernels = cost.flow_cost(cfg, h, w)["kernels"]
     assert {k: len(v) for k, v in kernels.items()} == cost.kernel_ops(program)
-    want_r3 = []
+    want_r23 = []
     entry = lambda k, i: (kernels[k][i]["bytes accessed"], kernels[k][i]["flops"])
     for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
         hs, ws = h >> s, w >> s
         i = cfg.coarsest_scale - s
         assert entry("R0", i) == cost.refine_planes_cost(1, hs, ws)
         assert entry("R1", i) == cost.refine_setup_cost(1, hs, ws)
-        want_r3 += [cost.refine_sor_cost(1, hs, ws, color, True)
-                    for _ in range(25) for color in (0, 1)][:-1]
-        want_r3.append(cost.refine_compose_cost(1, hs, ws, 1, True))
-    assert [(e["bytes accessed"], e["flops"]) for e in kernels["R3"]] == want_r3
+        want_r23 += [cost.refine_update_cost(1, hs, ws, 5, True, k == 4) for k in range(5)]
+    assert [(e["bytes accessed"], e["flops"]) for e in kernels["R23"]] == want_r23
     assert entry("F2", 0) == cost.intensity_levels_cost(1, h, w, cfg.coarsest_scale)
-    assert kernels["R2"][0]["bytes accessed"] == cost.refine_weights_cost(1, 8, 12)[0]
+    # R2 and R3's operations, each plane read or written once
+    bytes_r2, ops_r2 = cost.refine_weights_cost(1, 8, 12)
+    assert kernels["R23"][0]["bytes accessed"] == bytes_r2 * 15 // 25
+    assert kernels["R23"][0]["flops"] == ops_r2 + sum(
+        cost.refine_sor_cost(1, 8, 12, j & 1, True)[1] for j in range(10))
 
 
 def test_refine_wrappers_refuse_non_cuda_non_cpu_tensors():

@@ -50,6 +50,7 @@ WRAPPERS = {"pyramid_levels": pyramid_kernel.pyramid_levels,
             "refine_weights": refine_kernel.refine_weights, "refine_sor": refine_kernel.refine_sor,
             "refine_compose": refine_kernel.refine_compose,
             "refine_nosweep": refine_kernel.refine_nosweep,
+            "refine_update": refine_kernel.refine_update,
             "scale_templates": scale_kernel.scale_templates,
             "fixed_weights": scale_kernel.fixed_weights, "densify": scale_kernel.densify,
             "frame_pad": frame_kernel.frame_pad, "intensity_levels": frame_kernel.intensity_levels,
@@ -86,9 +87,8 @@ def _expected(cfg, h, w, batch):
         seq = [] if cfg.refinement_scheme == "warp1" else ["R0"]
         for _ in range(cfg.refinement_iters):
             seq.append("R1w" if cfg.refinement_scheme == "warp1" else "R1s")
-            for _ in range(cfg.refinement_inner_sweeps):
-                seq += ["R2"] + ["R3"] * (2 * cfg.refinement_sor_sweeps)
-            seq[-1] = "R3c"
+            updates = cfg.refinement_inner_sweeps if cfg.refinement_sor_sweeps else 0
+            seq += ["R23"] * updates or ["R3n"]
         return [(k, stage, s) for k in seq]
 
     rc = region_size(cfg.patch_size)
