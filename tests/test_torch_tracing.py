@@ -11,9 +11,10 @@ one test for the card.
   spans open no ``record_function``; under a profiler they open the
   stages' and the request's ranges.
 - ``summarize``'s interval arithmetic on synthetic stamps.
-- Marked ``cuda``: after ``aot_compile`` of the benchmark's 1080p
-  configurations, a profiled replay's program kernels are the
-  manifest's, one for one, and a recorded window times the graph's head.
+- Marked ``cuda``: after ``aot_compile`` of the benchmark's
+  configurations (1080p and 4K), a profiled replay's program kernels are
+  the manifest's, one for one, every scale is in the manifest, and a
+  recorded window times the graph's head.
   On the card: ``python -m pytest --noconftest -p no:cacheprovider
   tests/test_torch_tracing.py -q``.
 """
@@ -59,6 +60,14 @@ WRAPPERS = {"pyramid_levels": pyramid_kernel.pyramid_levels,
 MODE_OF = {"refine_setup": "refine_warp", "refine_setup_warp1": "refine_warp",
            "refine_compose": "refine_sor", "refine_nosweep": "refine_sor"}
 
+CONFIGS = Path(__file__).resolve().parents[1] / "flowbench" / "configs"
+
+
+def _bench_config(name):
+    spec = json.loads((CONFIGS / f"{name}.json").read_text())
+    return dis_tpu_torch.DISConfig(**spec["dis"]), spec["height"], spec["width"]
+
+
 MEDIUM = dis_tpu_torch.DIS_MEDIUM
 CASES = {
     "fast": (dis_tpu_torch.DIS_FAST, 64, 96, None),
@@ -68,6 +77,8 @@ CASES = {
     "medium": (MEDIUM, 64, 96, None),
     "medium_warp1": (dataclasses.replace(MEDIUM, refinement_scheme="warp1"), 64, 96, None),
     "medium_at_end": (dataclasses.replace(MEDIUM, refine_per_level=False), 64, 96, 2),
+    # Six scales: K3 and F2 twice a frame each, scales 6..1 searched and refined.
+    "uhd4k_medium": (_bench_config("uhd4k_medium")[0], 270, 480, None),
 }
 
 
@@ -289,18 +300,12 @@ def test_summarize_empty_and_host_only():
 
 # -- on the card ------------------------------------------------------------------
 
-CONFIGS = Path(__file__).resolve().parents[1] / "flowbench" / "configs"
-
-
-def _bench_config(name):
-    spec = json.loads((CONFIGS / f"{name}.json").read_text())
-    return dis_tpu_torch.DISConfig(**spec["dis"]), spec["height"], spec["width"]
-
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("config, batch", [("hd1080_medium", None),
                                            ("hd1080_ultrafast", None),
-                                           ("hd1080_ultrafast", 8)])
+                                           ("hd1080_ultrafast", 8),
+                                           ("uhd4k_medium", None)])
 def test_replay_runs_the_manifest(config, batch, tmp_path):
     """A profiled replay's program kernels, in device order under its
     ``cudaGraphLaunch``, are the graph's manifest one for one; every other
@@ -315,6 +320,15 @@ def test_replay_runs_the_manifest(config, batch, tmp_path):
     flow = aot_compile(cfg, h, w, batch)
     assert flow.graph_manifest and flow.graph_head is not None
     assert sum(flow.graph_launches.values()) == len(flow.graph_manifest)
+    # Every scale's search, and its refinement where the preset refines at
+    # every scale, is in the manifest under that scale.
+    scales = set(range(cfg.finest_scale, cfg.coarsest_scale + 1))
+
+    def staged(prefix):
+        return {e.scale for e in flow.graph_manifest if (e.stage or "").startswith(prefix)}
+    assert staged("scale_") == scales
+    if cfg.refinement_iters and cfg.refine_per_level:
+        assert staged("refine_s") == scales
     # Off, a request opens no range and records no event.
     with pytest.MonkeyPatch.context() as mp:
         ranges = _CountRanges(mp)
