@@ -16,10 +16,12 @@ It builds the port's CUDA kernels from ``dis_tpu_torch/csrc`` and then:
    numbers, max |du| and freeze flips, are printed beside), and K1/K2 at
    ps 8, 10, 12, 16 on a small plane with random init and random start
    freezes, so that the patches of one warp freeze at different trips;
+   K1's plane mode (K1p: each window copied from the level plane, no K2)
+   on each of these inputs bitwise equal to K2 then K1, in one launch;
 2. drives ``dis_tpu_torch.dis_flow`` on the 1920x1080 pair of
    ``bench.synth_pair()`` (a (3, 2) px shift) under the compat bench
-   config and ``DIS_FAST``: K3 launches once per image, K2 and K1 once
-   per scale, the
+   config and ``DIS_FAST``: K3 launches once per image, K1 once per
+   scale in its plane mode and no K2, the
    flow finite, its median within 0.01 px of (3, 2), its mean EPE within
    0.002 px of the JAX package's CPU reading, and the kernel path within
    1e-3 px mean (<= 1% of pixels over 1e-2 px) of the plain path;
@@ -37,9 +39,10 @@ iterations 16, patch 8, overlap 0.3, scales 3..0) and ``DIS_ULTRAFAST``
 
 1b. K2b and K1b (K2 and K1 with the pair axis) at each config's B = 8
     finest-scale shapes (152,000 patches for config 3), bitwise equal to
-    their batched plain versions and to 8 serial K2/K1 calls;
+    their batched plain versions and to 8 serial K2/K1 calls, and K1b's
+    plane mode to them;
 2b. ``parallel.batched_flow_fn`` and batched ``dis_flow`` on the 8 pairs:
-    per batch K2 and K1 launch once per scale and K3 once per image
+    per batch K1 launches once per scale and K3 once per image
     stack, whatever B is; the flows equal 8 serial ``dis_flow`` calls
     bitwise; each pair's median is within 0.01 px of its shift and its
     mean EPE within 0.002 px of the JAX package's CPU reading;
@@ -59,7 +62,8 @@ recipe, a (3, 2) px shift) under the compat bench config and
     column-banded K2) at the 4K finest-scale shapes (N =
     331,776), bitwise equal to its plain version and to K2 at B = 1, at
     B = 2 and on stripe 1 of 3 (row0 = 544), where K1 with row0 > 0 is
-    held to its plain version bitwise; K2c at ps 12 on a small plane; an empty
+    held to its plain version bitwise, and its plane mode on the stripe's
+    plane to K1; K2c at ps 12 on a small plane; an empty
     grid launches nothing; K2 in each of these also with the grid's column
     length (``num_h``), so that its groups follow the columns; the share of
     windows that K2c copied from device memory, outside its group's staged
@@ -68,7 +72,8 @@ recipe, a (3, 2) px shift) under the compat bench config and
     scale's static bound (56 px) on the 4K, 1080p and KITTI B = 8 finest
     grids, so that many groups' boxes outgrow the fixed stage; K2c, K2
     and K2 with ``num_h`` bitwise equal to the plain version;
-2d. ``dis_flow`` at 4K: per call K3 launches twice, K2c once and K2 three times
+2d. ``dis_flow`` at 4K: per call K3 launches twice, K2c once and K1 four times,
+    three of them in its plane mode
     (none under ``DIS_ULTRAFAST``, whose finest scale is 1), the median
     within 0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX
     package's CPU reading, the kernel path against the plain path under
@@ -159,12 +164,19 @@ replace XLA's fusions of the JAX package's refinement code):
     on inputs out of the L2 (``cold_replay_ms``); F2 also with five levels
     in one launch and on rows of 66 floats (its scalar path), F3 also at
     2^finest = 4 with an odd crop and at 2 with an even left edge;
-2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K2 4, K1 4, R0 4,
+1h. K1's plane mode at patch 12, on the finest scale of the benchmark's
+    ``hd1080_medium`` and ``uhd4k_medium`` (N = 58,240 and 232,320) with
+    the search inputs their served path gives (``served_search_inputs``):
+    bitwise equal to K2 then K1 and to its plain composition, and timed
+    (replayed) beside K2, K1 from K2's regions and the two in turn, each
+    with its bound (one JSON line, ``search_plane``);
+2f. ``dis_flow`` on the 1080p pair: per frame K3 2, K1 4 (no K2), R0 4,
     R1 4, R23 20, F2 1 (``DIS_MEDIUM``; under ``warp1`` the same
-    without R0, every R1 in its warp1 mode) and K3 4, K2 5, K1 5, R0 5,
+    without R0, every R1 in its warp1 mode) and K3 4, K1 5, R0 5,
     R1 5, R23 50, F1 1, F2 1 (``DIS_FULL``, whose five levels take
     two K3 launches per image, and whose 1080 rows pad to 1088), R1 and R23
-    one a level in their modes (``mode_counts``), no K2c; the median within
+    one a level in their modes and K1 in its plane mode (``mode_counts``),
+    no K2c; the median within
     0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
     CPU reading (``tools/jax_epe_readings.py``; ``warp1``'s, ``EPE_JAX``,
     from the same call), the kernel path against
@@ -177,8 +189,8 @@ replace XLA's fusions of the JAX package's refinement code):
     bitwise equal to eager; ``grid_tiled_flow`` (3 parts) and
     ``tiled_flow_exact`` (3 stripes, routed to the grid engine), and
     ``refine_per_level=False`` through ``tiled_flow_exact`` (R1 1, R23
-    5), bitwise equal to untiled; 4K unclamped (K2 at every scale,
-    no K2c) and 1080p
+    5), bitwise equal to untiled; 4K unclamped (K1's plane mode at every
+    scale, no K2c) and 1080p
     and 4K with ``refined_init_clamp`` (K2c exactly where
     ``scale_extraction_route`` says; R23 clips in its compose mode, one a
     level, and no ``clamp`` op runs), each flow finite with its median
@@ -199,7 +211,7 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     KITTI size with B = 8, the compat 4K bucket and ``DIS_MEDIUM`` at
     1080p: each program holds the kernel ops in the counts of
     ``scale_counts`` (at 4K one extraction is K2c; ``DIS_MEDIUM`` also R0
-    4, R1 4, R23 20, F2 1; KITTI F1 1) and no gather of a plain
+    4, R1 4, R23 20, F2 1; KITTI F1 1; no K2) and no gather of a plain
     K2, K1 or R1; the KITTI,
     4K and ``DIS_MEDIUM`` artifacts, reloaded in this process
     (``load_exported``), replay bitwise equal to their eager kernel flows
@@ -209,13 +221,14 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
     that has the pipeline's functions replaced by ones that raise
     (``--serve-child``; this process waits for it, so nothing else runs on
     the card or the host meanwhile), gives a flow bitwise equal to phase
-    2c's replay, its graph holding K3 2, K2 4, K1 4; export time, bytes,
+    2c's replay, its graph holding K3 2, K1 4; export time, bytes,
     the child's time from import to the first flow and its replayed frame
     are printed, then the 1080p artifact's replay and ``aot_compile``'s in
     turns;
     then ``cost_analysis()`` and ``memory_analysis()`` of the 1080p
-    bucket, whose kernel entries give the ``kernels`` line's bounds (K3,
-    K2 exactly; K1, counted for its fixed loop, within 0.1%), and the
+    bucket, whose kernel entries give the ``kernels`` line's bounds (K3
+    exactly; K1 in its plane mode, counted for its fixed loop, within
+    0.1%; no K2), and the
     1080p ``DIS_MEDIUM`` bucket's ``cost_analysis()``, whose finest-level
     R0, R1 (its setup mode) and R23 (a weight update and its compose
     mode) entries and
@@ -229,7 +242,7 @@ Small frames, after phase 2h:
     and ``DIS_MEDIUM``, and a batch of 2 under compat: the launches of
     ``scale_counts`` (adding to the kernels line's), every kernel call
     held bitwise to its plain version on its recorded inputs
-    (``op_step_inputs``: K3, K2/K2b, K1/K1b, S1, S3, S4, R0, R1's setup
+    (``op_step_inputs``: K3, K1/K1b in its plane mode, S1, S3, S4, R0, R1's setup
     mode, R23, F1-F3 as they ran), the flow finite
     and within the phase-2 gates of the same call on the CPU.
 
@@ -242,10 +255,10 @@ port's own writer, with ``.flo`` ground truth) in a temporary directory:
 4.  the native I/O library builds (required); the compat bench config
     over the 8 pairs writes 8 colourised PNGs and ``.flo`` files, each
     ``.flo`` bitwise equal to the eager kernel path on the decoded
-    frames, its graph capturing K3 2, K2 4, K1 4 a frame (the counts move
+    frames, its graph capturing K3 2, K1 4 a frame (the counts move
     at the 2 warm-up calls and the capture, never at a replay), its mean
     EPE within 0.002 px of the JAX CLI's CPU reading (``EPE_JAX_CLI``);
-    ``--batch 4`` (K2b, K1b), ``--preset medium``, ``draw_grid = 1``,
+    ``--batch 4`` (K1b), ``--preset medium``, ``draw_grid = 1``,
     ``DIS_TPU_CHECK=1``, ``--profile-dir`` (a trace naming ``pyramid``
     and ``scale_0``) and the runner stopped after pair 4 and resumed,
     each bitwise equal to the serial run; a 4K pair through the CLI
@@ -270,7 +283,7 @@ must give the same bits:
     ``grid_tiled_flow_fn``) over 3 ranks, bitwise equal to phase 2f's;
 5c. ``sequence_pair_flow_fn`` (9 frames) and ``sequence_flow_fn`` (the
     first 8) over 2 ranks on phase 4's 1080p sequence, bitwise equal to
-    the serial flows (K2b and K1b on each rank);
+    the serial flows (K1b on each rank);
 5d. the batch mesh over 2 ranks on the 8 KITTI pairs: flows bitwise equal
     to phase 2b's, the mean EPE to the single-device
     ``batched_flow_epe_fn``'s on every rank; read beside it: whether one
@@ -303,7 +316,7 @@ tools``), each with the counts set to 0 just before and read just after:
     assumption;
 6b. ``tools.trace_budget`` of the replayed and the eager 1080p compat
     frame, the 1080p ``DIS_MEDIUM`` frame and the KITTI config 3 batch
-    of 8 (K2b, K1b): the top 15 names, the scope totals, a frame's busy
+    of 8 (K1b): the top 15 names, the scope totals, a frame's busy
     time, device time and span on the card, and the busy share; the
     budget's device ms per frame (the replay's launches from their
     first event's start to their last one's end: its ops and the idle
@@ -327,15 +340,20 @@ kernels, by id (``trace_budget.PORT_KERNELS``), and torch's (the glue,
 copies and fills); 6a says for how many families the card flow is
 bitwise the CPU flow.  Every row of the ``kernels`` line must have
 launched on the main path; the modes' rows (``mode_of``) count their own
-launches, which their kernel's row counts too.
+launches, which their kernel's row counts too.  K2 and K2b, which the
+main path no longer launches (K1's plane mode copies their windows), have
+no row: phase 1 holds them bitwise as the plane mode's gate, and the
+main-path phases must count none of them.
 
 ``python3 chip_smoke.py --sweep-child OUT`` is phase 6a's CPU process, not
 an entry point.
 
 ``python3 chip_smoke.py --kernel-times ROOT`` builds and times only the
 kernels (K3; K2 and K1 at the 1080p finest scale; K2b and K1b at KITTI
-B = 8; K2c and K2 on the same 4K finest inputs, and K1 there; S1 and S4
-at the 1080p compat finest scale, S4 at the 1080p ``DIS_FULL`` one; the
+B = 8; K2c and K2 on the same 4K finest inputs, and K1 there; at patch
+12, K2, K1 and K1's plane mode at the finest scales of the benchmark's
+``hd1080_medium`` and ``uhd4k_medium``; S1 and S4 at the 1080p compat
+finest scale, S4 at the 1080p ``DIS_FULL`` one; the
 search start with its templates, as one S1 or S1 then S2 where the tree
 still has S2, at the 1080p compat finest and coarsest scales and the
 KITTI B = 8 finest one), the
@@ -378,8 +396,12 @@ S4_SWEEP_PS = (6, 8, 12)
 # phases (K2 and K1 with a pair axis count as K2b and K1b).  The search
 # start (once a kernel of its own, S2) runs inside every S1 launch: its row follows
 # LAUNCH_KEYS' and takes S1's launches.
-LAUNCH_KEYS = ("K3", "K2", "K1", "K2b", "K1b", "K2c", "R0", "R1", "R1s", "R1w", "R23", "R23c",
+LAUNCH_KEYS = ("K3", "K1", "K1b", "K1p", "K2c", "R0", "R1", "R1s", "R1w", "R23", "R23c",
                "R3", "R3k", "R3n", "S1", "S3", "S4", "F1", "F2", "F3")
+# K2 and K2b, which the main path no longer launches (K1's plane mode, K1p,
+# takes the route "K2"): phase 1 holds them bitwise as the plane mode's
+# gate, and the main-path phases count them, which must stay 0.
+OFF_PATH = ("K2", "K2b")
 # The kernels that phase 2g does not add up (its batches launch K2b and K1b).
 CORE = ("K3", "K2", "K1", "K2c")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
@@ -538,6 +560,42 @@ def finest_inputs(img1, img2, cfg, p):
     return cfg, l2, tpl, Tn, plan.centers, init_u, pos0, conv0
 
 
+def bench_config(name: str, root: str = ""):
+    """The ``DISConfig`` of the benchmark's configuration ``name``
+    (``flowbench/configs/<name>.json`` under ``root``, by default beside
+    this file)."""
+    import dis_tpu_torch as dt
+
+    root = root or os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "flowbench", "configs", name + ".json")) as fh:
+        return dt.DISConfig(**json.load(fh)["dis"])
+
+
+def served_search_inputs(cfg, img1, img2):
+    """The finest scale's search inputs in a ``dis_flow`` call, as the
+    served path gives them (each coarser scale searched and, where the
+    config says so, refined): (plane, starts, the search's other
+    arguments, the grid), recorded from ``ops/iclk.py::inverse_search``."""
+    import dis_tpu_torch as dt
+    from dis_tpu_torch.ops import iclk
+
+    calls = []
+    inverse_search = iclk.inverse_search
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return inverse_search(*args, **kw)
+
+    iclk.inverse_search = record
+    try:
+        dt.dis_flow(img1, img2, cfg)
+    finally:
+        iclk.inverse_search = inverse_search
+    (plane, tpl, centers, init_u, _, width, height), kw = calls[-1]
+    pos0, conv0 = kw["start"]
+    return plane, pos0, (tpl, kw["Tn"], centers, init_u, conv0, cfg, width, height), kw["geom"]
+
+
 def num_h_of(level, cfg) -> int:
     """Column length of the scale's patch grid (the main path hands it to
     K2 so that its groups follow the columns)."""
@@ -572,6 +630,17 @@ def search_cost(init_u, conv0, cfg, trips):
     nb = init_u.shape[0] if init_u.ndim == 3 else 1
     return cost.search_cost(nb, init_u.shape[-2], cfg.patch_size, cfg.mode == "fixed",
                             cfg.patch_normalization, sum(trips), int(conv0.sum()))
+
+
+def search_plane_cost(img, init_u, conv0, cfg, trips):
+    """(bytes, operations) of the K1/K1b launch in its plane mode on
+    these inputs, as ``search_cost`` (``dis_tpu_torch/cost.py``)."""
+    from dis_tpu_torch import cost
+
+    nb = init_u.shape[0] if init_u.ndim == 3 else 1
+    return cost.search_plane_cost(nb, *img.shape[-2:], init_u.shape[-2], cfg.patch_size,
+                                  cfg.mode == "fixed", cfg.patch_normalization, sum(trips),
+                                  int(conv0.sum()))
 
 
 def refined_levels(img1, img2, cfg):
@@ -672,19 +741,23 @@ def refine_counts(cfg):
                else {})}
 
 
-def mode_counts(cfg):
-    """The launches of R1's setup and warp1 modes (``R1s``, ``R1w``), R23's
-    compose mode (``R23c``) and R3's no-sweep mode (``R3n``) in one call,
-    which ``refine_counts`` counts as R1's, R23's and R3's, and of the
-    launches with the clip on (``R3k``, R23's compose mode or R3's
-    no-sweep mode): the last outer iteration of each level that
-    ``refine_level`` clips (``refined_init_clamp``, per level)."""
+def mode_counts(cfg, n_k2c: int = 0):
+    """The launches of K1's plane mode (``K1p``: every scale but the
+    ``n_k2c`` that take K2c), R1's setup and warp1 modes (``R1s``,
+    ``R1w``), R23's compose mode (``R23c``) and R3's no-sweep mode
+    (``R3n``) in one call, which ``scale_counts`` and ``refine_counts``
+    count as K1's, R1's, R23's and R3's, and of the launches with the clip
+    on (``R3k``, R23's compose mode or R3's no-sweep mode): the last outer
+    iteration of each level that ``refine_level`` clips
+    (``refined_init_clamp``, per level)."""
+    n = cfg.coarsest_scale - cfg.finest_scale + 1
+    plane = {"K1p": n - n_k2c} if n > n_k2c else {}
     if cfg.refinement_iters == 0:
-        return {}
-    levels = cfg.coarsest_scale - cfg.finest_scale + 1 if cfg.refine_per_level else 1
+        return plane
+    levels = n if cfg.refine_per_level else 1
     r1 = levels * cfg.refinement_iters
     sweeps = cfg.refinement_inner_sweeps * cfg.refinement_sor_sweeps
-    return {("R1s" if cfg.refinement_scheme == "planes6" else "R1w"): r1,
+    return {**plane, ("R1s" if cfg.refinement_scheme == "planes6" else "R1w"): r1,
             ("R23c" if sweeps else "R3n"): r1,
             **({"R3k": levels} if cfg.refined_init_clamp and cfg.refine_per_level else {})}
 
@@ -705,8 +778,9 @@ def glue_counts(cfg, n: int):
 
 
 def scale_counts(cfg, frame=None):
-    """Launches one call must make, whatever B is: K2, K1, S1, S4 (and S3)
-    once per scale (``glue_counts``); K3 once per image (or stack of images) for
+    """Launches one call must make, whatever B is: K1 (in its plane mode,
+    ``mode_counts``; no K2), S1, S4 (and S3) once per scale
+    (``glue_counts``); K3 once per image (or stack of images) for
     up to four levels; R0-R3 and F2 as ``refine_counts`` says; and, for a
     ``dis_flow`` call on [(B,) height, width] frames (``frame``), F1 and
     F3 as ``frame_counts`` says (the engines on padded frames launch
@@ -714,23 +788,25 @@ def scale_counts(cfg, frame=None):
     from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS
 
     n = cfg.coarsest_scale - cfg.finest_scale + 1
-    return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": n, "K1": n,
+    return {"K3": 2 * -(-(cfg.coarsest_scale + 1) // MAX_LEVELS), "K2": 0, "K1": n,
             **refine_counts(cfg), **glue_counts(cfg, n),
             **(frame_counts(cfg, *frame) if frame else {})}
 
 
 def want_4k(cfg):
-    """Launches of one 4K frame without refinement: K2c at the finest scale."""
-    return {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, **glue_counts(cfg, 4)}
+    """Launches of one 4K frame without refinement: K2c at the finest
+    scale, K1 in its plane mode at the other three."""
+    return {"K3": 2, "K2": 0, "K2c": 1, "K1": 4, **glue_counts(cfg, 4)}
 
 
-# The wrappers of R1's setup and warp1 modes and R3's compose and
-# no-sweep modes, the count of R23's compose mode and the count of the
-# launches with the clip on: their launches count in R1's, R3's and R23's
-# too, and read_counts leaves them out.
-MODES = ("R1s", "R1w", "R23c", "R3c", "R3k", "R3n")
+# The wrappers of K1's plane mode, R1's setup and warp1 modes and R3's
+# compose and no-sweep modes, the count of R23's compose mode and the count
+# of the launches with the clip on: their launches count in K1's, R1's,
+# R3's and R23's too, and read_counts leaves them out.
+MODES = ("K1p", "R1s", "R1w", "R23c", "R3c", "R3k", "R3n")
 # The kernel each mode's row of the kernels line is a mode of.
-MODE_OF = {"R1s": "R1", "R1w": "R1", "R23c": "R23", "R3c": "R3", "R3k": "R23", "R3n": "R3"}
+MODE_OF = {"K1p": "K1", "R1s": "R1", "R1w": "R1", "R23c": "R23", "R3c": "R3", "R3k": "R23",
+           "R3n": "R3"}
 
 
 def kernel_wrappers():
@@ -739,12 +815,12 @@ def kernel_wrappers():
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_levels
     from dis_tpu_torch.ops.cuda.scale_kernel import densify, fixed_weights, scale_templates
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-            "K1": iclk_search, "R0": rk.refine_planes, "R1": rk.refine_warp,
+            "K1": iclk_search, "K1p": iclk_search_plane, "R0": rk.refine_planes, "R1": rk.refine_warp,
             "R2": rk.refine_weights, "R3": rk.refine_sor, "R23": rk.refine_update,
             "S1": scale_templates,
             "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
@@ -865,6 +941,7 @@ def op_functions():
     return {"K3": (pyramid_kernel, "_pyramid_cuda", "_pyramid_cpu"),
             "K2": (extract_kernel, "_extract_cuda", "_extract_cpu"),
             "K1": (iclk_kernel, "_search_cuda", "_search_cpu"),
+            "K1p": (iclk_kernel, "_search_plane_cuda", "_search_plane_cpu"),
             "S1": (scale_kernel, "_templates_cuda", "_templates_cpu"),
             "S3": (scale_kernel, "_weights_cuda", "fixed_weights_plain"),
             "S4": (scale_kernel, "_densify_cuda", "densify_plain"),
@@ -1169,7 +1246,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
           f"({native.library_path().name}, {time.perf_counter() - t0:.2f} s)", flush=True)
     native.require()
     per_capture = serving.WARMUP_CALLS + 1     # eager warm-up calls and the capture
-    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
 
     def counted(label, argv, want, timer=None, batched=False):
         """The CLI with every count set to 0 just before and read just after;
@@ -1474,7 +1551,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     from dis_tpu_torch.utils.metrics import epe_torch
 
     wrappers = kernel_wrappers()
-    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
 
     def add(counts, batched):
         for k, v in counts.items():
@@ -1522,7 +1599,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
                 halo = halos[n] if cfg is bench_cfg else None
                 hh, ww = (H4K, W4K) if cfg is bench_cfg else (H, W)
                 routes = [part_routes(cfg, ww, hh, n, i, halo) for i in range(n)]
-                expect = [{"K3": 2, "K2": r.count("K2"), "K2c": r.count("K2c"), "K1": len(r),
+                expect = [{"K3": 2, "K2": 0, "K2c": r.count("K2c"), "K1": len(r),
                            **refine_counts(cfg), **glue_counts(cfg, len(r))} for r in routes]
             else:
                 expect = [{**scale_counts(cfg), "K2c": 0}] * n
@@ -1679,7 +1756,7 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
     from dis_tpu_torch import serving
     from dis_tpu_torch.tools import quality_sweep, scaling_measure, trace_budget
 
-    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
 
     def zero():
         for w in wrappers.values():
@@ -1732,7 +1809,7 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
                 t0 = time.perf_counter()
                 rec = scaling_measure.measure(name, h, w, (2, 4), bench_cfg, device=dev)
                 counts = read(f"6c scaling_measure {name} n = 2, 4")
-                check(all(counts[k] > 0 for k in ("K3", "K2", "K1"))
+                check(all(counts[k] > 0 for k in ("K3", "K1")) and counts["K2"] == 0
                       and (counts["K2c"] > 0) == (name == "4K"),
                       f"6c {name}: launches {counts}")
                 print("phase6 6c " + json.dumps(rec), flush=True)
@@ -1838,7 +1915,7 @@ def main() -> int:
     from dis_tpu_torch.ops import image as im
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+    from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
     from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
     from dis_tpu_torch.ops.grid import init_from_coarser_flow, make_grid, scale_plan
@@ -1903,6 +1980,19 @@ def main() -> int:
 
     k3_err = max(k3_check("1080p image 1", a), k3_check("1080p image 2", b))
 
+    def plane_gate(label, img2, pos0, args, want, row0=0):
+        """K1's plane mode on the plane and starts whose regions gave
+        ``want`` (K1's result on them): one launch of K1 (K1b), no K2,
+        bitwise ``want``."""
+        before = (extract_regions.launches, iclk_search.launches, iclk_search_plane.launches)
+        got = iclk_search_plane(img2, pos0, *args, row0)
+        torch.cuda.synchronize()
+        after = (extract_regions.launches, iclk_search.launches, iclk_search_plane.launches)
+        check([y - x for x, y in zip(before, after)] == [0, 1, 1],
+              f"K1p {label}: launches {before} -> {after}")
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"K1p {label}: differs from K2 then K1")
+
     # The finest scale's real inputs: coarser scales through the port.
     finest = {}
     k1_err, k2_err = 0.0, 0.0
@@ -1925,9 +2015,12 @@ def main() -> int:
         torch.cuda.synchronize()
         err, flips = search_gate(f"K1 {name}", kout, pout)
         k1_err = max(k1_err, err)
+        plane_gate(f"{name} finest", l2.img, pos0, args, kout)
         print(f"phase1 {name} finest N={pos0.shape[0]}: K2 (consecutive and column "
-              f"groups) and K1 bitwise (K1 max|du| {err} flips {flips})", flush=True)
+              f"groups), K1 and K1's plane mode bitwise (K1 max|du| {err} flips {flips})",
+              flush=True)
 
+    print(f"phase1 K2 (the plane mode's gate) max_abs_err {k2_err}", flush=True)
     empty = torch.zeros((0, 2), dtype=torch.float32, device=dev)
     l2_img = finest["compat"][1].img
     kr = extract_regions(l2_img, empty, 8, p)
@@ -1966,8 +2059,10 @@ def main() -> int:
             kout = iclk_search(*kr, *args)
             torch.cuda.synchronize()
             err, flips = search_gate(f"K1 ps={ps} {mode}", kout, pout)
-            print(f"phase1 ps={ps} {mode} N={pos0.shape[0]}: K2 and K1 bitwise (K1 "
-                  f"max|du| {err} flips {flips}; active patches by trip {trips})", flush=True)
+            plane_gate(f"ps={ps} {mode}", lvl[0], pos0, args, kout)
+            print(f"phase1 ps={ps} {mode} N={pos0.shape[0]}: K2, K1 and K1's plane mode "
+                  f"bitwise (K1 max|du| {err} flips {flips}; active patches by trip {trips})",
+                  flush=True)
 
     # -- phase 1b: K2b and K1b at the KITTI B = 8 finest-scale shapes --------
     kpairs = [kitti_pair(i) for i in range(len(KITTI_SHIFTS))]
@@ -2011,9 +2106,13 @@ def main() -> int:
             torch.cuda.synchronize()
             for kt, st in zip(kr + ko, sr + so):
                 check(torch.equal(kt[i], st), f"K2b/K1b {name}: pair {i} differs from serial K2/K1")
+        plane_gate(f"{name} B={nk}", l2.img, pos0, args, ko)
         print(f"phase1b {name} B={nk} N={pos0.shape[1]} ({nk * pos0.shape[1]} patches, "
               f"scale {cfg.finest_scale}): K2b and K1b bitwise equal to their batched "
-              f"plain versions and to {nk} serial K2/K1 calls", flush=True)
+              f"plain versions and to {nk} serial K2/K1 calls, K1b's plane mode to them",
+              flush=True)
+
+    print(f"phase1b K2b (the plane mode's gate) max_abs_err {k2b_err}", flush=True)
 
     # -- phase 1c: K2c at the 4K finest-scale shapes -------------------------
     t0 = time.perf_counter()
@@ -2085,8 +2184,10 @@ def main() -> int:
     k1_err = max(k1_err, err)
     for kt, ft in zip(ks, kfull):
         check(torch.equal(kt, rows_of(ft)), "K1 on the stripe differs from the full frame's rows")
+    plane_gate(f"stripe row0 {row0}", plane_s, rows_of(pos04), args_s[:-1], ks, row0)
     print(f"phase1c K1 stripe row0 {row0} N={ks[0].shape[0]}: bitwise equal to its plain "
-          f"version (max|du| {err} flips {flips}) and to the full frame's rows", flush=True)
+          f"version (max|du| {err} flips {flips}) and to the full frame's rows, and so is "
+          f"K1's plane mode on the stripe's plane", flush=True)
 
     lvl12 = pyramid_level(small, 12, base=True)
     hh, ww = lvl12[0].shape[0] - 24, lvl12[0].shape[1] - 24
@@ -2261,9 +2362,7 @@ def main() -> int:
     del kmed_levels, kmed_planes
     # R23 at each level of the benchmark's 1080p hd1080_medium frame (1080
     # rows padded to 1088 for its coarsest scale 5).
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "flowbench", "configs",
-                           "hd1080_medium.json")) as fh:
-        hd_cfg = dt.DISConfig(**json.load(fh)["dis"])
+    hd_cfg = bench_config("hd1080_medium")
     (ha, _), (hb, _) = (im.pad_divisible(t, hd_cfg.coarsest_scale) for t in (a, b))
     hd_levels, hd_planes = refined_levels(ha, hb, hd_cfg)
     del ha, hb
@@ -2555,9 +2654,51 @@ def main() -> int:
                   f"{k} {label}: differs from its plain version")
         print(f"phase1g {k} {label}: bitwise equal to the plain version", flush=True)
 
+    # -- phase 1h: K1's plane mode against K2 then K1 at patch 12 ------------
+    # The finest scale of the benchmark's medium configurations (OpenCV's
+    # PRESET_MEDIUM at 1920x1080 and 3840x2160), on the inputs their served
+    # path gives the search: K1's plane mode bitwise equal to K2 then K1
+    # and to its plain composition, each timed with its bound.
+    plane_rows = []
+    for name, (x, y) in (("hd1080_medium", (a, b)), ("uhd4k_medium", (a4, b4))):
+        cfg = bench_config(name)
+        plane, pos0, args, geom = served_search_inputs(cfg, x, y)
+        ps, n = cfg.patch_size, pos0.shape[-2]
+        kr = extract_regions(plane, pos0, ps, ps, num_h=geom.num_h)
+        k1 = iclk_search(*kr, *args)
+        trips = []
+        pr = iclk.extract_regions_plain(plane, pos0, ps, ps)
+        po = iclk.iclk_search_plain(*pr, *args, trips=trips)
+        torch.cuda.synchronize()
+        for kt, pt in zip(kr + k1, pr + po):
+            check(torch.equal(kt, pt), f"K2/K1 {name} finest: differ from their plain versions")
+        plane_gate(f"{name} finest", plane, pos0, args, po)
+        del pr, po
+        calls = 5 if n > 100_000 else 20
+        k2_cost = extract_cost(plane, pos0, ps)
+        k1_cost = search_cost(args[3], args[4], cfg, trips)
+        kp_cost = search_plane_cost(plane, args[3], args[4], cfg, trips)
+        row = {"name": f"{name} finest", "ps": ps, "n": n, "plane": list(plane.shape),
+               "trips": sum(trips), "bitwise": True,
+               "K2_ms": replay_ms(lambda: extract_regions(plane, pos0, ps, ps,
+                                                          num_h=geom.num_h), calls=calls),
+               "K1_ms": replay_ms(lambda: iclk_search(*kr, *args), calls=calls),
+               "K2_K1_ms": replay_ms(lambda: iclk_search(
+                   *extract_regions(plane, pos0, ps, ps, num_h=geom.num_h), *args),
+                   calls=calls),
+               "K1p_ms": replay_ms(lambda: iclk_search_plane(plane, pos0, *args),
+                                   calls=calls),
+               "K1p_plain_ms": time_ms(lambda: iclk.iclk_search_plain(
+                   *iclk.extract_regions_plain(plane, pos0, ps, ps), *args), reps=3, warmup=1)}
+        for k, c in (("K2", k2_cost), ("K1", k1_cost), ("K1p", kp_cost)):
+            row[k + "_bound_ms"], row[k + "_bound_by"] = bound(*c)
+        plane_rows.append(row)
+        del kr, k1
+    print("phase1h " + json.dumps({"search_plane": plane_rows}) + f" [{card}]", flush=True)
+
     # -- phase 2: the main path ---------------------------------------------
     wrappers = kernel_wrappers()
-    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
     flows = {}
     for name, cfg in configs.items():
         for w in wrappers.values():
@@ -2568,9 +2709,12 @@ def main() -> int:
         print(f"phase2 {name} launches {counts}", flush=True)
         check(counts == {**scale_counts(cfg), "K2c": 0}, f"{name}: launches {counts}, want "
               f"{scale_counts(cfg)} and no K2c at 1080p")
-        for k in ("K3", "K2", "K1", *glue_counts(cfg, 1)):
-            check(counts[k] > 0, f"{name}: kernel {k} was not launched on the main path")
-            launches[k] += counts[k]
+        modes = read_modes(wrappers)
+        check(modes == mode_counts(cfg), f"{name}: modes {modes}, want {mode_counts(cfg)}")
+        for k in ("K3", "K1", *glue_counts(cfg, 1), *modes):
+            check({**counts, **modes}[k] > 0,
+                  f"{name}: kernel {k} was not launched on the main path")
+            launches[k] += {**counts, **modes}[k]
         f = flow.cpu().numpy()
         check(f.shape == (H, W, 2), f"{name}: flow shape {f.shape}")
         check(bool(np.isfinite(f).all()), f"{name}: non-finite flow")
@@ -2610,6 +2754,7 @@ def main() -> int:
                   f"{name} {label}: launches {counts}, want {want} per batch")
             kl["K2b"] += counts["K2"]
             kl["K1b"] += counts["K1"]
+            launches["K1p"] += read_modes(wrappers).get("K1p", 0)
             for k in (*glue_counts(cfg, 1), *(frame_counts(cfg, *frame) if frame else ())):
                 launches[k] += counts[k]
         flows_b = runs["dis_flow"]
@@ -2672,7 +2817,8 @@ def main() -> int:
         counts = read_counts(wrappers)
         print(f"phase2d 4K {name} launches {counts}", flush=True)
         if name == "ultrafast":
-            check(counts["K2c"] == 0 and counts["K2"] == 3, f"4K ultrafast: launches {counts}")
+            check(counts["K2c"] == counts["K2"] == 0 and counts["K1"] == 3,
+                  f"4K ultrafast: launches {counts}")
             continue
         check(counts == want_4k(cfg), f"4K {name}: launches {counts}, want {want_4k(cfg)}")
         for k in ("K2c", *glue_counts(cfg, 1)):
@@ -2731,8 +2877,9 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = read_counts(wrappers)
         parts = N_STRIPES if label.startswith("tiled") else 1
-        check(counts["K2c"] == N_STRIPES and counts["K2"] == 3 * N_STRIPES
-              and counts["K3"] == 2 * parts, f"4K {label}: launches {counts}")
+        check(counts["K2c"] == N_STRIPES and counts["K2"] == 0
+              and counts["K1"] == 4 * N_STRIPES and counts["K3"] == 2 * parts,
+              f"4K {label}: launches {counts}")
         check(torch.equal(out, untiled), f"4K {label}: differs from the untiled flow")
         print(f"phase2e 4K {label} (row0 {rows0}): launches {counts}; bitwise equal to "
               f"untiled", flush=True)
@@ -2740,13 +2887,13 @@ def main() -> int:
 
     # -- phase 2f: refinement presets at 1080p ----------------------------------
     refined = {"medium": dt.DIS_MEDIUM, "full": dt.DIS_FULL, "warp1": warp1_cfg}
-    want_refined = {"medium": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
+    want_refined = {"medium": {"K3": 2, "K2": 0, "K2c": 0, "K1": 4,
                                "R0": 4, "R1": 4, "R23": 20,
                                "S1": 4, "S3": 4, "S4": 4, "F2": 1},
-                    "warp1": {"K3": 2, "K2": 4, "K2c": 0, "K1": 4,
+                    "warp1": {"K3": 2, "K2": 0, "K2c": 0, "K1": 4,
                               "R1": 4, "R23": 20,
                               "S1": 4, "S3": 4, "S4": 4, "F2": 1},
-                    "full": {"K3": 4, "K2": 5, "K2c": 0, "K1": 5,
+                    "full": {"K3": 4, "K2": 0, "K2c": 0, "K1": 5,
                              "R0": 5, "R1": 5, "R23": 50,
                              "S1": 5, "S3": 5, "S4": 5, "F1": 1, "F2": 1}}
     rflows = {}
@@ -2883,14 +3030,15 @@ def main() -> int:
         routes = [scale_extraction_route(cfg, ww, hh, s)
                   for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)]
         n_k2c = routes.count("K2c")
-        want = {**scale_counts(cfg), "K2": len(routes) - n_k2c, "K2c": n_k2c}
+        want = {**scale_counts(cfg), "K2c": n_k2c}
         for w in wrappers.values():
             w.launches = 0
         flow, aten = aten_calls(lambda: dt.dis_flow(img1, img2, cfg))
         torch.cuda.synchronize()
         counts, modes = read_counts(wrappers), read_modes(wrappers)
         check(counts == want, f"{label}: launches {counts}, want {want} (routes {routes})")
-        check(modes == mode_counts(cfg), f"{label}: modes {modes}, want {mode_counts(cfg)}")
+        check(modes == mode_counts(cfg, n_k2c),
+              f"{label}: modes {modes}, want {mode_counts(cfg, n_k2c)}")
         clamps = {n: c for n, c in aten.items() if "clamp" in n or "clip" in n}
         check(not clamps, f"{label}: torch clamps {clamps}")
         for k, n in {**counts, **modes}.items():
@@ -3052,9 +3200,14 @@ def main() -> int:
     costs["K1"] = search_cost(init_u, conv0, cfg, trips)
     times["K1"] = (replay_ms(lambda: iclk_search(*kr, *args)),
                    time_ms(lambda: iclk.iclk_search_plain(*kr, *args)))
+    costs["K1p"] = search_plane_cost(l2.img, init_u, conv0, cfg, trips)
+    times["K1p"] = (replay_ms(lambda: iclk_search_plane(l2.img, pos0, *args)),
+                    time_ms(lambda: iclk.iclk_search_plain(
+                        *iclk.extract_regions_plain(l2.img, pos0, 8, p), *args)))
     eager = {"K3": time_ms(lambda: construct_pyramid(a, 3, p)),
              "K2": time_ms(lambda: extract_regions(l2.img, pos0, 8, p, num_h=nh)),
-             "K1": time_ms(lambda: iclk_search(*kr, *args))}
+             "K1": time_ms(lambda: iclk_search(*kr, *args)),
+             "K1p": time_ms(lambda: iclk_search_plane(l2.img, pos0, *args))}
     for k, (km, pm) in times.items():
         print(f"phase3 {k}: kernel {km:.4f} ms replayed ({eager[k]:.4f} ms a call with its "
               f"host work), plain {pm:.4f} ms [{card}]", flush=True)
@@ -3201,14 +3354,14 @@ def main() -> int:
     meta = {
         "K3": ("pyramid_level", src + "pyramid_level.cu",
                "dis_tpu/ops/pallas/pyramid_kernel.py:58", k3_err),
-        "K2": ("extract_regions", src + "extract_regions.cu",
-               "dis_tpu/ops/pallas/extract_kernel.py:259", k2_err),
         "K1": ("iclk_search", src + "iclk.cu",
                "dis_tpu/ops/pallas/iclk_kernel.py:93", k1_err),
-        "K2b": ("extract_regions_batched", src + "extract_regions.cu",
-                "dis_tpu/ops/pallas/extract_kernel.py:284", k2b_err),
         "K1b": ("iclk_search_batched", src + "iclk.cu",
                 "dis_tpu/ops/pallas/iclk_kernel.py:573", k1b_err),
+        # K1 and K2 in one launch: K1 copies each region from the plane as
+        # extract_kernel.py:259 does (bitwise K2 then K1, phase 1).
+        "K1p": ("iclk_search_plane", src + "iclk.cu",
+                "dis_tpu/ops/pallas/iclk_kernel.py:93", k1_err),
         "K2c": ("extract_regions_banded", src + "extract_banded.cu",
                 "dis_tpu/ops/pallas/extract_kernel.py:163", k2c_err),
         # No pallas_call backs R0-R3: they replace XLA's fusions of the JAX
@@ -3254,16 +3407,17 @@ def main() -> int:
     times.update(ftimes)
     costs.update(fcosts)
     library = {"R1": r1_library, **f_library}
-    # cost_analysis's entries against the kernels line: K3 (one pyramid) and
-    # K2 at the finest scale give the same bounds; K1 counts its fixed loop
-    # and no start freezes, so its bytes differ by the raw templates of the
-    # patches frozen at the start (a few hundred at 1080p).  The 1080p
+    # cost_analysis's entries against the kernels line: K3 (one pyramid)
+    # gives the same bound; K1 in its plane mode at the finest scale counts
+    # its fixed loop and no start freezes, so its bytes differ by the raw
+    # templates of the patches frozen at the start (a few hundred at 1080p).  The 1080p
     # DIS_MEDIUM bucket's last R0, R1 (its setup mode) and R23 (the last
     # two: a weight update, then its compose mode) are the finest level's,
     # and its F2 the frame's, which the kernels line times.
     kc, kcm = served_cost["kernels"], med_cost["kernels"]
-    for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K2", kc["K2"][-1], 0.0),
-                          ("K1", kc["K1"][-1], 1e-3), ("R0", kcm["R0"][-1], 0.0),
+    check(not kc["K2"] and not kcm["K2"], "cost_analysis: a served bucket launches K2")
+    for k, entry, tol in (("K3", kc["K3"][0], 0.0), ("K1p", kc["K1"][-1], 1e-3),
+                          ("R0", kcm["R0"][-1], 0.0),
                           ("R1s", kcm["R1"][-1], 0.0), ("R23", kcm["R23"][-2], 0.0),
                           ("R23c", kcm["R23"][-1], 0.0),
                           ("S1", kc["S1"][-1], 0.0), ("S4", kc["S4"][-1], 0.0),
@@ -3274,6 +3428,8 @@ def main() -> int:
               f"{run_bound[0]:.6f} ms by {run_bound[1]}", flush=True)
         check(static[1] == run_bound[1] and abs(static[0] - run_bound[0]) <= tol * run_bound[0],
               f"cost_analysis {k} bound {static} vs the kernels line {run_bound}")
+    check(all(launches[k] == 0 for k in OFF_PATH),
+          f"the main path launched K2 or K2b: {[launches[k] for k in OFF_PATH]}")
     rows = []
     for k in (*LAUNCH_KEYS, "S2"):
         bound_ms, bound_by = bound(*costs[k])
@@ -3287,7 +3443,7 @@ def main() -> int:
         if k in rcold or k in f_cold:
             rows[-1]["cold_ms"] = rcold.get(k, f_cold.get(k))
         if k in MODES:
-            # R1's, R3's and R23's modes: the same kernel, whose row's
+            # K1's, R1's, R3's and R23's modes: the same kernel, whose row's
             # launches count this mode's too (R1w a kernel of its own that
             # counts as R1's; R3k the launches with the clip flag, timed
             # in R23's compose mode).
@@ -3307,6 +3463,10 @@ def kernel_times(root: str) -> int:
     on the main-path inputs (``replay_ms`` and ``time_ms``) and prints one
     JSON line: K3 on the 1080p pyramid of one image and of both; K2 and K1
     at the 1080p finest scale (compat bench config; K1 also ``DIS_FAST``);
+    at patch 12, the finest scale of the benchmark's ``hd1080_medium`` and
+    ``uhd4k_medium`` on their served path's search inputs: K2, K1 from
+    its regions, the two in turn and, in a tree that has it, K1's plane
+    mode (``k1_plane_mode`` says which);
     K2b and K1b on the KITTI B = 8 batch (config 3); K3 on the two 4K
     pyramids, K2c and K2 on the same 4K finest inputs, and K1 there; S1
     and S4 on the 1080p compat finest scale's inputs and S4 on the 1080p
@@ -3392,6 +3552,25 @@ def kernel_times(root: str) -> int:
     both("K3_4k_both_pyramids", lambda: (construct_pyramid(a4, 3, p),
                                          construct_pyramid(b4, 3, p)), calls=5)
     img4, pos4, geom4 = k2_k1("K2_4k_finest", "K1_4k_compat", a4, b4, bench_cfg, calls=5)
+    # Patch 12: the finest scale of the benchmark's medium configurations
+    # on the search inputs their served path gives (this file's
+    # served_search_inputs), K2 and K1 from its regions, both in turn, and
+    # K1's plane mode where the tree has it.
+    ik = importlib.import_module("dis_tpu_torch.ops.cuda.iclk_kernel")
+    out["k1_plane_mode"] = hasattr(ik, "iclk_search_plane")
+    for name, (x, y) in (("hd1080_medium", (a, b)), ("uhd4k_medium", (a4, b4))):
+        cfg = bench_config(name, root)
+        plane, pos0, args, geom = served_search_inputs(cfg, x, y)
+        ps, calls = cfg.patch_size, 5 if name.startswith("uhd4k") else 20
+        kw = {"num_h": geom.num_h} if takes_num_h else {}
+        regions = extract_regions(plane, pos0, ps, ps, **kw)
+        both(f"K2_{name}_finest", lambda: extract_regions(plane, pos0, ps, ps, **kw), calls)
+        both(f"K1_{name}_finest", lambda: iclk_search(*regions, *args), calls)
+        both(f"K2_K1_{name}_finest",
+             lambda: iclk_search(*extract_regions(plane, pos0, ps, ps, **kw), *args), calls)
+        if out["k1_plane_mode"]:
+            both(f"K1p_{name}_finest", lambda: ik.iclk_search_plane(plane, pos0, *args), calls)
+        del plane, pos0, args, regions
     bound0 = init_bound(bench_cfg, 0)
     both("K2c_4k_finest", lambda: extract_regions_banded(img4, pos4, 8, p, geom4, bound0),
          calls=5)

@@ -44,6 +44,9 @@ SIGNATURES = {
     "dis_iclk_search": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                         _P, _P, _P, _P],
+    "dis_iclk_search_plane": [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                              _P, _P, _P, _P],
     "dis_refine_planes": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     "dis_refine_warp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "dis_refine_setup": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],

@@ -1,7 +1,8 @@
 """The static cost of a flow program: operations and bytes, from shapes.
 
 Each kernel's work is a formula of its launch's shapes
-(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost`, the
+(:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost` (in
+K1's plane mode :func:`search_plane_cost`), the
 refinement's :func:`refine_planes_cost`, :func:`refine_warp_cost`,
 :func:`refine_setup_cost` (in its warp1 mode
 :func:`refine_setup_warp1_cost`), :func:`refine_weights_cost`,
@@ -38,10 +39,10 @@ from torch.utils._pytree import tree_leaves
 from .config import DISConfig
 from .ops.cuda.pyramid_kernel import first_level_dims
 
-# The kernel each op launches, by op name (R1's setup and warp1 modes and
-# R3's compose and no-sweep modes count as R1 and R3).
+# The kernel each op launches, by op name (K1's plane mode, R1's setup and
+# warp1 modes and R3's compose and no-sweep modes count as K1, R1 and R3).
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
-           "extract_regions_banded": "K2c", "iclk_search": "K1",
+           "extract_regions_banded": "K2c", "iclk_search": "K1", "iclk_search_plane": "K1",
            "refine_planes": "R0", "refine_warp": "R1", "refine_setup": "R1",
            "refine_setup_warp1": "R1", "refine_weights": "R2", "refine_sor": "R3",
            "refine_compose": "R3", "refine_nosweep": "R3", "refine_update": "R23",
@@ -108,6 +109,20 @@ def search_cost(nb: int, n: int, ps: int, fixed: bool, normalize: bool,
     per_patch += (taps * F32 if fixed else 0) + 2 * F32 + taps * F32 + 1
     nbytes = nb * n * per_patch + n * 2 * F32 + frozen0 * taps * F32
     return nbytes, active_trips * trip + (nb * n - frozen0) * sample
+
+
+def search_plane_cost(nb: int, th: int, tw: int, n: int, ps: int, fixed: bool,
+                      normalize: bool, active_trips: int, frozen0: int = 0
+                      ) -> Tuple[int, int]:
+    """(bytes, operations) of one K1/K1b launch in its plane mode over
+    ``nb`` padded planes [th, tw] and ``n`` patches each:
+    :func:`search_cost` with the planes and the starts read once in place
+    of the regions and their bases, and 12 operations a patch for the
+    bases (K2's)."""
+    rc = 2 * ps + 3
+    nbytes, ops = search_cost(nb, n, ps, fixed, normalize, active_trips, frozen0)
+    return (nbytes - nb * n * (rc * rc + 2) * F32 + nb * (th * tw + n * 2) * F32,
+            ops + 12 * nb * n)
 
 
 def refine_warp_cost(nb: int, h: int, w: int, c: int) -> Tuple[int, int]:
@@ -286,6 +301,13 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         nb = init_u.shape[0] if init_u.ndim == 3 else 1
         n = init_u.shape[-2]
         return search_cost(nb, n, ps, fixed, normalize, nb * n * (iterations + 1))
+    if name == "iclk_search_plane":
+        img2, init_u, ps, iterations = args[0], args[8], args[10], args[11]
+        normalize, fixed = args[15], args[16]
+        nb = init_u.shape[0] if init_u.ndim == 3 else 1
+        n = init_u.shape[-2]
+        return search_plane_cost(nb, *img2.shape[-2:], n, ps, fixed, normalize,
+                                 nb * n * (iterations + 1))
     if name == "refine_warp":
         planes = args[0]
         nb = planes.shape[0] if planes.ndim == 4 else 1

@@ -11,6 +11,21 @@ __device__ __forceinline__ int dis_ceil_coord(float v) {
   return (int)fminf(fmaxf(c, -1e6f), 1e6f);
 }
 
+// An asynchronous 4-byte copy from device to shared memory (cached in L1
+// too, so that neighbouring windows read again from there), and the waits.
+// S1 and S4 (scale_glue.cu), K1 (iclk.cu) and K2/K2c (extract_group.cuh)
+// stage with them.
+__device__ __forceinline__ void dis_cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void dis_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void dis_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Sum of a patch's taps held by a group of G lanes, K taps a lane (taps
 // past the patch are zero): the in-lane pair tree, then the xor butterfly
 // over the G lanes of the group (offsets below G stay inside the group).

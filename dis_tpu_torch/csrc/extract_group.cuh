@@ -119,15 +119,6 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
@@ -198,7 +189,7 @@ __device__ __forceinline__ void prepare(const Args& a, const Group& G, bool vec,
       if (vec) {
         cp_async16(dst + 4 * c, src + 4 * c);
       } else {
-        cp_async4(dst + c, src + c);
+        dis_cp_async4(dst + c, src + c);
       }
       c += dc;
       r += dr;
@@ -208,7 +199,7 @@ __device__ __forceinline__ void prepare(const Args& a, const Group& G, bool vec,
       }
     }
   }
-  cp_async_commit();
+  dis_cp_async_commit();
 }
 
 // The value of element (r, c) of local patch t's window: from the staged
@@ -315,7 +306,7 @@ __device__ __forceinline__ void extract_groups(const Args& a) {
       prepare(a, decode(g, a, per_col, size), vec, tiles + s * STAGE_FLOATS, hdr + s * HDR,
               sb + s * GROUP, gb + s * GROUP, red + s * 4 * WARPS);
     else
-      cp_async_commit();
+      dis_cp_async_commit();
   };
   const long long step = gridDim.x;
   for (int s = 0; s < STAGES - 1; ++s) stage(blockIdx.x + s * step, s);

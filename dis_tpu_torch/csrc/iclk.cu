@@ -15,6 +15,18 @@
 //       first row, moves the y tap base only);
 //     fixed mode: |delta| < conv_eps freezes the patch.
 //
+// A patch's region is the rc x rc window (rc = 2 ps + 3) of I2's padded
+// level plane that K2 (extract_regions.cu) would copy for it.  Two modes,
+// one template flag: in regions mode the warp stages the regions K2 or K2c
+// wrote; in plane mode (dis_iclk_search_plane, the main path's route
+// "K2") it takes K2's bases itself from the start pos0, base = clip(ceil(
+// pos0 + 1e-5f) + pad - ps - 2, 0, dim - rc) with row0 from y only (base 0
+// and indices clipped to the last row or column on an axis of fewer than
+// rc entries, K2's small_kernel), and copies each window straight from the
+// plane.  Both fill the same shared slots with the same floats, so every
+// tap reads the bits it reads in the other mode, and no [n, rc, rc]
+// regions go through device memory.
+//
 // Layout: a group of G lanes per patch, 32 / G patches per warp.  Lane g of
 // a group holds the K consecutive taps [g K, g K + K) of Tdx, Tdy, Tn and q
 // in registers, where G K is the power of two >= ps^2 (taps past ps^2 are
@@ -38,12 +50,20 @@
 // iclk_search_plain.  A frozen patch never changes, so leaving the loop
 // when all four are frozen is output-identical to the full trip count.
 //
-// Bound on the H100: instruction issue, not memory.  Each patch reads about
-// 1.4 KB of region and 0.8 KB of templates once (ps = 8); 82,944 patches at
-// the finest 1080p scale move about 210 MB (0.06 ms at 3.35 TB/s).  Issue
-// slots per patch per trip at ps = 8, compat mode with patch normalisation,
-// counted from the source as warp instructions divided by the patches a warp
-// holds (the SASS count differs by the address arithmetic):
+// Bound on the H100: instruction issue, not memory.  A patch reads its
+// templates once from device memory (T, Tdx, Tdy and, in fixed mode, Tn:
+// 2.3 KB at ps 12, 1.0 KB at ps 8) and its window of rc^2 floats (2.9 KB
+// at ps 12, 1.4 KB at ps 8).  In plane mode the window comes from the
+// level plane, which the L2 holds (2.2 MB at the 1080p PRESET_MEDIUM
+// finest level, 8.6 MB at 2160p's, against 50 MB): device memory sees the
+// plane about once, and the windows' 170 MB at the 1080p medium finest
+// scale (58,240 patches; 677 MB at 2160p) are read from the L2, or from
+// the L1 where the 4 warps of a block, neighbours 3 px apart in a grid
+// column, overlap.  In regions mode those bytes came from device memory,
+// after K2 had written them there.  Issue slots per patch per trip at ps
+// = 8, compat mode with patch normalisation, counted from the source as
+// warp instructions divided by the patches a warp holds (the SASS count
+// differs by the address arithmetic):
 //   before (one warp per patch, K = 2): about 150 -- the 2x2 solve, policing
 //     sqrtf and tap-base ceil/clip on every lane, three 5-level shuffle
 //     butterflies (15 shuffles, 15 dependent adds), a runtime division and
@@ -55,25 +75,32 @@
 // Measured on the H100 (PERF.md), the finest 1080p scale takes about 2.3x
 // its memory bound, down from about 7x.  ncu does not run on the measuring
 // machine, so smsp__inst_executed was not read.  Block: 4 warps (16
-// patches at ps = 8), 23.1 KB of shared memory for their regions; the 72
-// registers of the ps = 8 instance limit an SM to 7 such blocks (28
-// warps).  In a sweep on the H100, 64 threads per block ran as fast, and
-// 256 threads or a 64-register cap (8 blocks, with spills) ran slower.
-// Regions are staged with 16-byte loads where
-// the warp's regions start aligned; templates load and q stores as 16-byte
-// vectors where the rows are aligned (every even ps: ps^2 is a multiple
-// of 4).
+// patches at ps = 8), 23.1 KB of shared memory for their windows; the 72
+// registers of the ps = 8 instance (79 in plane mode) limit an SM to 7
+// such blocks (6).  In a sweep on the H100, 64 threads per block ran as
+// fast, and 256 threads or a 64-register cap (8 blocks, with spills) ran
+// slower.  Regions mode stages with 16-byte loads where the warp's regions
+// start aligned.  Plane mode stages by 4-byte cp.async, which fly while
+// the templates load: a slot's row pitch is rc, odd, which spreads the
+// sampler's reads over the shared-memory banks, so a window row's shared
+// and plane addresses agree modulo 16 bytes on one row in four, too few
+// for 16-byte copies to pay (on the H100 the plane mode at ps 12 ran
+// faster than regions mode on K2's regions, copies and all).  Templates
+// load and q stores as 16-byte vectors where the rows are aligned (every
+// even ps: ps^2 is a multiple of 4).
 //
 // K1b, the batched form (replaces _run_vmap of the same TPU file, which
 // folds the pairs into the block grid): nb pairs are one launch over nb * n
 // patches, pair-major.  Every per-pair array is [nb, n, ...] and is read at
 // the patch's flat index i = pair * n + patch; the centers are shared by the
 // pairs and read at i % n, so no [nb * n, 2] broadcast copy is made per
-// scale.  nb = 1 is K1; the math is the same lines, so each pair's patches
-// get exactly the bits they get alone.
+// scale.  In plane mode the planes are [nb, th, tw] and patch i reads plane
+// i / n: a warp may straddle two pairs.  nb = 1 is K1; the math is the same
+// lines, so each pair's patches get exactly the bits they get alone.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "dis_common.cuh"
@@ -184,17 +211,77 @@ __device__ __forceinline__ void sample(const Patch& P, int ps_rt, float px, floa
   }
 }
 
-template <int PS, int K, int G>
+// Where the patches' rc x rc windows come from.  Regions mode: K2's
+// regions [nb, n, rc, rc] and bases [nb, n].  Plane mode: the padded
+// level planes img [nb, th, tw] (first row = global row row0) and the
+// starts pos0 [nb, n, 2], from which the kernel takes K2's bases itself.
+struct Windows {
+  const float* regions;
+  const int* base_y;
+  const int* base_x;
+  const float* img;
+  const float* pos0;
+  int th, tw;
+};
+
+// Plane mode: copies each of the warp's cnt windows (bases by, bx held by
+// lane slot * G) from its pair's plane into the warp's shared slots, rc
+// floats a row at the slot's pitch rc, by 4-byte cp.async (committed; the
+// caller waits).  Element e of a window goes to lane e % 32, whose plane
+// offset advances by carries, with no division.  A plane of fewer than rc
+// rows or columns clips each index to its last row or column (K2's
+// small_kernel); elsewhere the clip never binds and is skipped.
+template <int PS, int G>
+__device__ __forceinline__ void stage_plane(const Windows& W, float* wreg, long long first,
+                                            int cnt, long long n, int ps_rt, int by, int bx,
+                                            int lane) {
+  const int ps = PS > 0 ? PS : ps_rt;
+  const int rc = 2 * ps + 3, rr = rc * rc;
+  const int dr = 32 / rc, dc = 32 - dr * rc;   // a step of 32 elements
+  const int r0 = lane / rc, c0 = lane - r0 * rc;
+  const bool small = W.th < rc || W.tw < rc;
+  for (int s = 0; s < cnt; ++s) {               // warp-uniform
+    const int sy = __shfl_sync(FULL, by, s * G), sx = __shfl_sync(FULL, bx, s * G);
+    const float* plane = W.img + (size_t)((first + s) / n) * W.th * W.tw;
+    float* dst = wreg + s * rr;
+    if (small) {
+      int r = r0, c = c0;
+      for (int e = lane; e < rr; e += 32) {
+        dis_cp_async4(dst + e, plane + min(sy + r, W.th - 1) * W.tw + min(sx + c, W.tw - 1));
+        c += dc;
+        r += dr;
+        if (c >= rc) {
+          c -= rc;
+          ++r;
+        }
+      }
+    } else {
+      const float* src = plane + (sy + r0) * W.tw + sx + c0;
+      int c = c0;
+      for (int e = lane; e < rr; e += 32) {
+        dis_cp_async4(dst + e, src);
+        c += dc;
+        src += dr * W.tw + dc;
+        if (c >= rc) {
+          c -= rc;
+          src += W.tw - rc;
+        }
+      }
+    }
+  }
+  dis_cp_async_commit();
+}
+
+template <int PS, int K, int G, bool PLANE>
 __global__ void __launch_bounds__(THREADS)
-iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
-            const int* __restrict__ base_x, const float* __restrict__ T,
-            const float* __restrict__ Tdx, const float* __restrict__ Tdy,
-            const float* __restrict__ Tn, const float* __restrict__ Hinv,
-            const float* __restrict__ centers, const float* __restrict__ init_u,
-            const unsigned char* __restrict__ conv0, long long total, int n, int ps_rt,
-            int n_iters, int pad, int row0, int width, int height, int normalize, int fixed,
-            float thresh, float conv_eps, float inv_ps2, int vec, float* __restrict__ u_out,
-            float* __restrict__ q_out, unsigned char* __restrict__ conv_out) {
+iclk_kernel(Windows win, const float* __restrict__ T, const float* __restrict__ Tdx,
+            const float* __restrict__ Tdy, const float* __restrict__ Tn,
+            const float* __restrict__ Hinv, const float* __restrict__ centers,
+            const float* __restrict__ init_u, const unsigned char* __restrict__ conv0,
+            long long total, int n, int ps_rt, int n_iters, int pad, int row0, int width,
+            int height, int normalize, int fixed, float thresh, float conv_eps, float inv_ps2,
+            int vec, float* __restrict__ u_out, float* __restrict__ q_out,
+            unsigned char* __restrict__ conv_out) {
   constexpr int PPW = 32 / G;  // patches per warp
   extern __shared__ float smem[];
   const int ps = PS > 0 ? PS : ps_rt;
@@ -204,26 +291,35 @@ iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
   const long long first = ((long long)blockIdx.x * WARPS + warp) * PPW;
   if (first >= total) return;  // warp-uniform; nothing below syncs the block
   const int cnt = (int)(total - first < PPW ? total - first : PPW);
-
-  // Stage the warp's cnt regions (contiguous in device memory).
   float* wreg = smem + warp * PPW * rr;
-  const float* greg = regions + first * rr;
-  const int nreg = cnt * rr;
-  if ((reinterpret_cast<uintptr_t>(greg) & 15) == 0 && (nreg & 3) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(greg);
-    float4* d4 = reinterpret_cast<float4*>(wreg);
-    for (int e = lane; e < nreg / 4; e += 32) d4[e] = __ldg(s4 + e);
-  } else {
-    for (int e = lane; e < nreg; e += 32) wreg[e] = greg[e];
-  }
-  __syncwarp();
 
   // A group past the end mirrors the warp's first patch, frozen, and
   // writes nothing; it only keeps the shuffles' full mask.
   const bool valid = slot < cnt;
   const long long i = first + (valid ? slot : 0);  // pair * n + patch
   const long long c = i % n;                        // the patch's center
-  const Patch P{wreg + (valid ? slot : 0) * rr, pad, row0, base_y[i], base_x[i]};
+  int by, bx;
+  if constexpr (PLANE) {
+    // K2's bases (extract_group.cuh; extract_regions.cu's small_kernel).
+    by = min(max(dis_ceil_coord(win.pos0[2 * i + 1]) + pad - row0 - ps - 2, 0),
+             max(win.th - rc, 0));
+    bx = min(max(dis_ceil_coord(win.pos0[2 * i]) + pad - ps - 2, 0), max(win.tw - rc, 0));
+    stage_plane<PS, G>(win, wreg, first, cnt, n, ps_rt, by, bx, lane);
+  } else {
+    // Stage the warp's cnt regions (contiguous in device memory).
+    const float* greg = win.regions + first * rr;
+    const int nreg = cnt * rr;
+    if ((reinterpret_cast<uintptr_t>(greg) & 15) == 0 && (nreg & 3) == 0) {
+      const float4* s4 = reinterpret_cast<const float4*>(greg);
+      float4* d4 = reinterpret_cast<float4*>(wreg);
+      for (int e = lane; e < nreg / 4; e += 32) d4[e] = __ldg(s4 + e);
+    } else {
+      for (int e = lane; e < nreg; e += 32) wreg[e] = greg[e];
+    }
+    by = win.base_y[i];
+    bx = win.base_x[i];
+  }
+  const Patch P{wreg + (valid ? slot : 0) * rr, pad, row0, by, bx};
   const bool v4 = vec != 0;
   const int t0 = g * K;
   const size_t row = (size_t)i * np;
@@ -244,6 +340,9 @@ iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
   const float sx = cx + iux, sy = cy + iuy;
   const float lb = -(float)ps / 2.0f;
   const float ub_w = (float)(width + ps / 2 - 2), ub_h = (float)(height + ps / 2 - 2);
+  // The windows: plane mode's copies flew while the templates loaded.
+  if constexpr (PLANE) dis_cp_async_wait_all();
+  __syncwarp();
 
   const bool start_frozen = conv0[i] != 0;
   bool frozen = !valid || start_frozen;
@@ -291,22 +390,21 @@ iclk_kernel(const float* __restrict__ regions, const int* __restrict__ base_y,
   }
 }
 
-template <int PS, int K, int G>
-int launch(const float* regions, const int* base_y, const int* base_x, const float* T,
-           const float* Tdx, const float* Tdy, const float* Tn, const float* Hinv,
-           const float* centers, const float* init_u, const unsigned char* conv0, long long total,
-           int n, int ps, int n_iters, int pad, int row0, int width, int height, int normalize,
-           int fixed, float thresh, float conv_eps, float inv_ps2, int vec, float* u_out,
-           float* q_out, unsigned char* conv_out, cudaStream_t stream) {
+template <int PS, int K, int G, bool PLANE>
+int launch(const Windows& win, const float* T, const float* Tdx, const float* Tdy,
+           const float* Tn, const float* Hinv, const float* centers, const float* init_u,
+           const unsigned char* conv0, long long total, int n, int ps, int n_iters, int pad,
+           int row0, int width, int height, int normalize, int fixed, float thresh,
+           float conv_eps, float inv_ps2, int vec, float* u_out, float* q_out,
+           unsigned char* conv_out, cudaStream_t stream) {
   constexpr int PPB = WARPS * (32 / G);  // patches per block
   const int rc = 2 * ps + 3;
   const size_t bytes = (size_t)PPB * rc * rc * sizeof(float);
   const long long blocks = (total + PPB - 1) / PPB;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  iclk_kernel<PS, K, G><<<(unsigned)blocks, THREADS, bytes, stream>>>(
-      regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, total, n, ps,
-      n_iters, pad, row0, width, height, normalize, fixed, thresh, conv_eps, inv_ps2, vec, u_out,
-      q_out, conv_out);
+  iclk_kernel<PS, K, G, PLANE><<<(unsigned)blocks, THREADS, bytes, stream>>>(
+      win, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, total, n, ps, n_iters, pad, row0,
+      width, height, normalize, fixed, thresh, conv_eps, inv_ps2, vec, u_out, q_out, conv_out);
   return (int)cudaGetLastError();
 }
 
@@ -327,6 +425,42 @@ extern "C" int dis_iclk_layout(int ps, int* k, int* g) {
   return 0;
 }
 
+namespace {
+
+// K1 or K1b over nb pairs of n patches, the windows from `win`.
+template <bool PLANE>
+int search(const Windows& win, const float* T, const float* Tdx, const float* Tdy,
+           const float* Tn, const float* Hinv, const float* centers, const float* init_u,
+           const unsigned char* conv0, int nb, int n, int ps, int n_iters, int pad, int row0,
+           int width, int height, int normalize, int fixed, float thresh, float conv_eps,
+           float inv_ps2, float* u_out, float* q_out, unsigned char* conv_out,
+           cudaStream_t stream) {
+  int k = 0, g = 0;
+  if (dis_iclk_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)nb * n;
+  if (total <= 0) return (int)cudaGetLastError();
+  const int vec = aligned16(T) && aligned16(Tdx) && aligned16(Tdy) &&
+                  (!fixed || aligned16(Tn)) && aligned16(q_out);
+#define DIS_ICLK_LAUNCH(PS, KK, GG)                                                           \
+  return launch<PS, KK, GG, PLANE>(win, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0,       \
+                                   total, n, ps, n_iters, pad, row0, width, height,           \
+                                   normalize, fixed, thresh, conv_eps, inv_ps2, vec, u_out,   \
+                                   q_out, conv_out, stream)
+  if (ps == 8) DIS_ICLK_LAUNCH(8, 8, 8);
+  if (ps == 10) DIS_ICLK_LAUNCH(10, 8, 16);
+  if (ps == 12) DIS_ICLK_LAUNCH(12, 8, 32);
+  if (ps == 16) DIS_ICLK_LAUNCH(16, 8, 32);
+  if (k == 4 && g == 1) DIS_ICLK_LAUNCH(0, 4, 1);
+  if (k == 8 && g == 2) DIS_ICLK_LAUNCH(0, 8, 2);
+  if (k == 8 && g == 8) DIS_ICLK_LAUNCH(0, 8, 8);
+  if (k == 8 && g == 32) DIS_ICLK_LAUNCH(0, 8, 32);
+  if (k == 16 && g == 32) DIS_ICLK_LAUNCH(0, 16, 32);
+#undef DIS_ICLK_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // nb pairs of n patches.  regions [nb, n, rc, rc]; base_y/base_x [nb, n]
 // int32; T/Tdx/Tdy/Tn [nb, n, ps^2] (Tn read only when fixed != 0); Hinv
 // [nb, n, 2, 2]; init_u [nb, n, 2]; conv0 [nb, n] bool; centers [n, 2],
@@ -342,26 +476,27 @@ extern "C" int dis_iclk_search(const float* regions, const int* base_y, const in
                                int height, int normalize, int fixed, float thresh, float conv_eps,
                                float inv_ps2, float* u_out, float* q_out,
                                unsigned char* conv_out, cudaStream_t stream) {
-  int k = 0, g = 0;
-  if (dis_iclk_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)nb * n;
-  if (total <= 0) return (int)cudaGetLastError();
-  const int vec = aligned16(T) && aligned16(Tdx) && aligned16(Tdy) &&
-                  (!fixed || aligned16(Tn)) && aligned16(q_out);
-#define DIS_ICLK_LAUNCH(PS, KK, GG)                                                           \
-  return launch<PS, KK, GG>(regions, base_y, base_x, T, Tdx, Tdy, Tn, Hinv, centers, init_u, \
-                            conv0, total, n, ps, n_iters, pad, row0, width, height, normalize, \
-                            fixed, thresh, conv_eps, inv_ps2, vec, u_out, q_out, conv_out,    \
-                            stream)
-  if (ps == 8) DIS_ICLK_LAUNCH(8, 8, 8);
-  if (ps == 10) DIS_ICLK_LAUNCH(10, 8, 16);
-  if (ps == 12) DIS_ICLK_LAUNCH(12, 8, 32);
-  if (ps == 16) DIS_ICLK_LAUNCH(16, 8, 32);
-  if (k == 4 && g == 1) DIS_ICLK_LAUNCH(0, 4, 1);
-  if (k == 8 && g == 2) DIS_ICLK_LAUNCH(0, 8, 2);
-  if (k == 8 && g == 8) DIS_ICLK_LAUNCH(0, 8, 8);
-  if (k == 8 && g == 32) DIS_ICLK_LAUNCH(0, 8, 32);
-  if (k == 16 && g == 32) DIS_ICLK_LAUNCH(0, 16, 32);
-#undef DIS_ICLK_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  const Windows win{regions, base_y, base_x, nullptr, nullptr, 0, 0};
+  return search<false>(win, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, nb, n, ps, n_iters,
+                       pad, row0, width, height, normalize, fixed, thresh, conv_eps, inv_ps2,
+                       u_out, q_out, conv_out, stream);
+}
+
+// The same search in plane mode: each patch's window comes from img [nb,
+// th, tw], the padded level planes whose first row is global row row0,
+// at K2's base from pos0 [nb, n, 2], the starts; no regions, no bases.
+// The other arguments are dis_iclk_search's.  th * tw <= INT_MAX.
+extern "C" int dis_iclk_search_plane(const float* img, int th, int tw, const float* pos0,
+                                     const float* T, const float* Tdx, const float* Tdy,
+                                     const float* Tn, const float* Hinv, const float* centers,
+                                     const float* init_u, const unsigned char* conv0, int nb,
+                                     int n, int ps, int n_iters, int pad, int row0, int width,
+                                     int height, int normalize, int fixed, float thresh,
+                                     float conv_eps, float inv_ps2, float* u_out, float* q_out,
+                                     unsigned char* conv_out, cudaStream_t stream) {
+  if (th < 1 || tw < 1 || (long long)th * tw > INT_MAX) return (int)cudaErrorInvalidValue;
+  const Windows win{nullptr, nullptr, nullptr, img, pos0, th, tw};
+  return search<true>(win, T, Tdx, Tdy, Tn, Hinv, centers, init_u, conv0, nb, n, ps, n_iters,
+                      pad, row0, width, height, normalize, fixed, thresh, conv_eps, inv_ps2,
+                      u_out, q_out, conv_out, stream);
 }

@@ -207,18 +207,6 @@ __device__ __forceinline__ void store_taps_paired(float* __restrict__ row, int t
   }
 }
 
-// An asynchronous 4-byte copy from device to shared memory, and the waits.
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // ---------------------------------------------------------------------------
 // S1: planes img, dx, dy [nb, th, tw]; writes T, Tdx, Tdy [nb, n, ps^2],
 // hinv [nb, n, 2, 2] and, where residual, tn [nb, n, ps^2].  Where start,
@@ -281,9 +269,9 @@ __device__ __forceinline__ void stage_window(const TemplateGrid& g, const Templa
     const int r = e / wc, c = e - r * wc;
     const long long off = src + (long long)r * g.tw + c;
     float* d = buf + r * g.pitch + c;
-    cp_async4(d, g.img + off);
-    cp_async4(d + g.plane, g.dx + off);
-    cp_async4(d + 2 * g.plane, g.dy + off);
+    dis_cp_async4(d, g.img + off);
+    dis_cp_async4(d + g.plane, g.dx + off);
+    dis_cp_async4(d + 2 * g.plane, g.dy + off);
   }
 }
 
@@ -354,7 +342,7 @@ templates_kernel(const TemplateGrid g) {
   // memory while the window's copies and the templates do.
   const StartPick pick = start_pick(g, tl);
   stage_window(g, tl, win);
-  cp_async_commit();
+  dis_cp_async_commit();
   const float2 picked = start_flow(g, tl, pick);
   const int slots = g.rows * g.cols;
   int off[K];   // the lane's taps in the staged window, -1 past ps^2
@@ -363,7 +351,7 @@ templates_kernel(const TemplateGrid g) {
     const int tap = t0 + k, j = tap / g.ps;
     off[k] = tap < np ? j * g.pitch + tap - j * g.ps : -1;
   }
-  cp_async_wait_all();
+  dis_cp_async_wait_all();
   __syncthreads();
   // Slot s of the tile is its patch (column s / rows, row s % rows); a
   // warp's groups take consecutive slots, rows a multiple of 32 / G.
@@ -559,12 +547,12 @@ densify_kernel(const DensifyArgs a) {
     for (int j = 0; j < PX; ++j) {
       const int yl = line + LINES * j, y = y0 + yl;
       if (y < a.out_h && x < a.W)
-        cp_async4(uwb + yl * TX + xl, a.uwsum + (long long)y * a.W + x);
+        dis_cp_async4(uwb + yl * TX + xl, a.uwsum + (long long)y * a.W + x);
       else
         uwb[yl * TX + xl] = 0.0f;
     }
   }
-  cp_async_commit();
+  dis_cp_async_commit();
   // The covers as 32-bit indices, and the range of grid rows and columns
   // they reach.
   int rlo = INT_MAX, rhi = -1, clo = INT_MAX, chi = -1;
@@ -630,7 +618,7 @@ densify_kernel(const DensifyArgs a) {
       }
       if (lane == 0) acc[yl * acc_pitch + cap_c] = T::zero();
     }
-    cp_async_wait_all();   // this thread's uniform weights
+    dis_cp_async_wait_all();   // this thread's uniform weights
     __syncthreads();
     // The column pass.
 #pragma unroll 4
@@ -646,7 +634,7 @@ densify_kernel(const DensifyArgs a) {
   } else {
     // Covers that reach past the staged sub-block: each pixel sums straight
     // from device memory, row sums inside column sums, in the same order.
-    cp_async_wait_all();
+    dis_cp_async_wait_all();
     for (int j = 0; j < PX; ++j) {
       const int yl = line + LINES * j, y = y0 + yl;
       const int* rr = rows + yl * kr;

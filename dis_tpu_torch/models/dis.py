@@ -2,9 +2,10 @@
 of ``dis_tpu/models/dis.py``.
 
 ``flow = dis_flow(img1, img2, cfg)`` runs on the device of its inputs:
-on CUDA tensors each pyramid, region extraction and search goes
-through the hand-written kernels K3, K2 (K2c where the extraction route
-says so: the 4K finest scale) and K1, each scale's templates and start
+on CUDA tensors each pyramid and search goes through the hand-written
+kernels K3 and K1 (K1 in its plane mode, which copies each patch's
+region from the level plane; K2c's regions where the extraction route
+says so: the compat 4K finest scale), each scale's templates and start
 through S1 and its fixed-mode weights and densification through S3 and
 S4; on CPU tensors
 through their plain PyTorch versions.  Scale shapes are static and the
@@ -12,7 +13,8 @@ scale loop is a Python loop.
 
 A batch of same-shape pairs ``[B, H, W]`` runs the same loop once, with
 the pair axis leading every tensor: one K3 launch per image (four
-levels each), one K2 (K2b or K2c) and one K1 (K1b) launch per scale, whatever B is.
+levels each), one K1 (K1b) launch per scale, after one K2c where the route takes
+it, whatever B is.
 Each pair of a batch gets the bits it gets alone.  Each scale's constants
 come from its plan (``ops/grid.py::scale_plan``), made once per shape and
 device, so a frame makes no host-to-device copy and no host sync, and can
@@ -27,7 +29,7 @@ or once at the finest scale, on the Q1 levels or the intensity chain
 frame with kernel F1 where it pads, and upsamples and crops the flow with
 kernel F3 where ``finest_scale > 0``.  Without ``refined_init_clamp`` a per-level
 refinement leaves the next scale's init without a static bound, and the
-route takes K2 there.
+route takes "K2" (K1's plane mode) there.
 
 Exact tiling (``parallel/tiles.py``) runs one scale on a window of
 output rows (:func:`dis_scale_window`) or the whole pipeline on a row
@@ -121,8 +123,9 @@ def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
     (None at the coarsest scale; its first row is global row
     ``coarse_row_offset``), the IC-LK search and densification.  On CUDA
     tensors each step is one kernel launch: S1 (templates, inverse
-    Hessians, fixed mode's ``Tn`` and the start), K2 or K2c, K1, S3
-    (fixed mode's weights) and S4 (densification)."""
+    Hessians, fixed mode's ``Tn`` and the start), K1 in its plane mode
+    (or K2c, then K1), S3 (fixed mode's weights) and S4
+    (densification)."""
     sw = l1.width
     ps, pad = cfg.patch_size, cfg.img_padding
     fixed = cfg.mode == "fixed"

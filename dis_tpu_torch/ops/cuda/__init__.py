@@ -8,7 +8,8 @@ Each C entry point of ``csrc/`` is registered as an op of the
 ``dis_tpu_torch`` namespace (``torch.library.custom_op``) with a flat
 schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
 ``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c),
-``iclk_search`` (K1, K1b), ``refine_planes`` (R0), ``refine_warp`` and
+``iclk_search`` and ``iclk_search_plane`` (K1, K1b; the second in its
+plane mode), ``refine_planes`` (R0), ``refine_warp`` and
 ``refine_setup`` (R1 and its setup mode), ``refine_weights`` (R2),
 ``refine_sor``, ``refine_compose`` and ``refine_nosweep`` (R3 and its
 compose and no-sweep modes), ``refine_update`` (R23),

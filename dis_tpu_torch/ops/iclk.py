@@ -18,15 +18,18 @@ Quirk-compat details (SURVEY.md section 2):
   valid region (patch.cpp:185-194).
 - Q10: bilinear taps are addressed from ``ceil(pos + 1e-5)`` in float32.
 
-The search reads each patch's (2ps+3)^2 sampling region, extracted once
-per scale (kernel K2, ``ops/cuda/extract_kernel.py``, or its column-
-banded form K2c, ``ops/cuda/extract_banded_kernel.py``, as
-:func:`extraction_route` picks); the iteration loop is kernel K1
-(``ops/cuda/iclk_kernel.py``).  Before the search, kernel S1 cuts the
-templates, inverts their Hessians and picks each patch's start from the
-coarser flow (``ops/cuda/scale_kernel.py``).  This module holds the
-kernels' plain PyTorch versions (:func:`extract_regions_plain`, one
-function for K2, K2b and K2c, :func:`iclk_search_plain`, and S1's
+The search reads each patch's (2ps+3)^2 sampling region of the level
+plane.  The iteration loop is kernel K1 (``ops/cuda/iclk_kernel.py``),
+which on the route ``"K2"`` copies each region straight from the plane
+(its plane mode), and on the route ``"K2c"`` reads the regions that the
+column-banded extraction K2c wrote (``ops/cuda/extract_banded_kernel.py``),
+as :func:`extraction_route` picks; K2 (``ops/cuda/extract_kernel.py``)
+writes the same regions standalone, the plane mode's gate.  Before the
+search, kernel S1 cuts the templates, inverts their Hessians and picks
+each patch's start from the coarser flow (``ops/cuda/scale_kernel.py``).
+This module holds the kernels' plain PyTorch versions
+(:func:`extract_regions_plain`, one function for K2, K2b and K2c and
+the plane mode's windows, :func:`iclk_search_plain`, and S1's
 :func:`scale_templates_plain`: :func:`templates_plain` then
 :func:`search_start_plain`), which the wrappers take for CPU tensors.
 
@@ -415,7 +418,8 @@ def extraction_route(cfg: DISConfig, img_shape, n_patches: int,
     function at any size.  The TPU warns on that fallback (a cliff of
     its own: the XLA gather is much slower than its kernels); on the card
     K2 and K2c run the same code at the same speed, so the port does
-    not."""
+    not.  On the route ``"K2"`` the port launches no K2: K1's plane mode
+    copies the windows K2 would write straight from the plane."""
     npad = -(-n_patches // 128) * 128
     smem_fits = 8 * npad + 32 * 1024 <= 1 << 20
     if vmem_ok(*img_shape, cfg.patch_size) and smem_fits:
@@ -432,12 +436,14 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
                    plain: bool = False, Tn: Optional[torch.Tensor] = None,
                    start: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> SearchResult:
-    """Run the full IC-LK iteration for every patch at one scale:
-    region extraction (K2, or K2c where :func:`extraction_route` says so,
-    which needs the grid ``geom`` and the static bound ``init_bound`` on
-    ``|init_u|``, None where there is none), then the search loop (K1).
+    """Run the full IC-LK iteration for every patch at one scale: on the
+    route ``"K2"`` one launch of the search loop K1 in its plane mode,
+    which copies each patch's window straight from the level plane; where
+    :func:`extraction_route` says ``"K2c"`` (which needs the grid ``geom``
+    and the static bound ``init_bound`` on ``|init_u|``, None where there
+    is none), the column-banded extraction K2c, then K1 on its regions.
     ``img2`` [(B,) th, tw], ``tpl`` and ``init_u`` [(B,) N, 2] carry the
-    pair axis of a batch (then K2b or K2c and K1b: still one launch
+    pair axis of a batch (then K1b, or K2c and K1b: still one launch
     each); ``centers`` [N, 2] is shared.  ``width`` and ``height`` are the scale's global size;
     ``row0`` is the global row of the plane's first row.  ``plain=True``
     runs the plain versions on any device.  The pipeline passes fixed
@@ -446,8 +452,7 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
     :func:`residual_template`, ``centers + init_u`` and
     :func:`out_of_bounds` as torch ops."""
     from .cuda.extract_banded_kernel import extract_regions_banded
-    from .cuda.extract_kernel import extract_regions
-    from .cuda.iclk_kernel import iclk_search
+    from .cuda.iclk_kernel import iclk_search, iclk_search_plane
 
     ps, pad = cfg.patch_size, cfg.img_padding
     if cfg.mode == "fixed" and Tn is None:
@@ -458,16 +463,15 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
     pos0, conv0 = start
     route = "K2" if geom is None else extraction_route(
         cfg, tuple(img2.shape[-2:]), centers.shape[0], init_bound)
+    args = (tpl, Tn, centers, init_u, conv0, cfg, width, height, row0)
     if plain:
-        regions = extract_regions_plain(img2, pos0, ps, pad, row0)
+        u, Q, conv = iclk_search_plain(*extract_regions_plain(img2, pos0, ps, pad, row0),
+                                       *args)
     elif route == "K2c":
-        regions = extract_regions_banded(img2, pos0, ps, pad, geom, init_bound, row0)
+        u, Q, conv = iclk_search(
+            *extract_regions_banded(img2, pos0, ps, pad, geom, init_bound, row0), *args)
     else:
-        regions = extract_regions(img2, pos0, ps, pad, row0,
-                                  num_h=None if geom is None else geom.num_h)
-    search = iclk_search_plain if plain else iclk_search
-    u, Q, conv = search(*regions, tpl, Tn, centers, init_u, conv0, cfg,
-                        width, height, row0)
+        u, Q, conv = iclk_search_plane(img2, pos0, *args)
     if checks.active():
         _guard_result(u, Q, centers, init_u, pos0, cfg)
     return SearchResult(u=u, Q=Q, converged=conv, start_oob=conv0)

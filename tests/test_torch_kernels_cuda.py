@@ -14,7 +14,8 @@ machine does not need.)  Gates: K3 (every level of a pyramid in one
 launch), K2 and K1 bitwise (K1 uses the plain version's pair trees and
 no FMA; K2 and K2c also with windows outside their group's staged box,
 groups straddling columns and ragged last groups), K1 also on warps
-whose patches freeze at different trips;
+whose patches freeze at different trips, and in its plane mode (windows
+from the level plane) equal to its plain composition and to K2 then K1;
 ``dis_flow`` through the kernels within 1e-3 px mean of the plain path,
 with the refinement presets too; the refinement's kernels R1 (warp), R2
 (weight update) and R3 (half-sweep) bitwise equal to their plain
@@ -55,7 +56,7 @@ import dis_tpu_torch
 from dis_tpu_torch.ops import iclk
 from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, lane_layout
+from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane, lane_layout
 from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS, pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.cuda import scale_kernel as sk
 from dis_tpu_torch.ops.cuda.refine_kernel import (refine_sor, refine_update, refine_warp,
@@ -164,12 +165,14 @@ def test_dis_flow_kernels_vs_plain(mode):
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = dis_tpu_torch.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
                                   patch_overlap=0.3, mode=mode)
-    wrappers = (pyramid_levels, extract_regions, iclk_search) + SCALE_WRAPPERS
+    wrappers = ((pyramid_levels, iclk_search, iclk_search_plane, extract_regions)
+                + SCALE_WRAPPERS)
     for w in wrappers:
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
     assert [w.launches for w in SCALE_WRAPPERS] == [4, 4 if mode == "fixed" else 0, 4]
-    assert all(w.launches > 0 for w in wrappers[:3])
+    # Every scale searches in K1's plane mode: no K2.
+    assert [w.launches for w in wrappers[1:4]] == [4, 4, 0] and pyramid_levels.launches > 0
     for w in wrappers:
         w.launches = 0
     plain = dis_tpu_torch.dis_flow(x, y, cfg, plain=True)
@@ -595,6 +598,99 @@ def test_search_mixed_trips_bitwise(ps, mode):
     assert len(set(trips)) > 1          # some patches froze inside the loop
 
 
+# Frames of the plane-mode cases: a level, a level searched on a stripe
+# of its plane (row0 > 0), wide starts whose windows clip at every edge of
+# the plane, and planes shorter or narrower than a region.
+PLANE_FRAMES = {"mixed": (72, 104), "row0": (72, 104), "edges": (72, 104),
+                "short_plane": (2, 40), "narrow_plane": (40, 2)}
+
+
+def _plane_case(ps, batch, case, mode):
+    """CUDA inputs of K1's plane mode on a level of ``PLANE_FRAMES[case]``:
+    (plane, starts, the search's other arguments).  An odd number of
+    patches, so that with 2 pairs a warp of 2 or 4 patches straddles the
+    pairs; random start freezes and inits up to ps px (3 ps in "edges"),
+    so that the patches of a warp freeze at different trips."""
+    h, w = PLANE_FRAMES[case]
+    x, y = _batch(batch or 1, h, w, 140 + ps)
+    if batch is None:
+        x, y = x[0], y[0]
+    l1 = pyramid_level(x, ps, True)
+    l2 = pyramid_level(y, ps, True)
+    cfg = dis_tpu_torch.DISConfig(iterations=14, patch_size=ps, coarsest_scale=0,
+                                  patch_overlap=0.6, mode=mode)
+    gnum_h = -(-h // cfg.steps)
+    iy_range, row0 = ((gnum_h // 3, gnum_h), 2 * ps) if case == "row0" else (None, 0)
+    geom = make_grid(w, h, cfg.steps, iy_range=iy_range)
+    tpl = iclk.extract_templates_grid(*l1, geom, ps, ps)
+    n = geom.num_w * geom.num_h
+    n -= 1 - n % 2
+    lead = () if batch is None else (batch,)
+    r = np.random.default_rng(ps)
+    centers = torch.from_numpy(geom.centers[:n]).cuda()
+    spread = 3 * ps if case == "edges" else ps
+    init_u = torch.from_numpy(r.uniform(-spread, spread, lead + (n, 2))
+                              .astype(np.float32)).cuda()
+    tpl = iclk.PatchTemplates(*(t[..., :n, :].contiguous() for t in tpl[:3]),
+                              tpl.Hinv[..., :n, :, :].contiguous())
+    pos0 = centers + init_u
+    conv0 = iclk.out_of_bounds(pos0, ps, w, h) | torch.from_numpy(
+        r.random(lead + (n,)) < 0.2).cuda()
+    Tn = iclk.residual_template(tpl, cfg) if mode == "fixed" else None
+    plane = l2[0][..., row0:, :].contiguous()
+    return plane, pos0, (tpl, Tn, centers, init_u, conv0, cfg, w, h, row0)
+
+
+@pytest.mark.parametrize("ps", [6, 8, 10, 12, 14, 16])
+@pytest.mark.parametrize("batch", [None, 2])
+@pytest.mark.parametrize("case", sorted(PLANE_FRAMES))
+@pytest.mark.parametrize("mode", ["compat", "fixed"])
+def test_search_plane_bitwise(ps, batch, case, mode):
+    """K1 in its plane mode (K1b with 2 pairs, a warp straddling them)
+    equals its plain composition, ``extract_regions_plain`` then
+    ``iclk_search_plain``, and K2 then K1, bitwise, in one launch and no
+    K2: on warps whose patches freeze at different trips, a stripe's plane
+    (row0 > 0), windows clipped at all four edges of the plane, and planes
+    with fewer rows or columns than a region (K2's edge rule)."""
+    plane, pos0, args = _plane_case(ps, batch, case, mode)
+    row0 = args[-1]
+    extract_regions.launches = iclk_search.launches = iclk_search_plane.launches = 0
+    got = iclk_search_plane(plane, pos0, *args)
+    assert (extract_regions.launches, iclk_search.launches, iclk_search_plane.launches) == (
+        0, 1, 1)
+    pr = iclk.extract_regions_plain(plane, pos0, ps, ps, row0)
+    trips = []
+    want = iclk.iclk_search_plain(*pr, *args, trips=trips)
+    k2k1 = iclk_search(*extract_regions(plane, pos0, ps, ps, row0), *args)
+    torch.cuda.synchronize()
+    for g, p, k in zip(got, want, k2k1):
+        assert torch.equal(g, p) and torch.equal(g, k)
+    if case == "mixed":
+        assert len(set(trips)) > 1      # some patches froze inside the loop
+    th, tw = plane.shape[-2:]
+    rc = iclk.region_size(ps)
+    by, bx = pr[1], pr[2]
+    if case == "edges":
+        assert all(bool(c.any()) for c in (by == 0, by == th - rc, bx == 0, bx == tw - rc))
+    if case.endswith("_plane"):
+        assert min(th, tw) < rc
+
+
+def test_search_plane_empty_grid():
+    """The plane mode over no patches launches nothing and returns empty
+    outputs."""
+    dev = torch.device("cuda")
+    cfg = dis_tpu_torch.DISConfig(iterations=4, patch_size=8)
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device=dev)
+    tpl = iclk.PatchTemplates(z(0, 64), z(0, 64), z(0, 64), z(0, 2, 2))
+    iclk_search_plane.launches = 0
+    u, Q, conv = iclk_search_plane(z(40, 56), z(0, 2), tpl, None, z(0, 2), z(0, 2),
+                                   z(0, dt=torch.bool), cfg, 40, 24)
+    torch.cuda.synchronize()
+    assert u.shape == (0, 2) and Q.shape == (0, 64) and conv.shape == (0,)
+    assert iclk_search_plane.launches == 0
+
+
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
 @pytest.mark.parametrize("batch", [None, 2])
 def test_refinement_card_equals_cpu(scheme, batch):
@@ -627,7 +723,7 @@ def test_refined_dis_flow_kernels_vs_plain(preset):
     a, b = _smooth(96, 160, 5)
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = getattr(dis_tpu_torch, preset)
-    wrappers = ((pyramid_levels, extract_regions, iclk_search) + MAIN_REFINE_WRAPPERS
+    wrappers = ((pyramid_levels, iclk_search, iclk_search_plane) + MAIN_REFINE_WRAPPERS
                 + SCALE_WRAPPERS)
     for w in wrappers + REFINE_WRAPPERS[1:]:
         w.launches = 0
@@ -657,7 +753,7 @@ def test_refined_graph_batch_and_tiles():
     x, y = _batch(2, 96, 128, 111)
     eager = dis_tpu_torch.dis_flow(x, y, cfg)
     compiled = aot_compile(cfg, 96, 128, batch=2)
-    assert compiled.graph_launches == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "R0": 4, "R1": 4,
+    assert compiled.graph_launches == {"K3": 2, "K2": 0, "K2c": 0, "K1": 4, "R0": 4, "R1": 4,
                                        "R23": 20, "S1": 4, "S3": 4, "S4": 4, "F2": 1}
     for _ in range(2):
         assert torch.equal(compiled(x, y), eager)
@@ -822,7 +918,7 @@ def test_cuda_artifact_replays_as_aot_compile(batch):
         x, y = x[0], y[0]
     cfg = dis_tpu_torch.DIS_FAST
     run, program = load_exported(export_flow(cfg, 75, 118, batch=batch))
-    assert kernel_ops(program) == {"K3": 2, "K2": 4, "K2c": 0, "K1": 4, "S1": 4, "S3": 4,
+    assert kernel_ops(program) == {"K3": 2, "K2": 0, "K2c": 0, "K1": 4, "S1": 4, "S3": 4,
                                    "S4": 4, "F1": 1}
     assert not any(n.target is torch.ops.aten.gather.default for n in program.graph.nodes)
     compiled = aot_compile(cfg, 75, 118, batch=batch)
@@ -840,7 +936,8 @@ def test_cuda_artifact_replays_as_aot_compile(batch):
 
 def test_cuda_artifact_4k_holds_k2c():
     """At the 4K bucket the finest extraction is K2c, in the program as
-    ``extract_regions_banded``."""
+    ``extract_regions_banded``; the other scales search in K1's plane
+    mode, with no K2."""
     from dis_tpu_torch.cost import kernel_ops
     from dis_tpu_torch.serving import export_flow, load_exported
 
@@ -848,7 +945,7 @@ def test_cuda_artifact_4k_holds_k2c():
                                   finest_scale=0, patch_overlap=0.3, mode="compat",
                                   early_exit=False)
     _, program = load_exported(export_flow(cfg, 2160, 3840))
-    assert kernel_ops(program) == {"K3": 2, "K2": 3, "K2c": 1, "K1": 4, "S1": 4, "S4": 4}
+    assert kernel_ops(program) == {"K3": 2, "K2": 0, "K2c": 1, "K1": 4, "S1": 4, "S4": 4}
 
 
 def test_two_gloo_ranks_on_one_card():

@@ -17,14 +17,14 @@ from dis_tpu_torch import _build, interop
 from dis_tpu_torch.models import dis as tdis
 from dis_tpu_torch.ops import iclk
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search
+from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane
 from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.grid import make_grid
 
 from conftest import synthetic_pair
 from torch_threads import one_thread
 
-WRAPPERS = (pyramid_levels, extract_regions, iclk_search)
+WRAPPERS = (pyramid_levels, extract_regions, iclk_search, iclk_search_plane)
 
 
 @pytest.mark.parametrize("name", sorted(jconfig.PRESETS))
@@ -122,7 +122,7 @@ def test_wrappers_take_plain_path_on_cpu():
                                   mode="fixed")
     flow = dis_tpu_torch.dis_flow(torch.from_numpy(i1), torch.from_numpy(i2), cfg)
     assert flow.shape == (32, 48, 2) and flow.device.type == "cpu"
-    assert [w.launches for w in WRAPPERS] == [0, 0, 0]
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_wrappers_refuse_non_cuda_non_cpu_tensors():
@@ -140,7 +140,10 @@ def test_wrappers_refuse_non_cuda_non_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         iclk_search(z(n, 19, 19), z(n, dt=torch.int32), z(n, dt=torch.int32), tpl,
                     None, z(n, 2), z(n, 2), z(n, dt=torch.bool), cfg, 40, 30)
-    assert [w.launches for w in WRAPPERS] == [0, 0, 0]
+    with pytest.raises(ValueError, match="CUDA"):
+        iclk_search_plane(meta, z(n, 2), tpl, None, z(n, 2), z(n, 2), z(n, dt=torch.bool),
+                          cfg, 40, 30)
+    assert [w.launches for w in WRAPPERS] == [0] * len(WRAPPERS)
 
 
 def test_build_is_keyed_by_sources_and_needs_nvcc(monkeypatch):

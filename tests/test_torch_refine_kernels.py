@@ -510,7 +510,7 @@ def test_cpu_export_records_the_refinement_ops():
     flow_plans(cfg, h, w, torch.device("cpu"))
     with kops.ops_on_cpu():
         program = torch.export.export(_Flow(cfg), (torch.zeros(h, w), torch.zeros(h, w)))
-    assert cost.kernel_ops(program) == {"K3": 2, "K2": levels, "K2c": 0, "K1": levels,
+    assert cost.kernel_ops(program) == {"K3": 2, "K2": 0, "K2c": 0, "K1": levels,
                                         "R0": levels, "R1": levels, "R23": 5 * levels,
                                         "S1": levels, "S3": levels, "S4": levels, "F2": 1}
     assert len(program.graph.nodes) < 34_478 // 10, len(program.graph.nodes)

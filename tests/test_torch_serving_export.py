@@ -195,25 +195,26 @@ def test_export_refusals(monkeypatch):
 
 def _kernel_formulas(cfg, h, w):
     """The kernel launches of one CPU call at a bucket divisible by
-    2**coarsest, by the package's formulas: K3 per image, K2, K1, S1 (the
-    templates and the search start) and S4 per scale (K1 for all its
-    trips; S3 in fixed mode only, so not here), coarsest scale first."""
+    2**coarsest, by the package's formulas: K3 per image, K1 in its plane
+    mode (no K2), S1 (the templates and the search start) and S4 per scale
+    (K1 for all its trips; S3 in fixed mode only, so not here), coarsest
+    scale first."""
     p, ps = cfg.img_padding, cfg.patch_size
     levels = cfg.coarsest_scale + 1
     k3 = [cost.pyramid_cost(1, h, w, p, levels)] * 2
-    k2, k1, s1, s4 = [], [], [], []
+    k1, s1, s4 = [], [], []
     for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
         g = make_grid(w >> s, h >> s, cfg.steps)
         n = g.num_w * g.num_h
-        k2.append(cost.extract_cost(1, (h >> s) + 2 * p, (w >> s) + 2 * p, n, ps))
-        k1.append(cost.search_cost(1, n, ps, cfg.mode == "fixed", cfg.patch_normalization,
-                                   n * (cfg.iterations + 1)))
+        k1.append(cost.search_plane_cost(1, (h >> s) + 2 * p, (w >> s) + 2 * p, n, ps,
+                                         cfg.mode == "fixed", cfg.patch_normalization,
+                                         n * (cfg.iterations + 1)))
         tpl = cost.templates_cost(1, (h >> s) + 2 * p, (w >> s) + 2 * p, n, ps, False)
         start = cost.start_cost(1, g.num_w, g.num_h, s != cfg.coarsest_scale)
         s1.append((tpl[0] + start[0], tpl[1] + start[1]))
         k = -(-ps // cfg.steps) + 1
         s4.append(cost.densify_cost(1, n, h >> s, w >> s, k, k, False))
-    return {"K3": k3, "K2": k2, "K2c": [], "K1": k1, "S1": s1, "S4": s4}
+    return {"K3": k3, "K2": [], "K2c": [], "K1": k1, "S1": s1, "S4": s4}
 
 
 def test_cost_analysis(loaded):

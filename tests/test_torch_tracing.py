@@ -13,7 +13,8 @@ one test for the card.
 - ``summarize``'s interval arithmetic on synthetic stamps.
 - Marked ``cuda``: after ``aot_compile`` of the benchmark's
   configurations (1080p and 4K), a profiled replay's program kernels are
-  the manifest's, one for one, every scale is in the manifest, and a
+  the manifest's, one for one, no extraction kernel is among them (K1's
+  plane mode at every scale), every scale is in the manifest, and a
   recorded window times the graph's head.
   On the card: ``python -m pytest --noconftest -p no:cacheprovider
   tests/test_torch_tracing.py -q``.
@@ -35,7 +36,6 @@ from dis_tpu_torch.models.dis import dis_flow_padded, scale_extraction_route
 from dis_tpu_torch.ops import cuda as kops
 from dis_tpu_torch.ops.cuda import (extract_banded_kernel, extract_kernel, frame_kernel,
                                     iclk_kernel, pyramid_kernel, refine_kernel, scale_kernel)
-from dis_tpu_torch.ops.iclk import region_size
 from dis_tpu_torch.serving import aot_compile
 from dis_tpu_torch.utils import profiling
 
@@ -45,6 +45,7 @@ WRAPPERS = {"pyramid_levels": pyramid_kernel.pyramid_levels,
             "extract_regions": extract_kernel.extract_regions,
             "extract_regions_banded": extract_banded_kernel.extract_regions_banded,
             "iclk_search": iclk_kernel.iclk_search,
+            "iclk_search_plane": iclk_kernel.iclk_search_plane,
             "refine_planes": refine_kernel.refine_planes,
             "refine_warp": refine_kernel.refine_warp, "refine_setup": refine_kernel.refine_setup,
             "refine_setup_warp1": refine_kernel.refine_setup_warp1,
@@ -57,8 +58,9 @@ WRAPPERS = {"pyramid_levels": pyramid_kernel.pyramid_levels,
             "frame_pad": frame_kernel.frame_pad, "intensity_levels": frame_kernel.intensity_levels,
             "frame_finish": frame_kernel.frame_finish}
 # The ops a mode goes through, and the kernel whose launches count it too.
-MODE_OF = {"refine_setup": "refine_warp", "refine_setup_warp1": "refine_warp",
-           "refine_compose": "refine_sor", "refine_nosweep": "refine_sor"}
+MODE_OF = {"iclk_search_plane": "iclk_search", "refine_setup": "refine_warp",
+           "refine_setup_warp1": "refine_warp", "refine_compose": "refine_sor",
+           "refine_nosweep": "refine_sor"}
 
 CONFIGS = Path(__file__).resolve().parents[1] / "flowbench" / "configs"
 
@@ -77,9 +79,15 @@ CASES = {
     "medium": (MEDIUM, 64, 96, None),
     "medium_warp1": (dataclasses.replace(MEDIUM, refinement_scheme="warp1"), 64, 96, None),
     "medium_at_end": (dataclasses.replace(MEDIUM, refine_per_level=False), 64, 96, 2),
+    # Scales 5..1 searched and refined, the frame padded as 1080 rows are.
+    "hd1080_medium": (_bench_config("hd1080_medium")[0], 135, 240, None),
     # Six scales: K3 and F2 twice a frame each, scales 6..1 searched and refined.
     "uhd4k_medium": (_bench_config("uhd4k_medium")[0], 270, 480, None),
 }
+# Launches a pair of the benchmark's medium configurations: their frames at
+# these sizes take the scales, pads and launches of 1920x1080 and
+# 3840x2160.
+PAIR_LAUNCHES = {"hd1080_medium": 62, "uhd4k_medium": 74}
 
 
 def _expected(cfg, h, w, batch):
@@ -102,16 +110,10 @@ def _expected(cfg, h, w, batch):
             seq += ["R23"] * updates or ["R3n"]
         return [(k, stage, s) for k in seq]
 
-    rc = region_size(cfg.patch_size)
     for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        th, tw = (ph >> s) + 2 * cfg.img_padding, (pw >> s) + 2 * cfg.img_padding
-        if th < rc or tw < rc:
-            k2 = "K2s"
-        elif scale_extraction_route(cfg, pw, ph, s) == "K2c":
-            k2 = "K2c"
-        else:
-            k2 = "K2b" if batch else "K2"
-        seq = ["S1", k2, "K1b" if batch else "K1"] + (["S3"] if cfg.mode == "fixed" else [])
+        # The route "K2" is K1's plane mode alone: no extraction launch.
+        k2c = ["K2c"] if scale_extraction_route(cfg, pw, ph, s) == "K2c" else []
+        seq = ["S1", *k2c, "K1b" if batch else "K1"] + (["S3"] if cfg.mode == "fixed" else [])
         out += [(k, f"scale_{s}", s) for k in seq + ["S4"]]
         if refines and cfg.refine_per_level:
             out += refinement(f"refine_s{s}", s)
@@ -143,6 +145,7 @@ def test_manifest_lists_every_launch_in_order(case, stubbed_launches):
         dis_tpu_torch.dis_flow(x, x.roll(1, -1), cfg)
     deltas = {op: wr.launches - before[op] for op, wr in WRAPPERS.items()}
     assert [(e.kernel, e.stage, e.scale) for e in manifest] == _expected(cfg, h, w, batch)
+    assert len(manifest) == PAIR_LAUNCHES.get(case, len(manifest))
     assert all(e.op in KERNELS and re.match(r"^[a-z_0-9]+$", e.op) for e in manifest)
     assert set(e.kernel for e in manifest) <= set(profiling.KERNEL_FUNCTIONS)
     # Each launch counts in its op's wrapper, and a mode's also in its kernel's.
@@ -320,6 +323,9 @@ def test_replay_runs_the_manifest(config, batch, tmp_path):
     flow = aot_compile(cfg, h, w, batch)
     assert flow.graph_manifest and flow.graph_head is not None
     assert sum(flow.graph_launches.values()) == len(flow.graph_manifest)
+    # Every scale takes the route "K2", K1's plane mode: no extraction runs.
+    assert not any(e.kernel.startswith("K2") for e in flow.graph_manifest)
+    assert len(flow.graph_manifest) == PAIR_LAUNCHES.get(config, len(flow.graph_manifest))
     # Every scale's search, and its refinement where the preset refines at
     # every scale, is in the manifest under that scale.
     scales = set(range(cfg.finest_scale, cfg.coarsest_scale + 1))
