@@ -59,7 +59,8 @@ recipe, a (3, 2) px shift) under the compat bench config and
 ``DIS_FAST``, and exact row-stripe tiling:
 
 1c. K3 on a 4K image against the plain level chain, bitwise; K2c (the
-    column-banded K2) at the 4K finest-scale shapes (N =
+    column-banded K2, a standalone kernel the search no longer launches)
+    at the 4K finest-scale shapes (N =
     331,776), bitwise equal to its plain version and to K2 at B = 1, at
     B = 2 and on stripe 1 of 3 (row0 = 544), where K1 with row0 > 0 is
     held to its plain version bitwise, and its plane mode on the stripe's
@@ -72,21 +73,23 @@ recipe, a (3, 2) px shift) under the compat bench config and
     scale's static bound (56 px) on the 4K, 1080p and KITTI B = 8 finest
     grids, so that many groups' boxes outgrow the fixed stage; K2c, K2
     and K2 with ``num_h`` bitwise equal to the plain version;
-2d. ``dis_flow`` at 4K: per call K3 launches twice, K2c once and K1 four times,
-    three of them in its plane mode
-    (none under ``DIS_ULTRAFAST``, whose finest scale is 1), the median
+2d. ``dis_flow`` at 4K: per call K3 launches twice and K1 four times, all
+    in its plane mode, and no K2c (K1 three times under
+    ``DIS_ULTRAFAST``, whose finest scale is 1), the median
     within 0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX
     package's CPU reading, the kernel path against the plain path under
     the 1080p gates, a batch of 2 bitwise equal to 2 serial calls, and
     an ``aot_compile`` 4K graph replay bitwise equal to the eager path;
 2e. ``parallel.tiled_flow_exact`` with 3 stripes and ``min_stripe_halo``
     (176 rows; row0 0, 544, 1264) and ``parallel.grid_tiled_flow`` with 3
-    parts, each bitwise equal to the untiled flow, K2c once and K3 twice
-    per stripe;
+    parts, each bitwise equal to the untiled flow, K1 in its plane mode
+    at every scale of every stripe (no K2c) and K3 twice per stripe;
 3c. times: K2c and K2 on the same 4K finest inputs (beside a ``zero_``
-    fill of as many bytes, the card's practical write rate), 4K ms/frame
-    eager and replayed (compat and ``DIS_FAST``), 3-stripe tiled 4K
-    ms/frame.
+    fill of as many bytes, the card's practical write rate), K2c then K1
+    against K1's plane mode there (the search as the removed route ran
+    it and as it runs now, three runs each way in turns, bitwise equal),
+    4K ms/frame eager and replayed (compat and ``DIS_FAST``), 3-stripe
+    tiled 4K ms/frame.
 
 The refinement presets (``DIS_MEDIUM``: ps 8, stride 4, scales 3..0;
 ``DIS_FULL``: ps 12, stride 3, scales 4..0; both refine every level on
@@ -99,8 +102,7 @@ from the Sobels of the warped plane and of I1, and R0 does not run), R23
 (a weight update and its half-sweeps on tiles in shared memory; the last
 of a level in its compose mode, which writes the flow, clipped under
 ``refined_init_clamp``) and R3 (a level without a half-sweep, in its
-no-sweep mode; R2 and R3, a weight update and a half-sweep, R23's gate),
-and
+no-sweep mode), and
 whose intensity planes come from F2, which no ``pallas_call`` backs (they
 replace XLA's fusions of the JAX package's refinement code):
 
@@ -112,23 +114,20 @@ replace XLA's fusions of the JAX package's refinement code):
     frames and of the KITTI B = 8 ``DIS_MEDIUM`` batch (R0's and the setup
     mode's calls, R23's second, a weight update with nonzero increments,
     and its last, the compose mode), recorded from a refinement run
-    (``refine_step_inputs``), and R1 on the setup mode's planes and flow,
-    each bitwise equal to its plain version (R23 also to R2 and R3's
-    chain) and timed beside it (kernel replayed, plain eager and replayed)
-    with its bound and its share of it, and again on inputs out of the L2
-    (``cold_replay_ms``); R2, R3 and R3's compose mode, off the main path
-    since R23 and its gate, on the inputs of R23's update (R3 its first
-    red and black half-sweeps, the compose mode the last black one of the
-    last update); R23 also on both calls at every level of the 1080p
-    ``hd1080_medium`` frame (flowbench's configuration) and on the finest
-    level of the 1080p ``DIS_MEDIUM`` frame under ``warp1``, bitwise equal
-    to its plain version and to R2 and R3, timed beside R2 and R3 a level;
-    R1 also beside ``grid_sample`` (bilinear, border padding), the
-    yardstick of its ``library_ms``; R1's warp1 mode (R1w) likewise on the
-    finest level of the 1080p ``DIS_MEDIUM`` frame under ``warp1``; R23's
-    compose mode with the clip on the compose mode's inputs with a bound
-    that binds (``CLIP_BOUND``), and R3's no-sweep mode on the last half-
-    sweep's u0, v0, du and dv with and without the clip;
+    (``refine_step_inputs``), each bitwise equal to its plain version run
+    on the card's tensors and timed beside it (kernel replayed, plain
+    eager and replayed) with its bound and its share of it, and again on
+    inputs out of the L2 (``cold_replay_ms``); R23 also on both calls at
+    every level of the 1080p ``hd1080_medium`` frame (flowbench's
+    configuration) and on the finest level of the 1080p ``DIS_MEDIUM``
+    frame under ``warp1``, bitwise equal to its plain version, timed a
+    level; R1's setup mode also beside ``grid_sample`` (bilinear, border
+    padding) on its planes and flow, the yardstick of its ``library_ms``;
+    R1's warp1 mode (R1w) likewise on the finest level of the 1080p
+    ``DIS_MEDIUM`` frame under ``warp1``; R23's compose mode with the clip
+    on the compose mode's inputs with a bound that binds
+    (``CLIP_BOUND``), and R3's no-sweep mode on that update's u0, v0, du
+    and dv with and without the clip;
 1f. (each scale's glue) S1 (templates, inverse Hessians, fixed mode's
     ``Tn`` and the search start: the NN init and the start test, which
     were once a kernel of their own, S2), S3 (fixed mode's
@@ -176,7 +175,7 @@ replace XLA's fusions of the JAX package's refinement code):
     R1 5, R23 50, F1 1, F2 1 (``DIS_FULL``, whose five levels take
     two K3 launches per image, and whose 1080 rows pad to 1088), R1 and R23
     one a level in their modes and K1 in its plane mode (``mode_counts``),
-    no K2c; the median within
+    no K2 or K2c; the median within
     0.01 px of (3, 2), the mean EPE within 0.002 px of the JAX package's
     CPU reading (``tools/jax_epe_readings.py``; ``warp1``'s, ``EPE_JAX``,
     from the same call), the kernel path against
@@ -189,11 +188,10 @@ replace XLA's fusions of the JAX package's refinement code):
     bitwise equal to eager; ``grid_tiled_flow`` (3 parts) and
     ``tiled_flow_exact`` (3 stripes, routed to the grid engine), and
     ``refine_per_level=False`` through ``tiled_flow_exact`` (R1 1, R23
-    5), bitwise equal to untiled; 4K unclamped (K1's plane mode at every
-    scale, no K2c) and 1080p
-    and 4K with ``refined_init_clamp`` (K2c exactly where
-    ``scale_extraction_route`` says; R23 clips in its compose mode, one a
-    level, and no ``clamp`` op runs), each flow finite with its median
+    5), bitwise equal to untiled; 4K unclamped and 1080p and 4K with
+    ``refined_init_clamp`` (K1's plane mode at every scale, no K2c; R23
+    clips in its compose mode, one a level, and no ``clamp`` op runs),
+    each flow finite with its median
     within 0.01 px of its shift; 1080p with no weight update and the
     clamp (R3 once a level in its no-sweep mode, with its clip) equal to
     the frame without refinement;
@@ -202,7 +200,8 @@ replace XLA's fusions of the JAX package's refinement code):
     ``DIS_FULL`` and 4K ``DIS_MEDIUM``, each beside the same frame without
     refinement, replayed, which gives the refinement's share; KITTI
     ``DIS_MEDIUM`` pairs/s at B = 8; and the refinement alone, replayed,
-    per level at 1080p with its launches (non-view torch ops and R1-R3).
+    per level at 1080p with its launches (non-view torch ops and R0, R1,
+    R23 and R3).
 
 The saved serving artifact (``serving.export_flow``, ``torch.export``
 with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
@@ -210,8 +209,8 @@ with the kernels as ``dis_tpu_torch`` ops), after phase 2g:
 2h. the compat bench config exported at 1080p (B = None), config 3 at
     KITTI size with B = 8, the compat 4K bucket and ``DIS_MEDIUM`` at
     1080p: each program holds the kernel ops in the counts of
-    ``scale_counts`` (at 4K one extraction is K2c; ``DIS_MEDIUM`` also R0
-    4, R1 4, R23 20, F2 1; KITTI F1 1; no K2) and no gather of a plain
+    ``scale_counts`` (``DIS_MEDIUM`` also R0 4, R1 4, R23 20, F2 1; KITTI
+    F1 1; no K2 or K2c, the 4K bucket's too) and no gather of a plain
     K2, K1 or R1; the KITTI,
     4K and ``DIS_MEDIUM`` artifacts, reloaded in this process
     (``load_exported``), replay bitwise equal to their eager kernel flows
@@ -262,7 +261,7 @@ port's own writer, with ``.flo`` ground truth) in a temporary directory:
     ``DIS_TPU_CHECK=1``, ``--profile-dir`` (a trace naming ``pyramid``
     and ``scale_0``) and the runner stopped after pair 4 and resumed,
     each bitwise equal to the serial run; a 4K pair through the CLI
-    (K2c once); and the CLI's steady-state rate with its split by phase
+    (no K2c); and the CLI's steady-state rate with its split by phase
     (``PhaseTimer``: decode, flow, colorize, encode, flo, score), the
     card's busy time a pair read from the ``--profile-dir`` trace, and
     the port's PNG writer timed against PIL's (where PIL is installed) on
@@ -277,8 +276,8 @@ must give the same bits:
 
 5a. ``tiled_flow_fn`` at 4K compat over 2 ranks (halo 176 by neighbour
     shifts) and 3 ranks (halo 176), the stitched flow bitwise equal to
-    phase 2d's, K3 twice and K2c exactly where ``part_routes`` puts it
-    on each rank (the finest scale);
+    phase 2d's, K3 twice and K1 in its plane mode at every scale on each
+    rank, no K2c;
 5b. 1080p ``DIS_MEDIUM`` through ``tiled_flow_fn`` (routed to
     ``grid_tiled_flow_fn``) over 3 ranks, bitwise equal to phase 2f's;
 5c. ``sequence_pair_flow_fn`` (9 frames) and ``sequence_flow_fn`` (the
@@ -396,12 +395,17 @@ S4_SWEEP_PS = (6, 8, 12)
 # phases (K2 and K1 with a pair axis count as K2b and K1b).  The search
 # start (once a kernel of its own, S2) runs inside every S1 launch: its row follows
 # LAUNCH_KEYS' and takes S1's launches.
-LAUNCH_KEYS = ("K3", "K1", "K1b", "K1p", "K2c", "R0", "R1", "R1s", "R1w", "R23", "R23c",
-               "R3", "R3k", "R3n", "S1", "S3", "S4", "F1", "F2", "F3")
-# K2 and K2b, which the main path no longer launches (K1's plane mode, K1p,
-# takes the route "K2"): phase 1 holds them bitwise as the plane mode's
-# gate, and the main-path phases count them, which must stay 0.
-OFF_PATH = ("K2", "K2b")
+LAUNCH_KEYS = ("K3", "K1", "K1b", "K1p", "R0", "R1s", "R1w", "R23", "R23c", "R3k", "R3n",
+               "S1", "S3", "S4", "F1", "F2", "F3")
+# K2, K2b and K2c, which the main path does not launch (K1's plane mode,
+# K1p, searches every scale): phase 1 holds them bitwise as the plane
+# mode's gate, and the main-path phases count them, which must stay 0.
+OFF_PATH = ("K2", "K2b", "K2c")
+# R1 and R3 as the counts name them (``graph_launches``): R1 launches only
+# in its setup and warp1 modes and R3 only in its no-sweep mode, the rows
+# of the kernels line.
+MODE_ONLY = ("R1", "R3")
+COUNTED = LAUNCH_KEYS + OFF_PATH + MODE_ONLY
 # The kernels that phase 2g does not add up (its batches launch K2b and K1b).
 CORE = ("K3", "K2", "K1", "K2c")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
@@ -415,7 +419,7 @@ EPE_JAX = {"compat": 0.1526, "fast": 0.00515,
            "warp1": 0.0004975744523108006}
 EPE_TOL = 0.002
 REPS = 20
-# Phase 1e's bound for R3's clip on the 1080p finest level, whose flow is
+# Phase 1e's bound for the clip on the 1080p finest level, whose flow is
 # about (3, 2) px: it binds on every u and on some v.
 CLIP_BOUND = 2.5
 
@@ -578,6 +582,7 @@ def served_search_inputs(cfg, img1, img2):
     arguments, the grid), recorded from ``ops/iclk.py::inverse_search``."""
     import dis_tpu_torch as dt
     from dis_tpu_torch.ops import iclk
+    from dis_tpu_torch.ops.grid import make_grid
 
     calls = []
     inverse_search = iclk.inverse_search
@@ -593,7 +598,8 @@ def served_search_inputs(cfg, img1, img2):
         iclk.inverse_search = inverse_search
     (plane, tpl, centers, init_u, _, width, height), kw = calls[-1]
     pos0, conv0 = kw["start"]
-    return plane, pos0, (tpl, kw["Tn"], centers, init_u, conv0, cfg, width, height), kw["geom"]
+    return (plane, pos0, (tpl, kw["Tn"], centers, init_u, conv0, cfg, width, height),
+            make_grid(width, height, cfg.steps))
 
 
 def num_h_of(level, cfg) -> int:
@@ -741,20 +747,19 @@ def refine_counts(cfg):
                else {})}
 
 
-def mode_counts(cfg, n_k2c: int = 0):
-    """The launches of K1's plane mode (``K1p``: every scale but the
-    ``n_k2c`` that take K2c), R1's setup and warp1 modes (``R1s``,
-    ``R1w``), R23's compose mode (``R23c``) and R3's no-sweep mode
+def mode_counts(cfg):
+    """The launches of K1's plane mode (``K1p``: every scale), R1's setup
+    and warp1 modes (``R1s``, ``R1w``), R23's compose mode (``R23c``) and
+    R3's no-sweep mode
     (``R3n``) in one call, which ``scale_counts`` and ``refine_counts``
     count as K1's, R1's, R23's and R3's, and of the launches with the clip
     on (``R3k``, R23's compose mode or R3's no-sweep mode): the last outer
     iteration of each level that ``refine_level`` clips
     (``refined_init_clamp``, per level)."""
-    n = cfg.coarsest_scale - cfg.finest_scale + 1
-    plane = {"K1p": n - n_k2c} if n > n_k2c else {}
+    plane = {"K1p": cfg.coarsest_scale - cfg.finest_scale + 1}
     if cfg.refinement_iters == 0:
         return plane
-    levels = n if cfg.refine_per_level else 1
+    levels = plane["K1p"] if cfg.refine_per_level else 1
     r1 = levels * cfg.refinement_iters
     sweeps = cfg.refinement_inner_sweeps * cfg.refinement_sor_sweeps
     return {**plane, ("R1s" if cfg.refinement_scheme == "planes6" else "R1w"): r1,
@@ -781,7 +786,8 @@ def scale_counts(cfg, frame=None):
     """Launches one call must make, whatever B is: K1 (in its plane mode,
     ``mode_counts``; no K2), S1, S4 (and S3) once per scale
     (``glue_counts``); K3 once per image (or stack of images) for
-    up to four levels; R0-R3 and F2 as ``refine_counts`` says; and, for a
+    up to four levels; R0, R1, R23, R3 and F2 as ``refine_counts`` says;
+    and, for a
     ``dis_flow`` call on [(B,) height, width] frames (``frame``), F1 and
     F3 as ``frame_counts`` says (the engines on padded frames launch
     neither)."""
@@ -794,19 +800,18 @@ def scale_counts(cfg, frame=None):
 
 
 def want_4k(cfg):
-    """Launches of one 4K frame without refinement: K2c at the finest
-    scale, K1 in its plane mode at the other three."""
-    return {"K3": 2, "K2": 0, "K2c": 1, "K1": 4, **glue_counts(cfg, 4)}
+    """Launches of one 4K frame without refinement: K1 in its plane mode
+    at all four scales, no K2c."""
+    return {"K3": 2, "K2": 0, "K2c": 0, "K1": 4, **glue_counts(cfg, 4)}
 
 
 # The wrappers of K1's plane mode, R1's setup and warp1 modes and R3's
-# compose and no-sweep modes, the count of R23's compose mode and the count
-# of the launches with the clip on: their launches count in K1's, R1's,
-# R3's and R23's too, and read_counts leaves them out.
-MODES = ("K1p", "R1s", "R1w", "R23c", "R3c", "R3k", "R3n")
-# The kernel each mode's row of the kernels line is a mode of.
-MODE_OF = {"K1p": "K1", "R1s": "R1", "R1w": "R1", "R23c": "R23", "R3c": "R3", "R3k": "R23",
-           "R3n": "R3"}
+# no-sweep mode, the count of R23's compose mode and the count of the
+# launches with the clip on: their launches count in K1's, R1's, R3's and
+# R23's too, and read_counts leaves them out.
+MODES = ("K1p", "R1s", "R1w", "R23c", "R3k", "R3n")
+# The kernel whose row of the kernels line counts a mode's launches too.
+MODE_OF = {"K1p": "K1", "R23c": "R23", "R3k": "R23"}
 
 
 def kernel_wrappers():
@@ -820,22 +825,23 @@ def kernel_wrappers():
     from dis_tpu_torch.ops.cuda.scale_kernel import densify, fixed_weights, scale_templates
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-            "K1": iclk_search, "K1p": iclk_search_plane, "R0": rk.refine_planes, "R1": rk.refine_warp,
-            "R2": rk.refine_weights, "R3": rk.refine_sor, "R23": rk.refine_update,
-            "S1": scale_templates,
+            "K1": iclk_search, "K1p": iclk_search_plane, "R0": rk.refine_planes,
+            "R3": rk.refine_nosweep, "R23": rk.refine_update, "S1": scale_templates,
             "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
             "F2": fkern.intensity_levels, "F3": fkern.frame_finish, "R1s": rk.refine_setup,
-            "R1w": rk.refine_setup_warp1, "R23c": rk.composed, "R3c": rk.refine_compose,
-            "R3k": rk.clamped, "R3n": rk.refine_nosweep}
+            "R1w": rk.refine_setup_warp1, "R23c": rk.composed, "R3k": rk.clamped,
+            "R3n": rk.refine_nosweep}
 
 
 def read_counts(wrappers):
     """Each wrapper's launches since its count was set to 0: K3, K2, K2c
     and K1 always, the others where they ran (as
-    ``CompiledFlow.graph_launches`` and ``cost.kernel_ops`` give them),
-    the modes left out."""
-    return {k: w.launches for k, w in wrappers.items()
-            if k not in MODES and (k[0] == "K" or w.launches)}
+    ``CompiledFlow.graph_launches`` and ``cost.kernel_ops`` give them; R1's
+    are its setup and warp1 modes'), the modes left out."""
+    counts = {k: w.launches for k, w in wrappers.items()
+              if k not in MODES and (k[0] == "K" or w.launches)}
+    r1 = wrappers["R1s"].launches + wrappers["R1w"].launches
+    return {**counts, **({"R1": r1} if r1 else {})}
 
 
 def read_modes(wrappers):
@@ -844,11 +850,12 @@ def read_modes(wrappers):
 
 
 def grid_sample_ms(planes, flow, warped, card) -> float:
-    """The yardstick of R1, not a kernel of the port: the device ms of one
-    ``torch.nn.functional.grid_sample`` call (bilinear, border padding,
-    corner-aligned) that samples the same planes [h, w, C] (made planar
-    outside the timed call) at ``x + flow``; its largest difference from
-    R1's ``warped`` is printed (its own rounding of the same blend)."""
+    """The yardstick of R1's setup mode, not a kernel of the port: the
+    device ms of one ``torch.nn.functional.grid_sample`` call (bilinear,
+    border padding, corner-aligned) that samples the same planes [h, w, C]
+    (made planar outside the timed call) at ``x + flow``; its largest
+    difference from R1's warp ``warped`` (``refine_warp_plain``) is printed
+    (its own rounding of the same blend)."""
     h, w, c = planes.shape
     nchw = planes.movedim(-1, 0)[None].contiguous()
     ys, xs = (torch.arange(n, device=planes.device, dtype=torch.float32) for n in (h, w))
@@ -861,37 +868,35 @@ def grid_sample_ms(planes, flow, warped, card) -> float:
 
     diff = float((sample()[0].movedim(0, -1) - warped).abs().max())
     ms = replay_ms(sample)
-    print(f"phase1e R1 yardstick: grid_sample {ms:.4f} ms replayed, max |d| {diff} from R1 "
-          f"[{card}]", flush=True)
+    print(f"phase1e R1s yardstick: grid_sample {ms:.4f} ms replayed, max |d| {diff} from "
+          f"R1's warp [{card}]", flush=True)
     return ms
 
 
 def wrapper_args(k, a):
-    """The arguments of the wrapper of R23 or of R3's compose or no-sweep
-    mode (``k`` ``R23``, ``R3c``, ``R3n``) from those its CUDA function
-    took: the clip's bound, or none, where the function takes a flag and a
-    bound (a tree since R3's clip); any other kernel's as they are."""
-    if (k, len(a)) in (("R23", 21), ("R3c", 20), ("R3n", 6)):
+    """The arguments of the wrapper of R23 or of R3's no-sweep mode (``k``
+    ``R23``, ``R3n``) from those its CUDA function took: the clip's bound,
+    or none, where the function takes a flag and a bound (a tree since R3's
+    clip); any other kernel's as they are."""
+    if (k, len(a)) in (("R23", 21), ("R3n", 6)):
         return a[:-2] + ((a[-1],) if a[-2] else ())
     return a
 
 
 def refine_step_inputs(args, picks):
     """Runs ``variational_refinement(*args)`` and returns, by kernel, the
-    inputs that the ``picks[kernel]``-th calls of R0, R1, R1's setup and
-    warp1 modes (``R1s``, ``R1w``), R23, R2, R3 and R3's compose and
-    no-sweep modes (``R3c``, ``R3n``) gave their kernel
+    inputs that the ``picks[kernel]``-th calls of R0, R1's setup and warp1
+    modes (``R1s``, ``R1w``), R23 and R3's no-sweep mode (``R3n``) gave
+    their kernel
     (the checked arguments of the ops' CUDA functions, as the wrappers take
     them, ``wrapper_args``; those of the tree's kernels only, and of the
     calls it made): the main path's own inputs for each."""
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.variational import variational_refinement
 
-    names = {k: fn for k, fn in (("R0", "_planes_cuda"), ("R1", "_warp_cuda"),
-                                 ("R1s", "_setup_cuda"), ("R1w", "_setup_warp1_cuda"),
-                                 ("R23", "_update_cuda"), ("R2", "_weights_cuda"),
-                                 ("R3", "_sor_cuda"),
-                                 ("R3c", "_compose_cuda"), ("R3n", "_nosweep_cuda"))
+    names = {k: fn for k, fn in (("R0", "_planes_cuda"), ("R1s", "_setup_cuda"),
+                                 ("R1w", "_setup_warp1_cuda"), ("R23", "_update_cuda"),
+                                 ("R3n", "_nosweep_cuda"))
              if k in picks and hasattr(rk, fn)}
     seen = {k: [] for k in names}
     originals = {k: getattr(rk, fn) for k, fn in names.items()}
@@ -946,13 +951,9 @@ def op_functions():
             "S3": (scale_kernel, "_weights_cuda", "fixed_weights_plain"),
             "S4": (scale_kernel, "_densify_cuda", "densify_plain"),
             "R0": (refine_kernel, "_planes_cuda", "_planes_cpu"),
-            "R1": (refine_kernel, "_warp_cuda", "_warp_cpu"),
             "R1s": (refine_kernel, "_setup_cuda", "_setup_cpu"),
             "R1w": (refine_kernel, "_setup_warp1_cuda", "_setup_warp1_cpu"),
             "R23": (refine_kernel, "_update_cuda", "_update_cpu"),
-            "R2": (refine_kernel, "_weights_cuda", "_weights_cpu"),
-            "R3": (refine_kernel, "_sor_cuda", "_sor_cpu"),
-            "R3c": (refine_kernel, "_compose_cuda", "_compose_cpu"),
             "R3n": (refine_kernel, "_nosweep_cuda", "_nosweep_cpu"),
             "F1": (frame_kernel, "_pad_cuda", "_pad_cpu"),
             "F2": (frame_kernel, "_levels_cuda", "_levels_cpu"),
@@ -1246,7 +1247,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
           f"({native.library_path().name}, {time.perf_counter() - t0:.2f} s)", flush=True)
     native.require()
     per_capture = serving.WARMUP_CALLS + 1     # eager warm-up calls and the capture
-    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
+    launches = dict.fromkeys(COUNTED, 0)
 
     def counted(label, argv, want, timer=None, batched=False):
         """The CLI with every count set to 0 just before and read just after;
@@ -1401,7 +1402,7 @@ def cli_phase(dev, card, bench_cfg, wrappers):
               flush=True)
         del decoded
 
-        # 4K: one pair through the CLI, K2c at the finest scale.
+        # 4K: one pair through the CLI, K1's plane mode at every scale.
         root4 = root / "4k"
         write_sequence(root4, 2, H4K, W4K)
         counted("CLI compat 4K 1 pair", [root4 / "frames", 1, 2, 16, 8, 3, 0, 0.3, 1, 0]
@@ -1413,30 +1414,6 @@ def cli_phase(dev, card, bench_cfg, wrappers):
               "CLI 4K: .flo differs from the eager kernel path")
         print("phase4 CLI 4K: the flow bitwise equal to the eager kernel path", flush=True)
     return launches
-
-
-def part_routes(cfg, width, height, n, i, halo=None):
-    """The extraction kernel ("K2" or "K2c") of each scale, finest first,
-    that rank i of n launches: on its stripe of ``tiled_flow_fn`` with
-    ``halo``, or (``halo`` None) on its windows of ``grid_tiled_flow_fn``,
-    read from the same static shapes as ``ops/iclk.py::inverse_search``."""
-    from dis_tpu_torch.models.dis import _stripe_plan, init_bound, window_patch_rows
-    from dis_tpu_torch.ops import iclk
-    from dis_tpu_torch.ops.grid import make_grid
-    from dis_tpu_torch.parallel import stripe_bounds, window_partition
-
-    p = cfg.img_padding
-    if halo is not None:
-        row0, ext_h, own_r0, own_h = stripe_bounds(cfg, height, n, i, halo)
-        iy = _stripe_plan(cfg, height, own_r0, own_h)[0]
-    else:
-        ext_h = height
-        iy = {s: window_patch_rows(cfg, height >> s, *window_partition(height >> s, n)[i])
-              for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)}
-    return [iclk.extraction_route(
-        cfg, ((ext_h >> s) + 2 * p, (width >> s) + 2 * p),
-        make_grid(width >> s, height >> s, cfg.steps).num_w * (iy[s][1] - iy[s][0]),
-        init_bound(cfg, s)) for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)]
 
 
 def phase5_rank(dev, inputs_path: str, steps) -> dict:
@@ -1551,7 +1528,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
     from dis_tpu_torch.utils.metrics import epe_torch
 
     wrappers = kernel_wrappers()
-    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
+    launches = dict.fromkeys(COUNTED, 0)
 
     def add(counts, batched):
         for k, v in counts.items():
@@ -1595,14 +1572,7 @@ def multi_rank_phase(dev, card, bench_cfg, ref) -> dict:
         }
         for label, kind, cfg, n, _ in steps:
             got = [res[r][label] for r in range(n)]
-            if kind == "tiled":
-                halo = halos[n] if cfg is bench_cfg else None
-                hh, ww = (H4K, W4K) if cfg is bench_cfg else (H, W)
-                routes = [part_routes(cfg, ww, hh, n, i, halo) for i in range(n)]
-                expect = [{"K3": 2, "K2": 0, "K2c": r.count("K2c"), "K1": len(r),
-                           **refine_counts(cfg), **glue_counts(cfg, len(r))} for r in routes]
-            else:
-                expect = [{**scale_counts(cfg), "K2c": 0}] * n
+            expect = [{**scale_counts(cfg), "K2c": 0}] * n
             for i, g in enumerate(got):
                 check(g["counts"] == expect[i], f"{label} rank {i}: launches {g['counts']}, "
                       f"want {expect[i]}")
@@ -1756,7 +1726,7 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
     from dis_tpu_torch import serving
     from dis_tpu_torch.tools import quality_sweep, scaling_measure, trace_budget
 
-    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
+    launches = dict.fromkeys(COUNTED, 0)
 
     def zero():
         for w in wrappers.values():
@@ -1810,8 +1780,7 @@ def tools_phase(dev, card, bench_cfg, wrappers) -> dict:
                 rec = scaling_measure.measure(name, h, w, (2, 4), bench_cfg, device=dev)
                 counts = read(f"6c scaling_measure {name} n = 2, 4")
                 check(all(counts[k] > 0 for k in ("K3", "K1")) and counts["K2"] == 0
-                      and (counts["K2c"] > 0) == (name == "4K"),
-                      f"6c {name}: launches {counts}")
+                      and counts["K2c"] == 0, f"6c {name}: launches {counts}")
                 print("phase6 6c " + json.dumps(rec), flush=True)
                 for engine in ("stripe", "grid"):
                     for n, e in rec[engine].items():
@@ -1910,22 +1879,20 @@ def main() -> int:
     from bench import synth_pair
     from dis_tpu_torch import _build, cost
     from dis_tpu_torch.models.dis import (_stripe_plan, dis_flow_padded, dis_flow_stripe,
-                                          init_bound, scale_extraction_route)
+                                          motion_bound)
     from dis_tpu_torch.ops import iclk
     from dis_tpu_torch.ops import image as im
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
     from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane
     from dis_tpu_torch.ops.cuda.pyramid_kernel import pyramid_level, pyramid_levels
-    from dis_tpu_torch.ops.cuda.refine_kernel import refine_sor, refine_warp, refine_weights
     from dis_tpu_torch.ops.grid import init_from_coarser_flow, make_grid, scale_plan
     from dis_tpu_torch.ops.pyramid import construct_pyramid
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
-    from dis_tpu_torch.ops.variational import (refine_compose_plain, refine_nosweep_plain,
-                                               refine_planes_plain, refine_setup_plain,
-                                               refine_setup_warp1_plain, refine_sor_plain,
-                                               refine_warp_plain, refine_weights_plain,
-                                               update_plan, variational_refinement)
+    from dis_tpu_torch.ops.variational import (refine_nosweep_plain, refine_planes_plain,
+                                               refine_setup_plain, refine_setup_warp1_plain,
+                                               refine_warp_plain, update_plan,
+                                               variational_refinement)
     from dis_tpu_torch.parallel import (batched_flow_fn, grid_tiled_flow, min_stripe_halo,
                                         stripe_bounds, tiled_flow_exact)
     from dis_tpu_torch.serving import aot_compile, export_flow, load_exported
@@ -2115,14 +2082,14 @@ def main() -> int:
     print(f"phase1b K2b (the plane mode's gate) max_abs_err {k2b_err}", flush=True)
 
     # -- phase 1c: K2c at the 4K finest-scale shapes -------------------------
+    # K2c, a standalone kernel the search no longer launches, with the
+    # static bound of the 4K finest scale's init (twice the policing-chain
+    # bound of scale 1), which the TPU kernel takes.
     t0 = time.perf_counter()
     a4, b4 = (torch.from_numpy(q).to(dev) for q in synth_pair_4k())
     print(f"phase1c 4K pair made in {time.perf_counter() - t0:.2f} s", flush=True)
     k3_err = max(k3_err, k3_check("4K image 1", a4))
-    route4 = [scale_extraction_route(bench_cfg, W4K, H4K, s)
-              for s in range(bench_cfg.coarsest_scale + 1)]
-    check(route4 == ["K2c", "K2", "K2", "K2"], f"4K routes by scale {route4}")
-    bound0 = init_bound(bench_cfg, 0)
+    bound0 = 2.0 * motion_bound(bench_cfg, 1)
 
     def k2c_check(label, img, pos0, ps, pad, geom, bnd, row0=0, phase="1c"):
         """K2c bitwise equal to its plain version and to K2 (consecutive
@@ -2235,20 +2202,17 @@ def main() -> int:
                        pos_f, 12, 12, plan_f.geom, 0.0, phase="1d")
     k2c_err = max(k2c_err, err)
     del pos_f
+    print(f"phase1d K2c (a standalone kernel, the plane mode's gate) max_abs_err {k2c_err}",
+          flush=True)
 
-    # -- phase 1e: the refinement's kernels R0, R1, R23 (R2 and R3 its gate) -------
+    # -- phase 1e: the refinement's kernels R0, R1, R23 and R3 -------------------
     # Each on the inputs the main path gives it at the finest level of the
     # 1080p DIS_MEDIUM and DIS_FULL frames and of the KITTI B = 8 DIS_MEDIUM
-    # batch (R0's call; R1's setup mode's call, and R1 on its planes and
-    # flow; R23's second call, a weight update whose increments are not 0,
-    # and its last, the compose mode), bitwise equal to its plain version;
-    # R23 also to the standalone R2 and R3 that it replaced, which stay its
-    # gate: R2 on R23's second call's inputs, R3 on the first red and black
-    # half-sweeps of that update and its compose mode on the last black
-    # half-sweep of the last update (their inputs from the plain versions),
-    # each bitwise equal to its plain version.  Then each timed beside its
-    # plain version, at 1080p DIS_MEDIUM also on inputs out of the L2, and
-    # R23 beside R2 and R3's chain.  Then R23 on every level of the 1080p
+    # batch (R0's call; R1's setup mode's call; R23's second call, a weight
+    # update whose increments are not 0, and its last, the compose mode),
+    # bitwise equal to its plain version run on the card's tensors.  Then
+    # each timed beside its plain version, at 1080p DIS_MEDIUM also on
+    # inputs out of the L2.  Then R23 on every level of the 1080p
     # hd1080_medium frame (flowbench's configuration) and on the finest
     # level of the 1080p DIS_MEDIUM frame under warp1, where R1's warp1
     # mode (R1w) also runs; R23's compose mode with the clip (CLIP_BOUND,
@@ -2256,55 +2220,24 @@ def main() -> int:
     # the 1080p DIS_MEDIUM compose mode's inputs.
     from dis_tpu_torch.ops.variational import refine_update_plain
 
-    def update_chain(*args):
-        """R23's work through R2, then R3 a half-sweep (its compose mode
-        last where R23's call composes)."""
-        ins, (alpha, delta, gamma, sweeps, omega, compose), bound_ = (
-            args[:13], args[13:19], args[19] if len(args) > 19 else None)
-        coef = refine_weights(*ins, alpha, delta, gamma)
-        du, dv = ins[11:13]
-        for j in range(2 * sweeps):
-            if compose and j == 2 * sweeps - 1:
-                return rk.refine_compose(*ins[9:11], du, dv, *coef, j & 1, omega, bound_)
-            du, dv = refine_sor(*ins[9:11], du, dv, *coef, j & 1, omega)
-        return du, dv
-
     def r23_gate(label, args):
-        """R23 on ``args`` (one launch) bitwise equal to its plain version
-        and to R2 and R3's chain; the largest difference."""
+        """R23 on ``args`` (one launch) bitwise equal to its plain version;
+        the largest difference."""
         before = rk.refine_update.launches
         got = flat_tensors(rk.refine_update(*args))
         want = flat_tensors(refine_update_plain(*args))
-        chain = flat_tensors(update_chain(*args))
         torch.cuda.synchronize()
         check(rk.refine_update.launches == before + 1, f"R23 {label}: not one launch")
-        for g, v, c in zip(got, want, chain):
-            check(g.shape == v.shape == c.shape and torch.equal(g, v) and torch.equal(g, c),
-                  f"R23 {label}: differs from its plain version or from R2 and R3")
+        for g, v in zip(got, want):
+            check(g.shape == v.shape and torch.equal(g, v),
+                  f"R23 {label}: differs from its plain version")
         return max(float((g - v).abs().max()) for g, v in zip(got, want))
-
-    def gate_steps(steps, sweeps):
-        """R2's, R3's and R3's compose mode's inputs from R23's recorded
-        calls (its second and its last)."""
-        upd, last = steps["R23"]
-        coef = refine_weights_plain(*upd[:16])
-        steps["R2"] = [upd[:16]]
-        steps["R3"] = [(*upd[9:13], *coef, color, upd[17]) for color in (0, 1)]
-        lcoef = refine_weights_plain(*last[:16])
-        du, dv = last[11:13]
-        for j in range(2 * sweeps - 1):
-            du, dv = refine_sor_plain(*last[9:11], du, dv, *lcoef, j & 1, last[17])
-        steps["R3c"] = [(*last[9:11], du, dv, *lcoef, 1, last[17])]
 
     med_levels, med_planes = refined_levels(a, b, dt.DIS_MEDIUM)
     kmed_levels, kmed_planes = refined_levels(*kpad, dt.DIS_MEDIUM)
     r_fns = {"R0": (rk.refine_planes, refine_planes_plain, "refine_planes"),
-             "R1": (refine_warp, refine_warp_plain, "refine_warp"),
              "R1s": (rk.refine_setup, refine_setup_plain, "refine_setup"),
-             "R23": (rk.refine_update, refine_update_plain, "refine_update"),
-             "R2": (refine_weights, refine_weights_plain, "refine_weights"),
-             "R3": (refine_sor, refine_sor_plain, "refine_sor"),
-             "R3c": (rk.refine_compose, refine_compose_plain, "refine_compose")}
+             "R23": (rk.refine_update, refine_update_plain, "refine_update")}
     r_err = {k: 0.0 for k in (*r_fns, "R1w", "R23c", "R3k", "R3n")}
     rtimes, rcosts, rcold = {}, {}, {}
     r1_library = None
@@ -2316,10 +2249,8 @@ def main() -> int:
                                    {"R0": (0,), "R1s": (0,),
                                     "R23": (1, cfg.refinement_inner_sweeps - 1)})
         check(len(steps["R23"]) == 2, f"R23 {label}: {len(steps['R23'])} recorded calls")
-        steps["R1"] = [args[:2] for args in steps["R1s"]]   # R1 on the same planes, flow
-        gate_steps(steps, cfg.refinement_sor_sweeps)
         for k, (kern, plain, op) in r_fns.items():
-            check(len(steps[k]) == (2 if k in ("R3", "R23") else 1),
+            check(len(steps[k]) == (2 if k == "R23" else 1),
                   f"{k} {label}: {len(steps[k])} recorded calls")
             for args in steps[k]:
                 if k == "R23":
@@ -2346,18 +2277,15 @@ def main() -> int:
                 rcold[k] = cold_replay_ms(kern, args, nbytes)
                 cold = (f", on inputs out of the L2 {rcold[k]:.4f} ms "
                         f"({100.0 * bms / rcold[k]:.0f}%)")
-            if label == "1080p medium" and k == "R1":
-                r1_library = grid_sample_ms(*args, refine_warp(*args)[0], card)
-            if k == "R23":
-                cm = replay_ms(lambda: update_chain(*args))
-                cold += f", R2 and R3's chain {cm:.4f} ms replayed"
+            if label == "1080p medium" and k == "R1s":
+                r1_library = grid_sample_ms(*args[:2], refine_warp_plain(*args[:2])[0], card)
             print(f"phase1e {label} {k} {tuple(args[0].shape)}: {len(steps[k])} call(s) "
                   f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
                   f"({100.0 * bms / km:.0f}% of its bound){cold}, plain {pm:.4f} ms "
                   f"({prm:.4f} ms replayed), bound {bms:.4f} ms by {by} [{card}]", flush=True)
         if label == "1080p medium":
             compose_args = steps["R23"][1]
-            u0v0dudv = steps["R3c"][0][:4]
+            u0v0dudv = compose_args[9:13]   # u0, v0 and the last update's du, dv
         del steps
     del kmed_levels, kmed_planes
     # R23 at each level of the benchmark's 1080p hd1080_medium frame (1080
@@ -2373,13 +2301,12 @@ def main() -> int:
         for args in calls:
             r_err["R23"] = max(r_err["R23"], r23_gate(f"hd1080_medium level {scale}", args))
         args = calls[0]
-        km, cm = replay_ms(lambda: rk.refine_update(*args)), replay_ms(
-            lambda: update_chain(*args))
+        km = replay_ms(lambda: rk.refine_update(*args))
         bms, by = bound(*cost.op_cost("refine_update", args))
         print(f"phase1e hd1080_medium level {scale} R23 {tuple(args[0].shape)}: 2 calls "
-              f"bitwise equal to the plain version and to R2 and R3; kernel {km:.4f} ms "
-              f"replayed ({100.0 * bms / km:.0f}% of its bound), R2 and R3's chain {cm:.4f} "
-              f"ms, tiles {update_plan(1, *args[0].shape[-2:], 5)} [{card}]", flush=True)
+              f"bitwise equal to the plain version; kernel {km:.4f} ms replayed "
+              f"({100.0 * bms / km:.0f}% of its bound), tiles "
+              f"{update_plan(1, *args[0].shape[-2:], 5)} [{card}]", flush=True)
     del hd_levels, hd_planes, calls, args
     warp1_cfg = dataclasses.replace(dt.DIS_MEDIUM, refinement_scheme="warp1")
     w1_levels, w1_planes = refined_levels(a, b, warp1_cfg)
@@ -2390,8 +2317,8 @@ def main() -> int:
           f"1080p medium warp1: {len(w1_args)} R1w, {len(w1_steps['R23'])} R23 calls")
     for args in w1_steps["R23"]:
         r_err["R23"] = max(r_err["R23"], r23_gate("1080p medium warp1", args))
-    print("phase1e 1080p medium warp1 R23: 2 calls bitwise equal to the plain version and to "
-          "R2 and R3", flush=True)
+    print("phase1e 1080p medium warp1 R23: 2 calls bitwise equal to the plain version",
+          flush=True)
     del w1_steps
     # name: (wrapper, plain version, op, op's arguments beside the
     # wrapper's, the wrapper's arguments checked, the timed ones first)
@@ -2698,7 +2625,7 @@ def main() -> int:
 
     # -- phase 2: the main path ---------------------------------------------
     wrappers = kernel_wrappers()
-    launches = dict.fromkeys(LAUNCH_KEYS + OFF_PATH, 0)
+    launches = dict.fromkeys(COUNTED, 0)
     flows = {}
     for name, cfg in configs.items():
         for w in wrappers.values():
@@ -2877,8 +2804,8 @@ def main() -> int:
         torch.cuda.synchronize()
         counts = read_counts(wrappers)
         parts = N_STRIPES if label.startswith("tiled") else 1
-        check(counts["K2c"] == N_STRIPES and counts["K2"] == 0
-              and counts["K1"] == 4 * N_STRIPES and counts["K3"] == 2 * parts,
+        check(counts["K2c"] == counts["K2"] == 0 and counts["K1"] == 4 * N_STRIPES
+              and read_modes(wrappers)["K1p"] == 4 * N_STRIPES and counts["K3"] == 2 * parts,
               f"4K {label}: launches {counts}")
         check(torch.equal(out, untiled), f"4K {label}: differs from the untiled flow")
         print(f"phase2e 4K {label} (row0 {rows0}): launches {counts}; bitwise equal to "
@@ -3017,8 +2944,8 @@ def main() -> int:
               flush=True)
     del untiled, untiled_fin, out
 
-    # The clamped frames clip in R3 (its compose mode, or its no-sweep mode
-    # where a level makes no weight update): no clamp op runs.
+    # The clamped frames clip in R23's compose mode, or in R3's no-sweep mode
+    # where a level makes no weight update: no clamp op runs.
     clamped_cfg = dataclasses.replace(med_cfg, refined_init_clamp=True)
     nosweep_cfg = dataclasses.replace(clamped_cfg, refinement_inner_sweeps=0)
     for label, img1, img2, cfg in (
@@ -3026,30 +2953,22 @@ def main() -> int:
             ("1080p medium clamped", a, b, clamped_cfg),
             ("4K medium clamped", a4, b4, clamped_cfg),
             ("1080p medium clamped, no weight update", a, b, nosweep_cfg)):
-        ww, hh = img1.shape[-1], img1.shape[-2]
-        routes = [scale_extraction_route(cfg, ww, hh, s)
-                  for s in range(cfg.finest_scale, cfg.coarsest_scale + 1)]
-        n_k2c = routes.count("K2c")
-        want = {**scale_counts(cfg), "K2c": n_k2c}
+        want = {**scale_counts(cfg), "K2c": 0}
         for w in wrappers.values():
             w.launches = 0
         flow, aten = aten_calls(lambda: dt.dis_flow(img1, img2, cfg))
         torch.cuda.synchronize()
         counts, modes = read_counts(wrappers), read_modes(wrappers)
-        check(counts == want, f"{label}: launches {counts}, want {want} (routes {routes})")
-        check(modes == mode_counts(cfg, n_k2c),
-              f"{label}: modes {modes}, want {mode_counts(cfg, n_k2c)}")
+        check(counts == want, f"{label}: launches {counts}, want {want}")
+        check(modes == mode_counts(cfg), f"{label}: modes {modes}, want {mode_counts(cfg)}")
         clamps = {n: c for n, c in aten.items() if "clamp" in n or "clip" in n}
         check(not clamps, f"{label}: torch clamps {clamps}")
         for k, n in {**counts, **modes}.items():
             if k in launches and k not in CORE:
                 launches[k] += n
-        if label == "4K medium":
-            check(n_k2c == 0, f"4K medium unclamped: routes {routes}")
         med, epe = flow_gates(label, flow.cpu().numpy(), SHIFT)
-        print(f"phase2g {label}: routes by scale (finest first) {routes}, launches {counts}, "
-              f"modes {modes}, {sum(aten.values())} torch ops, none a clamp; median "
-              f"{med.tolist()} epe {epe}", flush=True)
+        print(f"phase2g {label}: launches {counts}, modes {modes}, {sum(aten.values())} torch "
+              f"ops, none a clamp; median {med.tolist()} epe {epe}", flush=True)
         if label == "4K medium":
             flow4_med = flow
         if cfg is nosweep_cfg:
@@ -3275,6 +3194,28 @@ def main() -> int:
                       calls=5)
     print(f"phase3c 4K compat parts of a frame (replayed): K1 finest {k1_4k:.4f} ms, K3 both "
           f"4-level pyramids {k3_4k:.4f} ms [{card}]", flush=True)
+    # The 4K compat finest scale's search as the extraction route once ran
+    # it (K2c, then K1 on its regions) and as it runs now (K1's plane
+    # mode), bitwise equal, timed three runs each way in turns.
+    search4 = (tpl4, Tn4, centers4, init4, conv04, bench_cfg, W4K, H4K)
+
+    def banded_then_k1():
+        return iclk_search(*extract_regions_banded(l2_4.img, pos04, 8, p, geom4, bound0),
+                           *search4)
+
+    def plane_mode():
+        return iclk_search_plane(l2_4.img, pos04, *search4)
+
+    for g, v in zip(banded_then_k1(), plane_mode()):
+        check(torch.equal(g, v), "4K compat finest: K2c then K1 differs from the plane mode")
+    runs = {"K2c then K1": [], "plane mode": []}
+    for _ in range(3):
+        for key, fn in (("K2c then K1", banded_then_k1), ("plane mode", plane_mode)):
+            runs[key].append(replay_ms(fn, calls=5))
+    print(f"phase3c 4K compat finest N={pos04.shape[0]} ps 8: K2c then K1 "
+          f"{[round(t, 4) for t in runs['K2c then K1']]} ms, K1's plane mode "
+          f"{[round(t, 4) for t in runs['plane mode']]} ms (replayed, 3 runs each in turns, "
+          f"bitwise equal) [{card}]", flush=True)
     for name, cfg in configs.items():
         cf = cf4 if name == "compat" else aot_compile(cfg, H4K, W4K)
         e = time_ms(lambda: dt.dis_flow(a4, b4, cfg), reps=10)
@@ -3362,15 +3303,12 @@ def main() -> int:
         # extract_kernel.py:259 does (bitwise K2 then K1, phase 1).
         "K1p": ("iclk_search_plane", src + "iclk.cu",
                 "dis_tpu/ops/pallas/iclk_kernel.py:93", k1_err),
-        "K2c": ("extract_regions_banded", src + "extract_banded.cu",
-                "dis_tpu/ops/pallas/extract_kernel.py:163", k2c_err),
-        # No pallas_call backs R0-R3: they replace XLA's fusions of the JAX
-        # package's refinement code (the level's Sobel planes, _warp_bilinear
-        # and the setup of outer, inner, half_sweep and the flow of outer).
+        # No pallas_call backs the refinement's kernels: they replace XLA's
+        # fusions of the JAX package's refinement code (the level's Sobel
+        # planes, _warp_bilinear and the setup of outer, inner, half_sweep
+        # and the flow of outer).
         "R0": ("refine_planes", src + "refine_planes.cu", "dis_tpu/ops/variational.py:188",
                r_err["R0"]),
-        "R1": ("refine_warp", src + "variational.cu", "dis_tpu/ops/variational.py:88",
-               r_err["R1"]),
         "R1s": ("refine_setup", src + "variational.cu", "dis_tpu/ops/variational.py:220",
                 r_err["R1s"]),
         "R1w": ("refine_setup_warp1", src + "refine_planes.cu",
@@ -3379,8 +3317,6 @@ def main() -> int:
                 r_err["R23"]),
         "R23c": ("refine_update_compose", src + "variational.cu",
                  "dis_tpu/ops/variational.py:314", r_err["R23c"]),
-        "R3": ("refine_sor", src + "variational.cu", "dis_tpu/ops/variational.py:286",
-               r_err["R3"]),
         "R3k": ("refine_update_compose_clamp", src + "variational.cu",
                 "dis_tpu/models/dis.py:101", r_err["R3k"]),
         "R3n": ("refine_nosweep", src + "variational.cu", "dis_tpu/ops/variational.py:314",
@@ -3406,7 +3342,7 @@ def main() -> int:
     costs.update(scosts)
     times.update(ftimes)
     costs.update(fcosts)
-    library = {"R1": r1_library, **f_library}
+    library = {"R1s": r1_library, **f_library}
     # cost_analysis's entries against the kernels line: K3 (one pyramid)
     # gives the same bound; K1 in its plane mode at the finest scale counts
     # its fixed loop and no start freezes, so its bytes differ by the raw
@@ -3429,7 +3365,7 @@ def main() -> int:
         check(static[1] == run_bound[1] and abs(static[0] - run_bound[0]) <= tol * run_bound[0],
               f"cost_analysis {k} bound {static} vs the kernels line {run_bound}")
     check(all(launches[k] == 0 for k in OFF_PATH),
-          f"the main path launched K2 or K2b: {[launches[k] for k in OFF_PATH]}")
+          f"the main path launched K2, K2b or K2c: {[launches[k] for k in OFF_PATH]}")
     rows = []
     for k in (*LAUNCH_KEYS, "S2"):
         bound_ms, bound_by = bound(*costs[k])
@@ -3442,11 +3378,10 @@ def main() -> int:
                      "library_ms": library.get(k)})
         if k in rcold or k in f_cold:
             rows[-1]["cold_ms"] = rcold.get(k, f_cold.get(k))
-        if k in MODES:
-            # K1's, R1's, R3's and R23's modes: the same kernel, whose row's
-            # launches count this mode's too (R1w a kernel of its own that
-            # counts as R1's; R3k the launches with the clip flag, timed
-            # in R23's compose mode).
+        if k in MODE_OF:
+            # K1's and R23's modes: the same kernel, whose row's launches
+            # count this mode's too (R3k the launches with the clip flag,
+            # timed in R23's compose mode).
             rows[-1]["mode_of"] = meta[MODE_OF[k]][0]
     # The start's row: fused into S1 (scale_templates), it launches
     # with S1, and its ms is what it adds inside S1 on the same inputs.
@@ -3480,12 +3415,9 @@ def kernel_times(root: str) -> int:
     ``DIS_MEDIUM`` frame under ``warp1``, a hash of the flow of each of
     eleven configs and inputs (``flow_sha256``: the clamped 1080p and 4K
     and the ``warp1`` ``DIS_MEDIUM`` frames among them), and, in a tree
-    that has them, R0, R1 (on the planes and flow of its setup mode where
-    the tree has it), R1's setup and warp1 modes, R23 (its second call),
-    and R2, R3 and R3's compose mode where the main path still calls them,
-    on that level's inputs;
-    the 1080p ``DIS_MEDIUM`` artifact's export and load seconds,
-    nodes and bytes.  K2
+    that has them, R0, R1's setup and warp1 modes and R23 (its second
+    call) on that level's inputs; the 1080p ``DIS_MEDIUM`` artifact's
+    export and load seconds, nodes and bytes.  K2
     gets the grid's column length where the tree's ``extract_regions``
     takes ``num_h``, as its main path does (``k2_num_h`` says which).
     Only functions every tree of the port has are called."""
@@ -3499,7 +3431,7 @@ def kernel_times(root: str) -> int:
     import dis_tpu_torch as dt
     from bench import synth_pair
     from dis_tpu_torch import _build
-    from dis_tpu_torch.models.dis import init_bound
+    from dis_tpu_torch.models.dis import motion_bound
     from dis_tpu_torch.ops import image as im
     from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
     from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
@@ -3571,7 +3503,7 @@ def kernel_times(root: str) -> int:
         if out["k1_plane_mode"]:
             both(f"K1p_{name}_finest", lambda: ik.iclk_search_plane(plane, pos0, *args), calls)
         del plane, pos0, args, regions
-    bound0 = init_bound(bench_cfg, 0)
+    bound0 = 2.0 * motion_bound(bench_cfg, 1)
     both("K2c_4k_finest", lambda: extract_regions_banded(img4, pos4, 8, p, geom4, bound0),
          calls=5)
     # S1 and S4 on the finest scale's inputs of the 1080p compat frame (S4
@@ -3612,9 +3544,9 @@ def kernel_times(root: str) -> int:
     del served
     out["batch_kitti_b8_compat_eager_ms"] = time_ms(lambda: dt.dis_flow(ka, kb, bench_cfg),
                                                     reps=10)
-    # The refinement: torch ops in a tree without R1-R3.  Its finest level
-    # alone and the whole frame, replayed, for the 1080p DIS_MEDIUM and
-    # DIS_FULL frames; R1, R2 and R3 alone where the tree has them.
+    # The refinement: torch ops in a tree without its kernels.  Its finest
+    # level alone and the whole frame, replayed, for the 1080p DIS_MEDIUM
+    # and DIS_FULL frames; its kernels alone where the tree has them.
     from dis_tpu_torch.ops.variational import variational_refinement
 
     kernels = importlib.util.find_spec("dis_tpu_torch.ops.cuda.refine_kernel") is not None
@@ -3629,17 +3561,11 @@ def kernel_times(root: str) -> int:
         if kernels:
             from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
-            # R1 on the planes and flow of R1's setup mode where the tree
-            # has it; R0 and the modes where the tree has them.
-            steps = refine_step_inputs(args, {"R0": (0,), "R1": (0,), "R1s": (0,),
-                                              "R1w": (0,), "R23": (1,), "R2": (1,),
-                                              "R3": (10,), "R3c": (0,)})
-            if not steps.get("R1") and steps.get("R1s"):
-                steps["R1"] = [steps["R1s"][0][:2]]
-            for k, name in (("R0", "refine_planes"), ("R1", "refine_warp"),
-                            ("R1s", "refine_setup"), ("R1w", "refine_setup_warp1"),
-                            ("R23", "refine_update"), ("R2", "refine_weights"),
-                            ("R3", "refine_sor"), ("R3c", "refine_compose")):
+            # R0, R1's modes and R23 where the tree has them.
+            steps = refine_step_inputs(args, {"R0": (0,), "R1s": (0,), "R1w": (0,),
+                                              "R23": (1,)})
+            for k, name in (("R0", "refine_planes"), ("R1s", "refine_setup"),
+                            ("R1w", "refine_setup_warp1"), ("R23", "refine_update")):
                 if steps.get(k):
                     fn = getattr(rk, name)
                     out[f"{k}_1080p_{key}_finest_replayed_ms"] = replay_ms(

@@ -27,11 +27,11 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # -fmad=false: the kernels must not contract a*b + c into an FMA, because
 # their plain PyTorch versions compute each product and sum separately
-# (K3's Sobel magnitude, the refinement's R0-R3 and R23, the scale glue's
-# S1, S3 and S4 and the frame's F2 and F3 are held to them bitwise, and
-# K1's policing test makes discrete freeze decisions on such sums).  Never
-# -use_fast_math: R2, R3, R23, S1, S3 and S4 need IEEE roots, reciprocals
-# and divisions.
+# (K3's Sobel magnitude, the refinement's R0, R1, R23 and R3, the scale
+# glue's S1, S3 and S4 and the frame's F2 and F3 are held to them bitwise,
+# and K1's policing test makes discrete freeze decisions on such sums).
+# Never -use_fast_math: R23, S1, S3 and S4 need IEEE roots, reciprocals and
+# divisions.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -48,11 +48,9 @@ SIGNATURES = {
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
                               _P, _P, _P, _P],
     "dis_refine_planes": [_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    "dis_refine_warp": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "dis_refine_setup": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "dis_refine_weights": [_P, _I, _I, _I, _F, _F, _F, _P, _P],
     "dis_refine_setup_warp1": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
-    "dis_refine_sor": [_P, _I, _I, _I, _I, _F, _I, _I, _I, _F, _I, _P, _P],
+    "dis_refine_nosweep": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P, _P],
     "dis_refine_update": [_P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _F, _P, _P],
     "dis_scale_templates": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                             _I, _I, _I, _I, _P, _P, _P, _P, _P,

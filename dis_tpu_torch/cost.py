@@ -3,11 +3,11 @@
 Each kernel's work is a formula of its launch's shapes
 (:func:`pyramid_cost`, :func:`extract_cost`, :func:`search_cost` (in
 K1's plane mode :func:`search_plane_cost`), the
-refinement's :func:`refine_planes_cost`, :func:`refine_warp_cost`,
-:func:`refine_setup_cost` (in its warp1 mode
-:func:`refine_setup_warp1_cost`), :func:`refine_weights_cost`,
-:func:`refine_sor_cost` (in its compose mode :func:`refine_compose_cost`,
-in its no-sweep mode :func:`refine_nosweep_cost`), :func:`refine_update_cost`,
+refinement's :func:`refine_planes_cost`, :func:`refine_setup_cost` (in
+its warp1 mode :func:`refine_setup_warp1_cost`),
+:func:`refine_update_cost` (a weight update's
+:func:`refine_weights_cost` and its half-sweeps' :func:`refine_sor_cost`)
+and :func:`refine_nosweep_cost`,
 each scale's :func:`templates_cost` (plus :func:`start_cost` where S1
 writes the start), :func:`weights_cost`, :func:`densify_cost`, and the
 frame's :func:`frame_pad_cost`, :func:`intensity_levels_cost`,
@@ -40,12 +40,11 @@ from .config import DISConfig
 from .ops.cuda.pyramid_kernel import first_level_dims
 
 # The kernel each op launches, by op name (K1's plane mode, R1's setup and
-# warp1 modes and R3's compose and no-sweep modes count as K1, R1 and R3).
+# warp1 modes and R3's no-sweep mode count as K1, R1 and R3).
 KERNELS = {"pyramid_levels": "K3", "extract_regions": "K2",
            "extract_regions_banded": "K2c", "iclk_search": "K1", "iclk_search_plane": "K1",
-           "refine_planes": "R0", "refine_warp": "R1", "refine_setup": "R1",
-           "refine_setup_warp1": "R1", "refine_weights": "R2", "refine_sor": "R3",
-           "refine_compose": "R3", "refine_nosweep": "R3", "refine_update": "R23",
+           "refine_planes": "R0", "refine_setup": "R1", "refine_setup_warp1": "R1",
+           "refine_nosweep": "R3", "refine_update": "R23",
            "scale_templates": "S1", "fixed_weights": "S3", "densify": "S4",
            "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
 # The kernels every count names; the refinement's (R0, R1, R23, and R3 in
@@ -125,16 +124,6 @@ def search_plane_cost(nb: int, th: int, tw: int, n: int, ps: int, fixed: bool,
             ops + 12 * nb * n)
 
 
-def refine_warp_cost(nb: int, h: int, w: int, c: int) -> Tuple[int, int]:
-    """(bytes, operations) of one R1 launch over ``nb`` planes of ``h`` x
-    ``w`` pixels and ``c`` channels: the planes and the flow read once, the
-    warped planes and the mask (a byte a pixel) written once; about 37
-    operations a pixel for the taps and weights and 7 a channel for the
-    blend."""
-    px = nb * h * w
-    return px * (2 * c * F32 + 2 * F32 + 1), px * (37 + 7 * c)
-
-
 def refine_planes_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
     """(bytes, operations) of one R0 launch over ``nb`` windows of ``h`` x
     ``w`` pixels: the two windows read once, I1x, I1y and the six planes
@@ -146,46 +135,41 @@ def refine_planes_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
 def refine_setup_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
     """(bytes, operations) of one R1 launch in its setup mode over ``nb``
     planes of ``h`` x ``w``: the six planes, the flow, I1, I1x and I1y read
-    once and R2's 13 inputs written once; the warp's operations at C = 6
-    and three differences a pixel."""
+    once and R23's 13 inputs written once; about 37 operations a pixel for
+    the taps and weights, 7 a channel for the blend of the six planes, and
+    three differences."""
     px = nb * h * w
     return px * 24 * F32, px * (37 + 7 * 6 + 3)
 
 
 def refine_setup_warp1_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
     """(bytes, operations) of one R1 launch in its warp1 mode over ``nb``
-    windows of ``h`` x ``w``: I1, I2 and the flow read once and R2's 13
-    inputs written once; the warp's operations at C = 1, seven Sobels a
-    pixel (7 operations each), the two means and three differences."""
+    windows of ``h`` x ``w``: I1, I2 and the flow read once and R23's 13
+    inputs written once; the warp's operations for one plane (37 and 7),
+    seven Sobels a pixel (7 operations each), the two means and three
+    differences."""
     px = nb * h * w
     return px * 17 * F32, px * (37 + 7 + 7 * 7 + 2 * 2 + 3)
 
 
 def refine_weights_cost(nb: int, h: int, w: int) -> Tuple[int, int]:
-    """(bytes, operations) of one R2 launch over ``nb`` planes of ``h`` x
-    ``w``: 13 planes read once and 12 written once; about 195 operations a
-    pixel (the smoothness weights of the pixel and of its four neighbours
-    take 110 of them)."""
+    """(bytes, operations) of a weight update's coefficients over ``nb``
+    planes of ``h`` x ``w`` (R23's head), were they a pass of their own: 13
+    planes read once and 12 written once; about 195 operations a pixel (the
+    smoothness weights of the pixel and of its four neighbours take 110 of
+    them)."""
     px = nb * h * w
     return px * 25 * F32, px * 195
 
 
 def refine_sor_cost(nb: int, h: int, w: int, color: int, relax: bool) -> Tuple[int, int]:
-    """(bytes, operations) of one R3 half-sweep over ``nb`` planes of ``h``
-    x ``w``: 16 planes read once and 2 written once; 34 operations for each
-    pixel of ``color`` (0: ``x + y`` even), 40 where it over-relaxes."""
+    """(bytes, operations) of one half-sweep of R23 over ``nb`` planes of
+    ``h`` x ``w``, were it a pass of its own: 16 planes read once and 2
+    written once; 34 operations for each pixel of ``color`` (0: ``x + y``
+    even), 40 where it over-relaxes."""
     px = nb * h * w
     updated = nb * ((h * w + 1) // 2 if color == 0 else h * w // 2)
     return px * 18 * F32, updated * (40 if relax else 34)
-
-
-def refine_compose_cost(nb: int, h: int, w: int, color: int, relax: bool,
-                        clamp: bool = False) -> Tuple[int, int]:
-    """(bytes, operations) of one R3 launch in its compose mode: the
-    half-sweep's, its 16 planes read and the flow's two planes written, and
-    two sums a pixel (and two comparisons a value where it ``clamp``s)."""
-    nbytes, ops = refine_sor_cost(nb, h, w, color, relax)
-    return nbytes, ops + (6 if clamp else 2) * nb * h * w
 
 
 def refine_nosweep_cost(nb: int, h: int, w: int, clamp: bool) -> Tuple[int, int]:
@@ -199,11 +183,12 @@ def refine_nosweep_cost(nb: int, h: int, w: int, clamp: bool) -> Tuple[int, int]
 def refine_update_cost(nb: int, h: int, w: int, sweeps: int, relax: bool,
                        compose: bool = False, clamp: bool = False) -> Tuple[int, int]:
     """(bytes, operations) of one R23 launch, a weight update of ``sweeps``
-    SOR sweeps over ``nb`` planes of ``h`` x ``w``: R2's 13 planes read
-    once and du and dv (or the flow) written once; R2's operations and
-    each half-sweep's (:func:`refine_weights_cost`, :func:`refine_sor_cost`),
-    and in the compose mode two sums a pixel (and two comparisons a value
-    where it ``clamp``s).  The halo's repeated work is not counted."""
+    SOR sweeps over ``nb`` planes of ``h`` x ``w``: its 13 planes read
+    once and du and dv (or the flow) written once; the coefficients'
+    operations and each half-sweep's (:func:`refine_weights_cost`,
+    :func:`refine_sor_cost`), and in the compose mode two sums a pixel (and
+    two comparisons a value where it ``clamp``s).  The halo's repeated work
+    is not counted."""
     ops = refine_weights_cost(nb, h, w)[1]
     ops += sum(refine_sor_cost(nb, h, w, j & 1, relax)[1] for j in range(2 * sweeps))
     px = nb * h * w
@@ -308,10 +293,6 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         n = init_u.shape[-2]
         return search_plane_cost(nb, *img2.shape[-2:], n, ps, fixed, normalize,
                                  nb * n * (iterations + 1))
-    if name == "refine_warp":
-        planes = args[0]
-        nb = planes.shape[0] if planes.ndim == 4 else 1
-        return refine_warp_cost(nb, *planes.shape[-3:])
     if name == "refine_planes":
         img1, h, w = args[0], args[3], args[4]
         return refine_planes_cost(img1.shape[0] if img1.ndim == 3 else 1, h, w)
@@ -324,17 +305,10 @@ def op_cost(name: str, args) -> Tuple[int, int]:
         sweeps, omega, compose = args[16:19]
         return refine_update_cost(plane.shape[0] if plane.ndim == 3 else 1, *plane.shape[-2:],
                                   sweeps, omega != 1.0, compose, len(args) > 19 and args[19])
-    if name in ("refine_weights", "refine_sor", "refine_compose", "refine_nosweep"):
+    if name == "refine_nosweep":
         plane = args[0]
-        nb = plane.shape[0] if plane.ndim == 3 else 1
-        if name == "refine_weights":
-            return refine_weights_cost(nb, *plane.shape[-2:])
-        if name == "refine_nosweep":
-            return refine_nosweep_cost(nb, *plane.shape[-2:], args[4])
-        if name == "refine_sor":
-            return refine_sor_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0)
-        return refine_compose_cost(nb, *plane.shape[-2:], args[16], args[17] != 1.0,
-                                   len(args) > 18 and args[18])
+        return refine_nosweep_cost(plane.shape[0] if plane.ndim == 3 else 1,
+                                   *plane.shape[-2:], args[4])
     if name == "frame_pad":
         img1 = args[0]
         return frame_pad_cost(img1.shape[0] if img1.ndim == 3 else 1, *img1.shape[-2:],

@@ -169,8 +169,8 @@ planes_kernel(const float* __restrict__ img1, const float* __restrict__ img2, in
 // and :223-242 (outer's head under warp1) that XLA fuses.  Its plain
 // version is refine_setup_warp1_plain in dis_tpu_torch/ops/variational.py:
 // I1 and I2, the windows at offset p of the level planes, and the flow
-// give W, I2 warped at x + flow (R1's taps and blend, warp_kernel<1> in
-// variational.cu), and from it R2's thirteen inputs, out [13, nb, h, w]:
+// give W, I2 warped at x + flow (R1's taps and blend, refine_warp_plain),
+// and from it R23's thirteen inputs, out [13, nb, h, w]:
 //   Iz = W - I1, Izx = Wxr - I1x, Izy = Wyr - I1y, Wx, Wy, Wxx = sobel_x(Wx),
 //   Wxy = sobel_y(Wx), Wyy = sobel_y(Wy), m, u0, v0, du = dv = 0,
 // where Wxr and Wyr are W's Sobels, I1x and I1y I1's, and Wx = (I1x + Wxr)
@@ -218,8 +218,8 @@ __device__ __forceinline__ Landing land(int y, int x, float u, float v, int h, i
 }
 
 // I2 (the window at `b`, row stride img_w) sampled at x + flow of pixel
-// (y, x): warp_kernel<1>'s four taps and blend, the terms summed left to
-// right.
+// (y, x): refine_warp_plain's four taps and blend (warp_kernel's in
+// variational.cu), the terms summed left to right.
 __device__ __forceinline__ float warp_at(const float* __restrict__ b, int img_w,
                                          const float* __restrict__ flow, int y, int x, int h,
                                          int w) {
@@ -332,7 +332,7 @@ extern "C" int dis_refine_planes(const float* img1, const float* img2, int nb, i
 }
 
 // R1w: img1, img2 [nb, img_h, img_w] (I1 and I2 their windows [h, w] at
-// offset p), flow [nb, h, w, 2]; writes out [13, nb, h, w], R2's inputs.
+// offset p), flow [nb, h, w, 2]; writes out [13, nb, h, w], R23's inputs.
 extern "C" int dis_refine_setup_warp1(const float* img1, const float* img2, const float* flow,
                                       int nb, int img_h, int img_w, int p, int h, int w,
                                       float* out, cudaStream_t stream) {

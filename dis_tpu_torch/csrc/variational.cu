@@ -1,79 +1,57 @@
-// R1-R3 and R23: the variational refinement's device loop.
+// R1's setup mode, R23 and R3's no-sweep mode: the variational
+// refinement's device loop.
 //
 // No Pallas kernel backs these: on the TPU the refinement is elementwise
 // jnp code (dis_tpu/ops/variational.py) that XLA fuses into a few loops
 // per masked half-sweep.  They replace those fusions:
-//   R1 dis_refine_warp     the bilinear warp, _warp_bilinear (:88);
-//      dis_refine_setup    R1's setup mode (the planes6 scheme): the warp
-//                          and, from it, the weight update's thirteen
-//                          inputs (outer's head, :220-250, and the zero
-//                          increments of :312);
-//   R2 dis_refine_weights  the lagged weight update, the head of inner
-//                          (:252-283) and the per-update coefficients;
-//   R3 dis_refine_sor      one red or black SOR half-sweep, half_sweep
-//                          (:286-307); in its compose mode the last one of
-//                          an outer iteration, which writes the flow
-//                          (u0 + du, v0 + dv) (:314), clipped to a bound
-//                          under a flag (refined_init_clamp's jnp.clip,
-//                          dis_tpu/models/dis.py:101-103); in its no-sweep
-//                          mode that flow of an outer iteration without a
-//                          half-sweep, with the same clip;
-//   R23 dis_refine_update  a weight update and all its half-sweeps in one
-//                          launch, on tiles held on chip (below); in its
-//                          compose mode the last update of an outer
-//                          iteration, which writes the flow, clipped under
-//                          the flag.
-// The main path launches R1, R23 once a weight update and R3 only in its
-// no-sweep mode: a planes6 level of 5 updates of 5 sweeps makes 7 launches
-// (R0, R1, five R23), where R2 once an update and R3 once a half-sweep
-// made 57.  R2 and R3 stay as R23's gate.  R1's warp1 mode (R1w), a tile
-// kernel, is in refine_planes.cu.  Their plain versions are
-// refine_warp_plain, refine_setup_plain, refine_weights_plain,
-// refine_sor_plain, refine_compose_plain, refine_nosweep_plain and
-// refine_update_plain in dis_tpu_torch/ops/variational.py.  Each kernel keeps
-// the plain version's operations, one float32 rounding per operation and
-// in its order (the build passes -fmad=false, so no product is contracted
-// into a multiply-add); the IRLS weight is 0.5 * (1 / sqrt(s2 + eps2))
-// with the correctly rounded root and reciprocal (__fsqrt_rn, __frcp_rn:
-// the plain version's sqrt_f32 and Tensor.__rtruediv__), the solve divides
-// with __fdiv_rn, and every Python scalar of the plain version is a
-// float32 here.  There is no reduction, so each kernel equals its plain
-// version bitwise.
+//   R1s dis_refine_setup    R1's setup mode (the planes6 scheme): the warp
+//                           (_warp_bilinear, :88) and, from it, the weight
+//                           update's thirteen inputs (outer's head,
+//                           :220-250, and the zero increments of :312);
+//   R23 dis_refine_update   a weight update, the head of inner (:252-283)
+//                           and the per-update coefficients, and all its
+//                           red and black half-sweeps (half_sweep,
+//                           :286-307) in one launch, on tiles held on chip
+//                           (below); in its compose mode the last update of
+//                           an outer iteration, which writes the flow
+//                           (u0 + du, v0 + dv) (:314), clipped to a bound
+//                           under a flag (refined_init_clamp's jnp.clip,
+//                           dis_tpu/models/dis.py:101-103);
+//   R3n dis_refine_nosweep  R3's no-sweep mode: that flow of an outer
+//                           iteration that makes no half-sweep, with the
+//                           same clip.
+// A planes6 level of 5 updates of 5 sweeps makes 7 launches (R0, R1s, five
+// R23).  R1's warp1 mode (R1w), a tile kernel, is in refine_planes.cu.
+// Their plain versions are refine_setup_plain, refine_update_plain (made of
+// refine_weights_plain and refine_sor_plain) and refine_nosweep_plain in
+// dis_tpu_torch/ops/variational.py.  Each kernel keeps the plain version's
+// operations, one float32 rounding per operation and in its order (the
+// build passes -fmad=false, so no product is contracted into a
+// multiply-add); the IRLS weight is 0.5 * (1 / sqrt(s2 + eps2)) with the
+// correctly rounded root and reciprocal (__fsqrt_rn, __frcp_rn: the plain
+// version's sqrt_f32 and Tensor.__rtruediv__), the solve divides with
+// __fdiv_rn, and every Python scalar of the plain version is a float32
+// here.  There is no reduction, so each kernel equals its plain version
+// bitwise.
 //
 // Layout: planes [nb, h, w] float32, contiguous, nb pairs (the batch axis)
 // of h x w pixels each; a stencil clamps its neighbour's row and column to
 // the pair's own plane (the plain version's replicate border), so it never
-// crosses a pair boundary.  One thread per pixel over a 1-D grid of the
-// nb * h * w pixels: consecutive threads take consecutive columns, so every
-// plane is read and written in coalesced rows.  Outputs are new planes:
-// R1 writes its C warped planes one after another ([C, nb, h, w]), R2 its
-// twelve coefficient planes ([12, nb, h, w]), R3 the new du and dv
-// ([2, nb, h, w]), every pixel, the other colour's copied through.  R23
-// works on tiles (its section below) and writes R3's outputs.
+// crosses a pair boundary.  R1s and R3n take one thread per pixel over a
+// 1-D grid of the nb * h * w pixels: consecutive threads take consecutive
+// columns, so every plane is read and written in coalesced rows.  Outputs
+// are new planes: R1s writes R23's thirteen inputs one after another
+// ([13, nb, h, w]), R23 the new du and dv ([2, nb, h, w]) or the flow.
 //
-// Bound on the H100: memory.  At the 1080p finest level (2,073,600 px, a
-// plane 8.29 MB) R3 reads 16 planes and writes 2 (149 MB, 44.6 us at
-// 3.35 TB/s), R2 reads 13 and writes 12 (207 MB, 62 us), R1 at C = 6
-// reads 8 planes and writes 6 and the mask (118 MB, 35 us); their
-// arithmetic is at most about 200 float32 operations a pixel (R2), under
-// 7 us at the card's 67 TFLOP/s.  The neighbour reads of a stencil (R2
-// recomputes the smoothness weight of each of the four neighbours from U
-// and V, R3 reads u0 + du at four neighbours) and R1's four taps come
-// from lines the warp's neighbours just brought into L1 and L2, so device
-// memory sees each plane about once.  Measured there (H100 80GB HBM3 at
-// 700 W, chip_smoke.py phase 1e): R1 0.046, R2 0.085, R3 0.051 ms, 73-87%
-// of those bounds, where the torch ops they replace take 0.87, 1.27 and
-// 0.33 ms replayed.  R1's setup mode reads 11 planes and writes 13 (199
-// MB, 59 us): 0.074 ms, 80%; R3's compose mode, R3's bytes: 0.055 ms, 82%.
-//
-// R23 reads R2's 13 planes and writes 2 (124 MB at 1080p, 37 us), once
-// each, where R2 and R3's ten launches moved 1.7 GB; it is bound instead
-// by the work its halo repeats (a tile of about 2,800 pixels keeps about
-// 1,000 as its interior) and by the latency of its chain of half-
-// sweeps, each a barrier apart: 0.26 ms a weight update at 1088 x 1920
-// against 0.61 for R2 and R3, and 0.009-0.072 ms at the 1080p
-// hd1080_medium levels 5 to 1 against 0.024-0.136 (H100 80GB HBM3 at
-// 700 W).
+// Bound on the H100: R1s and R3n by memory.  At the 1080p finest level
+// (2,073,600 px, a plane 8.29 MB) R1s reads 11 planes and writes 13 (199
+// MB, 59 us at 3.35 TB/s): 0.074 ms, 80% of that bound (H100 80GB HBM3 at
+// 700 W, chip_smoke.py phase 1e).  R23 reads its 13 planes and writes 2
+// (124 MB at 1080p, 37 us), once each; it is bound instead by the work its
+// halo repeats (a tile of about 2,800 pixels keeps about 1,000 as its
+// interior) and by the latency of its chain of half-sweeps, each a barrier
+// apart: 0.26 ms a weight update at 1088 x 1920, and 0.009-0.072 ms at the
+// 1080p hd1080_medium levels 5 to 1 (H100 80GB HBM3 at 700 W).
 
 #include <cuda_runtime.h>
 
@@ -111,15 +89,15 @@ __device__ __forceinline__ Pixel pixel_of(int64_t i, int h, int w) {
 }
 
 // ---------------------------------------------------------------------------
-// R1: planes [nb, h, w, C] (C interleaved) sampled at x + flow, flow
-// [nb, h, w, 2]; writes out [C, nb, h, w] and inb [nb, h, w] (bool).
-//
-// Its setup mode (SETUP, C = 6: refine_setup_plain) writes instead the
-// thirteen planes that R2 reads, out [13, nb, h, w] in R2's input order:
-// Iz = W - I1, Izx = Wx - I1x, Izy = Wy - I1y, the five warped derivative
-// planes, the mask m as 1.0 or 0.0, u0 and v0 from the flow, and du = dv
-// = 0.  I1 is read in place from its level plane (`setup.img1`, planes of
-// img_h x img_w, the window at offset p); I1x and I1y are R0's planes.
+// R1's setup mode (refine_setup_plain; its one instance is C = 6, SETUP, the
+// name traces and the layer tables match): planes [nb, h, w, C]
+// interleaved, sampled at x + flow, flow [nb, h, w, 2], with edge clamp
+// (refine_warp_plain's taps and blend); writes the thirteen planes that
+// R23 reads, out [13, nb, h, w] in its input order: Iz = W - I1, Izx = Wx -
+// I1x, Izy = Wy - I1y, the five warped derivative planes, the mask m as
+// 1.0 or 0.0, u0 and v0 from the flow, and du = dv = 0.  I1 is read in
+// place from its level plane (`setup.img1`, planes of img_h x img_w, the
+// window at offset p); I1x and I1y are R0's planes.
 struct Setup {
   const float* img1;
   const float* I1x;
@@ -132,7 +110,7 @@ enum SetupOut { O_IZ, O_IZX, O_IZY, O_WX, O_WY, O_WXX, O_WXY, O_WYY, O_M, O_U0, 
 template <int C, bool SETUP>
 __global__ void __launch_bounds__(THREADS)
 warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, int h, int w,
-            int64_t n, float* __restrict__ out, uint8_t* __restrict__ inb, Setup setup) {
+            int64_t n, float* __restrict__ out, Setup setup) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const Pixel p = pixel_of(i, h, w);
@@ -141,7 +119,6 @@ warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, in
   const float fx = (float)p.x + u0;
   const float fy = (float)p.y + v0;
   const bool in = (fx >= 0.f) & (fx <= wm1) & (fy >= 0.f) & (fy <= hm1);
-  if (!SETUP) inb[i] = in;
   const float fxc = fminf(fmaxf(fx, 0.f), wm1);
   const float fyc = fminf(fmaxf(fy, 0.f), hm1);
   const float x0f = floorf(fxc), y0f = floorf(fyc);
@@ -162,9 +139,7 @@ warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, in
     float s = w00 * c00[c] + w01 * c01[c];
     s = s + w10 * c10[c];
     v[c] = s + w11 * c11[c];
-    if (!SETUP) out[c * n + i] = v[c];
   }
-  if (!SETUP) return;
   const int64_t plane = (int64_t)setup.img_h * setup.img_w;
   const float I1 = setup.img1[(p.base / ((int64_t)h * w)) * plane +
                               (int64_t)(p.y + setup.p) * setup.img_w + p.x + setup.p];
@@ -180,98 +155,8 @@ warp_kernel(const float* __restrict__ planes, const float* __restrict__ flow, in
   out[O_DV * n + i] = 0.0f;
 }
 
-// ---------------------------------------------------------------------------
-// R2: the inputs in the order of refine_weights_plain's arguments.
+// R23's inputs, in the order of refine_weights_plain's arguments.
 enum WeightIn { IZ, IZX, IZY, WX, WY, WXX, WXY, WYY, M, U0, V0, DU, DV, N_WEIGHT_IN };
-// Its outputs, planes of out [12, nb, h, w] in the plain version's order.
-enum WeightOut { WE, WW, WS, WN, A11, A12, A22, B1C, B2C, DET, SU0, SV0, N_WEIGHT_OUT };
-
-struct WeightArgs {
-  const float* in[N_WEIGHT_IN];
-};
-
-// alpha * Psi'(|grad U|^2 + |grad V|^2) at (y, x) of one pair: forward
-// differences to the clamped right and lower neighbours of U = u0 + du and
-// V = v0 + dv, the squares summed as ((Ux^2 + Uy^2) + Vx^2) + Vy^2.
-__device__ __forceinline__ float smooth_weight(const WeightArgs& g, int64_t base, int y, int x,
-                                               int h, int w, float alpha) {
-  const int64_t c = base + (int64_t)y * w + x;
-  const int64_t e = base + (int64_t)y * w + min(x + 1, w - 1);
-  const int64_t s = base + (int64_t)min(y + 1, h - 1) * w + x;
-  const float* u0 = g.in[U0];
-  const float* du = g.in[DU];
-  const float* v0 = g.in[V0];
-  const float* dv = g.in[DV];
-  const float U = u0[c] + du[c], V = v0[c] + dv[c];
-  const float Ux = (u0[e] + du[e]) - U, Uy = (u0[s] + du[s]) - U;
-  const float Vx = (v0[e] + dv[e]) - V, Vy = (v0[s] + dv[s]) - V;
-  float sum = Ux * Ux + Uy * Uy;
-  sum = sum + Vx * Vx;
-  sum = sum + Vy * Vy;
-  return psi_deriv(sum, EPS2_SMOOTH) * alpha;
-}
-
-__global__ void __launch_bounds__(THREADS)
-weights_kernel(WeightArgs g, int h, int w, int64_t n, float alpha, float delta, float gamma,
-               float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const Pixel p = pixel_of(i, h, w);
-  const float Iz = g.in[IZ][i], Izx = g.in[IZX][i], Izy = g.in[IZY][i];
-  const float Wx = g.in[WX][i], Wy = g.in[WY][i];
-  const float Wxx = g.in[WXX][i], Wxy = g.in[WXY][i], Wyy = g.in[WYY][i];
-  const float m = g.in[M][i], u0 = g.in[U0][i], v0 = g.in[V0][i];
-  const float du = g.in[DU][i], dv = g.in[DV][i];
-
-  // Lagged robust weights of the data and gradient terms.
-  float r_d = Iz + Wx * du;
-  r_d = r_d + Wy * dv;
-  const float wd = (psi_deriv(r_d * r_d, EPS2_DATA) * delta) * m;
-  float r_gx = Izx + Wxx * du;
-  r_gx = r_gx + Wxy * dv;
-  float r_gy = Izy + Wxy * du;
-  r_gy = r_gy + Wyy * dv;
-  const float wg = (psi_deriv(r_gx * r_gx + r_gy * r_gy, EPS2_DATA) * gamma) * m;
-
-  // Edge weights: the mean of the endpoints' smoothness weights, each
-  // neighbour's recomputed from U and V with the same operations.
-  const float ws = smooth_weight(g, p.base, p.y, p.x, h, w, alpha);
-  const float wsE = smooth_weight(g, p.base, p.y, min(p.x + 1, w - 1), h, w, alpha);
-  const float wsW = smooth_weight(g, p.base, p.y, max(p.x - 1, 0), h, w, alpha);
-  const float wsS = smooth_weight(g, p.base, min(p.y + 1, h - 1), p.x, h, w, alpha);
-  const float wsN = smooth_weight(g, p.base, max(p.y - 1, 0), p.x, h, w, alpha);
-  const float wE = (ws + wsE) * 0.5f, wW = (ws + wsW) * 0.5f;
-  const float wS = (ws + wsS) * 0.5f, wN = (ws + wsN) * 0.5f;
-  float S = wE + wW;
-  S = S + wS;
-  S = S + wN;
-
-  float A11 = (wd * Wx) * Wx + wg * (Wxx * Wxx + Wxy * Wxy);
-  A11 = A11 + S;
-  const float A12 = (wd * Wx) * Wy + wg * (Wxy * (Wxx + Wyy));
-  float A22 = (wd * Wy) * Wy + wg * (Wxy * Wxy + Wyy * Wyy);
-  A22 = A22 + S;
-  const float b1c = -((wd * Wx) * Iz + wg * (Wxx * Izx + Wxy * Izy));
-  const float b2c = -((wd * Wy) * Iz + wg * (Wxy * Izx + Wyy * Izy));
-  float det = A11 * A22 - A12 * A12;
-  det = fabsf(det) < DET_FLOOR ? DET_FLOOR : det;
-
-  const float vals[N_WEIGHT_OUT] = {wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
-                                    S * u0, S * v0};
-#pragma unroll
-  for (int k = 0; k < N_WEIGHT_OUT; ++k) out[k * n + i] = vals[k];
-}
-
-// ---------------------------------------------------------------------------
-// R3: the inputs in the order of refine_sor_plain's arguments.
-enum SorIn {
-  S_U0, S_V0, S_DU, S_DV, S_WE, S_WW, S_WS, S_WN, S_A11, S_A12, S_A22, S_B1C, S_B2C, S_DET,
-  S_SU0, S_SV0, N_SOR_IN
-};
-
-struct SorArgs {
-  const float* in[N_SOR_IN];
-};
 
 // x clipped to [-b, b] as torch.clamp and jnp.clip clip it: NaN passes
 // through and -0.0 stays -0.0 (fminf and fmaxf would drop a NaN).
@@ -279,85 +164,40 @@ __device__ __forceinline__ float clip(float x, float b) {
   return x < -b ? -b : (x > b ? b : x);
 }
 
-// COMPOSE (R3's compose mode, refine_compose_plain): the outer
-// iteration's last half-sweep, which writes the flow out [nb, h, w, 2] =
-// (u0 + du, v0 + dv) of its new du and dv instead of du and dv, each
-// clipped to [-bound, bound] where `clamp` (a runtime flag).
-template <bool COMPOSE>
-__device__ __forceinline__ void sor_store(float* __restrict__ out, int64_t n, int64_t i,
-                                          float u0, float v0, float du, float dv, int clamp,
-                                          float bound) {
-  if (COMPOSE) {
-    const float u = u0 + du, v = v0 + dv;
-    out[2 * i] = clamp ? clip(u, bound) : u;
-    out[2 * i + 1] = clamp ? clip(v, bound) : v;
-  } else {
-    out[i] = du;
-    out[n + i] = dv;
-  }
-}
-
-// NOSWEEP (R3's no-sweep mode, refine_nosweep_plain, with COMPOSE): every
-// pixel passes through, so only u0, v0, du and dv are read.
+// ---------------------------------------------------------------------------
+// R3's no-sweep mode (refine_nosweep_plain): the flow out [nb, h, w, 2] =
+// (u0 + du, v0 + dv), each clipped to [-bound, bound] where `clamp` (a
+// runtime flag).  It keeps the name and the template argument it had as
+// the compose instance of R3's half-sweep, which traces and the layer
+// tables match; COMPOSE is true in its one instance.
 template <bool COMPOSE>
 __global__ void __launch_bounds__(THREADS)
-sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax, int clamp,
-           float bound, int nosweep, float* __restrict__ out) {
+sor_kernel(const float* __restrict__ u0, const float* __restrict__ v0,
+           const float* __restrict__ du, const float* __restrict__ dv, int64_t n, int clamp,
+           float bound, float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
-  const Pixel p = pixel_of(i, h, w);
-  const float* u0 = g.in[S_U0];
-  const float* v0 = g.in[S_V0];
-  const float* du = g.in[S_DU];
-  const float* dv = g.in[S_DV];
-  const float du_c = du[i], dv_c = dv[i];
-  if (nosweep || ((p.x + p.y) & 1) != color) {   // the other colour passes through
-    sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_c, dv_c, clamp, bound);
-    return;
-  }
-  const int64_t row = p.base + (int64_t)p.y * w;
-  const int64_t e = row + min(p.x + 1, w - 1);
-  const int64_t ww = row + max(p.x - 1, 0);
-  const int64_t s = p.base + (int64_t)min(p.y + 1, h - 1) * w + p.x;
-  const int64_t nn = p.base + (int64_t)max(p.y - 1, 0) * w + p.x;
-  const float wE = g.in[S_WE][i], wW = g.in[S_WW][i];
-  const float wS = g.in[S_WS][i], wN = g.in[S_WN][i];
-  // wE U(E) + wW U(W) + wS U(S) + wN U(N), U = u0 + du, left to right.
-  float nU = wE * (u0[e] + du[e]) + wW * (u0[ww] + du[ww]);
-  nU = nU + wS * (u0[s] + du[s]);
-  nU = nU + wN * (u0[nn] + du[nn]);
-  float nV = wE * (v0[e] + dv[e]) + wW * (v0[ww] + dv[ww]);
-  nV = nV + wS * (v0[s] + dv[s]);
-  nV = nV + wN * (v0[nn] + dv[nn]);
-  const float b1 = (g.in[S_B1C][i] + nU) - g.in[S_SU0][i];
-  const float b2 = (g.in[S_B2C][i] + nV) - g.in[S_SV0][i];
-  const float A11 = g.in[S_A11][i], A12 = g.in[S_A12][i], A22 = g.in[S_A22][i];
-  const float det = g.in[S_DET][i];
-  float du_new = __fdiv_rn(A22 * b1 - A12 * b2, det);
-  float dv_new = __fdiv_rn(A11 * b2 - A12 * b1, det);
-  if (relax) {   // omega != 1: over-relax; omega == 1 keeps the direct assignment
-    du_new = du_c + (du_new - du_c) * omega;
-    dv_new = dv_c + (dv_new - dv_c) * omega;
-  }
-  sor_store<COMPOSE>(out, n, i, u0[i], v0[i], du_new, dv_new, clamp, bound);
+  const float u = u0[i] + du[i], v = v0[i] + dv[i];
+  out[2 * i] = clamp ? clip(u, bound) : u;
+  out[2 * i + 1] = clamp ? clip(v, bound) : v;
 }
 
 // ---------------------------------------------------------------------------
-// R23: one weight update, R2's coefficients and `nh` of its half-sweeps,
+// R23: one weight update, its coefficients and `nh` of its half-sweeps,
 // on a tile held on chip (temporal blocking).  A block takes one tile of
 // one pair: an interior of ih x iw pixels and a halo of nh pixels above
 // and left of it and nh + 1 below and right, cut at the plane's edges.
 // Each thread holds up to UPDATE_PAIRS pairs of the tile's pixels in
-// registers (each pixel's du, dv and most of R2's outputs); shared memory
+// registers (each pixel's du, dv and most of its coefficients); shared memory
 // holds what neighbours read (U = u0 + du, V = v0 + dv, the smoothness
 // weights) and the rest (u0, v0, the edge weights).  The block loads U
-// and V (du, dv the update's increments, which R2 reads) and the
+// and V (du, dv the update's increments, which the coefficients read) and the
 // half-sweeps' start du and dv, makes the smoothness weights, then the
 // coefficients, then runs the half-sweeps colour by colour, and writes
 // the interior's du and dv, or in the compose mode the flow (u0 + du,
 // v0 + dv) clipped where `clamp`.
 // A half-sweep reads 14 shared words a pixel and writes 2, where one that
-// kept all of R2's outputs in shared memory read 22 and wrote 4, and
+// kept all of the coefficients in shared memory read 22 and wrote 4, and
 // shared memory's bandwidth set its pace.
 //
 // A stencil clamps its neighbour to the tile, which at the plane's edges is
@@ -366,7 +206,7 @@ sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax
 // reaches: a smoothness weight reads its right and lower neighbours' U (1
 // pixel, right and below), an edge weight its four neighbours' weights (1
 // more each side), and a half-sweep its four neighbours' U and V (1 more
-// each side per half-sweep).  After R2 and nh half-sweeps the wrong values
+// each side per half-sweep).  After the coefficients and nh half-sweeps the wrong values
 // reach nh pixels in from the tile's upper and left edges and nh + 1 in
 // from its lower and right ones, so the interior holds the plain version's
 // bits.  The j-th half-sweep (from 1) updates only the pixels still right
@@ -376,8 +216,9 @@ sor_kernel(SorArgs g, int h, int w, int64_t n, int color, float omega, int relax
 //
 // Where a launch holds only part of an update's half-sweeps (j0 > 0: the
 // halo of them all would not leave a tile an interior), du and dv point to
-// the previous launch's output while R2 still reads the update's own
-// increments; U and V are made anew from them after R2.
+// the previous launch's output while the coefficients still read the
+// update's own increments; U and V are made anew from them after the
+// coefficients.
 constexpr int UPDATE_THREADS = 512;
 // The pixel pairs a thread holds: a row's pixels 2k and 2k + 1, one of
 // each colour, so that every thread has one pixel of a pair to update in
@@ -390,7 +231,7 @@ constexpr int UPDATE_PAIRS = 3;
 enum TilePlane { P_U, P_V, P_U0, P_V0, P_WSM, P_WE, P_WW, P_WS, P_WN, N_TILE_PLANES };
 
 struct UpdateArgs {
-  const float* in[N_WEIGHT_IN];   // R2's inputs: its du and dv are the update's increments
+  const float* in[N_WEIGHT_IN];   // the coefficients' inputs: du and dv the update's increments
   const float* du;                // the half-sweeps' start
   const float* dv;
 };
@@ -418,9 +259,9 @@ __host__ __device__ __forceinline__ int tile_half(int th, int tw) {
 }
 
 // What a thread holds of one of its pixels through the half-sweeps: its
-// du and dv, and R2's outputs but for the edge weights (in shared memory)
-// and Su0 and Sv0, which a half-sweep makes again from the edge weights
-// and u0 and v0 with R2's operations.
+// du and dv, and refine_weights_plain's outputs but for the edge weights
+// (in shared memory) and Su0 and Sv0, which a half-sweep makes again from
+// the edge weights and u0 and v0 with the same operations.
 struct Held {
   float du, dv, a11, a12, a22, b1c, b2c, det;
 };
@@ -487,7 +328,9 @@ sor_kernel(UpdateArgs g, int h, int w, UpdatePlan t, float alpha, float delta, f
     sV[i] = v0 + (split ? __ldg(g.in[DV] + gi) : px[m][c].dv);
   });
   __syncthreads();
-  // The smoothness weights: smooth_weight's operations on the tile.
+  // The smoothness weights: alpha * Psi'(|grad U|^2 + |grad V|^2), forward
+  // differences to the clamped right and lower neighbours, the squares
+  // summed as ((Ux^2 + Uy^2) + Vx^2) + Vy^2 (refine_weights_plain).
   each_held([&](int m, int c, int x, int i, int64_t gi) {
     const int e = at(y[m], min(x + 1, tw - 1)), s = at(min(y[m] + 1, th - 1), x);
     const float Ux = sU[e] - sU[i], Uy = sU[s] - sU[i];
@@ -498,7 +341,10 @@ sor_kernel(UpdateArgs g, int h, int w, UpdatePlan t, float alpha, float delta, f
     sWSM[i] = psi_deriv(sum, EPS2_SMOOTH) * alpha;
   });
   __syncthreads();
-  // R2's outputs: weights_kernel's operations on the tile.
+  // The coefficients, refine_weights_plain's operations on the tile: the
+  // lagged robust weights of the data and gradient terms, the edge weights
+  // (the mean of the endpoints' smoothness weights), the 2x2 system and its
+  // determinant, floored.
   each_held([&](int m, int c, int x, int i, int64_t gi) {
     const int yy = y[m];
     const float Iz = __ldg(g.in[IZ] + gi), Izx = __ldg(g.in[IZX] + gi);
@@ -545,7 +391,7 @@ sor_kernel(UpdateArgs g, int h, int w, UpdatePlan t, float alpha, float delta, f
       sV[i] = sV0[i] + px[m][c].dv;
     }
   });
-  // The half-sweeps: sor_kernel's operations on each held pixel of the
+  // The half-sweeps: refine_sor_plain's operations on each held pixel of the
   // colour that stays right; the other colour is only read, so each runs
   // in place.  The colour is a constant of each instance, so the held
   // values stay in registers.
@@ -573,7 +419,7 @@ sor_kernel(UpdateArgs g, int h, int w, UpdatePlan t, float alpha, float delta, f
       float nV = wE * sV[e] + wW * sV[ww];
       nV = nV + wS * sV[s];
       nV = nV + wN * sV[nn];
-      float S = wE + wW;   // R2's S, Su0 and Sv0
+      float S = wE + wW;   // the coefficients' S, Su0 and Sv0
       S = S + wS;
       S = S + wN;
       const float u0 = sU0[i], v0 = sV0[i];
@@ -598,7 +444,7 @@ sor_kernel(UpdateArgs g, int h, int w, UpdatePlan t, float alpha, float delta, f
     else
       half_sweep(j, Colour<1>{});
   }
-  // The interior: U and V hold u0 + du and v0 + dv, sor_store's sums.
+  // The interior: U and V hold u0 + du and v0 + dv, the flow's sums.
   const int64_t n = (int64_t)gridDim.y * h * w;
   each_held([&](int m, int c, int x, int i, int64_t gi) {
     if (y[m] < r0 - y0 || y[m] >= r1 - y0 || x < c0 - x0 || x >= c1 - x0) return;
@@ -626,26 +472,6 @@ bool shape_ok(int nb, int h, int w) {
 
 }  // namespace
 
-extern "C" int dis_refine_warp(const float* planes, const float* flow, int nb, int h, int w,
-                               int c, float* out, uint8_t* inb, cudaStream_t stream) {
-  if (!shape_ok(nb, h, w)) return (int)cudaErrorInvalidValue;
-  const int64_t n = (int64_t)nb * h * w;
-  const Setup none = {nullptr, nullptr, nullptr, 0, 0, 0};
-  switch (c) {
-    case 1:
-      warp_kernel<1, false><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out,
-                                                                   inb, none);
-      break;
-    case 6:
-      warp_kernel<6, false><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out,
-                                                                   inb, none);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
 // R1's setup mode: planes [nb, h, w, 6], flow [nb, h, w, 2], img1 [nb,
 // img_h, img_w] (I1 its window at offset p), I1x and I1y [nb, h, w]; out
 // [13, nb, h, w].
@@ -656,44 +482,23 @@ extern "C" int dis_refine_setup(const float* planes, const float* flow, const fl
     return (int)cudaErrorInvalidValue;
   const int64_t n = (int64_t)nb * h * w;
   const Setup setup = {img1, I1x, I1y, img_h, img_w, p};
-  warp_kernel<6, true><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out,
-                                                              nullptr, setup);
+  warp_kernel<6, true><<<blocks_for(n), THREADS, 0, stream>>>(planes, flow, h, w, n, out, setup);
   return (int)cudaGetLastError();
 }
 
-extern "C" int dis_refine_weights(const float* const* ins, int nb, int h, int w, float alpha,
-                                  float delta, float gamma, float* out, cudaStream_t stream) {
+// R3's no-sweep mode: u0, v0, du and dv [nb, h, w]; out the flow [nb, h, w,
+// 2], clipped to [-bound, bound] where clamp != 0.
+extern "C" int dis_refine_nosweep(const float* u0, const float* v0, const float* du,
+                                  const float* dv, int nb, int h, int w, int clamp, float bound,
+                                  float* out, cudaStream_t stream) {
   if (!shape_ok(nb, h, w)) return (int)cudaErrorInvalidValue;
-  WeightArgs g;
-  for (int k = 0; k < N_WEIGHT_IN; ++k) g.in[k] = ins[k];
   const int64_t n = (int64_t)nb * h * w;
-  weights_kernel<<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, alpha, delta, gamma, out);
-  return (int)cudaGetLastError();
-}
-
-// R3: out [2, nb, h, w] (du, dv); in its compose mode (compose != 0) the
-// flow [nb, h, w, 2], clipped to [-bound, bound] where clamp != 0; in its
-// no-sweep mode (nosweep != 0, with compose) the flow (u0 + du, v0 + dv)
-// with the same clip, from ins[0..3] alone (the others are not read).
-extern "C" int dis_refine_sor(const float* const* ins, int nb, int h, int w, int color,
-                              float omega, int relax, int compose, int clamp, float bound,
-                              int nosweep, float* out, cudaStream_t stream) {
-  if (!shape_ok(nb, h, w) || (color != 0 && color != 1) || ((clamp || nosweep) && !compose))
-    return (int)cudaErrorInvalidValue;
-  SorArgs g;
-  for (int k = 0; k < N_SOR_IN; ++k) g.in[k] = ins[k];
-  const int64_t n = (int64_t)nb * h * w;
-  if (compose)
-    sor_kernel<true><<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax,
-                                                            clamp, bound, nosweep, out);
-  else
-    sor_kernel<false><<<blocks_for(n), THREADS, 0, stream>>>(g, h, w, n, color, omega, relax,
-                                                             0, 0.0f, 0, out);
+  sor_kernel<true><<<blocks_for(n), THREADS, 0, stream>>>(u0, v0, du, dv, n, clamp, bound, out);
   return (int)cudaGetLastError();
 }
 
 // R23: the half-sweeps j0 .. j0 + nh - 1 of a weight update, over tiles of
-// ih x iw interior pixels (one launch).  ins: R2's thirteen inputs (the
+// ih x iw interior pixels (one launch).  ins: its thirteen inputs (the
 // update's du and dv at 11 and 12), then the half-sweeps' start du and dv
 // (the same two pointers in the update's first launch).  out [2, nb, h, w]
 // (du, dv); in the compose mode (compose != 0) the flow [nb, h, w, 2],

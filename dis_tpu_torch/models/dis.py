@@ -4,17 +4,15 @@ of ``dis_tpu/models/dis.py``.
 ``flow = dis_flow(img1, img2, cfg)`` runs on the device of its inputs:
 on CUDA tensors each pyramid and search goes through the hand-written
 kernels K3 and K1 (K1 in its plane mode, which copies each patch's
-region from the level plane; K2c's regions where the extraction route
-says so: the compat 4K finest scale), each scale's templates and start
-through S1 and its fixed-mode weights and densification through S3 and
-S4; on CPU tensors
+region from the level plane: the one path of every scale, stripe and
+window), each scale's templates and start through S1 and its
+fixed-mode weights and densification through S3 and S4; on CPU tensors
 through their plain PyTorch versions.  Scale shapes are static and the
 scale loop is a Python loop.
 
 A batch of same-shape pairs ``[B, H, W]`` runs the same loop once, with
 the pair axis leading every tensor: one K3 launch per image (four
-levels each), one K1 (K1b) launch per scale, after one K2c where the route takes
-it, whatever B is.
+levels each), one K1 (K1b) launch per scale, whatever B is.
 Each pair of a batch gets the bits it gets alone.  Each scale's constants
 come from its plan (``ops/grid.py::scale_plan``), made once per shape and
 device, so a frame makes no host-to-device copy and no host sync, and can
@@ -22,14 +20,13 @@ be captured in a CUDA graph (``serving.py``).
 
 Configs with ``refinement_iters > 0`` (``DIS_MEDIUM``, ``DIS_FULL``)
 refine the densified flow variationally (``ops/variational.py``: on CUDA
-tensors the kernels R0-R3, a launch per level's Sobel planes, warp,
-weight update and half-sweep), after every scale (``refine_per_level``)
+tensors R0 for a level's Sobel planes, then each outer iteration R1 in
+its setup or warp1 mode and R23 once a weight update, or R3 in its
+no-sweep mode where no half-sweep runs), after every scale (``refine_per_level``)
 or once at the finest scale, on the Q1 levels or the intensity chain
 (``refinement_planes``; kernel F2 builds it).  ``dis_flow`` pads the
 frame with kernel F1 where it pads, and upsamples and crops the flow with
-kernel F3 where ``finest_scale > 0``.  Without ``refined_init_clamp`` a per-level
-refinement leaves the next scale's init without a static bound, and the
-route takes "K2" (K1's plane mode) there.
+kernel F3 where ``finest_scale > 0``.
 
 Exact tiling (``parallel/tiles.py``) runs one scale on a window of
 output rows (:func:`dis_scale_window`) or the whole pipeline on a row
@@ -59,7 +56,7 @@ from ..config import DISConfig
 from ..ops import iclk
 from ..ops import image as im
 from ..ops.densify import densify, fixed_weights
-from ..ops.grid import ScalePlan, make_grid, scale_plan
+from ..ops.grid import ScalePlan, scale_plan
 from ..ops.cuda.frame_kernel import frame_finish, frame_pad, intensity_levels
 from ..ops.pyramid import construct_pyramid, intensity_levels_plain
 from ..ops.variational import variational_refinement
@@ -86,19 +83,6 @@ def motion_bound(cfg: DISConfig, scale: int) -> float:
     return b
 
 
-def init_bound(cfg: DISConfig, scale: int) -> Optional[float]:
-    """The static bound on ``|init_u|`` at ``scale``: zero at the coarsest
-    scale, else twice the policing-chain bound of the coarser scale; None
-    where per-level refinement without the clamp rewrites the init (the
-    extraction route then takes K2)."""
-    if scale == cfg.coarsest_scale:
-        return 0.0
-    refined = cfg.refinement_iters > 0 and cfg.refine_per_level
-    if refined and not cfg.refined_init_clamp:
-        return None
-    return 2.0 * motion_bound(cfg, scale + 1)
-
-
 def window_patch_rows(cfg: DISConfig, gh_s: int, win_lo: int,
                       win_hi: int) -> Tuple[int, int]:
     """Global patch-row range [iy0, iy1) whose ps x ps footprints
@@ -114,7 +98,7 @@ def window_patch_rows(cfg: DISConfig, gh_s: int, win_lo: int,
     return iy0, iy1
 
 
-def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
+def _scale(l1, l2, flow_coarse, cfg: DISConfig, gh_s: int,
            iy_range, window, row0: int = 0, coarse_row_offset: int = 0,
            plain: bool = False):
     """One scale for the global patch rows ``iy_range`` and output rows
@@ -123,9 +107,8 @@ def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
     (None at the coarsest scale; its first row is global row
     ``coarse_row_offset``), the IC-LK search and densification.  On CUDA
     tensors each step is one kernel launch: S1 (templates, inverse
-    Hessians, fixed mode's ``Tn`` and the start), K1 in its plane mode
-    (or K2c, then K1), S3 (fixed mode's weights) and S4
-    (densification)."""
+    Hessians, fixed mode's ``Tn`` and the start), K1 in its plane mode,
+    S3 (fixed mode's weights) and S4 (densification)."""
     sw = l1.width
     ps, pad = cfg.patch_size, cfg.img_padding
     fixed = cfg.mode == "fixed"
@@ -136,9 +119,7 @@ def _scale(l1, l2, flow_coarse, cfg: DISConfig, scale: int, gh_s: int,
     if fixed and Tn is None:
         Tn = tpl.T
     res = iclk.inverse_search(l2.img, tpl, plan.centers, init_u, cfg, sw, gh_s,
-                              row0=row0, geom=plan.geom,
-                              init_bound=init_bound(cfg, scale), plain=plain, Tn=Tn,
-                              start=(pos0, conv0))
+                              row0=row0, plain=plain, Tn=Tn, start=(pos0, conv0))
     wts = _fixed_weights(res, tpl, cfg, plain) if fixed else None
     return densify(res.u, plan, wts, plain=plain), plan.geom, res
 
@@ -154,21 +135,9 @@ def dis_scale_window(l1, l2, flow_coarse, cfg: DISConfig, scale: int,
     (``dis_flow_padded`` runs it with the full window).  Returns
     (flow [(B,) win_hi - win_lo, w_s, 2], geom, SearchResult)."""
     gh_s = l1.height
-    return _scale(l1, l2, flow_coarse, cfg, scale, gh_s,
+    return _scale(l1, l2, flow_coarse, cfg, gh_s,
                   window_patch_rows(cfg, gh_s, win_lo, win_hi), (win_lo, win_hi),
                   plain=plain)
-
-
-def scale_extraction_route(cfg: DISConfig, width: int, height: int,
-                           scale: int) -> str:
-    """The extraction kernel (``ops/iclk.py::extraction_route``: "K2" or
-    "K2c") the pipeline launches at ``scale`` for a padded [height, width]
-    frame, derived from static shapes alone."""
-    sw, sh = width >> scale, height >> scale
-    geom = make_grid(sw, sh, cfg.steps)
-    pad = cfg.img_padding
-    return iclk.extraction_route(cfg, (sh + 2 * pad, sw + 2 * pad),
-                                 geom.num_w * geom.num_h, init_bound(cfg, scale))
 
 
 def flow_plans(cfg: DISConfig, height: int, width: int,
@@ -227,7 +196,7 @@ def refine(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
     :func:`build_refinement_planes`) is given, on the intensity planes of
     that scale (the levels are then not read and may be None); clipped to
     [-bound, bound] where ``bound`` is given.  ``plain=True`` runs the
-    plain versions of R0-R3 on any device."""
+    plain versions of the refinement's kernels on any device."""
     if planes is None:
         return variational_refinement(l1.img, l2.img, flow, cfg, plain=plain, bound=bound)
     return variational_refinement(planes[0][scale], planes[1][scale], flow, cfg, pad=0,
@@ -240,9 +209,9 @@ def refine_level(l1, l2, flow: torch.Tensor, cfg: DISConfig, scale: int,
     3.3), shared by the untiled and grid-tiled engines, which call it
     where ``refinement_iters > 0``.  With ``cfg.refined_init_clamp`` the
     refined field is clipped to the policing-chain bound
-    ``motion_bound(cfg, scale)``, which restores the static init bound
-    that K2c's route needs: R3 clips the flow as it writes it in the last
-    outer iteration."""
+    ``motion_bound(cfg, scale)``: the last outer iteration clips the
+    flow as it writes it (R23 in its compose mode, or R3 in its no-sweep
+    mode)."""
     bound = motion_bound(cfg, scale) if cfg.refined_init_clamp else None
     return refine(l1, l2, flow, cfg, scale, planes, plain, bound)
 
@@ -361,7 +330,7 @@ def dis_flow_stripe(img1_ext: torch.Tensor, img2_ext: torch.Tensor,
 
     All geometry (patch grid, policing bounds, densification windows) is
     GLOBAL; the stripe only localizes the image planes (``row0`` moves
-    the y tap base of the templates, K2/K2c and K1), so the result is
+    the y tap base of the templates and of K1), so the result is
     bitwise those rows of ``dis_flow_padded``.  ``row0``, ``ext_h``,
     ``own_r0``, ``own_h`` and ``global_h`` must be multiples of
     ``2**coarsest_scale``; the halo must cover the per-scale motion bound
@@ -388,7 +357,7 @@ def dis_flow_stripe(img1_ext: torch.Tensor, img2_ext: torch.Tensor,
     for scale in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
         with profiling.stage(f"stripe_scale_{scale}", scale):
             coarse_r0 = 0 if flow is None else win_plan[scale + 1][0]
-            flow, _, _ = _scale(pyr1[scale], pyr2[scale], flow, cfg, scale,
+            flow, _, _ = _scale(pyr1[scale], pyr2[scale], flow, cfg,
                                 global_h >> scale, iy_plan[scale], win_plan[scale],
                                 row0 >> scale, coarse_r0, plain)
     return flow

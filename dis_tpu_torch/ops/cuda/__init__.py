@@ -1,18 +1,17 @@
 """Wrappers of the hand-written CUDA kernels K1-K3 (K2 and K1 with their
 batched forms K2b and K1b: a leading pair axis on their inputs), K2c,
-the column-banded form of K2, the refinement's R0-R3 and R23, each
+the column-banded form of K2, the refinement's R0, R1, R23 and R3, each
 scale's S1, S3 and S4 and the frame's F1-F3, and the ops they launch
 through.
 
 Each C entry point of ``csrc/`` is registered as an op of the
 ``dis_tpu_torch`` namespace (``torch.library.custom_op``) with a flat
-schema of tensors, ints, floats and bools: ``pyramid_levels`` (K3),
-``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c),
+schema of tensors, ints, floats and bools, 16 ops: ``pyramid_levels``
+(K3), ``extract_regions`` (K2, K2b), ``extract_regions_banded`` (K2c),
 ``iclk_search`` and ``iclk_search_plane`` (K1, K1b; the second in its
-plane mode), ``refine_planes`` (R0), ``refine_warp`` and
-``refine_setup`` (R1 and its setup mode), ``refine_weights`` (R2),
-``refine_sor``, ``refine_compose`` and ``refine_nosweep`` (R3 and its
-compose and no-sweep modes), ``refine_update`` (R23),
+plane mode), ``refine_planes`` (R0), ``refine_setup`` and
+``refine_setup_warp1`` (R1 in its setup and warp1 modes),
+``refine_update`` (R23), ``refine_nosweep`` (R3 in its no-sweep mode),
 ``scale_templates`` (S1, the search start included), ``fixed_weights``
 and ``densify`` (S3, S4), ``frame_pad``, ``intensity_levels`` and
 ``frame_finish`` (F1-F3).  Each op has three

@@ -4,8 +4,12 @@
 Replaces ``dis_tpu/ops/pallas/extract_kernel.py::extract_regions_banded``
 (kernel body ``kern``), which the TPU takes where the padded plane
 overflows VMEM: the 4K finest scale and the stripes of a tiled 4K frame
-(``ops/iclk.py::extraction_route``).  It computes K2's function: the
-plain version is ``ops/iclk.py::extract_regions_plain``, equal bitwise.
+(the JAX package's choice of extraction, ``dis_tpu/ops/iclk.py``).  It
+computes K2's function: the plain version is
+``ops/iclk.py::extract_regions_plain``, equal bitwise.  The port's search
+launches no K2c (K1's plane mode copies the same windows from the
+plane); it is a standalone kernel that tests hold bitwise against K2,
+the plane mode and the plain version.
 
 Bound by bytes on the H100, as K2, whose device code it shares
 (``csrc/extract_group.cuh``; constants and launch arithmetic in
@@ -40,11 +44,10 @@ def extract_regions_banded(img2: torch.Tensor, pos0: torch.Tensor, ps: int,
     int32) for the padded level plane ``img2`` [(B,) th, tw], whose first
     row is global row ``row0``, and the start positions ``pos0`` [(B,) N,
     2] of the x-outer grid ``geom`` (N = num_w * num_h).  ``init_bound``,
-    the route's static bound on ``|init_u|``, does not size the kernel
-    (kept so that the route's calls stay as they were).  ``outside``, a
+    the TPU kernel's static bound on ``|init_u|``, does not size this
+    one (kept as the TPU kernel's signature has it).  ``outside``, a
     one-element int32 CUDA tensor, gets the count of windows copied from
-    device memory instead of the staged box (a check; the main path
-    passes none)."""
+    device memory instead of the staged box (a check)."""
     n = pos0.shape[-2]
     if n != geom.num_w * geom.num_h:
         raise ValueError(f"pos0 holds {n} patches, the grid {geom.num_w} x "

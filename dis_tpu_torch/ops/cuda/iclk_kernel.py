@@ -11,12 +11,14 @@ a butterfly over the group, ps a compile-time constant for 8, 10, 12
 and 16.  Plain version: ``ops/iclk.py::iclk_search_plain``, which the
 kernel equals bitwise (same pair trees, no FMA).
 
-Two modes, one kernel: :func:`iclk_search` reads each patch's window
-from the regions and bases K2 or K2c wrote; its plane mode,
-:func:`iclk_search_plane`, copies each window straight from the padded
-level plane at K2's base, so the route ``"K2"`` launches no K2 and keeps
-no regions.  Its plain version is ``extract_regions_plain`` followed by
-``iclk_search_plain``.
+Two modes, one kernel: its plane mode, :func:`iclk_search_plane`, the
+search of every scale on the card (``ops/iclk.py::inverse_search``),
+copies each patch's window straight from the padded level plane at K2's
+base, so it launches no K2 and keeps no regions; its plain version is
+``extract_regions_plain`` followed by ``iclk_search_plain``.  Its
+regions mode, :func:`iclk_search`, reads the windows from the regions
+and bases that K2, K2b or K2c wrote: a standalone kernel that tests hold
+bitwise against the plane mode and the plain version.
 """
 
 from __future__ import annotations

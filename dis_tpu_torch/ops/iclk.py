@@ -19,12 +19,14 @@ Quirk-compat details (SURVEY.md section 2):
 - Q10: bilinear taps are addressed from ``ceil(pos + 1e-5)`` in float32.
 
 The search reads each patch's (2ps+3)^2 sampling region of the level
-plane.  The iteration loop is kernel K1 (``ops/cuda/iclk_kernel.py``),
-which on the route ``"K2"`` copies each region straight from the plane
-(its plane mode), and on the route ``"K2c"`` reads the regions that the
-column-banded extraction K2c wrote (``ops/cuda/extract_banded_kernel.py``),
-as :func:`extraction_route` picks; K2 (``ops/cuda/extract_kernel.py``)
-writes the same regions standalone, the plane mode's gate.  Before the
+plane.  On the card it is one launch of kernel K1 in its plane mode
+(``ops/cuda/iclk_kernel.py``), which copies each region straight from
+the plane; that is the one path of every scale, stripe and window.  K2
+(``ops/cuda/extract_kernel.py``), its batched form K2b, the
+column-banded K2c (``ops/cuda/extract_banded_kernel.py``) and K1's
+regions mode, which reads the regions they write, are standalone
+kernels that tests hold bitwise against the plane mode and the plain
+versions.  Before the
 search, kernel S1 cuts the templates, inverts their Hessians and picks
 each patch's start from the coarser flow (``ops/cuda/scale_kernel.py``).
 This module holds the kernels' plain PyTorch versions
@@ -369,90 +371,24 @@ def iclk_search_plain(regions: torch.Tensor, base_y: torch.Tensor,
     return u, Q, conv
 
 
-# The TPU's extraction gates (dis_tpu/ops/pallas/extract_kernel.py:71-110,
-# dis_tpu/ops/iclk.py:589-598), copied so that the port launches K2c at
-# exactly the scales where the TPU launches its column-banded kernel.
-# They model the TPU's VMEM and SMEM, not the H100's; whether K2 or K2c
-# is faster on the card is measured (PERF.md), not decided here.
-
-def _slab_rows(rc: int) -> int:
-    """The TPU kernels' aligned slab height: the smallest power of two
-    >= 7 + rc (at least 32)."""
-    ra = 32
-    while ra < 7 + rc:
-        ra *= 2
-    return ra
-
-
-def vmem_ok(th: int, tw: int, ps: int, block: int = 256,
-            budget_bytes: int = 12 * 1024 * 1024) -> bool:
-    """Whether the TPU's whole-image kernel fits a padded [th, tw] plane
-    and its block buffers into VMEM."""
-    rc = region_size(ps)
-    ra = _slab_rows(rc)
-    th_pad = -(-th // 8) * 8 + ra
-    tw_pad = -(-tw // 128) * 128 + 256
-    return th_pad * tw_pad * 4 + block * ra * rc * 4 * 2 < budget_bytes
-
-
-def band_width_ok(ps: int, init_bound: float, band_w: int = 384) -> bool:
-    """Whether the TPU's 384-lane column band covers every region of a
-    grid column whose init flow is bounded by ``init_bound``."""
-    return 127 + 2 * init_bound + 8 <= band_w - 128
-
-
-def extraction_route(cfg: DISConfig, img_shape, n_patches: int,
-                     init_bound: Optional[float]) -> str:
-    """Which extraction kernel :func:`inverse_search` launches for a scale
-    whose padded level plane is ``img_shape`` = (th, tw) with
-    ``n_patches`` patches (per pair) and ``|init_u| <= init_bound``: a
-    pure function of static shapes.
-
-    ``"K2"`` where the TPU takes its whole-image kernel (``pallas_image``:
-    the plane fits VMEM and the two base arrays fit SMEM), ``"K2c"`` where
-    it takes the column-banded kernel (``pallas_banded``: a static init
-    bound narrow enough for its band).  Where the TPU falls back to the
-    XLA extraction (``xla_regions``), for want of band width or of an
-    init bound (``None``: per-level refinement without
-    ``refined_init_clamp``), the port takes K2, which computes that same
-    function at any size.  The TPU warns on that fallback (a cliff of
-    its own: the XLA gather is much slower than its kernels); on the card
-    K2 and K2c run the same code at the same speed, so the port does
-    not.  On the route ``"K2"`` the port launches no K2: K1's plane mode
-    copies the windows K2 would write straight from the plane."""
-    npad = -(-n_patches // 128) * 128
-    smem_fits = 8 * npad + 32 * 1024 <= 1 << 20
-    if vmem_ok(*img_shape, cfg.patch_size) and smem_fits:
-        return "K2"
-    if init_bound is not None and band_width_ok(cfg.patch_size, init_bound):
-        return "K2c"
-    return "K2"
-
-
 def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
                    centers: torch.Tensor, init_u: torch.Tensor,
                    cfg: DISConfig, width: int, height: int,
-                   row0: int = 0, geom=None, init_bound: Optional[float] = 0.0,
-                   plain: bool = False, Tn: Optional[torch.Tensor] = None,
+                   row0: int = 0, plain: bool = False, Tn: Optional[torch.Tensor] = None,
                    start: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                    ) -> SearchResult:
-    """Run the full IC-LK iteration for every patch at one scale: on the
-    route ``"K2"`` one launch of the search loop K1 in its plane mode,
-    which copies each patch's window straight from the level plane; where
-    :func:`extraction_route` says ``"K2c"`` (which needs the grid ``geom``
-    and the static bound ``init_bound`` on ``|init_u|``, None where there
-    is none), the column-banded extraction K2c, then K1 on its regions.
-    ``img2`` [(B,) th, tw], ``tpl`` and ``init_u`` [(B,) N, 2] carry the
-    pair axis of a batch (then K1b, or K2c and K1b: still one launch
-    each); ``centers`` [N, 2] is shared.  ``width`` and ``height`` are the scale's global size;
-    ``row0`` is the global row of the plane's first row.  ``plain=True``
-    runs the plain versions on any device.  The pipeline passes fixed
-    mode's residual template ``Tn`` and the start ``(pos0, conv0)``, both
-    S1's; a caller that passes neither gets them from
-    :func:`residual_template`, ``centers + init_u`` and
-    :func:`out_of_bounds` as torch ops."""
-    from .cuda.extract_banded_kernel import extract_regions_banded
-    from .cuda.iclk_kernel import iclk_search, iclk_search_plane
+    """Run the full IC-LK iteration for every patch at one scale: one
+    launch of the search loop K1 in its plane mode, which copies each
+    patch's window straight from the level plane.  ``img2`` [(B,) th,
+    tw], ``tpl`` and ``init_u`` [(B,) N, 2] carry the pair axis of a batch
+    (then K1b: still one launch); ``centers`` [N, 2] is shared.  ``width``
+    and ``height`` are the scale's global size; ``row0`` is the global row
+    of the plane's first row.  ``plain=True`` runs the plain versions on
+    any device.  The pipeline passes fixed mode's residual template ``Tn``
+    and the start ``(pos0, conv0)``, both S1's; a caller that passes
+    neither gets them from :func:`residual_template`, ``centers + init_u``
+    and :func:`out_of_bounds` as torch ops."""
+    from .cuda.iclk_kernel import iclk_search_plane
 
     ps, pad = cfg.patch_size, cfg.img_padding
     if cfg.mode == "fixed" and Tn is None:
@@ -461,15 +397,10 @@ def inverse_search(img2: torch.Tensor, tpl: PatchTemplates,
         pos0 = centers + init_u
         start = pos0, out_of_bounds(pos0, ps, width, height)
     pos0, conv0 = start
-    route = "K2" if geom is None else extraction_route(
-        cfg, tuple(img2.shape[-2:]), centers.shape[0], init_bound)
     args = (tpl, Tn, centers, init_u, conv0, cfg, width, height, row0)
     if plain:
         u, Q, conv = iclk_search_plain(*extract_regions_plain(img2, pos0, ps, pad, row0),
                                        *args)
-    elif route == "K2c":
-        u, Q, conv = iclk_search(
-            *extract_regions_banded(img2, pos0, ps, pad, geom, init_bound, row0), *args)
     else:
         u, Q, conv = iclk_search_plane(img2, pos0, *args)
     if checks.active():

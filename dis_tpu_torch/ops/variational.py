@@ -17,21 +17,20 @@ code that XLA fuses.  Here :func:`variational_refinement` is a Python
 loop over a few steps, each one kernel on CUDA tensors
 (``ops/cuda/refine_kernel.py``, ``csrc/refine_planes.cu`` and
 ``csrc/variational.cu``): R0 the level's Sobel planes
-(:func:`refine_planes_plain`), R1 the warp (:func:`refine_warp_plain`; in
-its setup mode, :func:`refine_setup_plain`, also the weight update's
-inputs, and in its warp1 mode, :func:`refine_setup_warp1_plain`, the
-``warp1`` scheme's warp, Sobels and inputs), and R23 one weight update
-with all its half-sweeps (:func:`refine_update_plain`: R2's
-:func:`refine_weights_plain`, then R3's :func:`refine_sor_plain` a
+(:func:`refine_planes_plain`), R1 the warp (:func:`refine_warp_plain`'s
+taps) in its setup mode, :func:`refine_setup_plain`, which also writes
+the weight update's inputs, or in its warp1 mode,
+:func:`refine_setup_warp1_plain`, the ``warp1`` scheme's warp, Sobels
+and inputs, and R23 one weight update with all its half-sweeps
+(:func:`refine_update_plain`: the coefficients of
+:func:`refine_weights_plain`, then :func:`refine_sor_plain` a
 half-sweep; in its compose mode, the last update of an outer iteration,
 :func:`refine_compose_plain` last, which also writes the flow, clipped
 where a bound is given); R3 in its no-sweep mode
 (:func:`refine_nosweep_plain`) writes the flow of an outer iteration
 without a half-sweep.  So a ``planes6`` level of ``DIS_MEDIUM`` makes 7
-launches (R0, R1 and five R23), where R2 once an update and R3 once a
-half-sweep made 57; R2 and R3 stay callable, R23's gate on the card.
-These plain functions are the kernels' plain versions: torch ops, which
-CPU tensors (and ``plain=True``) run.
+launches (R0, R1 and five R23).  These plain functions are the kernels'
+plain versions: torch ops, which CPU tensors (and ``plain=True``) run.
 
 R23 holds a tile of the planes on chip through its update:
 :func:`update_plan` picks the tiles from the level's shape, the pair
@@ -81,7 +80,9 @@ def refine_warp_plain(planes: torch.Tensor, flow: torch.Tensor
     """Sample stacked ``planes`` [(B,) H, W, C] at ``x + flow`` (flow
     [(B,) H, W, 2], edge clamp) with one shared set of four taps (the
     JAX package's ``take4`` route).  Returns (warped [(B,) H, W, C],
-    in_bounds [(B,) H, W] bool).  The plain version of kernel R1."""
+    in_bounds [(B,) H, W] bool).  R1's warp: its setup and warp1 modes
+    (:func:`refine_setup_plain`, :func:`refine_setup_warp1_plain`) take
+    their taps from it."""
     h, w, c = planes.shape[-3:]
     lead = planes.shape[:-3]
     ys, xs = (t.to(torch.float32) for t in _coords(h, w, planes.device))
@@ -143,8 +144,8 @@ def refine_weights_plain(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
     plane [(B,) h, w]): the robust data and gradient weights, the
     smoothness diffusivity and its four edge weights, and the 2x2 system
     of each pixel, fixed over the SOR sweeps that follow.  Returns (wE,
-    wW, wS, wN, A11, A12, A22, b1c, b2c, det, Su0, Sv0).  The plain
-    version of kernel R2."""
+    wW, wS, wN, A11, A12, A22, b1c, b2c, det, Su0, Sv0).  The head of
+    R23's plain version (:func:`refine_update_plain`)."""
     r_d = Iz + Wx * du + Wy * dv
     wd = delta * _psi_deriv(r_d * r_d, _EPS2_DATA) * m
     r_gx = Izx + Wxx * du + Wxy * dv
@@ -186,8 +187,8 @@ def refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, de
     ``color`` (0: red, ``(x + y) % 2 == 0``; 1: black): the exact 2x2
     point solve of each, over-relaxed by ``omega`` (``omega == 1`` is
     plain Gauss-Seidel, kept as the direct assignment).  Returns the new
-    (du, dv); the other colour's pixels pass through.  The plain version
-    of kernel R3."""
+    (du, dv); the other colour's pixels pass through.  A half-sweep of
+    R23's plain version (:func:`refine_update_plain`)."""
     ys, xs = _coords(*du.shape[-2:], du.device)
     mask = (xs + ys) % 2 == color
     nU = _neighbour_sum(u0 + du, wE, wW, wS, wN)
@@ -277,7 +278,7 @@ def refine_compose_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c
     """The last half-sweep of an outer iteration and the flow it leaves:
     [(B,) h, w, 2] = (u0 + du, v0 + dv), du and dv the half-sweep's new
     increments, clipped to [-bound, bound] where ``bound`` is given.  The
-    plain version of R3's compose mode."""
+    end of R23's plain version in its compose mode."""
     du, dv = refine_sor_plain(u0, v0, du, dv, wE, wW, wS, wN, A11, A12, A22, b1c, b2c, det,
                               Su0, Sv0, color, omega)
     return refine_nosweep_plain(u0, v0, du, dv, bound)
@@ -288,7 +289,7 @@ def refine_nosweep_plain(u0, v0, du, dv, bound: Optional[float] = None) -> torch
     update or no SOR sweep): (u0 + du, v0 + dv) [(B,) h, w, 2], clipped to
     [-bound, bound] where ``bound`` is given (as ``jnp.clip`` with a
     float32 bound: NaN passes, -0.0 stays).  The plain version of R3's
-    no-sweep mode, and the end of its compose mode's."""
+    no-sweep mode, and the end of :func:`refine_compose_plain`."""
     flow = torch.stack([u0 + du, v0 + dv], dim=-1)
     return flow if bound is None else flow.clamp(-bound, bound)
 
@@ -309,7 +310,7 @@ def refine_update_plain(Iz, Izx, Izy, Wx, Wy, Wxx, Wxy, Wyy, m, u0, v0, du, dv,
 
 def _update_launch_plain(ins, du, dv, alpha, delta, gamma, omega, j0: int, nh: int,
                          compose: bool, bound: Optional[float], parity: int = 0):
-    """One R23 launch's work: R2's coefficients from the thirteen ``ins``
+    """One R23 launch's work: the coefficients from the thirteen ``ins``
     (the update's increments among them), then the update's half-sweeps
     ``j0`` to ``j0 + nh - 1`` (colour ``j & 1``) from ``du`` and ``dv``,
     the last one composing the flow where ``compose``.  ``parity`` is that
@@ -464,11 +465,11 @@ def variational_refinement(img1_padded: torch.Tensor, img2_padded: torch.Tensor,
     Where ``bound`` is given, the last outer iteration clips the flow it
     writes to [-bound, bound] (``refined_init_clamp``).  A leading pair
     axis runs through every step.  On CUDA tensors the ``planes6`` scheme
-    launches R0 once, each outer iteration R1 once (in its setup mode;
-    under ``warp1`` in its warp1 mode, and no R0), each weight update R2
-    once and each half-sweep R3 once (the last in its compose mode, which
-    writes the flow; an outer iteration without a half-sweep launches R3
-    once in its no-sweep mode instead), and runs no torch op;
+    launches R0 once, then each outer iteration R1 once in its setup mode
+    (under ``warp1`` in its warp1 mode, and no R0) and R23 once a weight
+    update (the last in its compose mode, which writes the flow; an outer
+    iteration without a half-sweep launches R3 once in its no-sweep mode
+    instead), and runs no torch op;
     ``plain=True`` runs their plain versions on any device.  Returns the
     refined flow, of the shape of ``flow``.
     """

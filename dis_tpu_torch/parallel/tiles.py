@@ -6,8 +6,8 @@ stripes (:func:`dis_tpu_torch.models.dis.dis_flow_stripe`, each stripe
 with a halo) and :func:`grid_tiled_flow` splits each scale's patch grid
 and output rows (:func:`dis_tpu_torch.models.dis.dis_scale_window`).
 Both keep all geometry global, so the stitched flow is bitwise the
-untiled ``dis_flow_padded``.  At 4K each stripe's finest scale takes the
-column-banded extraction kernel K2c with its own ``row0``.
+untiled ``dis_flow_padded``.  Each stripe and window searches with K1 in
+its plane mode, with its own ``row0``, as the untiled frame does.
 
 Variational refinement is a global stencil.  :func:`grid_tiled_flow`
 assembles each scale's flow and refines it whole, per level or at the

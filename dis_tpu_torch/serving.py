@@ -19,8 +19,8 @@ the card.
 :func:`load_exported` loads it as a :class:`CompiledFlow`, with no
 tracing of the pipeline's Python.  Shapes are static: one program per
 bucket, as on the TPU.  On a CUDA device the program holds the kernels
-as ops of the ``dis_tpu_torch`` namespace (``ops/cuda``; R0-R3 where the
-config refines, F1-F3 where the frame needs them), so the loading process
+as ops of the ``dis_tpu_torch`` namespace (``ops/cuda``; R0, R1, R23
+and R3 where the config refines, F1-F3 where the frame needs them), so the loading process
 imports the package for their registrations only; on the CPU it holds the plain versions as ATen ops and loads without the
 package.  The bucket's plans are the program's constants.  The archive
 keeps beside the program the config, the bucket, the device and, for a
@@ -170,9 +170,9 @@ class CompiledFlow:
         self.graph, self.static_in, self.static_out = graph, static_in, static_out
         self.graph_head = head
         self.graph_manifest = tuple(manifest)
-        # K3, K2, K2c and K1 always; R0-R3 where the program refines; S1, S3
-        # and S4 where they launch (S3 in fixed mode); F1-F3 where the frame
-        # pads, refines on intensity planes, and upsamples.
+        # K3, K2, K2c and K1 always; R0, R1, R23 and R3 where the program
+        # refines; S1, S3 and S4 where they launch (S3 in fixed mode); F1-F3
+        # where the frame pads, refines on intensity planes, and upsamples.
         counts = collections.Counter(KERNELS[e.op] for e in manifest)
         self.graph_launches = {k: counts[k] for k in dict.fromkeys(KERNELS.values())
                                if k in CORE_KERNELS or counts[k]}

@@ -17,8 +17,8 @@ Each frame runs inside a range of its own (``FRAME``).  ``summarize``
 reads a Chrome trace and prints three views, per frame:
 
 1. device ms for each kernel, copy and fill name, largest first, the
-   port's kernels with their ids (``PORT_KERNELS``: K1-K3, R0-R3, S1,
-   S3, S4, F1-F3), torch's with the op that launched them;
+   port's kernels with their ids (``PORT_KERNELS``: K1-K3, R0, R1, R23,
+   R3, S1, S3, S4, F1-F3), torch's with the op that launched them;
 2. the same grouped by the innermost pipeline scope that launched it
    (kernels of a replay have none: ``(no scope)``);
 3. the device's time a frame: busy (the union of kernel, copy and fill
@@ -67,15 +67,13 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 NO_SCOPE = "(no scope)"
 # The port's kernels (csrc/) by their function names in a trace, with
 # their ids (K2 and K1 with a pair axis launch the same functions, R1's
-# setup mode and R3's compose and no-sweep modes are instances of R1's and
-# R3's, R1's warp1 mode, a function of its own, counts as R1, and R23 is
+# setup and warp1 modes count as R1, R3's no-sweep mode is R3, and R23 is
 # an overload of R3's function, told apart by its arguments); every other
 # kernel is torch's: the glue, copies and fills.
 PORT_KERNELS = tuple((re.compile(r"(?:^|[\s:])" + pattern), kid) for pattern, kid in (
     (r"pyramid_kernel\b", "K3"), (r"extract_kernel\b", "K2"), (r"banded_kernel\b", "K2c"),
     (r"iclk_kernel\b", "K1"), (r"planes_kernel\b", "R0"), (r"warp_kernel\b", "R1"),
     (r"warp1_kernel\b", "R1"),
-    (r"weights_kernel\(", "R2"),
     (r"sor_kernel<\w+>\((?:\(anonymous namespace\)::)?UpdateArgs\b", "R23"),
     (r"sor_kernel\b", "R3"), (r"templates_kernel\b", "S1"),
     (r"weights_kernel<", "S3"), (r"densify_kernel\b", "S4"), (r"pad_kernel\b", "F1"),
@@ -299,8 +297,8 @@ def budget(trace: dict) -> dict:
 
 
 def kernel_id(name: str) -> Optional[str]:
-    """The id of the port's kernel that a trace names ``name`` (K1-K3, R0-R3, R23,
-    S1, S3, S4, F1-F3), or None for torch's."""
+    """The id of the port's kernel that a trace names ``name`` (K1-K3, R0,
+    R1, R23, R3, S1, S3, S4, F1-F3), or None for torch's."""
     return next((kid for pattern, kid in PORT_KERNELS if pattern.search(name)), None)
 
 

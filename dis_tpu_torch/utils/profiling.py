@@ -44,16 +44,15 @@ from torch.profiler import record_function
 # that matches at the start of a trace's kernel name or after a space or
 # colon: K2 and K1 with a pair axis (K2b, K1b) launch the same functions
 # as without one, K2 on a plane smaller than a region (K2s) launches
-# small_kernel; R1's setup mode (R1s) and R3's compose and no-sweep modes
-# (R3c, R3n) are instances of R1's and R3's functions, and R23 an overload
-# of R3's, told apart by its arguments.
+# small_kernel; R1's setup and warp1 modes (R1s, R1w) launch warp_kernel
+# and warp1_kernel, R3's no-sweep mode (R3n) an instance of sor_kernel,
+# and R23 an overload of it, told apart by its arguments.
 KERNEL_FUNCTIONS = {
     "K3": r"pyramid_kernel\b", "K2": r"extract_kernel\b", "K2b": r"extract_kernel\b",
     "K2s": r"small_kernel\b", "K2c": r"banded_kernel\b", "K1": r"iclk_kernel\b",
     "K1b": r"iclk_kernel\b", "S1": r"templates_kernel\b", "S3": r"weights_kernel<",
-    "S4": r"densify_kernel\b", "R0": r"planes_kernel\b", "R1": r"warp_kernel\b",
-    "R1s": r"warp_kernel\b", "R1w": r"warp1_kernel\b", "R2": r"weights_kernel\(",
-    "R3": r"sor_kernel\b", "R3c": r"sor_kernel\b", "R3n": r"sor_kernel\b",
+    "S4": r"densify_kernel\b", "R0": r"planes_kernel\b", "R1s": r"warp_kernel\b",
+    "R1w": r"warp1_kernel\b", "R3n": r"sor_kernel\b",
     "R23": r"sor_kernel<\w+>\((?:\(anonymous namespace\)::)?UpdateArgs\b",
     "F1": r"pad_kernel\b", "F2": r"levels_kernel\b", "F3": r"finish_kernel\b"}
 

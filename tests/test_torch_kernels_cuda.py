@@ -17,13 +17,14 @@ groups straddling columns and ragged last groups), K1 also on warps
 whose patches freeze at different trips, and in its plane mode (windows
 from the level plane) equal to its plain composition and to K2 then K1;
 ``dis_flow`` through the kernels within 1e-3 px mean of the plain path,
-with the refinement presets too; the refinement's kernels R1 (warp), R2
-(weight update) and R3 (half-sweep) bitwise equal to their plain
-versions at 1, 2 and odd rows and columns, B = 8 and the 1080p finest
-level, and R23 (a weight update and its half-sweeps on tiles) to its
-plain version and to R2 and R3, also with its half-sweeps split over
-launches; the refinement through them on the card bitwise equal to the same
-call on the CPU, and ``plain=True`` launching none of them; each scale's
+with the refinement presets too; the refinement's kernels R1 (the warp,
+in its setup mode), R23 (a weight update and its half-sweeps on tiles)
+and R3 (in its no-sweep mode) bitwise equal to their plain versions at
+1, 2 and odd rows and columns, B = 8 and the 1080p finest level, R23
+also with its half-sweeps split over launches; the 4K compat artifact
+searching every scale in K1's plane mode; the refinement through them
+on the card bitwise equal to the same call on the CPU, and
+``plain=True`` launching none of them; each scale's
 S1 (templates, inverse Hessians and the search start, once S2's), S3
 (fixed mode's weights) and S4 (densification) bitwise equal to their plain
 versions at ps 6-16, on a pair axis, a row-ranged grid with ``row0`` and a
@@ -34,9 +35,9 @@ the output's edges, S1 at each tile shape its plan picks (ps 2-20,
 strides 1-64), S4 on cover tables in another order or reaching past its
 staged sub-block; S1's start read from no flow while its flag is off,
 whatever pointer stands in its place; one S1 a scale on the main path,
-and no start kernel left; R0 (a level's Sobel planes), R1's setup and warp1 modes
-and R3's compose (with its clip) and no-sweep modes bitwise equal to their plain versions at 1, 2 and
-odd rows and columns (R0 at 1 also against a NumPy reflect reference), B
+and no start kernel left; R0 (a level's Sobel planes), R1's setup and
+warp1 modes, R23's compose mode (with its clip) and R3's no-sweep mode
+bitwise equal to their plain versions at 1, 2 and odd rows and columns (R0 at 1 also against a NumPy reflect reference), B
 absent, 1 and 3, on padded windows and whole planes,
 omega 1.0 and 1.6, and the refinement through them on the card bitwise
 the CPU's with Q1 and intensity planes; F1 (the frame's padding, also of
@@ -59,8 +60,8 @@ from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
 from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane, lane_layout
 from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS, pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.cuda import scale_kernel as sk
-from dis_tpu_torch.ops.cuda.refine_kernel import (refine_sor, refine_update, refine_warp,
-                                                  refine_weights)
+from dis_tpu_torch.ops.cuda.refine_kernel import (refine_setup, refine_setup_warp1,
+                                                  refine_update)
 from dis_tpu_torch.ops.grid import make_grid
 from dis_tpu_torch.ops.pyramid import construct_pyramid, pyramid_level_plain
 
@@ -695,9 +696,9 @@ def test_search_plane_empty_grid():
 @pytest.mark.parametrize("batch", [None, 2])
 def test_refinement_card_equals_cpu(scheme, batch):
     """The refinement on the card, through R1 and R23 (one warp, 5 weight
-    updates of 10 half-sweeps each; no R2 or R3), equals the same call on
-    the CPU (their plain versions) bitwise: no reduction, correctly
-    rounded roots and divisions, no contracted multiply-add."""
+    updates of 10 half-sweeps each), equals the same call on the CPU
+    (their plain versions) bitwise: no reduction, correctly rounded roots
+    and divisions, no contracted multiply-add."""
     from dis_tpu_torch.ops.variational import variational_refinement
 
     b = batch or 1
@@ -709,10 +710,11 @@ def test_refinement_card_equals_cpu(scheme, batch):
     cfg = dis_tpu_torch.DISConfig(mode="fixed", refinement_iters=1, refinement_inner_sweeps=5,
                                   refinement_sor_sweeps=5, refinement_omega=1.6,
                                   refinement_alpha=40.0, refinement_scheme=scheme)
-    for w in REFINE_WRAPPERS + MAIN_REFINE_WRAPPERS:
+    for w in REFINE_WRAPPERS:
         w.launches = 0
     card = variational_refinement(x, y, flow, cfg, pad=0)
-    assert [w.launches for w in REFINE_WRAPPERS + MAIN_REFINE_WRAPPERS] == [1, 0, 0, 1, 5]
+    six = scheme == "planes6"
+    assert [w.launches for w in REFINE_WRAPPERS] == [int(six), int(not six), 5]
     cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=0)
     torch.cuda.synchronize()
     assert card.device.type == "cuda" and torch.equal(card.cpu(), cpu)
@@ -723,16 +725,15 @@ def test_refined_dis_flow_kernels_vs_plain(preset):
     a, b = _smooth(96, 160, 5)
     x, y = (torch.from_numpy(np.ascontiguousarray(v)).cuda() for v in (a, b))
     cfg = getattr(dis_tpu_torch, preset)
-    wrappers = ((pyramid_levels, iclk_search, iclk_search_plane) + MAIN_REFINE_WRAPPERS
+    wrappers = ((pyramid_levels, iclk_search, iclk_search_plane, refine_setup, refine_update)
                 + SCALE_WRAPPERS)
-    for w in wrappers + REFINE_WRAPPERS[1:]:
+    for w in wrappers + (refine_setup_warp1,):
         w.launches = 0
     flow = dis_tpu_torch.dis_flow(x, y, cfg)
     assert all(w.launches > 0 for w in wrappers)
     levels = cfg.coarsest_scale - cfg.finest_scale + 1
     updates = levels * cfg.refinement_inner_sweeps
-    assert [w.launches for w in MAIN_REFINE_WRAPPERS + REFINE_WRAPPERS[1:]] == [levels, updates,
-                                                                               0, 0]
+    assert [w.launches for w in REFINE_WRAPPERS] == [levels, 0, updates]
     for w in wrappers:
         w.launches = 0
     plain = dis_tpu_torch.dis_flow(x, y, cfg, plain=True)
@@ -765,18 +766,18 @@ def test_refined_graph_batch_and_tiles():
     assert torch.equal(tiled_flow_exact(a, b, cfg, 2, min_stripe_halo(cfg, 128, 96, 2)), untiled)
 
 
-REFINE_WRAPPERS = (refine_warp, refine_weights, refine_sor)
-# The refinement's kernels on the main path: R1 and R23 (R2 and R3 only
-# its gate).
-MAIN_REFINE_WRAPPERS = (refine_warp, refine_update)
+# The refinement's kernels of an outer iteration: R1 in its setup and
+# warp1 modes, and R23.
+REFINE_WRAPPERS = (refine_setup, refine_setup_warp1, refine_update)
 
 
-def _refine_step_inputs(batch, h, w, seed):
-    """CUDA inputs of R1-R3 on [(B,) h, w]: six smooth-ish planes and a
-    flow up to 4.5 px for the warp, then the weight update's planes
-    (0..255 differences, a 0/1 mask, increments of a few hundredths of a
-    px) and, for the sweep, the coefficients the plain R2 makes of them."""
-    from dis_tpu_torch.ops.variational import refine_weights_plain
+def _check_refine_kernels(batch, h, w, seed):
+    """R1's setup mode (its warp reaching past every edge), R23 (omega 1.6
+    and 1.0, with and without its compose mode) and R3's no-sweep mode
+    against their plain versions on the same CUDA inputs, bitwise; each
+    update R23's launches (``update_plan``)."""
+    from dis_tpu_torch.ops import variational as tvar
+    from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
     rng = np.random.default_rng(seed)
     lead = () if batch is None else (batch,)
@@ -786,36 +787,28 @@ def _refine_step_inputs(batch, h, w, seed):
 
     planes = t(rng.random(lead + (h, w, 6)) * 255)
     flow = t((rng.random(lead + (h, w, 2)) - 0.5) * 9)
-    ins = [t(rng.standard_normal(lead + (h, w)) * (20.0 if k < 3 else 10.0)) for k in range(8)]
-    m = t(rng.random(lead + (h, w)) < 0.8)
-    u0, v0 = (t(rng.standard_normal(lead + (h, w)) * 2) for _ in range(2))
-    du, dv = (t(rng.standard_normal(lead + (h, w)) * 0.05) for _ in range(2))
-    weights = (*ins, m, u0, v0, du, dv, 40.0, 5.0, 10.0)
-    return planes, flow, weights, (u0, v0, du, dv, *refine_weights_plain(*weights))
-
-
-def _check_refine_kernels(batch, h, w, seed):
-    """R1 (6 and 1 channels), R2 and R3 (both colours, omega 1.6 and
-    1.0) against their plain versions on the same CUDA inputs, bitwise;
-    each a launch of its own."""
-    from dis_tpu_torch.ops.variational import (refine_sor_plain, refine_warp_plain,
-                                               refine_weights_plain)
-
-    planes, flow, weights, sor = _refine_step_inputs(batch, h, w, seed)
-    for w_ in REFINE_WRAPPERS:
+    img1 = t(rng.random(lead + (h, w)) * 255)
+    I1x, I1y = (t(rng.standard_normal(lead + (h, w)) * 20) for _ in range(2))
+    wrappers = (rk.refine_setup, rk.refine_update, rk.refine_nosweep)
+    for w_ in wrappers:
         w_.launches = 0
-    for p in (planes, planes[..., :1].contiguous()):
-        got, want = refine_warp(p, flow), refine_warp_plain(p, flow)
-        assert all(torch.equal(g, v) for g, v in zip(got, want))
-        assert not bool(want[1].all())            # some taps fell outside
-    got, want = refine_weights(*weights), refine_weights_plain(*weights)
-    assert all(torch.equal(g, v) for g, v in zip(got, want))
-    for color in (0, 1):
-        for omega in (1.6, 1.0):
-            got, want = refine_sor(*sor, color, omega), refine_sor_plain(*sor, color, omega)
-            assert all(torch.equal(g, v) for g, v in zip(got, want)), (color, omega)
+    ins = rk.refine_setup(planes, flow, img1, I1x, I1y, 0)
+    want = tvar.refine_setup_plain(planes, flow, img1, I1x, I1y, 0)
+    assert all(torch.equal(g, v) for g, v in zip(ins, want))
+    assert not bool((want[8] == 1).all())            # some taps fell outside
+    du, dv = ins[11] + 0.01, ins[12] - 0.02
+    for omega in (1.6, 1.0):
+        for compose in (False, True):
+            args = (*ins[:11], du, dv, 40.0, 5.0, 10.0, 2, omega, compose)
+            got, want = rk.refine_update(*args), tvar.refine_update_plain(*args)
+            if not compose:
+                got, want = torch.stack(got), torch.stack(want)
+            assert torch.equal(got, want), (omega, compose)
+    got = rk.refine_nosweep(*ins[9:11], du, dv)
+    assert torch.equal(got, tvar.refine_nosweep_plain(*ins[9:11], du, dv))
     torch.cuda.synchronize()
-    assert [w_.launches for w_ in REFINE_WRAPPERS] == [2, 1, 4]
+    plan = rk.update_plan(batch or 1, h, w, 2, sms=rk._multiprocessors(flow.device))
+    assert [w_.launches for w_ in wrappers] == [1, 4 * len(plan), 1]
 
 
 @pytest.mark.parametrize("shape", [(1, 9), (2, 2), (7, 1), (9, 13), (37, 53)])
@@ -935,9 +928,9 @@ def test_cuda_artifact_replays_as_aot_compile(batch):
 
 
 def test_cuda_artifact_4k_holds_k2c():
-    """At the 4K bucket the finest extraction is K2c, in the program as
-    ``extract_regions_banded``; the other scales search in K1's plane
-    mode, with no K2."""
+    """At the 4K bucket every scale, the finest included, searches in K1's
+    plane mode: the program holds four ``iclk_search_plane`` nodes and no
+    extraction (no K2, no K2c)."""
     from dis_tpu_torch.cost import kernel_ops
     from dis_tpu_torch.serving import export_flow, load_exported
 
@@ -945,7 +938,9 @@ def test_cuda_artifact_4k_holds_k2c():
                                   finest_scale=0, patch_overlap=0.3, mode="compat",
                                   early_exit=False)
     _, program = load_exported(export_flow(cfg, 2160, 3840))
-    assert kernel_ops(program) == {"K3": 2, "K2": 0, "K2c": 1, "K1": 4, "S1": 4, "S4": 4}
+    assert kernel_ops(program) == {"K3": 2, "K2": 0, "K2c": 0, "K1": 4, "S1": 4, "S4": 4}
+    names = [getattr(n.target, "name", lambda: "")() for n in program.graph.nodes]
+    assert names.count("dis_tpu_torch::iclk_search_plane") == 4
 
 
 def test_two_gloo_ranks_on_one_card():
@@ -1227,7 +1222,7 @@ def test_scale_wrappers_check_their_inputs():
         sk.densify(u, None, rows, cols, torch.zeros(4, 5, 1, device="cuda"), 2, 3)
 
 
-# -- R0, R1's setup mode, R3's compose mode, F1-F3: the last device glue -----------
+# -- R0, R1's setup mode, R23's compose mode, R3's no-sweep mode, F1-F3: the last glue -
 
 GLUE_SHAPES = [(2, 2), (2, 7), (5, 2), (9, 13), (37, 53), (67, 131)]
 
@@ -1246,16 +1241,16 @@ def _planes_pair(batch, h, w, p, seed):
 def test_refine_planes_setup_compose_bitwise(shape, batch, p):
     """R0 on windows of the planes (p = 3, the Q1 levels' layout) and on
     whole planes (p = 0, the intensity planes), R1's setup mode on its
-    planes and a random flow, and R3's compose mode (both colours, omega
-    1.0 and 1.6) on the weight update's coefficients: each bitwise equal
-    to its plain version, one launch each, counted in R1's and R3's."""
+    planes and a random flow, and R23 in its compose mode (a sweep, omega
+    1.0 and 1.6) on its inputs: each bitwise equal to its plain version,
+    one launch each (R23's ``update_plan``), R23's compose launches counted
+    in ``composed``."""
     from dis_tpu_torch.ops import variational as tvar
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
     h, w = shape
     img1, img2 = _planes_pair(batch, h, w, p, sum(shape) + p)
-    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_sor,
-                rk.refine_compose)
+    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_update, rk.composed)
     for w_ in wrappers:
         w_.launches = 0
     got, want = rk.refine_planes(img1, img2, p, h, w), tvar.refine_planes_plain(img1, img2,
@@ -1270,16 +1265,14 @@ def test_refine_planes_setup_compose_bitwise(shape, batch, p):
     want = tvar.refine_setup_plain(planes, flow, img1, I1x, I1y, p)
     assert len(ins) == 13 and all(torch.equal(g, v) for g, v in zip(ins, want))
     assert all(t.is_contiguous() for t in ins)
-    coef = tvar.refine_weights_plain(*ins[:11], *(t + 0.01 for t in ins[11:]), 40.0, 5.0,
-                                     10.0)
-    sor = (*ins[9:11], ins[11] + 0.01, ins[12] - 0.02, *coef)
-    for color in (0, 1):
-        for omega in (1.0, 1.6):
-            got = rk.refine_compose(*sor, color, omega)
-            want = tvar.refine_compose_plain(*sor, color, omega)
-            assert got.shape == want.shape and torch.equal(got, want), (color, omega)
+    update = (*ins[:11], ins[11] + 0.01, ins[12] - 0.02, 40.0, 5.0, 10.0, 1)
+    for omega in (1.0, 1.6):
+        got = rk.refine_update(*update, omega, True)
+        want = tvar.refine_update_plain(*update, omega, True)
+        assert got.shape == want.shape and torch.equal(got, want), omega
     torch.cuda.synchronize()
-    assert [w_.launches for w_ in wrappers] == [1, 1, 1, 4, 4]
+    n = len(rk.update_plan(batch or 1, h, w, 1, sms=rk._multiprocessors(img1.device)))
+    assert [w_.launches for w_ in wrappers] == [1, 1, 2 * n, 2]
 
 
 def _np_sobel3(x, axis):
@@ -1300,9 +1293,9 @@ def test_refine_planes_refuses_what_its_plain_version_refuses(shape):
     """A window of one row or column (a coarse level of a small frame):
     R0 on the card and its plain version both give the Sobel chains of a
     NumPy reflect reference, bitwise, on padded windows (p = 3) and whole
-    planes; R1's setup mode, R2, R3 and R3's compose mode on such a level
-    equal their plain versions bitwise (their neighbour reads clamp to the
-    one row or column)."""
+    planes; R1's setup mode, R23 (with and without its compose mode) and
+    R3's no-sweep mode on such a level equal their plain versions bitwise
+    (their neighbour reads clamp to the one row or column)."""
     from dis_tpu_torch.ops import variational as tvar
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
@@ -1326,14 +1319,13 @@ def test_refine_planes_refuses_what_its_plain_version_refuses(shape):
         want_ins = tvar.refine_setup_plain(planes, flow, a, I1x, I1y, p)
         assert all(torch.equal(g, v) for g, v in zip(ins, want_ins))
         du, dv = ins[11] + 0.01, ins[12] - 0.02
-        coef = rk.refine_weights(*ins[:11], du, dv, 40.0, 5.0, 10.0)
-        want_coef = tvar.refine_weights_plain(*ins[:11], du, dv, 40.0, 5.0, 10.0)
-        assert all(torch.equal(g, v) for g, v in zip(coef, want_coef))
-        for color in (0, 1):
-            sor = (*ins[9:11], du, dv, *coef, color, 1.6)
-            assert all(torch.equal(g, v) for g, v in zip(rk.refine_sor(*sor),
-                                                          tvar.refine_sor_plain(*sor)))
-            assert torch.equal(rk.refine_compose(*sor), tvar.refine_compose_plain(*sor))
+        update = (*ins[:11], du, dv, 40.0, 5.0, 10.0, 2, 1.6)
+        assert all(torch.equal(g, v) for g, v in zip(rk.refine_update(*update),
+                                                      tvar.refine_update_plain(*update)))
+        assert torch.equal(rk.refine_update(*update, True),
+                           tvar.refine_update_plain(*update, True))
+        assert torch.equal(rk.refine_nosweep(*ins[9:11], du, dv),
+                           tvar.refine_nosweep_plain(*ins[9:11], du, dv))
 
 
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
@@ -1345,7 +1337,7 @@ def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
     a weight update, the last in its compose mode) equals the same call
     on the CPU bitwise, on Q1-style padded planes (pad 8) and on
     intensity planes (pad 0), odd sizes; the warp1 scheme launches R1 in
-    its warp1 mode and no R0; R2 and R3 do not launch."""
+    its warp1 mode and no R0."""
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
     from dis_tpu_torch.ops.variational import variational_refinement
 
@@ -1358,13 +1350,13 @@ def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
                                   refinement_sor_sweeps=2, refinement_omega=omega,
                                   refinement_alpha=40.0, refinement_scheme=scheme,
                                   refinement_planes=planes)
-    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_setup_warp1,
-                rk.refine_update, rk.composed, rk.refine_weights, rk.refine_sor)
+    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1, rk.refine_update,
+                rk.composed)
     for w_ in wrappers:
         w_.launches = 0
     card = variational_refinement(x, y, flow, cfg, pad=pad)
     six = scheme == "planes6"
-    assert [w_.launches for w_ in wrappers] == [int(six), 2, 2 * six, 2 * (1 - six), 6, 2, 0, 0]
+    assert [w_.launches for w_ in wrappers] == [int(six), 2 * six, 2 * (1 - six), 6, 2]
     cpu = variational_refinement(x.cpu(), y.cpu(), flow.cpu(), cfg, pad=pad)
     torch.cuda.synchronize()
     assert card.shape == flow.shape and torch.equal(card.cpu(), cpu)
@@ -1375,11 +1367,12 @@ def test_refinement_glue_card_equals_cpu(scheme, planes, omega, batch):
 @pytest.mark.parametrize("p", [0, 3])
 def test_refine_warp1_clip_nosweep_bitwise(shape, batch, p):
     """R1's warp1 mode (R1w) on windows of two level planes and a flow that
-    reaches past every edge, R3's compose mode with its clip (both colours,
-    omega 1.0 and 1.6, a bound that binds) and its no-sweep mode with and
-    without the clip, on planes holding a NaN, -0.0 and values far past the
-    bound: each bitwise equal to its plain version (bit patterns, so NaNs
-    and signed zeros count), one launch each, counted in R1's and R3's."""
+    reaches past every edge, R23's compose mode with its clip (a sweep,
+    omega 1.0 and 1.6, a bound that binds) on its inputs, and R3's
+    no-sweep mode with and without the clip on planes holding a NaN, -0.0
+    and values far past the bound: each bitwise equal to its plain version
+    (bit patterns, so NaNs and signed zeros count), the clip's launches
+    counted in ``clamped``."""
     from dis_tpu_torch.ops import variational as tvar
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
@@ -1389,8 +1382,7 @@ def test_refine_warp1_clip_nosweep_bitwise(shape, batch, p):
     rng = np.random.default_rng(17)
     flow = torch.from_numpy(((rng.random(lead + (h, w, 2)) - 0.5) * 9)
                             .astype(np.float32)).cuda()
-    wrappers = (rk.refine_warp, rk.refine_setup_warp1, rk.refine_sor, rk.refine_compose,
-                rk.refine_nosweep, rk.clamped)
+    wrappers = (rk.refine_setup_warp1, rk.refine_update, rk.refine_nosweep, rk.clamped)
     for w_ in wrappers:
         w_.launches = 0
     bits = lambda t: t.contiguous().view(torch.int32)
@@ -1400,23 +1392,22 @@ def test_refine_warp1_clip_nosweep_bitwise(shape, batch, p):
     assert all(t.is_contiguous() for t in ins)
     u0, v0 = ins[9].clone(), ins[10].clone()
     du, dv = ins[11] + 0.01, ins[12] - 0.02
+    for omega in (1.0, 1.6):
+        update = (*ins[:9], u0, v0, du, dv, 40.0, 5.0, 10.0, 1, omega, True, 0.75)
+        got, ref = rk.refine_update(*update), tvar.refine_update_plain(*update)
+        assert got.shape == ref.shape and torch.equal(bits(got), bits(ref)), omega
+        assert bool((ref.abs() == 0.75).any())           # the bound binds
     for k, t in enumerate((u0, v0, du, dv)):
         flat = t.view(-1)
         flat[k % flat.numel()] = float("nan") if k == 0 else -0.0
         flat[-1] = 1e4 * (-1) ** k
-    coef = tvar.refine_weights_plain(*ins[:9], u0, v0, du, dv, 40.0, 5.0, 10.0)
-    sor = (u0, v0, du, dv, *(c.contiguous() for c in coef))
-    for color in (0, 1):
-        for omega in (1.0, 1.6):
-            got = rk.refine_compose(*sor, color, omega, 0.75)
-            ref = tvar.refine_compose_plain(*sor, color, omega, 0.75)
-            assert got.shape == ref.shape and torch.equal(bits(got), bits(ref)), (color, omega)
     for bound in (None, 0.75):
         got = rk.refine_nosweep(u0, v0, du, dv, bound)
         ref = tvar.refine_nosweep_plain(u0, v0, du, dv, bound)
         assert got.shape == ref.shape and torch.equal(bits(got), bits(ref)), bound
     torch.cuda.synchronize()
-    assert [w_.launches for w_ in wrappers] == [1, 1, 6, 4, 2, 5]
+    n = len(rk.update_plan(batch or 1, h, w, 1, sms=rk._multiprocessors(u0.device)))
+    assert [w_.launches for w_ in wrappers] == [1, 2 * n, 2, 3]
 
 
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
@@ -1456,20 +1447,6 @@ def test_clamped_and_nosweep_levels_card_equal_cpu(scheme, batch):
         [1, 1, 1]
 
 
-def _update_chain(ins, sweeps, omega, compose, bound):
-    """R23's work through R2, then R3 a half-sweep (its compose mode last
-    where ``compose``)."""
-    from dis_tpu_torch.ops.cuda import refine_kernel as rk
-
-    coef = rk.refine_weights(*ins, 40.0, 5.0, 10.0)
-    du, dv = ins[11:13]
-    for j in range(2 * sweeps):
-        if compose and j == 2 * sweeps - 1:
-            return rk.refine_compose(*ins[9:11], du, dv, *coef, j & 1, omega, bound)
-        du, dv = rk.refine_sor(*ins[9:11], du, dv, *coef, j & 1, omega)
-    return torch.stack([du, dv])
-
-
 @pytest.mark.parametrize("shape", GLUE_SHAPES + [(1, 5), (5, 1), (1, 40), (40, 1), (34, 60),
                                                  (136, 240), (544, 960)])
 @pytest.mark.parametrize("batch", [None, 3])
@@ -1477,10 +1454,10 @@ def _update_chain(ins, sweeps, omega, compose, bound):
 @pytest.mark.parametrize("capacity", [None, 400])
 def test_refine_update_bitwise(shape, batch, sweeps, omega, capacity, monkeypatch):
     """R23, a weight update and its half-sweeps on tiles in shared memory,
-    bitwise equal to its plain version and to R2 then R3 a half-sweep (the
-    kernels it replaced, its gate), with and without its compose mode and
-    the clip, one launch an update; with tiles of 400 pixels (capacity)
-    the update's half-sweeps split over launches, each of some of them."""
+    bitwise equal to its plain version run on the card's tensors, with and
+    without its compose mode and the clip, one launch an update; with
+    tiles of 400 pixels (capacity) the update's half-sweeps split over
+    launches, each of some of them."""
     from dis_tpu_torch.ops import variational as tvar
     from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
@@ -1503,11 +1480,10 @@ def test_refine_update_bitwise(shape, batch, sweeps, omega, capacity, monkeypatc
         want = tvar.refine_update_plain(*ins, 40.0, 5.0, 10.0, sweeps, omega, compose, bound)
         if not compose:
             got, want = torch.stack(got), torch.stack(want)
-        chain = _update_chain(ins, sweeps, omega, compose, bound)
         torch.cuda.synchronize()
         assert rk.refine_update.launches == before + len(plan)
-        assert got.shape == want.shape == chain.shape
-        assert torch.equal(bits(got), bits(want)) and torch.equal(bits(got), bits(chain))
+        assert want.device == got.device and got.shape == want.shape
+        assert torch.equal(bits(got), bits(want))
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 2), (5, 7), (37, 53), (375, 1242)])

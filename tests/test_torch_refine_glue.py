@@ -1,12 +1,12 @@
-"""The last device glue as kernels (R0, R1's setup and warp1 modes, R3's
-compose and no-sweep modes, F1-F3) and R23's tiles on the CPU.
+"""The last device glue as kernels (R0, R1's setup and warp1 modes, R23's
+compose mode, R3's no-sweep mode, F1-F3) and R23's tiles on the CPU.
 
 A refinement level's Sobel planes (R0, ``refine_planes_plain``), the
 weight update's inputs that R1 writes in its setup mode
 (``refine_setup_plain``) and, under the ``warp1`` scheme, in its warp1
-mode (``refine_setup_warp1_plain``), the flow that R3 writes in its
-compose mode (``refine_compose_plain``, clipped to a bound where
-``refined_init_clamp`` asks) and in its no-sweep mode
+mode (``refine_setup_warp1_plain``), the flow that R23 writes in its
+compose mode (``refine_compose_plain`` last, clipped to a bound where
+``refined_init_clamp`` asks) and R3 in its no-sweep mode
 (``refine_nosweep_plain``), the frame's padding (F1,
 ``frame_pad_plain``), the refinement's intensity levels (F2,
 ``intensity_levels_plain``) and the finest flow's upsample and crop (F3,
@@ -20,8 +20,9 @@ and even sizes down to 2 x 2, B absent and 3:
   ``intensity_pyramid`` through its ``window2`` route, whose association
   the port uses; the scale, ``resize_bilinear`` and ``crop_padding``),
   pair by pair;
-- R1's setup and warp1 modes and R3's compose mode (with and without
-  its clip) and no-sweep mode are bitwise the composition they replaced
+- R1's setup and warp1 modes, the end of R23's compose mode (with and
+  without its clip) and R3's no-sweep mode are bitwise the composition
+  they replaced
   (verbatim copies below), R1's warp1 mode also on windows of one row or
   column, the clip also on NaN, -0.0 and values past the bound;
 - R23's tiles (``update_plan``, a halo of nh half-sweeps before a
@@ -33,8 +34,10 @@ and even sizes down to 2 x 2, B absent and 3:
   and without the compose mode's clip, and updates split over launches;
   a halo one pixel narrower on either side is not; every plan's tiles
   fit a block and cover the plane;
-- every new op passes ``torch.library.opcheck`` within ``ops_on_cpu``,
-  and its wrapper refuses there what the plain version refuses (dims that
+- every new op passes ``torch.library.opcheck`` within ``ops_on_cpu``
+  (R1's setup mode, R23 and R3's no-sweep mode with a pair axis and
+  without one, the form the stream cells launch), and its wrapper
+  refuses there what the plain version refuses (dims that
   do not halve), and a window of one row or column, which both take, gives
   the Sobels of a NumPy reflect reference;
 - one refinement level of ``DIS_MEDIUM`` and of ``DIS_FULL`` within
@@ -180,7 +183,7 @@ def test_refine_planes_refuses_a_window_of_one(shape):
         rk.refine_planes(a, a, 3, 4, 4)
 
 
-# -- R1's setup mode and R3's compose mode -------------------------------------------
+# -- R1's setup mode and R23's compose-mode end ----------------------------------------
 
 def _composition_setup(planes, flow, I1, I1x, I1y):
     """The weight update's inputs as the refinement made them before R1's
@@ -214,7 +217,7 @@ def _setup_inputs(batch, h, w, p, seed):
 def test_setup_plain_is_the_composition(shape, batch, p):
     """R1's setup mode's plain version is bitwise the warp, differences,
     mask and zero increments it replaced, and the op's CPU function
-    stacks them in R2's input order."""
+    stacks them in R23's input order."""
     args = _setup_inputs(batch, *shape, p, sum(shape))
     planes, flow, a, I1x, I1y, _ = args
     h, w = shape
@@ -240,13 +243,12 @@ def _sor_args(batch, h, w, seed):
 @pytest.mark.parametrize("color", [0, 1])
 @pytest.mark.parametrize("omega", [1.0, 1.6])
 def test_compose_plain_is_the_composition(shape, batch, color, omega):
-    """R3's compose mode's plain version is bitwise the half-sweep then
-    ``stack([u0 + du, v0 + dv])`` it replaced, also through the op."""
+    """The plain version of R23's compose-mode end is bitwise the
+    half-sweep then ``stack([u0 + du, v0 + dv])`` it replaced."""
     args = _sor_args(batch, *shape, sum(shape) + color)
     du, dv = tvar.refine_sor_plain(*args, color, omega)
     want = torch.stack([args[0] + du, args[1] + dv], dim=-1)
     assert torch.equal(tvar.refine_compose_plain(*args, color, omega), want)
-    assert torch.equal(rk.refine_compose_op(*args, color, omega), want)
 
 
 def _bits(t):
@@ -306,7 +308,7 @@ def _check_warp1(args):
 def test_setup_warp1_plain_is_the_composition(shape, batch, p):
     """R1's warp1 mode's plain version is bitwise the level's I1 Sobels and
     the warp, Sobels, means, differences, mask and zero increments of each
-    outer iteration that it replaced, in R2's input order; so are the op's
+    outer iteration that it replaced, in R23's input order; so are the op's
     CPU function and the wrapper within ``ops_on_cpu``."""
     _check_warp1(_warp1_args(batch, *shape, p, sum(shape) + p))
 
@@ -338,10 +340,9 @@ def _edge_values(*planes):
 @pytest.mark.parametrize("batch", BATCHES)
 @pytest.mark.parametrize("bound", [0.5, 2.0, 1e5])
 def test_compose_clip_is_compose_then_clamp(shape, batch, bound):
-    """R3's compose mode with a bound is bitwise the compose, then
+    """The compose-mode end with a bound is bitwise the compose, then
     ``clamp(-bound, bound)`` as ``refine_level`` clipped it (both colours,
-    omega 1.0 and 1.6; a NaN, -0.0 and +-1e4 among u0, v0, du and dv), also
-    through the op with its flag; without the flag the bound is ignored."""
+    omega 1.0 and 1.6; a NaN, -0.0 and +-1e4 among u0, v0, du and dv)."""
     args = _sor_args(batch, *shape, sum(shape))
     args = (*_edge_values(*args[:4]), *args[4:])
     for color in (0, 1):
@@ -350,10 +351,6 @@ def test_compose_clip_is_compose_then_clamp(shape, batch, bound):
             want = plain.clamp(-bound, bound)
             got = tvar.refine_compose_plain(*args, color, omega, bound)
             assert torch.equal(_bits(got), _bits(want))
-            assert torch.equal(_bits(rk.refine_compose_op(*args, color, omega, True, bound)),
-                               _bits(want))
-            assert torch.equal(_bits(rk.refine_compose_op(*args, color, omega, False, bound)),
-                               _bits(plain))
     if bound < 1e4 and shape != (1, 1):   # (a 1 x 1 plane holds +-1e4 only)
         assert bool((want.abs() == bound).any()) and bool(want.isnan().any())
 
@@ -500,8 +497,8 @@ TILE_CASES = {"34x60": (None, 34, 60, tvar.UPDATE_CAPACITY, tvar.H100_SMS),
 def test_update_tiles_are_the_untiled_update(case, sweeps, omega, bound):
     """R23's tiling (``update_plan``'s launches and tiles, a halo of nh
     before a tile's interior and nh + 1 after it), emulated with the plain
-    versions on each tile's window, is bitwise the untiled update: R2,
-    then the half-sweeps, the last one composing the flow (clipped where a
+    versions on each tile's window, is bitwise the untiled update: the
+    coefficients, then the half-sweeps, the last one composing the flow (clipped where a
     bound is given), and without the compose mode the new du and dv."""
     batch, h, w, capacity, sms = TILE_CASES[case]
     args = _update_args(batch, h, w, h * w + sweeps)
@@ -562,22 +559,24 @@ def _opcheck_cases():
     setup = _setup_inputs(2, 7, 9, 3, 11)
     sor = _sor_args(2, 6, 9, 12)
     update = _update_args(2, 6, 9, 16)
+    single = _update_args(None, 5, 7, 17)
     flow = t((np.random.default_rng(13).standard_normal((2, 6, 8, 2)) * 3).astype(np.float32))
     return [
         ("refine_planes", rk.refine_planes_op, (img(2, 13, 15, 1), img(2, 13, 15, 2), 3, 7, 9)),
         ("refine_planes_1", rk.refine_planes_op, (img(None, 5, 6, 1), img(None, 5, 6, 2), 0,
                                                   5, 6)),
         ("refine_setup", rk.refine_setup_op, setup),
-        ("refine_compose", rk.refine_compose_op, (*sor, 1, 1.6)),
-        ("refine_compose_1", rk.refine_compose_op, (*sor, 0, 1.0)),
-        ("refine_compose_2", rk.refine_compose_op, (*sor, 1, 1.6, True, 0.5)),
+        ("refine_setup_1", rk.refine_setup_op, _setup_inputs(None, 5, 7, 2, 18)),
         ("refine_setup_warp1", rk.refine_setup_warp1_op, _warp1_args(2, 7, 9, 3, 14)),
         ("refine_setup_warp1_1", rk.refine_setup_warp1_op, _warp1_args(None, 1, 5, 0, 15)),
         ("refine_nosweep", rk.refine_nosweep_op, (*sor[:4], False, 0.0)),
         ("refine_nosweep_1", rk.refine_nosweep_op, (*sor[:4], True, 0.5)),
+        ("refine_nosweep_2", rk.refine_nosweep_op, (*single[9:], True, 0.5)),
         ("refine_update", rk.refine_update_op, (*update, 40.0, 5.0, 10.0, 2, 1.6, False)),
         ("refine_update_1", rk.refine_update_op, (*update, 40.0, 5.0, 10.0, 1, 1.0, True)),
         ("refine_update_2", rk.refine_update_op, (*update, 40.0, 5.0, 10.0, 3, 1.6, True, True,
+                                                  0.5)),
+        ("refine_update_3", rk.refine_update_op, (*single, 40.0, 5.0, 10.0, 5, 1.6, True, True,
                                                   0.5)),
         ("frame_pad", fk.frame_pad_op, (img(2, 5, 7, 3), img(2, 5, 7, 4), 1, 2, 0, 1)),
         ("intensity_levels", fk.intensity_levels_op, (img(2, 16, 24, 5), img(2, 16, 24, 6),
@@ -604,16 +603,16 @@ def test_new_ops_priced_and_counted():
 
     from dis_tpu_torch import cost
 
-    names = ("refine_planes", "refine_setup", "refine_setup_warp1", "refine_compose",
-             "refine_nosweep", "refine_update", "frame_pad", "intensity_levels", "frame_finish")
+    names = ("refine_planes", "refine_setup", "refine_setup_warp1", "refine_nosweep",
+             "refine_update", "frame_pad", "intensity_levels", "frame_finish")
     assert {n: cost.KERNELS[n] for n in names} == {
         "refine_planes": "R0", "refine_setup": "R1", "refine_setup_warp1": "R1",
-        "refine_compose": "R3", "refine_nosweep": "R3", "refine_update": "R23",
+        "refine_nosweep": "R3", "refine_update": "R23",
         "frame_pad": "F1", "intensity_levels": "F2", "frame_finish": "F3"}
     for case, _, args in _opcheck_cases():
         nbytes, ops = cost.op_cost(re.sub(r"_\d$", "", case), args)
         assert nbytes > 0 and ops >= 0
-    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1, rk.refine_compose,
+    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1,
                 rk.refine_nosweep, rk.refine_update, rk.clamped, rk.composed, fk.frame_pad,
                 fk.intensity_levels, fk.frame_finish)
     for w in wrappers:
@@ -637,8 +636,7 @@ def test_refinement_level_dispatches_only_kernel_ops(preset, planes, variant):
     """One refinement level within ``ops_on_cpu`` (as a CUDA tensor
     routes): under ``planes6`` R0 once and R1 once (its setup mode), under
     ``warp1`` R1 once in its warp1 mode and no R0; R23 once a weight
-    update (the last in its compose mode; R2 and R3 once a half-sweep
-    before R23); ``clamped``, a ``planes6`` ``refine_level`` with
+    update (the last in its compose mode); ``clamped``, a ``planes6`` ``refine_level`` with
     ``refined_init_clamp`` at the coarsest scale, whose clip binds, the
     same launches; ``nosweep`` (no weight update) R3 once in its no-sweep
     mode instead; and no ATen op besides (views aside; 54 before these
@@ -710,8 +708,8 @@ def test_flow_frame_dispatches_only_kernel_ops():
 
 def test_trace_budget_names_every_kernel():
     """The trace budget names each of the port's kernels by its id from
-    its function's name in a trace (R2's and S3's share a name, their
-    signatures tell them apart), and none of torch's."""
+    its function's name in a trace (R3's no-sweep mode and R23 share a
+    name, their arguments tell them apart), and none of torch's."""
     from dis_tpu_torch.tools.trace_budget import kernel_id
 
     names = {
@@ -719,8 +717,8 @@ def test_trace_budget_names_every_kernel():
         "extract_kernel(dis_extract::Args)": "K2", "banded_kernel(dis_extract::Args)": "K2c",
         "iclk_kernel<8, 8, 8>(float const*)": "K1", "planes_kernel(float const*)": "R0",
         "warp_kernel<6, true>(float const*)": "R1", "warp1_kernel(float const*)": "R1",
-        "weights_kernel(WeightArgs, int)": "R2",
-        "sor_kernel<true>(SorArgs, int)": "R3",
+        "void (anonymous namespace)::sor_kernel<true>(float const*, float const*, float const*, "
+        "float const*, long, int, float, float*)": "R3",
         "void (anonymous namespace)::sor_kernel<true>((anonymous namespace)::UpdateArgs, int)":
             "R23",
         "sor_kernel<false>(UpdateArgs, int)": "R23", "templates_kernel<8, 8>(TemplateGrid)": "S1",

@@ -1,11 +1,12 @@
-"""The refinement's device loop as three kernels (R1-R3) on the CPU.
+"""The refinement's device loop (R0, R1, R23 and R3) on the CPU.
 
 ``ops/variational.py`` composes ``variational_refinement`` from the
-plain versions of R1 (``refine_warp_plain``), R2 (``refine_weights_plain``)
-and R3 (``refine_sor_plain``), which CPU tensors run inline and which the
-ops ``dis_tpu_torch::refine_warp``, ``::refine_weights`` and
-``::refine_sor`` (``ops/cuda/refine_kernel.py``) run as their CPU
-functions.  On numpy-seeded inputs:
+plain versions of its kernels: R1's warp (``refine_warp_plain``) in its
+setup and warp1 modes, R23's weight update (``refine_update_plain``:
+``refine_weights_plain``, then ``refine_sor_plain`` a half-sweep), which
+CPU tensors run inline and which the ops of
+``ops/cuda/refine_kernel.py`` run as their CPU functions.  On
+numpy-seeded inputs:
 
 - the composition, inline, through the ops (``ops_on_cpu``) and with
   ``plain=True``, is bitwise the monolithic refinement it replaced (a
@@ -18,13 +19,12 @@ functions.  On numpy-seeded inputs:
   the port's IRLS weight takes a correctly rounded ``0.5 / sqrt``, XLA's
   CPU ``rsqrt`` is not correctly rounded, and the difference grows
   through the sweeps to about 1e-5 px);
-- the three ops pass ``torch.library.opcheck``; a flow on CPU tensors
-  dispatches none of them, and within ``ops_on_cpu`` one R0 a level, one
-  R1 per outer iteration (in its setup mode) and one R23 per weight
-  update (the last of an outer iteration in its compose mode), where R2
-  once a weight update and R3 once a half-sweep ran before R23
+- the ops that launch, and F1-F3's, keep their flat schemas; a flow on
+  CPU tensors dispatches none of them, and within ``ops_on_cpu`` one R0
+  a level, one R1 per outer iteration (in its setup mode) and one R23 per
+  weight update (the last of an outer iteration in its compose mode)
   (``tests/test_torch_refine_glue.py`` holds R0, R23's tiles and the
-  modes);
+  modes, and runs ``opcheck`` on the ops);
 - a CPU export of ``DIS_MEDIUM`` at 64x96 within ``ops_on_cpu`` records
   R0 = 4, R1 = 4, R23 = 20 and F2 = 1 op nodes (its four levels, 5
   weight updates of 5 sweeps each, the intensity levels): under a tenth
@@ -52,6 +52,7 @@ from dis_tpu_torch.config import DISConfig
 from dis_tpu_torch.ops import cuda as kops
 from dis_tpu_torch.ops import image as im
 from dis_tpu_torch.ops import variational as tvar
+from dis_tpu_torch.ops.cuda import frame_kernel as fk
 from dis_tpu_torch.ops.cuda import refine_kernel as rk
 
 from torch_threads import one_thread
@@ -314,7 +315,7 @@ class _CountOps(TorchDispatchMode):
 @pytest.mark.parametrize("scheme", ["planes6", "warp1"])
 def test_steps_equal_the_monolithic_refinement(scheme, omega, batch, shape):
     """Inline, through the ops' CPU functions and with ``plain=True``, the
-    composition of R1-R3's plain versions is bitwise the refinement it
+    composition of the kernels' plain versions is bitwise the refinement it
     replaced; Q1-level padding (2 px) on the no-batch cases."""
     cfg = _cfg(scheme, omega)
     pad = 2 if batch is None else 0
@@ -332,14 +333,13 @@ def test_steps_equal_the_monolithic_refinement(scheme, omega, batch, shape):
 @pytest.mark.parametrize("shape", [(1, 9), (2, 2), (7, 1), (13, 17)])
 @pytest.mark.parametrize("c", [1, 6])
 def test_refine_warp_plain_bitwise_vs_jax(shape, c):
-    """R1's plain version (and the op's CPU function, on a pair axis) is
-    ``dis_tpu``'s four-tap warp bitwise, its mask equal, at 1, 2 and odd
-    rows and columns; flows up to 4.5 px reach past every edge."""
+    """R1's plain warp (also on a pair axis) is ``dis_tpu``'s four-tap warp
+    bitwise, its mask equal, at 1, 2 and odd rows and columns; flows up to
+    4.5 px reach past every edge."""
     rng = np.random.default_rng(sum(shape) * c)
     planes = rng.random((2,) + shape + (c,)).astype(np.float32)
     flow = ((rng.random((2,) + shape + (2,)) - 0.5) * 9).astype(np.float32)
-    with kops.ops_on_cpu():
-        batched, batched_inb = rk.refine_warp(_t(planes), _t(flow))
+    batched, batched_inb = tvar.refine_warp_plain(_t(planes), _t(flow))
     for i in range(2):
         want, want_inb = jvar._warp_bilinear(jnp.asarray(planes[i]), jnp.asarray(flow[i]))
         got, got_inb = tvar.refine_warp_plain(_t(planes[i]), _t(flow[i]))
@@ -379,8 +379,8 @@ def test_refinement_through_the_ops_matches_jax(scheme):
 # -- the ops ----------------------------------------------------------------------
 
 def _weights_args(batch, h=6, w=9, seed=4):
-    """R2's arguments: random planes, a 0/1 mask, increments of a few
-    hundredths of a px, and DIS_MEDIUM's alpha, delta, gamma."""
+    """A weight update's inputs: random planes, a 0/1 mask, increments of
+    a few hundredths of a px, and DIS_MEDIUM's alpha, delta, gamma."""
     rng = np.random.default_rng(seed)
     lead = () if batch is None else (batch,)
 
@@ -399,90 +399,81 @@ def _sor_args(batch, color, omega):
     return (u0, v0, du, dv, *coef, color, omega)
 
 
-@pytest.mark.parametrize("batch", [None, 2])
-@pytest.mark.parametrize("c", [1, 6])
-def test_opcheck_refine_warp(c, batch):
-    rng = np.random.default_rng(c)
-    lead = () if batch is None else (batch,)
-    planes = _t(rng.random(lead + (5, 7, c)).astype(np.float32))
-    flow = _t(((rng.random(lead + (5, 7, 2)) - 0.5) * 6).astype(np.float32))
-    torch.library.opcheck(rk.refine_warp_op, (planes, flow))
-
-
-@pytest.mark.parametrize("batch", [None, 2])
-def test_opcheck_refine_weights(batch):
-    torch.library.opcheck(rk.refine_weights_op, _weights_args(batch))
-
-
-@pytest.mark.parametrize("omega", [1.0, 1.6])
-@pytest.mark.parametrize("color", [0, 1])
-def test_opcheck_refine_sor(color, omega):
-    torch.library.opcheck(rk.refine_sor_op, _sor_args(2, color, omega))
-
-
+_UPDATE_SCHEMA = ("(Tensor Iz, Tensor Izx, Tensor Izy, Tensor Wx, Tensor Wy, Tensor Wxx, "
+                  "Tensor Wxy, Tensor Wyy, Tensor m, Tensor u0, Tensor v0, Tensor du, "
+                  "Tensor dv, float alpha, float delta, float gamma, SymInt sweeps, "
+                  "float omega, bool compose, bool clamp=False, float bound=0.) -> Tensor")
+# The ops' schemas, which a saved artifact's nodes name: the refinement's
+# ops that launch, and F1-F3's.
 SCHEMAS = {
-    "refine_warp": "(Tensor planes, Tensor flow) -> (Tensor, Tensor)",
-    "refine_weights": "(Tensor Iz, Tensor Izx, Tensor Izy, Tensor Wx, Tensor Wy, Tensor Wxx, "
-                      "Tensor Wxy, Tensor Wyy, Tensor m, Tensor u0, Tensor v0, Tensor du, "
-                      "Tensor dv, float alpha, float delta, float gamma) -> Tensor",
-    "refine_sor": "(Tensor u0, Tensor v0, Tensor du, Tensor dv, Tensor wE, Tensor wW, "
-                  "Tensor wS, Tensor wN, Tensor A11, Tensor A12, Tensor A22, Tensor b1c, "
-                  "Tensor b2c, Tensor det, Tensor Su0, Tensor Sv0, SymInt color, "
-                  "float omega) -> Tensor",
+    "refine_planes": (rk, "(Tensor img1, Tensor img2, SymInt p, SymInt h, SymInt w) "
+                          "-> (Tensor, Tensor)"),
+    "refine_setup": (rk, "(Tensor planes, Tensor flow, Tensor img1, Tensor I1x, Tensor I1y, "
+                         "SymInt p) -> Tensor"),
+    "refine_setup_warp1": (rk, "(Tensor img2, Tensor flow, Tensor img1, SymInt p) -> Tensor"),
+    "refine_update": (rk, _UPDATE_SCHEMA),
+    "refine_nosweep": (rk, "(Tensor u0, Tensor v0, Tensor du, Tensor dv, bool clamp, "
+                           "float bound) -> Tensor"),
+    "frame_pad": (fk, "(Tensor img1, Tensor img2, SymInt top, SymInt bottom, SymInt left, "
+                      "SymInt right) -> Tensor"),
+    "intensity_levels": (fk, "(Tensor img1, Tensor img2, SymInt levels) -> Tensor[]"),
+    "frame_finish": (fk, "(Tensor flow, SymInt finest_scale, SymInt top, SymInt left, "
+                         "SymInt height, SymInt width) -> Tensor"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(SCHEMAS))
 def test_refine_ops_have_flat_schemas(name):
-    """One op per C entry point, of tensors, ints and floats, writing
-    nothing in place; its outputs stacked on a leading axis."""
-    op = getattr(rk, f"{name}_op")
-    assert str(op._opoverload._schema) == f"dis_tpu_torch::{name}{SCHEMAS[name]}"
-    assert cost.KERNELS[name] in ("R1", "R2", "R3")
+    """One op per C entry point, of tensors, ints, floats and bools,
+    writing nothing in place; its outputs stacked on a leading axis."""
+    module, schema = SCHEMAS[name]
+    op = getattr(module, f"{name}_op")
+    assert str(op._opoverload._schema) == f"dis_tpu_torch::{name}{schema}"
+    assert cost.KERNELS[name] in ("R0", "R1", "R23", "R3", "F1", "F2", "F3")
 
 
 @pytest.mark.parametrize("color", [0, 1])
 def test_sor_updates_one_colour(color):
-    """A half-sweep changes only pixels of its colour, and the op's CPU
-    function returns the plain version's du and dv stacked."""
+    """A half-sweep changes only pixels of its colour."""
     args = _sor_args(None, color, 1.6)
     du, dv = tvar.refine_sor_plain(*args)
     ys, xs = np.mgrid[0:6, 0:9]
     other = torch.from_numpy((xs + ys) % 2 != color)
     assert torch.equal(du[other], args[2][other]) and torch.equal(dv[other], args[3][other])
     assert bool((du[~other] != args[2][~other]).all())
-    assert torch.equal(rk.refine_sor_op(*args), torch.stack([du, dv]))
 
 
 def test_wrappers_check_their_inputs():
     """Through the ops (the CUDA path's route) a wrapper refuses what its
     kernel does not take: a plane that is not contiguous, a warp of 3
-    channels, a colour other than 0 and 1."""
-    args = list(_sor_args(None, 0, 1.6))
+    channels, no SOR sweep, a clip outside the compose mode, float64
+    planes."""
+    args = _weights_args(None)
     with kops.ops_on_cpu():
         strided = torch.zeros(6, 18)[:, ::2]
         with pytest.raises(ValueError, match="contiguous"):
-            rk.refine_sor(strided, *args[1:])
-        with pytest.raises(ValueError, match="color"):
-            rk.refine_sor(*args[:16], 2, 1.6)
-        with pytest.raises(ValueError, match="channels"):
-            rk.refine_warp(torch.zeros(4, 5, 3), torch.zeros(4, 5, 2))
+            rk.refine_nosweep(strided, *args[10:13])
+        with pytest.raises(ValueError, match=r"\[h, w, 6\]"):
+            rk.refine_setup(torch.zeros(4, 5, 3), torch.zeros(4, 5, 2), torch.zeros(4, 5),
+                            torch.zeros(4, 5), torch.zeros(4, 5), 0)
+        with pytest.raises(ValueError, match="sweeps"):
+            rk.refine_update(*args, 0, 1.6)
+        with pytest.raises(ValueError, match="compose"):
+            rk.refine_update(*args, 2, 1.6, False, 0.5)
         with pytest.raises(TypeError, match="float32"):
-            rk.refine_weights(*(a.double() if torch.is_tensor(a) else a
-                                for a in _weights_args(None)))
+            rk.refine_update(*(a.double() if torch.is_tensor(a) else a for a in args), 2, 1.6)
 
 
 def test_cpu_tensors_route_inline_and_through_ops():
     """A refinement on CPU tensors dispatches no kernel op; within
     ``ops_on_cpu`` it calls R0 once, R1 (in its setup mode) once per outer
-    iteration and R23 once per weight update (R2 once per weight update
-    and R3 once per half-sweep before R23; the last of each outer
+    iteration and R23 once per weight update (the last of each outer
     iteration in its compose mode), with the same bits, and launches
     nothing."""
     cfg = _cfg("planes6", 1.0)          # 2 outer x 3 updates x 2 sweeps
     i1, i2, flow = _refine_inputs(9, 13, 0, 2, seed=5)
-    wrappers = (rk.refine_planes, rk.refine_warp, rk.refine_setup, rk.refine_weights,
-                rk.refine_sor, rk.refine_compose, rk.refine_update)
+    wrappers = (rk.refine_planes, rk.refine_setup, rk.refine_setup_warp1, rk.refine_update,
+                rk.refine_nosweep, rk.composed, rk.clamped)
     for w in wrappers:
         w.launches = 0
     with _CountOps() as inline:
@@ -492,13 +483,13 @@ def test_cpu_tensors_route_inline_and_through_ops():
         got = tvar.variational_refinement(i1, i2, flow, cfg, pad=0)
     assert routed.calls == {"refine_planes": 1, "refine_setup": 2, "refine_update": 6}
     assert torch.equal(got, want)
-    assert [w.launches for w in wrappers] == [0] * 7
+    assert [w.launches for w in wrappers] == [0] * len(wrappers)
 
 
 def test_cpu_export_records_the_refinement_ops():
     """``DIS_MEDIUM`` at 64x96 traced through the ops (within
     ``ops_on_cpu``, as a CUDA export routes): R1 once per level and R23
-    five times (R2 five times and R3 fifty times before R23), in a program
+    five times, in a program
     a tenth the size of the plain refinement's 34,478 nodes, which runs
     the ops' CPU functions with the eager bits; its cost analysis counts
     each launch by the package's formulas."""
@@ -532,7 +523,8 @@ def test_cpu_export_records_the_refinement_ops():
         want_r23 += [cost.refine_update_cost(1, hs, ws, 5, True, k == 4) for k in range(5)]
     assert [(e["bytes accessed"], e["flops"]) for e in kernels["R23"]] == want_r23
     assert entry("F2", 0) == cost.intensity_levels_cost(1, h, w, cfg.coarsest_scale)
-    # R2 and R3's operations, each plane read or written once
+    # The coefficients' and the half-sweeps' operations, each plane read
+    # or written once
     bytes_r2, ops_r2 = cost.refine_weights_cost(1, 8, 12)
     assert kernels["R23"][0]["bytes accessed"] == bytes_r2 * 15 // 25
     assert kernels["R23"][0]["flops"] == ops_r2 + sum(
@@ -543,13 +535,13 @@ def test_refine_wrappers_refuse_non_cuda_non_cpu_tensors():
     """Off the CPU a wrapper launches its kernel or raises: a tensor on
     another device is refused before any build or launch."""
     z = lambda *s: torch.zeros(s, device="meta")
-    wrappers = (rk.refine_warp, rk.refine_weights, rk.refine_sor)
+    wrappers = (rk.refine_setup, rk.refine_update, rk.refine_nosweep)
     for w in wrappers:
         w.launches = 0
     with pytest.raises(ValueError, match="CUDA"):
-        rk.refine_warp(z(4, 5, 6), z(4, 5, 2))
+        rk.refine_setup(z(4, 5, 6), z(4, 5, 2), z(6, 7), z(4, 5), z(4, 5), 1)
     with pytest.raises(ValueError, match="CUDA"):
-        rk.refine_weights(*(z(4, 5) for _ in rk.WEIGHT_INPUTS), 40.0, 5.0, 10.0)
+        rk.refine_update(*(z(4, 5) for _ in rk.WEIGHT_INPUTS), 40.0, 5.0, 10.0, 2, 1.6)
     with pytest.raises(ValueError, match="CUDA"):
-        rk.refine_sor(*(z(4, 5) for _ in rk.SOR_INPUTS), 0, 1.6)
+        rk.refine_nosweep(*(z(4, 5) for _ in rk.NOSWEEP_INPUTS))
     assert [w.launches for w in wrappers] == [0, 0, 0]

@@ -10,6 +10,11 @@ one test for the card.
 - Off (no profiler, no manifest, no recorder) the stages and a request's
   spans open no ``record_function``; under a profiler they open the
   stages' and the request's ranges.
+- On the grid of the TPU's extraction route (the compat bench config,
+  the KITTI config 3 and the ultrafast and fast presets, at padded 1080p,
+  KITTI and 4K frames) and on the stripes of a 3- and 6-way 4K split,
+  every scale's search is one launch of K1 in its plane mode after S1, and
+  no extraction kernel launches: the card has one search path.
 - ``summarize``'s interval arithmetic on synthetic stamps.
 - Marked ``cuda``: after ``aot_compile`` of the benchmark's
   configurations (1080p and 4K), a profiled replay's program kernels are
@@ -32,10 +37,11 @@ import torch
 import dis_tpu_torch
 from dis_tpu_torch import _build
 from dis_tpu_torch.cost import KERNELS
-from dis_tpu_torch.models.dis import dis_flow_padded, scale_extraction_route
+from dis_tpu_torch.models.dis import dis_flow_padded, dis_flow_stripe
 from dis_tpu_torch.ops import cuda as kops
 from dis_tpu_torch.ops.cuda import (extract_banded_kernel, extract_kernel, frame_kernel,
                                     iclk_kernel, pyramid_kernel, refine_kernel, scale_kernel)
+from dis_tpu_torch.parallel import tiles
 from dis_tpu_torch.serving import aot_compile
 from dis_tpu_torch.utils import profiling
 
@@ -47,10 +53,8 @@ WRAPPERS = {"pyramid_levels": pyramid_kernel.pyramid_levels,
             "iclk_search": iclk_kernel.iclk_search,
             "iclk_search_plane": iclk_kernel.iclk_search_plane,
             "refine_planes": refine_kernel.refine_planes,
-            "refine_warp": refine_kernel.refine_warp, "refine_setup": refine_kernel.refine_setup,
+            "refine_setup": refine_kernel.refine_setup,
             "refine_setup_warp1": refine_kernel.refine_setup_warp1,
-            "refine_weights": refine_kernel.refine_weights, "refine_sor": refine_kernel.refine_sor,
-            "refine_compose": refine_kernel.refine_compose,
             "refine_nosweep": refine_kernel.refine_nosweep,
             "refine_update": refine_kernel.refine_update,
             "scale_templates": scale_kernel.scale_templates,
@@ -58,9 +62,7 @@ WRAPPERS = {"pyramid_levels": pyramid_kernel.pyramid_levels,
             "frame_pad": frame_kernel.frame_pad, "intensity_levels": frame_kernel.intensity_levels,
             "frame_finish": frame_kernel.frame_finish}
 # The ops a mode goes through, and the kernel whose launches count it too.
-MODE_OF = {"iclk_search_plane": "iclk_search", "refine_setup": "refine_warp",
-           "refine_setup_warp1": "refine_warp", "refine_compose": "refine_sor",
-           "refine_nosweep": "refine_sor"}
+MODE_OF = {"iclk_search_plane": "iclk_search"}
 
 CONFIGS = Path(__file__).resolve().parents[1] / "flowbench" / "configs"
 
@@ -111,9 +113,8 @@ def _expected(cfg, h, w, batch):
         return [(k, stage, s) for k in seq]
 
     for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        # The route "K2" is K1's plane mode alone: no extraction launch.
-        k2c = ["K2c"] if scale_extraction_route(cfg, pw, ph, s) == "K2c" else []
-        seq = ["S1", *k2c, "K1b" if batch else "K1"] + (["S3"] if cfg.mode == "fixed" else [])
+        # K1's plane mode alone: no extraction launch.
+        seq = ["S1", "K1b" if batch else "K1"] + (["S3"] if cfg.mode == "fixed" else [])
         out += [(k, f"scale_{s}", s) for k in seq + ["S4"]]
         if refines and cfg.refine_per_level:
             out += refinement(f"refine_s{s}", s)
@@ -160,6 +161,62 @@ def test_manifest_lists_every_launch_in_order(case, stubbed_launches):
         with profiling.launch_manifest() as inner:
             dis_tpu_torch.dis_flow(x, x.roll(1, -1), cfg)
     assert outer == [] and inner == manifest
+
+
+# The grid of the TPU's extraction route: the compat bench config (also
+# the KITTI config 3) and the fast presets, at 1920x1080 and 1242x375
+# padded for 2**3, and at 4K, whose finest scale the TPU bands.
+COMPAT = dis_tpu_torch.DISConfig(iterations=16, patch_size=8, coarsest_scale=3,
+                                 finest_scale=0, patch_overlap=0.3,
+                                 patch_normalization=True, mode="compat", early_exit=False)
+ROUTE_CONFIGS = {"compat_bench": COMPAT, "config3": COMPAT, "fast": dis_tpu_torch.DIS_FAST,
+                 "ultrafast": dis_tpu_torch.DIS_ULTRAFAST}
+ROUTE_SIZES = [(1920, 1088), (1248, 376), (3840, 2160)]
+SEARCH_KERNELS = ("K2", "K2b", "K2s", "K2c", "K1", "K1b")
+
+
+def _searches(manifest):
+    """(op, kernel, scale) of each search or extraction launch, and the
+    scales of the S1 launches, in launch order."""
+    return ([(e.op, e.kernel, e.scale) for e in manifest if e.kernel in SEARCH_KERNELS],
+            [e.scale for e in manifest if e.kernel == "S1"])
+
+
+@pytest.mark.parametrize("cfg_name", sorted(ROUTE_CONFIGS))
+@pytest.mark.parametrize("size", ROUTE_SIZES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_every_scale_searches_in_the_plane_mode(cfg_name, size, stubbed_launches):
+    """Each scale of a padded frame launches S1, then K1 through
+    ``iclk_search_plane``, and no K2, K2b or K2c, the 4K finest scale
+    included."""
+    cfg = ROUTE_CONFIGS[cfg_name]
+    w, h = size
+    x = torch.zeros(h, w)
+    with profiling.launch_manifest() as manifest:
+        dis_flow_padded(x, x, cfg)
+    scales = list(range(cfg.coarsest_scale, cfg.finest_scale - 1, -1))
+    assert _searches(manifest) == ([("iclk_search_plane", "K1", s) for s in scales], scales)
+
+
+@pytest.mark.parametrize("n", [3, 6])
+def test_every_stripe_searches_in_the_plane_mode(n, stubbed_launches):
+    """Each stripe of an n-way split of the compat 4K frame, with its own
+    ``row0``, launches S1 then K1 through ``iclk_search_plane`` at every
+    scale, and no extraction kernel."""
+    w, h = 3840, 2160
+    halo = tiles.min_stripe_halo(COMPAT, w, h, n)
+    scales = list(range(COMPAT.coarsest_scale, COMPAT.finest_scale - 1, -1))
+    row0s = []
+    for i in range(n):
+        row0, ext_h, own_r0, own_h = tiles.stripe_bounds(COMPAT, h, n, i, halo)
+        x = torch.zeros(ext_h, w)
+        with profiling.launch_manifest() as manifest:
+            dis_flow_stripe(x, x, COMPAT, row0, own_r0, own_h, h)
+        assert _searches(manifest) == ([("iclk_search_plane", "K1", s) for s in scales],
+                                       scales), i
+        row0s.append(row0)
+    assert row0s[0] == 0 and len(set(row0s)) == n
+    if n == 3:
+        assert halo == 176 and row0s == [0, 544, 1264]
 
 
 class _CountRanges:

@@ -4,9 +4,9 @@ served path, on the CPU at smaller frames where all six scales exist.
 
 - The configurations of the benchmark are OpenCV's presets: the coarsest
   scale is the one ``calc()`` sets at the frame, and the ``dis`` group
-  holds the preset's values.  Under per-level refinement without the
-  clamp no scale has a static bound on its init, so every scale of the
-  frame takes K2 (K2c needs the bound).
+  holds the preset's values.  Every scale of the frame searches with K1
+  in its plane mode and launches no extraction kernel (the launch
+  manifest of a call whose launches do nothing).
 - ``serving.aot_compile`` on the CPU against the plain reference
   (``flowbench/reference/dis.py``) on one pair of each entry of the
   cell's traffic (``flowbench/traffic``), ``off_pct`` within the cell's
@@ -31,11 +31,13 @@ import torch
 
 import dis_tpu_torch
 from dis_tpu_torch import serving
-from dis_tpu_torch.models.dis import init_bound, scale_extraction_route
+from dis_tpu_torch.models.dis import dis_flow_padded
 from dis_tpu_torch.ops import iclk
+from dis_tpu_torch.utils import profiling
 from flowbench import compare, run
 from flowbench.reference import dis as reference
 from flowbench.traffic.pool import make_pool
+from test_torch_tracing import stubbed_launches  # noqa: F401 (a fixture)
 
 CELL = "uhd4k_medium.stream"
 SEED = 2 ** 33 + 17
@@ -78,14 +80,17 @@ def test_configuration_is_opencvs_preset(name):
 
 
 @pytest.mark.parametrize("name", ["hd1080_medium", "uhd4k_medium"])
-def test_every_scale_takes_k2(name):
+def test_every_scale_takes_k2(name, stubbed_launches):
     spec = CONFIGS[name]
     cfg = dis_tpu_torch.DISConfig(**spec["dis"])
     f = 2 ** cfg.coarsest_scale
     ph, pw = -(-spec["height"] // f) * f, -(-spec["width"] // f) * f
-    for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1):
-        assert init_bound(cfg, s) == (0.0 if s == cfg.coarsest_scale else None)
-        assert scale_extraction_route(cfg, pw, ph, s) == "K2", s
+    x = torch.zeros(ph, pw)
+    with profiling.launch_manifest() as manifest:
+        dis_flow_padded(x, x, cfg)
+    search = [(e.op, e.scale) for e in manifest if e.kernel.startswith(("K1", "K2"))]
+    assert search == [("iclk_search_plane", s)
+                      for s in range(cfg.coarsest_scale, cfg.finest_scale - 1, -1)]
 
 
 @pytest.fixture(scope="module")
