@@ -163,7 +163,9 @@ replace XLA's fusions of the JAX package's refinement code):
     on inputs out of the L2 (``cold_replay_ms``); F2 also with five levels
     in one launch and on rows of 66 floats (its scalar path), F3 also at
     2^finest = 4 with an odd crop and at 2 with an even left edge;
-1h. K1's plane mode at patch 12, on the finest scale of the benchmark's
+1h. K1's plane mode at patch 12 (its split layout, counted in
+    ``split_launches`` at every scale of a medium pair: 5 at 1080p, 6 at
+    4K), on the finest scale of the benchmark's
     ``hd1080_medium`` and ``uhd4k_medium`` (N = 58,240 and 232,320) with
     the search inputs their served path gives (``served_search_inputs``):
     bitwise equal to K2 then K1 and to its plain composition, and timed
@@ -405,7 +407,9 @@ OFF_PATH = ("K2", "K2b", "K2c")
 # in its setup and warp1 modes and R3 only in its no-sweep mode, the rows
 # of the kernels line.
 MODE_ONLY = ("R1", "R3")
-COUNTED = LAUNCH_KEYS + OFF_PATH + MODE_ONLY
+# K1's launches in its split layout (ps 12), which K1's row of the kernels
+# line reports as its ``split_launches``.
+COUNTED = LAUNCH_KEYS + OFF_PATH + MODE_ONLY + ("K1s",)
 # The kernels that phase 2g does not add up (its batches launch K2b and K1b).
 CORE = ("K3", "K2", "K1", "K2c")
 # Mean EPE against the (3, 2) shift of the JAX package on CPU, same pair
@@ -748,7 +752,8 @@ def refine_counts(cfg):
 
 
 def mode_counts(cfg):
-    """The launches of K1's plane mode (``K1p``: every scale), R1's setup
+    """The launches of K1's plane mode (``K1p``: every scale) and of K1 in
+    its split layout (``K1s``: every scale at ps 12), R1's setup
     and warp1 modes (``R1s``, ``R1w``), R23's compose mode (``R23c``) and
     R3's no-sweep mode
     (``R3n``) in one call, which ``scale_counts`` and ``refine_counts``
@@ -756,7 +761,11 @@ def mode_counts(cfg):
     on (``R3k``, R23's compose mode or R3's no-sweep mode): the last outer
     iteration of each level that ``refine_level`` clips
     (``refined_init_clamp``, per level)."""
-    plane = {"K1p": cfg.coarsest_scale - cfg.finest_scale + 1}
+    from dis_tpu_torch.ops.cuda.iclk_kernel import search_layout
+
+    n = cfg.coarsest_scale - cfg.finest_scale + 1
+    k, g = search_layout(cfg.patch_size)
+    plane = {"K1p": n, **({"K1s": n} if k * g < cfg.patch_size ** 2 else {})}
     if cfg.refinement_iters == 0:
         return plane
     levels = plane["K1p"] if cfg.refine_per_level else 1
@@ -806,12 +815,28 @@ def want_4k(cfg):
 
 
 # The wrappers of K1's plane mode, R1's setup and warp1 modes and R3's
-# no-sweep mode, the count of R23's compose mode and the count of the
-# launches with the clip on: their launches count in K1's, R1's, R3's and
-# R23's too, and read_counts leaves them out.
-MODES = ("K1p", "R1s", "R1w", "R23c", "R3k", "R3n")
+# no-sweep mode, the counts of K1's split layout, of R23's compose mode
+# and of the launches with the clip on: their launches count in K1's,
+# R1's, R3's and R23's too, and read_counts leaves them out.
+MODES = ("K1p", "K1s", "R1s", "R1w", "R23c", "R3k", "R3n")
 # The kernel whose row of the kernels line counts a mode's launches too.
 MODE_OF = {"K1p": "K1", "R23c": "R23", "R3k": "R23"}
+
+
+class SplitLaunches:
+    """K1's launches in its split layout (its wrapper's ``split_launches``)
+    as a mode's ``launches``."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self.wrapper.split_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.wrapper.split_launches = n
 
 
 def kernel_wrappers():
@@ -825,9 +850,9 @@ def kernel_wrappers():
     from dis_tpu_torch.ops.cuda.scale_kernel import densify, fixed_weights, scale_templates
 
     return {"K3": pyramid_levels, "K2": extract_regions, "K2c": extract_regions_banded,
-            "K1": iclk_search, "K1p": iclk_search_plane, "R0": rk.refine_planes,
-            "R3": rk.refine_nosweep, "R23": rk.refine_update, "S1": scale_templates,
-            "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
+            "K1": iclk_search, "K1p": iclk_search_plane, "K1s": SplitLaunches(iclk_search),
+            "R0": rk.refine_planes, "R3": rk.refine_nosweep, "R23": rk.refine_update,
+            "S1": scale_templates, "S3": fixed_weights, "S4": densify, "F1": fkern.frame_pad,
             "F2": fkern.intensity_levels, "F3": fkern.frame_finish, "R1s": rk.refine_setup,
             "R1w": rk.refine_setup_warp1, "R23c": rk.composed, "R3k": rk.clamped,
             "R3n": rk.refine_nosweep}
@@ -2589,7 +2614,13 @@ def main() -> int:
     plane_rows = []
     for name, (x, y) in (("hd1080_medium", (a, b)), ("uhd4k_medium", (a4, b4))):
         cfg = bench_config(name)
+        iclk_search.split_launches = iclk_search_plane.split_launches = 0
         plane, pos0, args, geom = served_search_inputs(cfg, x, y)
+        # A medium pair takes K1's split layout at every scale.
+        split = (iclk_search.split_launches, iclk_search_plane.split_launches)
+        scales = cfg.coarsest_scale - cfg.finest_scale + 1
+        print(f"phase1h {name} pair: split_launches {split}, scales {scales}", flush=True)
+        check(split == (scales, scales), f"{name}: split_launches {split}, want {scales}")
         ps, n = cfg.patch_size, pos0.shape[-2]
         kr = extract_regions(plane, pos0, ps, ps, num_h=geom.num_h)
         k1 = iclk_search(*kr, *args)
@@ -3383,6 +3414,8 @@ def main() -> int:
             # count this mode's too (R3k the launches with the clip flag,
             # timed in R23's compose mode).
             rows[-1]["mode_of"] = meta[MODE_OF[k]][0]
+        if k == "K1":
+            rows[-1]["split_launches"] = launches["K1s"]
     # The start's row: fused into S1 (scale_templates), it launches
     # with S1, and its ms is what it adds inside S1 on the same inputs.
     rows[-1]["fused_into"] = "scale_templates"

@@ -141,8 +141,9 @@ def library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dis_error_string.argtypes = [ctypes.c_int]
     lib.dis_error_string.restype = ctypes.c_char_p
-    lib.dis_iclk_layout.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
-    lib.dis_iclk_layout.restype = ctypes.c_int
+    for name in ("dis_iclk_layout", "dis_iclk_search_layout"):
+        getattr(lib, name).argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        getattr(lib, name).restype = ctypes.c_int
     lib.dis_extract_layout.argtypes = [_I, ctypes.POINTER(_I)]
     lib.dis_extract_layout.restype = ctypes.c_int
     return lib

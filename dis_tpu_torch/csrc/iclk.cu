@@ -27,22 +27,31 @@
 // tap reads the bits it reads in the other mode, and no [n, rc, rc]
 // regions go through device memory.
 //
-// Layout: a group of G lanes per patch, 32 / G patches per warp.  Lane g of
-// a group holds the K consecutive taps [g K, g K + K) of Tdx, Tdy, Tn and q
-// in registers, where G K is the power of two >= ps^2 (taps past ps^2 are
-// zero).  ps = 8: K = 8, G = 8, so a lane holds one patch row and a warp
-// four patches; ps = 10: K = 8, G = 16; ps = 12, 16: K = 8, G = 32; other
-// even ps up to 22 take a runtime-ps instance (iclk_layout below).  ps is a
-// template parameter for 8, 10, 12, 16, so no tap index needs a runtime
-// division; where a lane's taps lie in one patch row (ps = 8, 16) the lane
-// loads its two region rows once and blends them column then row.
+// Layout (dis_iclk_search_layout below): a group of G lanes per patch,
+// 32 / G patches per warp.  Lane g of a group holds the K consecutive taps
+// [g K, g K + K) of Tdx, Tdy, Tn and q in registers.  Where G K is the
+// power of two >= ps^2 (dis_iclk_layout), taps past ps^2 are zero: ps = 8:
+// K = 8, G = 8, so a lane holds one patch row and a warp four patches;
+// ps = 10: K = 8, G = 16; ps = 16: K = 8, G = 32; other even ps up to 22
+// take a runtime-ps instance.  ps = 12 takes the split layout, in which no
+// lane holds only padding (the power-of-two layout gave it 32 lanes, 14 of
+// them all zeros): G K = 128 main taps with K = 8, G = 16, two patches a
+// warp, and lane g also holds the extra tap 128 + g.  ps is a template
+// parameter for 8, 10, 12, 16, so no tap index needs a runtime division;
+// where a lane's taps lie in one patch row (ps = 8, 16) the lane loads its
+// two region rows once and blends them column then row; at ps = 12 its
+// main taps are two runs of 4 taps, each in one patch row, whose window
+// offsets and the extra tap's are fixed for the patch (lane_taps).
 //
 // Every sum over taps is the in-lane pair tree over K taps followed by
 // log2(G) xor-butterfly levels with offsets below G: that is the balanced
 // pair tree of ops/iclk.py::pairwise_sum over the zero-padded taps, and
 // float addition is commutative, so every lane of a group holds the same
 // bits and the kernel equals the plain PyTorch version bitwise (the build
-// passes -fmad=false).
+// passes -fmad=false).  Over 144 taps that tree is tree(taps 0..127) +
+// (tree(taps 128..143) + 0.0f), the + 0.0f being what its zero-padded
+// levels do to a -0.0: the split layout sums its extra taps by a second
+// butterfly over the group and adds them so (tap_sum).
 //
 // Freezing: a warp loops while any of its groups is active (__any_sync);
 // every lane runs each trip's arithmetic and shuffles under the full mask,
@@ -75,11 +84,16 @@
 // Measured on the H100 (PERF.md), the finest 1080p scale takes about 2.3x
 // its memory bound, down from about 7x.  ncu does not run on the measuring
 // machine, so smsp__inst_executed was not read.  Block: 4 warps (16
-// patches at ps = 8), 23.1 KB of shared memory for their windows; the 72
-// registers of the ps = 8 instance (79 in plane mode) limit an SM to 7
-// such blocks (6).  In a sweep on the H100, 64 threads per block ran as
+// patches at ps = 8, 8 at ps = 12), 23.1 KB of shared memory for their
+// windows (23.3 KB at ps = 12); the 72 registers of the ps = 8 instance
+// (79 in plane mode) limit an SM to 7 such blocks (6), the 96 of the ps =
+// 12 instance to 5.  In a sweep on the H100, 64 threads per block ran as
 // fast, and 256 threads or a 64-register cap (8 blocks, with spills) ran
-// slower.  Regions mode stages with 16-byte loads where the warp's regions
+// slower.  At ps = 12 the split layout's plane mode ran the 1080p
+// PRESET_MEDIUM finest scale in 0.135 ms, against 0.282 with 32 lanes of
+// 8 taps (14 of them padding) and 0.146 with one patch a warp (32 lanes
+// of 4 taps, an extra tap on lanes 0-15, 64 registers): two patches a
+// warp lose lane-trips to early exit, and win more on the scalar chain.  Regions mode stages with 16-byte loads where the warp's regions
 // start aligned.  Plane mode stages by 4-byte cp.async, which fly while
 // the templates load: a slot's row pitch is rc, odd, which spreads the
 // sampler's reads over the shared-memory banks, so a window row's shared
@@ -157,11 +171,59 @@ struct Patch {
   int pad, row0, by, bx;
 };
 
-// Bilinear resample of the patch at (px, py) into this lane's taps, then
-// (normalize) minus the patch mean.  PS > 0: ps is PS; PS = 0: runtime ps.
+// Whether an instance takes the split layout: G K main taps short of
+// ps^2, and lane g also holds the extra tap G K + g (ps^2 = G K + G).
 template <int PS, int K, int G>
-__device__ __forceinline__ void sample(const Patch& P, int ps_rt, float px, float py, int g,
-                                       bool normalize, float inv_ps2, float (&q)[K]) {
+__host__ __device__ constexpr bool split_layout() {
+  return PS > 0 && G * K < PS * PS;
+}
+
+// Lane g's fixed offsets in its patch's window, in the split layout: of
+// each run of 4 consecutive main taps (one patch row each, PS % 4 == 0),
+// and of its extra tap.
+template <int K>
+struct LaneTaps {
+  int run[K / 4];
+  int extra;
+};
+
+template <int PS, int K, int G>
+__device__ __forceinline__ LaneTaps<K> lane_taps(int g) {
+  constexpr int rc = 2 * PS + 3;
+  LaneTaps<K> L;
+#pragma unroll
+  for (int r = 0; r < K / 4; ++r) {
+    const int t = g * K + 4 * r;
+    L.run[r] = t / PS * rc + t % PS;
+  }
+  const int t = G * K + g;
+  L.extra = t / PS * rc + t % PS;
+  return L;
+}
+
+// The sum over a patch's taps v (main) and, in the split layout, x (the
+// extra tap): the group sum of the main taps, plus (the group sum of the
+// extra taps + 0.0f) in the split layout, pairwise_sum's tree.
+template <int K, int G, bool SPLIT>
+__device__ __forceinline__ float tap_sum(const float (&v)[K], float x) {
+  const float s = dis_group_sum<K, G>(v);
+  if constexpr (!SPLIT) {
+    return s;
+  } else {
+    const float e[1] = {x};
+    return s + (dis_group_sum<1, G>(e) + 0.0f);
+  }
+}
+
+// Bilinear resample of the patch at (px, py) into this lane's taps q (and,
+// in the split layout, qx: its extra tap), then (normalize) minus the
+// patch mean.  PS > 0: ps is PS; PS = 0: runtime ps.  L: the lane's
+// offsets in the split layout.
+template <int PS, int K, int G>
+__device__ __forceinline__ void sample(const Patch& P, const LaneTaps<K>& L, int ps_rt,
+                                       float px, float py, int g, bool normalize,
+                                       float inv_ps2, float (&q)[K], float& qx) {
+  constexpr bool SPLIT = split_layout<PS, K, G>();
   const int ps = PS > 0 ? PS : ps_rt;
   const int rc = 2 * ps + 3, np = ps * ps, half = ps / 2, span = rc - (ps + 1);
   const float a = px - floorf(px), b = py - floorf(py);
@@ -188,6 +250,26 @@ __device__ __forceinline__ void sample(const Patch& P, int ps_rt, float px, floa
       const float c1 = a1 * x1[k] + a * x1[k + 1];
       q[k] = b1 * c0 + b * c1;
     }
+  } else if constexpr (SPLIT) {
+    // Each run of 4 taps lies in one patch row: two region rows of 5
+    // values give it.
+#pragma unroll
+    for (int r = 0; r < K / 4; ++r) {
+      const float* r0 = w + L.run[r];
+      const float* r1 = r0 + rc;
+      float x0[5], x1[5];
+#pragma unroll
+      for (int k = 0; k <= 4; ++k) {
+        x0[k] = r0[k];
+        x1[k] = r1[k];
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float c0 = a1 * x0[k] + a * x0[k + 1];
+        const float c1 = a1 * x1[k] + a * x1[k + 1];
+        q[4 * r + k] = b1 * c0 + b * c1;
+      }
+    }
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -203,11 +285,18 @@ __device__ __forceinline__ void sample(const Patch& P, int ps_rt, float px, floa
       }
     }
   }
+  if constexpr (SPLIT) {
+    const float* r0 = w + L.extra;
+    const float c0 = a1 * r0[0] + a * r0[1];
+    const float c1 = a1 * r0[rc] + a * r0[rc + 1];
+    qx = b1 * c0 + b * c1;
+  }
   if (normalize) {
-    const float m = dis_group_sum<K, G>(q) * inv_ps2;
+    const float m = tap_sum<K, G, SPLIT>(q, qx) * inv_ps2;
 #pragma unroll
     for (int k = 0; k < K; ++k)
       if (t0 + k < np) q[k] = q[k] - m;
+    if constexpr (SPLIT) qx = qx - m;
   }
 }
 
@@ -283,6 +372,8 @@ iclk_kernel(Windows win, const float* __restrict__ T, const float* __restrict__ 
             int vec, float* __restrict__ u_out, float* __restrict__ q_out,
             unsigned char* __restrict__ conv_out) {
   constexpr int PPW = 32 / G;  // patches per warp
+  constexpr bool SPLIT = split_layout<PS, K, G>();
+  static_assert(!SPLIT || PS * PS == G * K + G, "the split layout: one extra tap a lane");
   extern __shared__ float smem[];
   const int ps = PS > 0 ? PS : ps_rt;
   const int rc = 2 * ps + 3, rr = rc * rc, np = ps * ps;
@@ -323,12 +414,21 @@ iclk_kernel(Windows win, const float* __restrict__ T, const float* __restrict__ 
   const bool v4 = vec != 0;
   const int t0 = g * K;
   const size_t row = (size_t)i * np;
+  LaneTaps<K> L{};
+  if constexpr (SPLIT) L = lane_taps<PS, K, G>(g);
+  const size_t xrow = row + G * K + g;  // the lane's extra tap (split layout)
 
   float tdx[K], tdy[K], tn[K], q[K];
+  float xdx = 0.0f, xdy = 0.0f, xtn = 0.0f, xq = 0.0f;
   load_taps<K>(Tdx + row, t0, np, v4, tdx);
   load_taps<K>(Tdy + row, t0, np, v4, tdy);
+  if constexpr (SPLIT) {
+    xdx = Tdx[xrow];
+    xdy = Tdy[xrow];
+  }
   if (fixed) {
     load_taps<K>(Tn + row, t0, np, v4, tn);
+    if constexpr (SPLIT) xtn = Tn[xrow];
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) tn[k] = 0.0f;
@@ -346,8 +446,11 @@ iclk_kernel(Windows win, const float* __restrict__ T, const float* __restrict__ 
 
   const bool start_frozen = conv0[i] != 0;
   bool frozen = !valid || start_frozen;
-  sample<PS, K, G>(P, ps, sx, sy, g, normalize, inv_ps2, q);
-  if (start_frozen) load_taps<K>(T + row, t0, np, v4, q);
+  sample<PS, K, G>(P, L, ps, sx, sy, g, normalize, inv_ps2, q, xq);
+  if (start_frozen) {
+    load_taps<K>(T + row, t0, np, v4, q);
+    if constexpr (SPLIT) xq = T[xrow];
+  }
 
   float ux = iux, uy = iuy;
   for (int it = 0; it < n_iters; ++it) {
@@ -359,8 +462,9 @@ iclk_kernel(Windows win, const float* __restrict__ T, const float* __restrict__ 
       px_[k] = tdx[k] * r;
       py_[k] = tdy[k] * r;
     }
-    const float rx = dis_group_sum<K, G>(px_);
-    const float ry = dis_group_sum<K, G>(py_);
+    const float xr = fixed ? xq - xtn : xq;
+    const float rx = tap_sum<K, G, SPLIT>(px_, xdx * xr);
+    const float ry = tap_sum<K, G, SPLIT>(py_, xdy * xr);
     const float dx = h00 * rx + h01 * ry;
     const float dy = h10 * rx + h11 * ry;
     const float uxn = ux - dx, uyn = uy - dy;
@@ -370,19 +474,21 @@ iclk_kernel(Windows win, const float* __restrict__ T, const float* __restrict__ 
     const bool policed = dist > thresh || pxn < lb || pyn < lb || pxn > ub_w || pyn > ub_h;
     const float nux = policed ? iux : uxn;
     const float nuy = policed ? iuy : uyn;
-    float qn[K];
-    sample<PS, K, G>(P, ps, cx + nux, cy + nuy, g, normalize, inv_ps2, qn);
+    float qn[K], xqn = 0.0f;
+    sample<PS, K, G>(P, L, ps, cx + nux, cy + nuy, g, normalize, inv_ps2, qn, xqn);
     if (!frozen) {
       ux = nux;
       uy = nuy;
 #pragma unroll
       for (int k = 0; k < K; ++k) q[k] = qn[k];
+      xq = xqn;
       frozen = policed || (fixed && sqrtf(dx * dx + dy * dy) < conv_eps);
     }
   }
 
   if (!valid) return;
   store_taps<K>(q_out + row, t0, np, v4, q);
+  if constexpr (SPLIT) q_out[xrow] = xq;
   if (g == 0) {
     u_out[2 * i] = ux;
     u_out[2 * i + 1] = uy;
@@ -425,6 +531,20 @@ extern "C" int dis_iclk_layout(int ps, int* k, int* g) {
   return 0;
 }
 
+// K1's lane layout for patch size ps (S1 and S3 keep dis_iclk_layout's):
+// dis_iclk_layout's, except at ps = 12, the split layout: K = 8, G = 16,
+// G K = 128 < ps^2, and each lane also holds one of the 16 taps past G K.
+// Returns dis_iclk_layout's status (ops/cuda/iclk_kernel.py::search_layout
+// is its copy).
+extern "C" int dis_iclk_search_layout(int ps, int* k, int* g) {
+  const int err = dis_iclk_layout(ps, k, g);
+  if (err == 0 && ps == 12) {
+    *k = 8;
+    *g = 16;
+  }
+  return err;
+}
+
 namespace {
 
 // K1 or K1b over nb pairs of n patches, the windows from `win`.
@@ -436,7 +556,7 @@ int search(const Windows& win, const float* T, const float* Tdx, const float* Td
            float inv_ps2, float* u_out, float* q_out, unsigned char* conv_out,
            cudaStream_t stream) {
   int k = 0, g = 0;
-  if (dis_iclk_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
+  if (dis_iclk_search_layout(ps, &k, &g) != 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)nb * n;
   if (total <= 0) return (int)cudaGetLastError();
   const int vec = aligned16(T) && aligned16(Tdx) && aligned16(Tdy) &&
@@ -448,7 +568,7 @@ int search(const Windows& win, const float* T, const float* Tdx, const float* Td
                                    q_out, conv_out, stream)
   if (ps == 8) DIS_ICLK_LAUNCH(8, 8, 8);
   if (ps == 10) DIS_ICLK_LAUNCH(10, 8, 16);
-  if (ps == 12) DIS_ICLK_LAUNCH(12, 8, 32);
+  if (ps == 12) DIS_ICLK_LAUNCH(12, 8, 16);
   if (ps == 16) DIS_ICLK_LAUNCH(16, 8, 32);
   if (k == 4 && g == 1) DIS_ICLK_LAUNCH(0, 4, 1);
   if (k == 8 && g == 2) DIS_ICLK_LAUNCH(0, 8, 2);

@@ -5,11 +5,13 @@ Replaces ``dis_tpu/ops/pallas/iclk_kernel.py::inverse_search_pallas``
 (K1b), which folds a batch of pairs into the launch: one launch over
 ``B * N`` patches, the shared centers read at ``patch % N``.  Bound on
 the H100 by instruction issue, not memory: a group of G lanes per patch
-(:func:`lane_layout`; four patches per warp at ps 8), windows in shared
-memory, K taps per lane in registers, sums as an in-lane pair tree plus
-a butterfly over the group, ps a compile-time constant for 8, 10, 12
-and 16.  Plain version: ``ops/iclk.py::iclk_search_plain``, which the
-kernel equals bitwise (same pair trees, no FMA).
+(:func:`search_layout`; four patches per warp at ps 8, two at ps 12),
+windows in shared memory, K taps per lane in registers, sums as an
+in-lane pair tree plus a butterfly over the group, ps a compile-time
+constant for 8, 10, 12 and 16.  Plain version:
+``ops/iclk.py::iclk_search_plain``, which the kernel equals bitwise (same
+pair trees, no FMA).  Each wrapper's ``split_launches`` counts its
+launches in the split layout (ps 12), as ``launches`` counts them all.
 
 Two modes, one kernel: its plane mode, :func:`iclk_search_plane`, the
 search of every scale on the card (``ops/iclk.py::inverse_search``),
@@ -50,6 +52,24 @@ def lane_layout(ps: int) -> Tuple[int, int]:
         p *= 2
     k = p // 32 if p > 256 else min(p, 8)
     return k, p // k
+
+
+def search_layout(ps: int) -> Tuple[int, int]:
+    """(K, G) of K1 (a copy of ``dis_iclk_search_layout`` in
+    ``csrc/iclk.cu``): :func:`lane_layout`'s, which S1 and S3 keep, except
+    at ps 12, the split layout: 16 lanes of 8 taps hold taps 0-127, and
+    lane g also holds the extra tap 128 + g, so that no lane holds only
+    padding and a warp holds two patches.  A sum over the taps is the
+    group sum of the 128, plus (the group sum of the 16 + 0.0), which is
+    ``pairwise_sum``'s tree.  ``G * K < ps^2`` marks the split layout."""
+    k, g = lane_layout(ps)
+    return (8, 16) if ps == 12 else (k, g)
+
+
+def _split(ps: int) -> bool:
+    """Whether K1 takes the split layout at patch size ``ps``."""
+    k, g = search_layout(ps)
+    return k * g < ps * ps
 
 
 def iclk_search(regions: torch.Tensor, base_y: torch.Tensor,
@@ -171,6 +191,8 @@ def _search_cuda(regions: torch.Tensor, base_y: torch.Tensor, base_x: torch.Tens
         height, int(normalize), int(fixed), ps / 2.0, conv_eps, inv_taps(ps),
         u.data_ptr(), Q.data_ptr(), conv.data_ptr())
     launched("iclk_search", "K1b" if init_u.ndim == 3 else "K1", iclk_search)
+    if _split(ps):
+        iclk_search.split_launches += 1
     return u, Q, conv
 
 
@@ -217,6 +239,9 @@ def _search_plane_cuda(img2: torch.Tensor, pos0: torch.Tensor, T: torch.Tensor,
         conv_eps, inv_taps(ps), u.data_ptr(), Q.data_ptr(), conv.data_ptr())
     launched("iclk_search_plane", "K1b" if init_u.ndim == 3 else "K1", iclk_search,
              iclk_search_plane)
+    if _split(ps):
+        iclk_search.split_launches += 1
+        iclk_search_plane.split_launches += 1
     return u, Q, conv
 
 
@@ -233,8 +258,8 @@ def _search_plane_cpu(img2, pos0, T, Tdx, Tdy, Hinv, Tn, centers, init_u, conv0,
                                init_u, conv0, cfg, width, height, row0)
 
 
-iclk_search.launches = 0
+iclk_search.launches = iclk_search.split_launches = 0
 iclk_search_op = register("iclk_search", _search_cuda, _search_fake, _search_cpu)
-iclk_search_plane.launches = 0
+iclk_search_plane.launches = iclk_search_plane.split_launches = 0
 iclk_search_plane_op = register("iclk_search_plane", _search_plane_cuda, _search_plane_fake,
                                 _search_plane_cpu)

@@ -57,7 +57,8 @@ import dis_tpu_torch
 from dis_tpu_torch.ops import iclk
 from dis_tpu_torch.ops.cuda.extract_banded_kernel import extract_regions_banded
 from dis_tpu_torch.ops.cuda.extract_kernel import extract_regions
-from dis_tpu_torch.ops.cuda.iclk_kernel import iclk_search, iclk_search_plane, lane_layout
+from dis_tpu_torch.ops.cuda.iclk_kernel import (iclk_search, iclk_search_plane, lane_layout,
+                                                search_layout)
 from dis_tpu_torch.ops.cuda.pyramid_kernel import MAX_LEVELS, pyramid_level, pyramid_levels
 from dis_tpu_torch.ops.cuda import scale_kernel as sk
 from dis_tpu_torch.ops.cuda.refine_kernel import (refine_setup, refine_setup_warp1,
@@ -565,6 +566,20 @@ def test_lane_layout_matches_kernel():
     assert lib.dis_iclk_layout(24, ctypes.byref(k), ctypes.byref(g)) != 0
 
 
+def test_search_layout_matches_kernel():
+    """K1's layout function (the split layout at ps 12) against its copy."""
+    import ctypes
+
+    from dis_tpu_torch import _build
+
+    lib = _build.library()
+    for ps in range(2, 24, 2):
+        k, g = ctypes.c_int(), ctypes.c_int()
+        assert lib.dis_iclk_search_layout(ps, ctypes.byref(k), ctypes.byref(g)) == 0
+        assert (k.value, g.value) == search_layout(ps)
+    assert lib.dis_iclk_search_layout(24, ctypes.byref(k), ctypes.byref(g)) != 0
+
+
 @pytest.mark.parametrize("ps", [6, 8, 10, 12, 14, 16])
 @pytest.mark.parametrize("mode", ["compat", "fixed"])
 def test_search_mixed_trips_bitwise(ps, mode):
@@ -606,12 +621,12 @@ PLANE_FRAMES = {"mixed": (72, 104), "row0": (72, 104), "edges": (72, 104),
                 "short_plane": (2, 40), "narrow_plane": (40, 2)}
 
 
-def _plane_case(ps, batch, case, mode):
+def _plane_case(ps, batch, case, mode, normalize=True):
     """CUDA inputs of K1's plane mode on a level of ``PLANE_FRAMES[case]``:
     (plane, starts, the search's other arguments).  An odd number of
-    patches, so that with 2 pairs a warp of 2 or 4 patches straddles the
-    pairs; random start freezes and inits up to ps px (3 ps in "edges"),
-    so that the patches of a warp freeze at different trips."""
+    patches, so that with 2 or 3 pairs a warp of 2 or 4 patches straddles
+    the pairs; random start freezes and inits up to ps px (3 ps in
+    "edges"), so that the patches of a warp freeze at different trips."""
     h, w = PLANE_FRAMES[case]
     x, y = _batch(batch or 1, h, w, 140 + ps)
     if batch is None:
@@ -619,7 +634,8 @@ def _plane_case(ps, batch, case, mode):
     l1 = pyramid_level(x, ps, True)
     l2 = pyramid_level(y, ps, True)
     cfg = dis_tpu_torch.DISConfig(iterations=14, patch_size=ps, coarsest_scale=0,
-                                  patch_overlap=0.6, mode=mode)
+                                  patch_overlap=0.6, mode=mode,
+                                  patch_normalization=normalize)
     gnum_h = -(-h // cfg.steps)
     iy_range, row0 = ((gnum_h // 3, gnum_h), 2 * ps) if case == "row0" else (None, 0)
     geom = make_grid(w, h, cfg.steps, iy_range=iy_range)
@@ -656,9 +672,12 @@ def test_search_plane_bitwise(ps, batch, case, mode):
     plane, pos0, args = _plane_case(ps, batch, case, mode)
     row0 = args[-1]
     extract_regions.launches = iclk_search.launches = iclk_search_plane.launches = 0
+    iclk_search.split_launches = iclk_search_plane.split_launches = 0
     got = iclk_search_plane(plane, pos0, *args)
     assert (extract_regions.launches, iclk_search.launches, iclk_search_plane.launches) == (
         0, 1, 1)
+    # Only ps 12 takes the split layout.
+    assert iclk_search.split_launches == iclk_search_plane.split_launches == int(ps == 12)
     pr = iclk.extract_regions_plain(plane, pos0, ps, ps, row0)
     trips = []
     want = iclk.iclk_search_plain(*pr, *args, trips=trips)
@@ -675,6 +694,39 @@ def test_search_plane_bitwise(ps, batch, case, mode):
         assert all(bool(c.any()) for c in (by == 0, by == th - rc, bx == 0, bx == tw - rc))
     if case.endswith("_plane"):
         assert min(th, tw) < rc
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("case", ["mixed", "row0", "short_plane"])
+@pytest.mark.parametrize("normalize", [True, False])
+@pytest.mark.parametrize("mode", ["compat", "fixed"])
+def test_search_split_layout_bitwise(batch, case, normalize, mode):
+    """K1 at ps 12 in its split layout (16 lanes of 8 + 1 taps, two patches
+    a warp), in its plane mode and in its regions mode on K2's regions,
+    equals ``iclk_search_plain`` bitwise, with and without normalisation:
+    an odd number of patches (the last warp's second group mirrors and
+    writes nothing), 3 pairs (warps straddle two pairs), a stripe's plane
+    (row0 > 0) and a plane of fewer than 27 rows (the clip path).  Both
+    launches count in ``split_launches``."""
+    ps = 12
+    k, g = search_layout(ps)
+    assert k * g < ps * ps
+    plane, pos0, args = _plane_case(ps, batch, case, mode, normalize)
+    row0 = args[-1]
+    assert pos0.shape[-2] % 2 == 1
+    if case == "short_plane":
+        assert plane.shape[-2] < iclk.region_size(ps)
+    for w in (iclk_search, iclk_search_plane):
+        w.launches = w.split_launches = 0
+    got_plane = iclk_search_plane(plane, pos0, *args)
+    got_regions = iclk_search(*extract_regions(plane, pos0, ps, ps, row0), *args)
+    assert (iclk_search.split_launches, iclk_search_plane.split_launches) == (2, 1)
+    assert (iclk_search.launches, iclk_search_plane.launches) == (2, 1)
+    want = iclk.iclk_search_plain(*iclk.extract_regions_plain(plane, pos0, ps, ps, row0),
+                                  *args)
+    torch.cuda.synchronize()
+    for a, b, p in zip(got_plane, got_regions, want):
+        assert torch.equal(a, p) and torch.equal(b, p)
 
 
 def test_search_plane_empty_grid():
