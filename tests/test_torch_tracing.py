@@ -17,10 +17,11 @@ one test for the card.
   no extraction kernel launches: the card has one search path.
 - ``summarize``'s interval arithmetic on synthetic stamps.
 - Marked ``cuda``: after ``aot_compile`` of the benchmark's
-  configurations (1080p and 4K), a profiled replay's program kernels are
-  the manifest's, one for one, no extraction kernel is among them (K1's
-  plane mode at every scale), every scale is in the manifest, and a
-  recorded window times the graph's head.
+  configurations (1080p, 4K, and 1242x375 at 8 pairs a call), a
+  profiled replay's program kernels are the manifest's, one for one, no
+  extraction kernel is among them (K1's plane mode at every scale),
+  every scale is in the manifest, and a recorded window times the
+  graph's head.
   On the card: ``python -m pytest --noconftest -p no:cacheprovider
   tests/test_torch_tracing.py -q``.
 """
@@ -85,11 +86,14 @@ CASES = {
     "hd1080_medium": (_bench_config("hd1080_medium")[0], 135, 240, None),
     # Six scales: K3 and F2 twice a frame each, scales 6..1 searched and refined.
     "uhd4k_medium": (_bench_config("uhd4k_medium")[0], 270, 480, None),
+    # Scales 4..1 of 8 pairs a call: F1 pads 9 rows and 6 columns, as at
+    # 1242x375, and F3 crops back to an odd frame.
+    "kitti_medium": (_bench_config("kitti_medium")[0], 119, 234, 8),
 }
-# Launches a pair of the benchmark's medium configurations: their frames at
-# these sizes take the scales, pads and launches of 1920x1080 and
-# 3840x2160.
-PAIR_LAUNCHES = {"hd1080_medium": 62, "uhd4k_medium": 74}
+# Launches a call of the benchmark's medium configurations: their frames at
+# these sizes take the scales, pads and launches of 1920x1080, 3840x2160
+# and 1242x375 (16 search and 28 refinement launches, whatever the batch).
+PAIR_LAUNCHES = {"hd1080_medium": 62, "uhd4k_medium": 74, "kitti_medium": 51}
 
 
 def _expected(cfg, h, w, batch):
@@ -365,7 +369,8 @@ def test_summarize_empty_and_host_only():
 @pytest.mark.parametrize("config, batch", [("hd1080_medium", None),
                                            ("hd1080_ultrafast", None),
                                            ("hd1080_ultrafast", 8),
-                                           ("uhd4k_medium", None)])
+                                           ("uhd4k_medium", None),
+                                           ("kitti_medium", 8)])
 def test_replay_runs_the_manifest(config, batch, tmp_path):
     """A profiled replay's program kernels, in device order under its
     ``cudaGraphLaunch``, are the graph's manifest one for one; every other

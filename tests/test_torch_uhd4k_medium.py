@@ -1,6 +1,7 @@
-"""OpenCV's DIS ``PRESET_MEDIUM`` at 3840x2160 (``flowbench/configs/
-uhd4k_medium.json``, the benchmark's ``uhd4k_medium.stream``) on the
-served path, on the CPU at smaller frames where all six scales exist.
+"""OpenCV's DIS ``PRESET_MEDIUM`` at 3840x2160 and at KITTI's 1242x375
+(``flowbench/configs/uhd4k_medium.json`` and ``kitti_medium.json``, the
+benchmark's ``uhd4k_medium.stream`` and ``kitti_medium.b8``) on the
+served path, on the CPU.
 
 - The configurations of the benchmark are OpenCV's presets: the coarsest
   scale is the one ``calc()`` sets at the frame, and the ``dis`` group
@@ -8,18 +9,23 @@ served path, on the CPU at smaller frames where all six scales exist.
   in its plane mode and launches no extraction kernel (the launch
   manifest of a call whose launches do nothing).
 - ``serving.aot_compile`` on the CPU against the plain reference
-  (``flowbench/reference/dis.py``) on one pair of each entry of the
-  cell's traffic (``flowbench/traffic``), ``off_pct`` within the cell's
-  limit, at 540 x 960 (padded to 576 x 960).  At 270 x 480 the traffic's
-  48 px translation is a tenth of the frame's width and DIS loses it
-  (an endpoint error of about 166 px) in the reference, the JAX package
-  and the port alike, each about 30% of the pixels from the others: a
-  comparison there decides nothing.
-- Whole runs of the cell (``flowbench.run.run_cell``) at 270 x 480, with
-  the seed of ``flowbench/tests/test_flowbench_faults.py``: a sound run
-  comes out correct; the lower-precision control (the reference in
-  bfloat16 in the program's place) and a search that returns its start
-  do not.
+  (``flowbench/reference/dis.py``) on pairs of the cell's traffic
+  (``flowbench/traffic``), ``off_pct`` within the cell's limit.  The 4K
+  cell: one pair of each entry at 540 x 960 (padded to 576 x 960).  At
+  270 x 480 the traffic's 48 px translation is a tenth of the frame's
+  width and DIS loses it (an endpoint error of about 166 px) in the
+  reference, the JAX package and the port alike, each about 30% of the
+  pixels from the others: a comparison there decides nothing.  The KITTI
+  cell: calls of 2 pairs at the cell's own 375 x 1242 (padded to
+  384 x 1248 and cropped back to an odd frame), each pair of a call
+  also bitwise the same pair served alone.
+- Whole runs of the cell (``flowbench.run.run_cell``), with the seed of
+  ``flowbench/tests/test_flowbench_faults.py``: a sound run comes out
+  correct; the lower-precision control (the reference in bfloat16 in the
+  program's place) and a search that returns its start do not.  The 4K
+  cell at 270 x 480; the KITTI cell, 8 pairs a call, at 150 x 500, where
+  the sound gap to the reference (3.7%) is of the size it has at
+  1242x375 (2.5-7.0% on the card): at 125 x 414 it is 14.5%.
 """
 
 import json
@@ -39,13 +45,25 @@ from flowbench.reference import dis as reference
 from flowbench.traffic.pool import make_pool
 from test_torch_tracing import stubbed_launches  # noqa: F401 (a fixture)
 
-CELL = "uhd4k_medium.stream"
 SEED = 2 ** 33 + 17
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = {c["name"]: json.loads((ROOT / c["file"]).read_text())
            for c in json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]}
-SPEC = run.load_cell(CELL)
-ENTRIES = [e["name"] for e in SPEC["mix"]["pairs"]]
+# Each medium cell: the frame its served path is held to the reference at,
+# the pairs a served call there (None: one pair, as the cell serves), and
+# the frame of its whole runs.
+CELLS = {"uhd4k_medium.stream": ((540, 960), None, (270, 480)),
+         "kitti_medium.b8": ((375, 1242), 2, (150, 500))}
+SPECS = {cell: run.load_cell(cell) for cell in CELLS}
+ENTRIES = [e["name"] for e in SPECS["uhd4k_medium.stream"]["mix"]["pairs"]]
+# The KITTI cell's served calls, two pairs each, a pair named by its entry
+# and which of the entry's pairs in the pool it is: the first pair of each
+# entry, and the second of the 48 px translation.
+KITTI_CALLS = [(("translation", 0), ("translation_s40", 0)), (("rotation", 0), ("zoom", 0)),
+               (("shear", 0), ("discontinuous", 0)), (("natural_warp", 0), ("translation_s40", 1))]
+SERVED = ([pytest.param("uhd4k_medium.stream", ((e, 0),), id=e) for e in ENTRIES]
+          + [pytest.param("kitti_medium.b8", c, id="kitti_medium.b8-" + "+".join(
+              n + (f".{k}" if k else "") for n, k in c)) for c in KITTI_CALLS])
 
 
 @pytest.fixture(autouse=True)
@@ -79,7 +97,7 @@ def test_configuration_is_opencvs_preset(name):
     assert spec["reduced"] == ["use_spatial_propagation"]
 
 
-@pytest.mark.parametrize("name", ["hd1080_medium", "uhd4k_medium"])
+@pytest.mark.parametrize("name", ["hd1080_medium", "uhd4k_medium", "kitti_medium"])
 def test_every_scale_takes_k2(name, stubbed_launches):
     spec = CONFIGS[name]
     cfg = dis_tpu_torch.DISConfig(**spec["dis"])
@@ -95,32 +113,56 @@ def test_every_scale_takes_k2(name, stubbed_launches):
 
 @pytest.fixture(scope="module")
 def served():
-    """The cell's served entry and its traffic's pool at 540 x 960."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    try:
-        dis = SPEC["config"]["dis"]
-        entry = serving.aot_compile(dis_tpu_torch.DISConfig(**dis), 540, 960, None,
-                                    device="cpu")
-        pool = make_pool(SPEC["mix"]["pairs"], SEED, 540, 960, "cpu")
-    finally:
-        torch.set_num_threads(n)
-    return entry, pool, reference.Params.from_fields(dis)
+    """Each cell's served entries (at its calls' pairs, and at one pair
+    where a call holds more) and its traffic's pool, made on first use."""
+    made = {}
+
+    def get(cell):
+        if cell not in made:
+            (h, w), batch, _ = CELLS[cell]
+            dis = SPECS[cell]["config"]["dis"]
+            cfg = dis_tpu_torch.DISConfig(**dis)
+            n = torch.get_num_threads()
+            torch.set_num_threads(2)
+            try:
+                entries = {b: serving.aot_compile(cfg, h, w, b, device="cpu")
+                           for b in {batch, None}}
+                pool = make_pool(SPECS[cell]["mix"]["pairs"], SEED, h, w, "cpu")
+            finally:
+                torch.set_num_threads(n)
+            made[cell] = entries, batch, pool, reference.Params.from_fields(dis)
+        return made[cell]
+    return get
 
 
-@pytest.mark.parametrize("entry_name", ENTRIES)
-def test_served_path_is_the_reference(entry_name, served):
-    entry, pool, prm = served
-    i = pool.names.index(entry_name)
-    flow = entry(pool.img1[i], pool.img2[i])
-    ref = reference.flow(pool.img1[i], pool.img2[i], prm)
-    gaps = compare.pair_gaps(flow, ref)
-    assert compare.judge(gaps, compare.limits(CELL)), gaps
+@pytest.mark.parametrize("cell, pairs", SERVED)
+def test_served_path_is_the_reference(cell, pairs, served):
+    entries, batch, pool, prm = served(cell)
+    idx = [[i for i, m in enumerate(pool.names) if m == n][k] for n, k in pairs]
+    if batch is None:
+        flows = entries[None](pool.img1[idx[0]], pool.img2[idx[0]])[None]
+    else:
+        flows = entries[batch](pool.img1[idx], pool.img2[idx])
+    for p, flow in zip(idx, flows):
+        if batch is not None:
+            assert torch.equal(flow, entries[None](pool.img1[p], pool.img2[p])), pool.names[p]
+        ref = reference.flow(pool.img1[p], pool.img2[p], prm)
+        gaps = compare.pair_gaps(flow, ref)
+        assert compare.judge(gaps, compare.limits(cell)), (pool.names[p], gaps)
 
 
-def _bfloat16_control(entry):
-    prm = reference.Params.from_fields(SPEC["config"]["dis"])
-    return lambda a, b: reference.flow(a, b, prm, dtype=torch.bfloat16)
+def _bfloat16_control(cell):
+    """The reference in bfloat16, a pair at a time, in the program's place."""
+    prm = reference.Params.from_fields(SPECS[cell]["config"]["dis"])
+
+    def wrap(entry):
+        def control(a, b):
+            if a.ndim == 2:
+                return reference.flow(a, b, prm, dtype=torch.bfloat16)
+            return torch.stack([reference.flow(x, y, prm, dtype=torch.bfloat16)
+                                for x, y in zip(a, b)])
+        return control
+    return wrap
 
 
 def _search_returns_its_start(monkeypatch):
@@ -132,12 +174,20 @@ def _search_returns_its_start(monkeypatch):
     monkeypatch.setattr(iclk, "inverse_search", unmoved)
 
 
-@pytest.mark.parametrize("side", ["sound", "control", "search_returns_its_start"])
-def test_whole_run_judges_the_cell(side, monkeypatch):
+SIDES = ["sound", "control", "search_returns_its_start"]
+
+
+# The 4K cell's cases keep their ids: its side alone.
+WHOLE_RUNS = [pytest.param(c, s, id=s if c == "uhd4k_medium.stream" else f"{c}-{s}")
+              for c in CELLS for s in SIDES]
+
+
+@pytest.mark.parametrize("cell, side", WHOLE_RUNS)
+def test_whole_run_judges_the_cell(cell, side, monkeypatch):
     if side == "search_returns_its_start":
         _search_returns_its_start(monkeypatch)
-    r = run.run_cell(CELL, SEED, 0.2, False, "cpu", size=(270, 480),
-                     wrap=_bfloat16_control if side == "control" else None,
+    r = run.run_cell(cell, SEED, 0.2, False, "cpu", size=CELLS[cell][2],
+                     wrap=_bfloat16_control(cell) if side == "control" else None,
                      log=lambda s: None)
     off = r["compared"]["off_pct"]
     assert r["failed"] == 0 and r["attempted"] >= 1
@@ -145,6 +195,7 @@ def test_whole_run_judges_the_cell(side, monkeypatch):
         assert r["correct"] is True and off["value"] <= off["limit"]
         assert set(r["metrics"]) == {"pairs_per_s", "latency_p95_ms", "setup_s"}
     elif side == "control":
-        assert r["correct"] is False and off["value"] > 10 * off["limit"]
+        # Ten times the limit, or nearly every pixel where that is past 100%.
+        assert r["correct"] is False and off["value"] > min(10 * off["limit"], 90.0)
     else:
         assert r["correct"] is False and off["value"] > off["limit"]
